@@ -1,0 +1,110 @@
+"""Serve the ADNM-UNet nowcast: input frames in, predicted frames out.
+
+    python -m adnm_tpu_torch.cli.predict --input frames.npy [--params params.npz]
+
+Reads (T_in, H, W) or (B, T_in, 1, H, W) frames in [0, 1] from .npy, runs
+the forward of ``create_adnm_unet(5, 20, 6)`` (the Shanghai task) in
+batches of ``--batch-size``, optionally chains it until ``--horizon``
+frames exist, and writes (B, T, 1, H, W) predictions to ``--output``.
+Weights come from ``--params`` (a JAX params tree saved by
+``adnm_tpu_torch.convert.save_params_npz``) or, without it, from the
+seeded init. ``--device`` defaults to cuda and raises when CUDA is absent.
+"""
+
+from __future__ import annotations
+
+import argparse
+from typing import Optional
+
+import numpy as np
+import torch
+
+from adnm_tpu_torch.convert import from_jax_params, load_params_npz
+from adnm_tpu_torch.core.layers import seeded_init_
+from adnm_tpu_torch.models.adnm_unet import ADNMUNet, create_adnm_unet
+
+# The Shanghai task: 5 frames in, 20 out, 6-minute interval
+# (adnm_tpu/cli/common.py::task_shape).
+INPUT_FRAMES, OUTPUT_FRAMES, FRAME_INTERVAL = 5, 20, 6
+INIT_SEED = 0  # weights without --params
+
+
+def resolve_device(name: str) -> torch.device:
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {name}: CUDA is not available")
+    return device
+
+
+def load_model(params: Optional[str], device: torch.device) -> ADNMUNet:
+    """The model in eval mode on ``device``, with weights from the ``params``
+    .npz or, when it is None, from the init seeded with ``INIT_SEED``."""
+    model = create_adnm_unet(INPUT_FRAMES, OUTPUT_FRAMES, FRAME_INTERVAL)
+    if params is not None:
+        from_jax_params(model, load_params_npz(params))
+    else:
+        seeded_init_(model, INIT_SEED)
+    return model.to(device).eval()
+
+
+def read_frames(path: str, img_size: int) -> np.ndarray:
+    x = np.load(path).astype(np.float32)
+    if x.ndim == 3:
+        x = x[None, :, None]
+    expected = (INPUT_FRAMES, 1, img_size, img_size)
+    if x.ndim != 5 or x.shape[1:] != expected:
+        raise ValueError(f"expected (B, {', '.join(map(str, expected))}) frames, got {x.shape}")
+    return x
+
+
+def forecast(model: ADNMUNet, x: np.ndarray, batch_size: int, device: torch.device,
+             horizon: Optional[int] = None) -> np.ndarray:
+    """Predictions for ``x`` (B, T_in, 1, H, W); with ``horizon`` beyond the
+    model's T_out, the last T_in predicted frames (clipped to [0, 1]) are
+    fed back until ``horizon`` frames exist."""
+
+    def forward(inp: np.ndarray) -> np.ndarray:
+        outs = []
+        with torch.inference_mode():
+            for i in range(0, inp.shape[0], batch_size):
+                xb = torch.from_numpy(np.ascontiguousarray(inp[i:i + batch_size])).to(device)
+                outs.append(model(xb).float().cpu().numpy())
+        return np.concatenate(outs)
+
+    preds = forward(x)
+    if horizon and horizon > preds.shape[1]:
+        chunks, total, cur = [preds], preds.shape[1], preds
+        while total < horizon:
+            cur = forward(np.clip(cur[:, -INPUT_FRAMES:], 0.0, 1.0))
+            chunks.append(cur)
+            total += cur.shape[1]
+        preds = np.concatenate(chunks, axis=1)[:, :horizon]
+    return preds
+
+
+def main(argv=None) -> np.ndarray:
+    p = argparse.ArgumentParser("adnm-torch-predict")
+    p.add_argument("--input", required=True, help=".npy input frames")
+    p.add_argument("--output", default="prediction.npy")
+    p.add_argument("--params", default=None,
+                   help=".npz of the JAX params tree (adnm_tpu_torch.convert.save_params_npz); "
+                        f"without it the weights come from the init seeded with {INIT_SEED}")
+    p.add_argument("--horizon", type=int, default=None,
+                   help="chained rollout: keep feeding the last T_in predicted frames back "
+                        "until >= horizon frames are produced")
+    p.add_argument("--img-size", type=int, default=256)
+    p.add_argument("--batch-size", type=int, default=4)
+    p.add_argument("--device", default="cuda")
+    args = p.parse_args(argv)
+
+    device = resolve_device(args.device)
+    x = read_frames(args.input, args.img_size)
+    model = load_model(args.params, device)
+    preds = forecast(model, x, args.batch_size, device, args.horizon)
+    np.save(args.output, preds)
+    print(f"wrote {args.output} {preds.shape}")
+    return preds
+
+
+if __name__ == "__main__":
+    main()

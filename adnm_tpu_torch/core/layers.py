@@ -1,0 +1,280 @@
+"""Primitive layers on NCHW tensors (counterpart of adnm_tpu/core/layers.py).
+
+Parameter names mirror the JAX module's, so ``adnm_tpu_torch.convert``
+maps a JAX parameter path onto the port's module path one to one. JAX's
+Dense is ``nn.Linear``; its conv kernels become ``nn.Conv2d`` /
+``nn.ConvTranspose2d`` weights. Scalar gates are 0-d fp32 parameters, as
+in the JAX package. Channels are axis 1 everywhere: ``channel_linear``
+applies an ``nn.Linear`` over that axis.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from typing import Optional, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from adnm_tpu_torch.ops.rms_norm import rms_norm
+
+IntPair = Union[int, Tuple[int, int]]
+
+
+def scalar_param(value: float) -> nn.Parameter:
+    """A learnable 0-d fp32 scalar (JAX: ``scalar_param``)."""
+    return nn.Parameter(torch.tensor(float(value)))
+
+
+def channel_view(p: torch.Tensor, ndim: int) -> torch.Tensor:
+    """A (C,) parameter shaped to broadcast over axis 1 of an ndim tensor."""
+    return p.view(1, -1, *([1] * (ndim - 2)))
+
+
+def channel_scale(x: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
+    """``x`` times a (C,) fp32 gate over axis 1, cast to ``x``'s dtype so a
+    bf16 activation is not promoted to fp32 (JAX: ``gate_cast``; a 0-d gate
+    needs no cast in torch, which does not promote by 0-d tensors)."""
+    return x * channel_view(gate.to(x.dtype), x.dim())
+
+
+def channel_linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``lin`` over the channel axis 1 of a (B, C, H, W) tensor (a 1x1 conv)."""
+    bias = lin.bias.to(x.dtype) if lin.bias is not None else None
+    return F.conv2d(x, lin.weight.to(x.dtype)[:, :, None, None], bias)
+
+
+def _stats(x: torch.Tensor, dims) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fp32 (biased variance, mean) over ``dims`` (jnp.var is biased)."""
+    return torch.var_mean(x.float(), dim=dims, keepdim=True, correction=0)
+
+
+class BiasFreeLayerNorm(nn.Module):
+    """LayerNorm over the channel axis with weight, no bias, eps 1e-5."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        var, mu = _stats(x, 1)
+        out = (x.float() - mu) * torch.rsqrt(var + self.eps) * channel_view(self.weight, x.dim())
+        return out.to(x.dtype)
+
+
+class RMSNorm(nn.Module):
+    """RMS norm over ``axis`` (the Block norms use axis 1, the channels of
+    NCHW): kernel K1 on CUDA tensors, its plain version on CPU tensors."""
+
+    def __init__(self, dim: int, eps: float = 1e-6, axis: int = -1):
+        super().__init__()
+        self.eps = eps
+        self.axis = axis
+        self.weight = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return rms_norm(x, self.weight, self.eps, self.axis)
+
+
+class InstanceNorm(nn.Module):
+    """Per-(sample, channel) normalisation over H, W; no affine, eps 1e-5."""
+
+    def __init__(self, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        var, mu = _stats(x, (2, 3))
+        return ((x.float() - mu) * torch.rsqrt(var + self.eps)).to(x.dtype)
+
+
+class GroupNorm(nn.Module):
+    """GroupNorm with affine weight and bias, eps 1e-5."""
+
+    def __init__(self, groups: int, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.groups = groups
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, h, w = x.shape
+        xg = x.float().reshape(b, self.groups, c // self.groups, h, w)
+        var, mu = _stats(xg, (2, 3, 4))
+        xn = ((xg - mu) * torch.rsqrt(var + self.eps)).reshape(b, c, h, w)
+        return (xn * channel_view(self.weight, 4) + channel_view(self.bias, 4)).to(x.dtype)
+
+
+def make_norm(kind: str, dim: int) -> nn.Module:
+    return {
+        "instance": lambda: InstanceNorm(),
+        "group4": lambda: GroupNorm(4, dim),
+        "group8": lambda: GroupNorm(8, dim),
+    }[kind]()
+
+
+ACTS = {
+    None: None,
+    "gelu": functools.partial(F.gelu, approximate="tanh"),  # jax.nn.gelu is the tanh form
+}
+
+
+class Swish(nn.Module):
+    """x * sigmoid(beta * x) with a learnable beta."""
+
+    def __init__(self, beta_init: float = 1.0):
+        super().__init__()
+        self.beta = scalar_param(beta_init)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * torch.sigmoid(self.beta * x)
+
+
+class IntensityGate(nn.Module):
+    """silu(enhance * (x - threshold)) with learnable threshold and enhance."""
+
+    def __init__(self, threshold_init: float = 0.0):
+        super().__init__()
+        self.threshold = scalar_param(threshold_init)
+        self.enhance = scalar_param(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.silu(self.enhance * (x - self.threshold))
+
+
+class _NormalizedLayer(nn.Module):
+    """``scale * norm(x) + shift`` then an activation, after ``self.conv``
+    (the tail shared by ConvLayer and WTConvLayer). The norm
+    module is registered under the name flax gives it automatically
+    (``InstanceNorm_0``, ``GroupNorm_0``), so the parameter paths match."""
+
+    def _init_tail(self, features: int, norm: Optional[str], act: Optional[str]):
+        self.norm_name = None
+        if norm is not None:
+            n = make_norm(norm, features)
+            self.norm_name = f"{type(n).__name__}_0"
+            self.add_module(self.norm_name, n)
+            self.scale = scalar_param(1.0)
+            self.shift = scalar_param(0.0)
+        self.act = ACTS[act]
+
+    def _tail(self, x: torch.Tensor) -> torch.Tensor:
+        if self.norm_name is not None:
+            x = self.scale * getattr(self, self.norm_name)(x) + self.shift
+        return self.act(x) if self.act is not None else x
+
+
+class ConvLayer(_NormalizedLayer):
+    """conv -> scale*norm(x)+shift -> act. ``padding`` is an int, a pair or
+    "same"; ``swish`` puts a learnable Swish (``swish_act``) in place of
+    ``act``."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size: IntPair = 3,
+                 stride: IntPair = 1, padding: Union[str, IntPair] = 1, groups: int = 1,
+                 use_bias: bool = True, norm: Optional[str] = None,
+                 act: Optional[str] = None, swish: bool = False):
+        super().__init__()
+        self.conv = nn.Conv2d(in_channels, features, kernel_size, stride, padding,
+                              groups=groups, bias=use_bias)
+        self._init_tail(features, norm, None if swish else act)
+        if swish:
+            self.swish_act = Swish()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self._tail(self.conv(x))
+        return self.swish_act(x) if hasattr(self, "swish_act") else x
+
+
+class DeConvLayer(nn.Module):
+    """Transposed-conv upsampling by ``ratio`` with the reference's padding
+    math (no caller uses the JAX layer's norm and act, so they are not
+    ported). The JAX ConvTranspose2d stores the HWIO kernel of the
+    equivalent forward conv and flips it itself; torch's ConvTranspose2d
+    weight (cin, cout, kh, kw) is that kernel transposed, unflipped
+    (``convert`` maps it)."""
+
+    def __init__(self, in_channels: int, features: int, ratio: int = 4,
+                 kernel_size: Tuple[int, int] = (3, 3), use_bias: bool = True):
+        super().__init__()
+        k = kernel_size[1]
+        padding = max(0, (k - ratio + 1) // 2)
+        output_padding = ratio - k + 2 * padding
+        self.trans_conv = nn.ConvTranspose2d(
+            in_channels, features, kernel_size, stride=ratio, padding=padding,
+            output_padding=output_padding, bias=use_bias,
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.trans_conv(x)
+
+
+class Mlp(nn.Module):
+    """fc1 -> GELU -> fc2 over the channel axis."""
+
+    def __init__(self, dim: int, hidden: Optional[int] = None, out: Optional[int] = None):
+        super().__init__()
+        hidden = hidden or dim * 2
+        self.fc1 = nn.Linear(dim, hidden)
+        self.fc2 = nn.Linear(hidden, out or dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return channel_linear(self.fc2, ACTS["gelu"](channel_linear(self.fc1, x)))
+
+
+class FeedForward(nn.Module):
+    """1x1 expand (2*hidden) -> dw 3x3 -> gelu(x1)*sigmoid(x2) -> 1x1."""
+
+    def __init__(self, dim: int, expansion: int = 2):
+        super().__init__()
+        hidden = int(dim * expansion)
+        self.project_in = ConvLayer(dim, hidden * 2, 1, 1, 0)
+        self.dwconv = ConvLayer(hidden * 2, hidden * 2, 3, 1, 1, groups=hidden * 2)
+        self.project_out = ConvLayer(hidden, dim, 1, 1, 0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x1, x2 = self.dwconv(self.project_in(x)).chunk(2, dim=1)
+        return self.project_out(ACTS["gelu"](x1) * torch.sigmoid(x2))
+
+
+class ConvFFD(nn.Module):
+    """linear expand -> dw 3x3 conv -> GELU -> linear project."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.in_proj = nn.Linear(dim, dim * 2)
+        self.dw_conv = ConvLayer(dim * 2, dim * 2, 3, 1, 1, groups=dim * 2)
+        self.out_proj = nn.Linear(dim * 2, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = ACTS["gelu"](self.dw_conv(channel_linear(self.in_proj, x)))
+        return channel_linear(self.out_proj, x)
+
+
+def _fan_in(weight: torch.Tensor) -> int:
+    # (out, in/groups, kh, kw) for Conv2d and Linear; (in, out/groups, kh,
+    # kw) for ConvTranspose2d, where the JAX init also takes out/groups.
+    return weight.shape[1] * math.prod(weight.shape[2:])
+
+
+def seeded_init_(model: nn.Module, seed: int) -> nn.Module:
+    """Draw every random parameter from a ``torch.Generator`` seeded with
+    ``seed``, with the JAX package's init distributions: kaiming-uniform
+    (a=sqrt(5)) kernels and fan-in-uniform biases, both U(+-1/sqrt(fan_in));
+    modules with other random parameters define ``reset_random_(gen)``.
+    Constant inits (gates, norm weights) are set at construction. Run on
+    CPU parameters, so the weights do not depend on the device."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+                bound = 1.0 / math.sqrt(_fan_in(m.weight))
+                m.weight.uniform_(-bound, bound, generator=gen)
+                if m.bias is not None:
+                    m.bias.uniform_(-bound, bound, generator=gen)
+            elif hasattr(m, "reset_random_"):
+                m.reset_random_(gen)
+    return model

@@ -1,0 +1,162 @@
+"""ADN-SSD Mamba2 mixer on NCHW tensors, linear-attention duality path
+(counterpart of adnm_tpu/mixers/ssd_mixer.py::ADNSSDMixer).
+
+This is the JAX module's channel-major math (``_apply_channel_major``),
+which is the port's only layout. Per (B, d_model, H, W) grid:
+
+  1. in_proj -> [z | xBC | dt] over the channels.
+  2. xBC splits into two contiguous halves. Path 1: depthwise 3x3 conv +
+     SiLU. Path 2: four sub-chunks (x a/b, BC a/b), each through two
+     asymmetric depthwise convs (3x1 then 1x3, or the reverse) + SiLU.
+  3. ``dt = softplus(dt + dt_bias)``, ``A = -exp(A_log)``, both split into
+     head halves per path; z gets its own depthwise 3x3 + SiLU.
+  4. Each path runs the non-causal duality (``ops.ssd``).
+  5. The two paths merge into the reference's channel order by one static
+     gather, then a LayerNorm over the channels, then
+     ``[alpha1 * y | alpha1 * z]`` (alpha1 used twice; alpha2 exists in
+     the JAX tree and is never read) and out_proj.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from adnm_tpu_torch.core.layers import channel_linear, channel_view, scalar_param
+from adnm_tpu_torch.ops.ssd import linear_attn_dual_seqminor
+
+
+def _depthwise(c: int, kernel) -> nn.Conv2d:
+    return nn.Conv2d(c, c, kernel, padding="same", groups=c, bias=False)
+
+
+def merge_index(d_inner: int, headdim: int) -> list:
+    """Output channel j of the merged paths as an index into
+    ``cat([y1, y2])``: even j is y1[j // 2]; odd j is the reference's path-2
+    channel m = j // 2, which the [a, a, b, b] head assembly holds at
+    head k = m // P, slot (m % P) % 2 * P/2 + (m % P) // 2."""
+    d2, p = d_inner // 2, headdim
+    idx = []
+    for j in range(d_inner):
+        if j % 2 == 0:
+            idx.append(j // 2)
+        else:
+            k_head, r = divmod(j // 2, p)
+            idx.append(d2 + k_head * p + (r % 2) * (p // 2) + r // 2)
+    return idx
+
+
+class ChannelLayerNorm(nn.Module):
+    """LayerNorm over axis 1 with ``scale`` and ``bias`` (flax's names), eps 1e-5."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        var, mu = torch.var_mean(xf, dim=1, keepdim=True, correction=0)
+        out = ((xf - mu) * torch.rsqrt(var + self.eps) * channel_view(self.scale, x.dim())
+               + channel_view(self.bias, x.dim()))
+        return out.to(x.dtype)
+
+
+class ADNSSDMixer(nn.Module):
+    """(B, d_model, H, W) -> (B, d_model, H, W).
+
+    The JAX module's other settings keep the values every model uses:
+    d_conv 3, expand 2, ngroups 2, d_state 16, ssd_positive_dA, no conv
+    or projection biases."""
+
+    D_CONV, EXPAND, NGROUPS, D_STATE = 3, 2, 2, 16
+
+    def __init__(self, d_model: int, headdim: int = 8):
+        super().__init__()
+        d_inner = self.EXPAND * d_model
+        nheads = d_inner // headdim
+        if d_inner % headdim or nheads % 2:
+            raise ValueError(f"d_inner {d_inner} needs an even number of heads of {headdim}")
+        gN = self.NGROUPS * self.D_STATE
+        conv_dim = d_inner + 2 * gN
+        self.headdim = headdim
+        self.d_inner, self.gN, self.nheads, self.conv_dim = d_inner, gN, nheads, conv_dim
+        qx, qbc = d_inner // 4, gN // 2
+
+        self.in_proj = nn.Linear(d_model, 2 * d_inner + 2 * gN + nheads, bias=False)
+        self.dt_bias = nn.Parameter(torch.zeros(nheads))
+        self.A_log = nn.Parameter(torch.zeros(nheads))
+        self.D = nn.Parameter(torch.ones(nheads))
+        self.conv2d = _depthwise(conv_dim // 2, self.D_CONV)
+        for name, c, k1, k2 in (
+            ("conv_x1", qx, (3, 1), (1, 3)),
+            ("conv_x2", qx, (1, 3), (3, 1)),
+            ("conv_bc1", qbc, (1, 3), (3, 1)),
+            ("conv_bc2", qbc, (3, 1), (1, 3)),
+        ):
+            self.add_module(f"{name}_a", _depthwise(c, k1))
+            self.add_module(f"{name}_b", _depthwise(c, k2))
+        self.conv2d_z = _depthwise(d_inner, self.D_CONV)
+        self.norm = ChannelLayerNorm(d_inner)
+        self.alpha1 = scalar_param(1.0)
+        self.out_proj = nn.Linear(2 * d_inner, d_model, bias=False)
+        self.register_buffer("merge_index", torch.tensor(merge_index(d_inner, headdim)),
+                             persistent=False)
+
+    def reset_random_(self, gen: torch.Generator):
+        """The JAX inits of dt_bias (log-uniform dt in [1e-3, 0.1], floored
+        at 1e-4, stored as inverse softplus) and A_log (log U(1, 16))."""
+        u = torch.rand(self.nheads, generator=gen)
+        dt = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3)).clamp(min=1e-4)
+        self.dt_bias.copy_(dt + torch.log(-torch.expm1(-dt)))
+        self.A_log.copy_(torch.log(torch.empty(self.nheads).uniform_(1.0, 16.0, generator=gen)))
+
+    def _sep(self, x: torch.Tensor, name: str) -> torch.Tensor:
+        return F.silu(getattr(self, f"{name}_b")(getattr(self, f"{name}_a")(x)))
+
+    def forward(self, u: torch.Tensor) -> torch.Tensor:
+        b, d, h, w = u.shape
+        l = h * w
+        d_inner, gN, P = self.d_inner, self.gN, self.headdim
+        hh = self.nheads // 2
+        half, qx, qbc = self.conv_dim // 2, d_inner // 4, gN // 2
+
+        zxbcdt = channel_linear(self.in_proj, u)
+        z = zxbcdt[:, :d_inner]
+        xBC = zxbcdt[:, d_inner:d_inner + self.conv_dim]
+        dt = F.softplus(zxbcdt[:, d_inner + self.conv_dim:] + channel_view(self.dt_bias, 4))
+        dt = dt.to(u.dtype).reshape(b, self.nheads, l)
+        A = (-torch.exp(self.A_log)).to(u.dtype)
+        D = self.D.to(u.dtype)
+
+        xBC1 = F.silu(self.conv2d(xBC[:, :half]))
+        xBC2 = xBC[:, half:]
+        x2a = self._sep(xBC2[:, :qx], "conv_x1")
+        x2b = self._sep(xBC2[:, qx:2 * qx], "conv_x2")
+        bc2a = self._sep(xBC2[:, 2 * qx:2 * qx + qbc], "conv_bc1")
+        bc2b = self._sep(xBC2[:, 2 * qx + qbc:], "conv_bc2")
+
+        x1 = xBC1[:, :d_inner // 2].reshape(b, hh, P, l)
+        B1 = xBC1[:, d_inner // 2:d_inner // 2 + gN // 2].reshape(b, -1, l)
+        C1 = xBC1[:, d_inner // 2 + gN // 2:].reshape(b, -1, l)
+        # Path 2 heads in [a, a, b, b] order: any order inside a head is
+        # equivalent for the duality; the merge gather restores the
+        # reference's channel order. B and C share one permutation, which
+        # the contraction over the state axis does not see.
+        x2 = torch.cat([x2a.reshape(b, hh, P // 2, l), x2b.reshape(b, hh, P // 2, l)], dim=2)
+        B2 = torch.cat([bc2a[:, :qbc // 2], bc2b[:, :qbc // 2]], dim=1).reshape(b, -1, l)
+        C2 = torch.cat([bc2a[:, qbc // 2:], bc2b[:, qbc // 2:]], dim=1).reshape(b, -1, l)
+        z = F.silu(self.conv2d_z(z))
+
+        y1 = linear_attn_dual_seqminor(x1, dt[:, :hh], A[:hh], B1, C1, D[:hh])
+        y2 = linear_attn_dual_seqminor(x2, dt[:, hh:], A[hh:], B2, C2, D[hh:])
+        y = torch.cat([y1.reshape(b, d_inner // 2, l), y2.reshape(b, d_inner // 2, l)], dim=1)
+        y = self.norm(y.index_select(1, self.merge_index))
+
+        a1 = self.alpha1
+        y = torch.cat([a1 * y, a1 * z.reshape(b, d_inner, l).to(y.dtype)], dim=1)
+        return channel_linear(self.out_proj, y.reshape(b, 2 * d_inner, h, w))

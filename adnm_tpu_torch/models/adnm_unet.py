@@ -1,0 +1,282 @@
+"""ADNM-UNet, the flagship nowcasting model, on NCHW tensors
+(counterpart of adnm_tpu/models/adnm_unet.py).
+
+Encoder (PatchEmbed -> WTLayer x2 -> attention -> ADN-SSD Blocks x3 with
+max-pool downsampling, 7 skips), Decoder (Blocks x3 + attention + WTLayer
+x3 with skip concats, a ChannelAttBridge and the EncoderToDecoder
+features) and Refiner (4 Blocks at full resolution + the OutProj head
+with the last-input-frame residual). Contract:
+(B, T_in, 1, H, W) -> (B, T_out, 1, H, W).
+
+Ported for serving: the duality ADN-SSD mixer and softmax attention only,
+and the decoder computes only the features it consumes (the JAX default,
+``compute_dead_features=False``).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+from torch import nn
+
+from adnm_tpu_torch.core.blocks import (
+    ChannelAttBridge,
+    DownSample,
+    EncoderToDecoder,
+    OutProj,
+    PatchEmbed,
+    UpSample,
+    WTLayer,
+)
+from adnm_tpu_torch.core.layers import (
+    BiasFreeLayerNorm,
+    ConvLayer,
+    FeedForward,
+    Mlp,
+    RMSNorm,
+    channel_linear,
+    channel_scale,
+    scalar_param,
+)
+from adnm_tpu_torch.mixers.attention import StandardAttention
+from adnm_tpu_torch.mixers.ssd_mixer import ADNSSDMixer
+
+
+def schedule_headdim(d_model: int) -> int:
+    """Reference: models/ADNMUNet.py:263-273 (create_block)."""
+    if d_model <= 32:
+        return 4
+    if d_model <= 256:
+        return 8
+    if d_model <= 512:
+        return 16
+    if d_model <= 768:
+        return 24
+    return 32
+
+
+class Block(nn.Module):
+    """Mamba residual block: ``num_layers`` of scale/shift-modulated RMSNorm
+    (kernel K1 over the channel axis) -> mixer -> beta residual -> RMSNorm
+    -> FeedForward -> beta residual; gamma scale; optional out projection.
+    As in the reference, the second residual reads beta1/beta2 again; the
+    JAX tree's beta3/beta4 are never read and the port holds no copy."""
+
+    def __init__(self, dim: int, out_dim: int, headdim: int, num_layers: int = 1,
+                 norm_epsilon: float = 1e-5):
+        super().__init__()
+        self.num_layers = num_layers
+        for name in ("alpha1", "alpha2", "alpha3", "alpha4"):
+            setattr(self, name, scalar_param(1.0))
+        self.beta1 = nn.Parameter(torch.ones(num_layers))
+        self.beta2 = nn.Parameter(torch.ones(num_layers))
+        for i in range(num_layers):
+            setattr(self, f"scale1_{i}", scalar_param(1.0))
+            setattr(self, f"shift1_{i}", scalar_param(0.0))
+            setattr(self, f"scale2_{i}", scalar_param(1.0))
+            setattr(self, f"shift2_{i}", scalar_param(0.0))
+            self.add_module(f"norm1_{i}", RMSNorm(dim, norm_epsilon, axis=1))
+            self.add_module(f"mixer_{i}", ADNSSDMixer(dim, headdim=headdim))
+            self.add_module(f"norm2_{i}", RMSNorm(dim, norm_epsilon, axis=1))
+            self.add_module(f"ffn_{i}", FeedForward(dim, expansion=2))
+        self.gamma = nn.Parameter(torch.ones(dim))
+        self.out_proj = nn.Linear(dim, out_dim) if dim != out_dim else None
+
+    def forward(self, x: torch.Tensor, residual: Optional[torch.Tensor] = None,
+                features: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if residual is not None:
+            x = torch.cat([self.alpha1 * x, self.alpha2 * residual.to(x.dtype)], dim=1)
+            if features is not None:
+                f = features.to(x.dtype)
+                x = x + torch.cat([self.alpha3 * f, self.alpha4 * f], dim=1)
+        elif features is not None:
+            x = x + self.alpha3 * features.to(x.dtype)
+        for i in range(self.num_layers):
+            scale1, shift1, norm1, mixer, scale2, shift2, norm2, ffn = (
+                getattr(self, f"{name}_{i}") for name in
+                ("scale1", "shift1", "norm1", "mixer", "scale2", "shift2", "norm2", "ffn"))
+            b1, b2 = self.beta1[i], self.beta2[i]
+            x = b1 * x + b2 * mixer(scale1 * norm1(x) + shift1)
+            x = b1 * x + b2 * ffn(scale2 * norm2(x) + shift2)
+        x = channel_scale(x, self.gamma)
+        if self.out_proj is not None:
+            x = channel_linear(self.out_proj, x)
+        return x
+
+
+class AttentionBlock(nn.Module):
+    """Softmax attention with the Block skeleton: bias-free LayerNorm ->
+    attention -> beta residual -> LayerNorm -> Mlp -> beta residual, gamma,
+    optional out projection. No caller passes the JAX module's residual or
+    features, so they are not ported; their gates alpha1..alpha4 are
+    carried and never read."""
+
+    def __init__(self, dim: int, out_dim: Optional[int] = None, headdim: int = 4):
+        super().__init__()
+        out_dim = out_dim or dim
+        for name in ("alpha1", "alpha2", "alpha3", "alpha4",
+                     "beta1", "beta2", "beta3", "beta4", "attn_scale1", "attn_scale2"):
+            setattr(self, name, scalar_param(1.0))
+        self.attn_shift1 = scalar_param(0.0)
+        self.attn_shift2 = scalar_param(0.0)
+        self.attn_norm1 = BiasFreeLayerNorm(dim)
+        self.attn_layer = StandardAttention(dim, heads=dim // headdim, dim_head=headdim)
+        self.attn_norm2 = BiasFreeLayerNorm(dim)
+        self.attn_mlp = Mlp(dim)
+        self.gamma = nn.Parameter(torch.ones(dim))
+        self.out_proj = nn.Linear(dim, out_dim) if dim != out_dim else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x_norm = self.attn_scale1 * self.attn_norm1(x) + self.attn_shift1
+        x = self.beta1 * x + self.beta2 * self.attn_layer(x_norm)
+        x_norm = self.attn_scale2 * self.attn_norm2(x) + self.attn_shift2
+        x = self.beta3 * x + self.beta4 * self.attn_mlp(x_norm)
+        x = channel_scale(x, self.gamma)
+        if self.out_proj is not None:
+            x = channel_linear(self.out_proj, x)
+        return x
+
+
+class Encoder(nn.Module):
+    def __init__(self, embed_dim: Sequence[int], depth: Sequence[int], headdim: int,
+                 in_channels: int, kernel: Sequence[int], ratio: Sequence[int],
+                 wt_levels: Sequence[int], norm_epsilon: float = 1e-5,
+                 instance_norm: bool = True):
+        super().__init__()
+        ed = embed_dim
+        self.encoder1 = PatchEmbed(in_channels, ed[0], kernel[0], wt_levels[0],
+                                   instance_norm=instance_norm)
+        self.down_sample1 = DownSample(ratio[0])
+        self.encoder2 = WTLayer(ed[0], ed[1], kernel[1], wt_levels[1], instance_norm=instance_norm)
+        self.down_sample2 = DownSample(ratio[1])
+        self.encoder3 = WTLayer(ed[1], ed[2], kernel[2], wt_levels[2], instance_norm=instance_norm)
+        self.down_sample3 = DownSample(ratio[2])
+        self.attn = AttentionBlock(ed[2], headdim=headdim)
+        self.encoder4 = Block(ed[2], ed[3], headdim, depth[0], norm_epsilon)
+        self.down_sample4 = DownSample(ratio[3])
+        self.encoder5 = Block(ed[3], ed[4], headdim, depth[1], norm_epsilon)
+        self.down_sample5 = DownSample(ratio[4])
+        self.encoder6 = Block(ed[4], ed[5], headdim, depth[2], norm_epsilon)
+        self.attn2 = AttentionBlock(ed[5], headdim=headdim)
+
+    def forward(self, x: torch.Tensor):
+        skips = []
+        x, res = self.encoder1(x)
+        skips.append(x)
+        x = self.encoder2(self.down_sample1(x))
+        skips.append(x)
+        x = self.encoder3(self.down_sample2(x))
+        skips.append(x)
+        x = self.attn(self.down_sample3(x))
+        skips.append(x)
+        x = self.encoder4(x)
+        skips.append(x)
+        x = self.encoder5(self.down_sample4(x))
+        skips.append(x)
+        x = self.encoder6(self.down_sample5(x))
+        skips.append(x)
+        return self.attn2(x), skips, res
+
+
+class Decoder(nn.Module):
+    def __init__(self, embed_dim: Sequence[int], depth: Sequence[int], headdim: int,
+                 refine_dim: Sequence[int], kernel: Sequence[int], ratio: Sequence[int],
+                 wt_levels: Sequence[int], norm_epsilon: float = 1e-5,
+                 instance_norm: bool = True):
+        super().__init__()
+        ed = list(embed_dim)
+        c_list = ed[:2] + [ed[2], ed[2]] + ed[3:]  # level 2 listed twice
+        self.fusion = ChannelAttBridge(c_list)
+        # e2d_i works on skip 6 - i; only features 0..2 are consumed.
+        for i in range(3):
+            self.add_module(f"e2d_{i}", EncoderToDecoder(c_list[6 - i], instance_norm))
+        self.decoder1 = Block(ed[5], ed[4], headdim, depth[2], norm_epsilon)
+        self.up_sample1 = UpSample(ed[4], ed[4], ratio=ratio[4])
+        self.decoder2 = Block(ed[4] * 2, ed[3], headdim, depth[1], norm_epsilon)
+        self.up_sample2 = UpSample(ed[3], ed[3], ratio=ratio[3])
+        self.decoder3 = Block(ed[3] * 2, ed[2], headdim, depth[0], norm_epsilon)
+        self.attn = AttentionBlock(ed[2], ed[2], headdim=headdim)
+        self.up_sample3 = UpSample(ed[2], ed[2], ratio=ratio[2])
+        self.decoder4 = WTLayer(ed[2] * 2, ed[1], kernel[2], wt_levels[2], if_res=True,
+                                instance_norm=instance_norm)
+        self.up_sample4 = UpSample(ed[1], ed[1], ratio=ratio[1])
+        self.decoder5 = WTLayer(ed[1] * 2, ed[0], kernel[1], wt_levels[1], if_res=True,
+                                instance_norm=instance_norm)
+        self.up_sample5 = UpSample(ed[0], ed[0], ratio=ratio[0])
+        self.decoder6 = WTLayer(ed[0] * 2, ed[0], kernel[0], wt_levels[0], if_res=True,
+                                instance_norm=instance_norm)
+        self.decoder6_s = ConvLayer(ed[0], refine_dim[0], 1, 1, 0)
+
+    def forward(self, x: torch.Tensor, skips) -> torch.Tensor:
+        fusion = self.fusion(skips)
+        feats = [getattr(self, f"e2d_{i}")(skips[6 - i], fusion[6 - i]) for i in range(3)]
+        x = self.up_sample1(self.decoder1(x, features=feats[0]))
+        x = self.up_sample2(self.decoder2(x, residual=skips[5], features=feats[1]))
+        x = self.decoder3(x, residual=skips[4], features=feats[2])
+        x = self.up_sample3(self.attn(x))
+        x = self.up_sample4(self.decoder4(x, residual=skips[2]))
+        x = self.up_sample5(self.decoder5(x, residual=skips[1]))
+        x = self.decoder6(x, residual=skips[0])
+        return self.decoder6_s(x)
+
+
+class Refiner(nn.Module):
+    """Four Blocks at full resolution, then the OutProj head."""
+
+    def __init__(self, refine_dim: Sequence[int], refine_depth: Sequence[int],
+                 refine_headdim: Sequence[int], out_channels: int, out_expand: int = 2,
+                 norm_epsilon: float = 1e-5, instance_norm: bool = True):
+        super().__init__()
+        rd = refine_dim
+        for i in range(4):
+            self.add_module(f"refiner{i + 1}", Block(
+                rd[i], rd[i + 1] if i < 3 else rd[-1], refine_headdim[i], refine_depth[i],
+                norm_epsilon))
+        self.out_proj = OutProj(out_channels, rd[-1], out_expand, instance_norm)
+
+    def forward(self, x: torch.Tensor, res: torch.Tensor) -> torch.Tensor:
+        for i in range(4):
+            x = getattr(self, f"refiner{i + 1}")(x)
+        return self.out_proj(x, res)
+
+
+class ADNMUNet(nn.Module):
+    """(B, T_in, 1, H, W) -> (B, T_out, 1, H, W)."""
+
+    def __init__(self, embed_dim: Sequence[int] = (32, 64, 128, 256, 512, 1024),
+                 depth: Sequence[int] = (1, 1, 1), refine_depth: Sequence[int] = (1, 1, 1, 1),
+                 refine_dim: Sequence[int] = (32, 32, 32, 32),
+                 refine_headdim: Sequence[int] = (4, 4, 4, 4), headdim: int = 4,
+                 channels: int = 5, out_channels: int = 20, kernel: Sequence[int] = (5, 5, 5),
+                 ratio: Sequence[int] = (2, 2, 2, 2, 2, 2), wt_levels: Sequence[int] = (3, 2, 1),
+                 out_expand: int = 2, norm_epsilon: float = 1e-6, instance_norm: bool = True):
+        super().__init__()
+        self.encoder = Encoder(embed_dim, depth, headdim, channels, kernel, ratio, wt_levels,
+                               norm_epsilon, instance_norm)
+        self.decoder = Decoder(embed_dim, depth, headdim, refine_dim, kernel, ratio, wt_levels,
+                               norm_epsilon, instance_norm)
+        self.refiner = Refiner(refine_dim, refine_depth, refine_headdim, out_channels,
+                               out_expand, norm_epsilon, instance_norm)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, skips, res = self.encoder(x[:, :, 0])  # frames as NCHW channels
+        x = self.decoder(x, skips)
+        return self.refiner(x, res)[:, :, None]
+
+
+def create_adnm_unet(input_frames: int, output_frames: int, frame_interval: int) -> ADNMUNet:
+    """Reference: models/ADNMUNet.py:906-940 (create_ADNMUNet). The model
+    takes any frame size that five halvings divide."""
+    refine_dim = (32, 32, 32, 32) if output_frames > 5 else (32, 32, 16, 16)
+    if frame_interval < 120 / input_frames:
+        instance_norm, kernel = True, (5, 5, 5)
+    else:
+        instance_norm, kernel = False, (5, 3, 3)
+    return ADNMUNet(
+        embed_dim=(32, 64, 128, 256, 512, 1024), depth=(1, 1, 1), refine_depth=(1, 1, 1, 1),
+        refine_headdim=(4, 4, 4, 4), refine_dim=refine_dim, headdim=4,
+        channels=input_frames, out_channels=output_frames, kernel=kernel,
+        ratio=(2, 2, 2, 2, 2, 2), wt_levels=(3, 2, 1), out_expand=2, norm_epsilon=1e-6,
+        instance_norm=instance_norm,
+    )
