@@ -36,10 +36,13 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def load_model(params: Optional[str], device: torch.device) -> ADNMUNet:
+def load_model(params: Optional[str], device: torch.device, **model_kwargs) -> ADNMUNet:
     """The model in eval mode on ``device``, with weights from the ``params``
-    .npz or, when it is None, from the init seeded with ``INIT_SEED``."""
-    model = create_adnm_unet(INPUT_FRAMES, OUTPUT_FRAMES, FRAME_INTERVAL)
+    .npz or, when it is None, from the init seeded with ``INIT_SEED``.
+    ``model_kwargs`` go to ``create_adnm_unet``, as the JAX registry passes
+    them: ``linear_attn_duality=False`` builds the bimamba chunked-scan
+    configuration, ``mixer_type="vssd"`` the VSSD mixer."""
+    model = create_adnm_unet(INPUT_FRAMES, OUTPUT_FRAMES, FRAME_INTERVAL, **model_kwargs)
     if params is not None:
         from_jax_params(model, load_params_npz(params))
     else:

@@ -1,4 +1,4 @@
-"""ADN-SSD Mamba2 mixer on NCHW tensors, linear-attention duality path
+"""ADN-SSD Mamba2 mixer on NCHW tensors
 (counterpart of adnm_tpu/mixers/ssd_mixer.py::ADNSSDMixer).
 
 This is the JAX module's channel-major math (``_apply_channel_major``),
@@ -10,7 +10,10 @@ which is the port's only layout. Per (B, d_model, H, W) grid:
      asymmetric depthwise convs (3x1 then 1x3, or the reverse) + SiLU.
   3. ``dt = softplus(dt + dt_bias)``, ``A = -exp(A_log)``, both split into
      head halves per path; z gets its own depthwise 3x3 + SiLU.
-  4. Each path runs the non-causal duality (``ops.ssd``).
+  4. Each path runs the non-causal duality (``linear_attn_duality``, the
+     default) or the bimamba causal chunked scan (kernel K2, chunks of
+     ``SCAN_CHUNK`` tokens): path 1 forward, path 2 from the last token
+     back.
   5. The two paths merge into the reference's channel order by one static
      gather, then a LayerNorm over the channels, then
      ``[alpha1 * y | alpha1 * z]`` (alpha1 used twice; alpha2 exists in
@@ -26,7 +29,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from adnm_tpu_torch.core.layers import channel_linear, channel_view, scalar_param
-from adnm_tpu_torch.ops.ssd import linear_attn_dual_seqminor
+from adnm_tpu_torch.ops.ssd import linear_attn_dual_seqminor, ssd_chunked_scan
+
+SCAN_CHUNK = 256  # the chunked scan's chunk, as every model of the reference sets it
 
 
 def _depthwise(c: int, kernel) -> nn.Conv2d:
@@ -47,6 +52,16 @@ def merge_index(d_inner: int, headdim: int) -> list:
             k_head, r = divmod(j // 2, p)
             idx.append(d2 + k_head * p + (r % 2) * (p // 2) + r // 2)
     return idx
+
+
+def reset_dt_bias_and_a_log_(mixer: nn.Module, gen: torch.Generator):
+    """The JAX inits of a mixer's dt_bias (log-uniform dt in [1e-3, 0.1],
+    floored at 1e-4, stored as inverse softplus) and A_log (log U(1, 16))."""
+    h = mixer.A_log.shape[0]
+    u = torch.rand(h, generator=gen)
+    dt = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3)).clamp(min=1e-4)
+    mixer.dt_bias.copy_(dt + torch.log(-torch.expm1(-dt)))
+    mixer.A_log.copy_(torch.log(torch.empty(h).uniform_(1.0, 16.0, generator=gen)))
 
 
 class ChannelLayerNorm(nn.Module):
@@ -70,13 +85,14 @@ class ADNSSDMixer(nn.Module):
     """(B, d_model, H, W) -> (B, d_model, H, W).
 
     The JAX module's other settings keep the values every model uses:
-    d_conv 3, expand 2, ngroups 2, d_state 16, ssd_positive_dA, no conv
-    or projection biases."""
+    d_conv 3, expand 2, ngroups 2, d_state 16, ssd_positive_dA, bimamba,
+    chunk_size 256, no conv or projection biases."""
 
     D_CONV, EXPAND, NGROUPS, D_STATE = 3, 2, 2, 16
 
-    def __init__(self, d_model: int, headdim: int = 8):
+    def __init__(self, d_model: int, headdim: int = 8, linear_attn_duality: bool = True):
         super().__init__()
+        self.linear_attn_duality = linear_attn_duality
         d_inner = self.EXPAND * d_model
         nheads = d_inner // headdim
         if d_inner % headdim or nheads % 2:
@@ -108,12 +124,7 @@ class ADNSSDMixer(nn.Module):
                              persistent=False)
 
     def reset_random_(self, gen: torch.Generator):
-        """The JAX inits of dt_bias (log-uniform dt in [1e-3, 0.1], floored
-        at 1e-4, stored as inverse softplus) and A_log (log U(1, 16))."""
-        u = torch.rand(self.nheads, generator=gen)
-        dt = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3)).clamp(min=1e-4)
-        self.dt_bias.copy_(dt + torch.log(-torch.expm1(-dt)))
-        self.A_log.copy_(torch.log(torch.empty(self.nheads).uniform_(1.0, 16.0, generator=gen)))
+        reset_dt_bias_and_a_log_(self, gen)
 
     def _sep(self, x: torch.Tensor, name: str) -> torch.Tensor:
         return F.silu(getattr(self, f"{name}_b")(getattr(self, f"{name}_a")(x)))
@@ -143,17 +154,26 @@ class ADNSSDMixer(nn.Module):
         x1 = xBC1[:, :d_inner // 2].reshape(b, hh, P, l)
         B1 = xBC1[:, d_inner // 2:d_inner // 2 + gN // 2].reshape(b, -1, l)
         C1 = xBC1[:, d_inner // 2 + gN // 2:].reshape(b, -1, l)
-        # Path 2 heads in [a, a, b, b] order: any order inside a head is
-        # equivalent for the duality; the merge gather restores the
-        # reference's channel order. B and C share one permutation, which
-        # the contraction over the state axis does not see.
+        # Path 2 heads in [a, a, b, b] order, where the JAX token-minor path
+        # interleaves them [a, b, a, b]. Exact for both scans: inside a
+        # head every channel p is mixed over L on its own, with the head's
+        # dt and A and the shared B and C, so any order of the channels of
+        # a head gives the same outputs in that order, and the merge
+        # gather restores the reference's. B and C share one permutation
+        # of the state axis, which every product contracts (C_t . B_s, and
+        # C_t . S for the state carried between chunks) and so never sees.
         x2 = torch.cat([x2a.reshape(b, hh, P // 2, l), x2b.reshape(b, hh, P // 2, l)], dim=2)
         B2 = torch.cat([bc2a[:, :qbc // 2], bc2b[:, :qbc // 2]], dim=1).reshape(b, -1, l)
         C2 = torch.cat([bc2a[:, qbc // 2:], bc2b[:, qbc // 2:]], dim=1).reshape(b, -1, l)
         z = F.silu(self.conv2d_z(z))
 
-        y1 = linear_attn_dual_seqminor(x1, dt[:, :hh], A[:hh], B1, C1, D[:hh])
-        y2 = linear_attn_dual_seqminor(x2, dt[:, hh:], A[hh:], B2, C2, D[hh:])
+        if self.linear_attn_duality:
+            y1 = linear_attn_dual_seqminor(x1, dt[:, :hh], A[:hh], B1, C1, D[:hh])
+            y2 = linear_attn_dual_seqminor(x2, dt[:, hh:], A[hh:], B2, C2, D[hh:])
+        else:
+            y1 = ssd_chunked_scan(x1, dt[:, :hh], A[:hh], B1, C1, D[:hh], SCAN_CHUNK)
+            y2 = ssd_chunked_scan(x2, dt[:, hh:], A[hh:], B2, C2, D[hh:], SCAN_CHUNK,
+                                  reverse=True)
         y = torch.cat([y1.reshape(b, d_inner // 2, l), y2.reshape(b, d_inner // 2, l)], dim=1)
         y = self.norm(y.index_select(1, self.merge_index))
 

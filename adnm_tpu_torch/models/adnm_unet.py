@@ -8,9 +8,10 @@ features) and Refiner (4 Blocks at full resolution + the OutProj head
 with the last-input-frame residual). Contract:
 (B, T_in, 1, H, W) -> (B, T_out, 1, H, W).
 
-Ported for serving: the duality ADN-SSD mixer and softmax attention only,
-and the decoder computes only the features it consumes (the JAX default,
-``compute_dead_features=False``).
+Ported for serving: the ADN-SSD and VSSD mixers (``mixer_type``), each
+with the duality or the bimamba chunked scan (``linear_attn_duality``),
+and softmax attention; the decoder computes only the features it consumes
+(the JAX default, ``compute_dead_features=False``).
 """
 
 from __future__ import annotations
@@ -41,6 +42,15 @@ from adnm_tpu_torch.core.layers import (
 )
 from adnm_tpu_torch.mixers.attention import StandardAttention
 from adnm_tpu_torch.mixers.ssd_mixer import ADNSSDMixer
+from adnm_tpu_torch.mixers.vssd import VSSDMixer
+
+
+def make_mixer(mixer_type: str, dim: int, headdim: int, linear_attn_duality: bool) -> nn.Module:
+    if mixer_type == "adnssd":
+        return ADNSSDMixer(dim, headdim=headdim, linear_attn_duality=linear_attn_duality)
+    if mixer_type == "vssd":
+        return VSSDMixer(dim, headdim=headdim, linear_attn_duality=linear_attn_duality)
+    raise ValueError(f"mixer_type must be 'adnssd' or 'vssd', got {mixer_type!r}")
 
 
 def schedule_headdim(d_model: int) -> int:
@@ -64,7 +74,8 @@ class Block(nn.Module):
     JAX tree's beta3/beta4 are never read and the port holds no copy."""
 
     def __init__(self, dim: int, out_dim: int, headdim: int, num_layers: int = 1,
-                 norm_epsilon: float = 1e-5):
+                 norm_epsilon: float = 1e-5, linear_attn_duality: bool = True,
+                 mixer_type: str = "adnssd"):
         super().__init__()
         self.num_layers = num_layers
         for name in ("alpha1", "alpha2", "alpha3", "alpha4"):
@@ -77,7 +88,8 @@ class Block(nn.Module):
             setattr(self, f"scale2_{i}", scalar_param(1.0))
             setattr(self, f"shift2_{i}", scalar_param(0.0))
             self.add_module(f"norm1_{i}", RMSNorm(dim, norm_epsilon, axis=1))
-            self.add_module(f"mixer_{i}", ADNSSDMixer(dim, headdim=headdim))
+            self.add_module(f"mixer_{i}", make_mixer(mixer_type, dim, headdim,
+                                                     linear_attn_duality))
             self.add_module(f"norm2_{i}", RMSNorm(dim, norm_epsilon, axis=1))
             self.add_module(f"ffn_{i}", FeedForward(dim, expansion=2))
         self.gamma = nn.Parameter(torch.ones(dim))
@@ -142,9 +154,11 @@ class Encoder(nn.Module):
     def __init__(self, embed_dim: Sequence[int], depth: Sequence[int], headdim: int,
                  in_channels: int, kernel: Sequence[int], ratio: Sequence[int],
                  wt_levels: Sequence[int], norm_epsilon: float = 1e-5,
-                 instance_norm: bool = True):
+                 instance_norm: bool = True, linear_attn_duality: bool = True,
+                 mixer_type: str = "adnssd"):
         super().__init__()
         ed = embed_dim
+        mix = dict(linear_attn_duality=linear_attn_duality, mixer_type=mixer_type)
         self.encoder1 = PatchEmbed(in_channels, ed[0], kernel[0], wt_levels[0],
                                    instance_norm=instance_norm)
         self.down_sample1 = DownSample(ratio[0])
@@ -153,11 +167,11 @@ class Encoder(nn.Module):
         self.encoder3 = WTLayer(ed[1], ed[2], kernel[2], wt_levels[2], instance_norm=instance_norm)
         self.down_sample3 = DownSample(ratio[2])
         self.attn = AttentionBlock(ed[2], headdim=headdim)
-        self.encoder4 = Block(ed[2], ed[3], headdim, depth[0], norm_epsilon)
+        self.encoder4 = Block(ed[2], ed[3], headdim, depth[0], norm_epsilon, **mix)
         self.down_sample4 = DownSample(ratio[3])
-        self.encoder5 = Block(ed[3], ed[4], headdim, depth[1], norm_epsilon)
+        self.encoder5 = Block(ed[3], ed[4], headdim, depth[1], norm_epsilon, **mix)
         self.down_sample5 = DownSample(ratio[4])
-        self.encoder6 = Block(ed[4], ed[5], headdim, depth[2], norm_epsilon)
+        self.encoder6 = Block(ed[4], ed[5], headdim, depth[2], norm_epsilon, **mix)
         self.attn2 = AttentionBlock(ed[5], headdim=headdim)
 
     def forward(self, x: torch.Tensor):
@@ -183,19 +197,21 @@ class Decoder(nn.Module):
     def __init__(self, embed_dim: Sequence[int], depth: Sequence[int], headdim: int,
                  refine_dim: Sequence[int], kernel: Sequence[int], ratio: Sequence[int],
                  wt_levels: Sequence[int], norm_epsilon: float = 1e-5,
-                 instance_norm: bool = True):
+                 instance_norm: bool = True, linear_attn_duality: bool = True,
+                 mixer_type: str = "adnssd"):
         super().__init__()
         ed = list(embed_dim)
+        mix = dict(linear_attn_duality=linear_attn_duality, mixer_type=mixer_type)
         c_list = ed[:2] + [ed[2], ed[2]] + ed[3:]  # level 2 listed twice
         self.fusion = ChannelAttBridge(c_list)
         # e2d_i works on skip 6 - i; only features 0..2 are consumed.
         for i in range(3):
             self.add_module(f"e2d_{i}", EncoderToDecoder(c_list[6 - i], instance_norm))
-        self.decoder1 = Block(ed[5], ed[4], headdim, depth[2], norm_epsilon)
+        self.decoder1 = Block(ed[5], ed[4], headdim, depth[2], norm_epsilon, **mix)
         self.up_sample1 = UpSample(ed[4], ed[4], ratio=ratio[4])
-        self.decoder2 = Block(ed[4] * 2, ed[3], headdim, depth[1], norm_epsilon)
+        self.decoder2 = Block(ed[4] * 2, ed[3], headdim, depth[1], norm_epsilon, **mix)
         self.up_sample2 = UpSample(ed[3], ed[3], ratio=ratio[3])
-        self.decoder3 = Block(ed[3] * 2, ed[2], headdim, depth[0], norm_epsilon)
+        self.decoder3 = Block(ed[3] * 2, ed[2], headdim, depth[0], norm_epsilon, **mix)
         self.attn = AttentionBlock(ed[2], ed[2], headdim=headdim)
         self.up_sample3 = UpSample(ed[2], ed[2], ratio=ratio[2])
         self.decoder4 = WTLayer(ed[2] * 2, ed[1], kernel[2], wt_levels[2], if_res=True,
@@ -226,13 +242,14 @@ class Refiner(nn.Module):
 
     def __init__(self, refine_dim: Sequence[int], refine_depth: Sequence[int],
                  refine_headdim: Sequence[int], out_channels: int, out_expand: int = 2,
-                 norm_epsilon: float = 1e-5, instance_norm: bool = True):
+                 norm_epsilon: float = 1e-5, instance_norm: bool = True,
+                 linear_attn_duality: bool = True, mixer_type: str = "adnssd"):
         super().__init__()
         rd = refine_dim
         for i in range(4):
             self.add_module(f"refiner{i + 1}", Block(
                 rd[i], rd[i + 1] if i < 3 else rd[-1], refine_headdim[i], refine_depth[i],
-                norm_epsilon))
+                norm_epsilon, linear_attn_duality, mixer_type))
         self.out_proj = OutProj(out_channels, rd[-1], out_expand, instance_norm)
 
     def forward(self, x: torch.Tensor, res: torch.Tensor) -> torch.Tensor:
@@ -250,14 +267,19 @@ class ADNMUNet(nn.Module):
                  refine_headdim: Sequence[int] = (4, 4, 4, 4), headdim: int = 4,
                  channels: int = 5, out_channels: int = 20, kernel: Sequence[int] = (5, 5, 5),
                  ratio: Sequence[int] = (2, 2, 2, 2, 2, 2), wt_levels: Sequence[int] = (3, 2, 1),
-                 out_expand: int = 2, norm_epsilon: float = 1e-6, instance_norm: bool = True):
+                 out_expand: int = 2, norm_epsilon: float = 1e-6, instance_norm: bool = True,
+                 linear_attn_duality: bool = True, mixer_type: str = "adnssd",
+                 attn_type: str = "standard"):
         super().__init__()
+        if attn_type != "standard":
+            raise NotImplementedError(f"attn_type {attn_type!r}: only 'standard' is ported")
+        mix = dict(linear_attn_duality=linear_attn_duality, mixer_type=mixer_type)
         self.encoder = Encoder(embed_dim, depth, headdim, channels, kernel, ratio, wt_levels,
-                               norm_epsilon, instance_norm)
+                               norm_epsilon, instance_norm, **mix)
         self.decoder = Decoder(embed_dim, depth, headdim, refine_dim, kernel, ratio, wt_levels,
-                               norm_epsilon, instance_norm)
+                               norm_epsilon, instance_norm, **mix)
         self.refiner = Refiner(refine_dim, refine_depth, refine_headdim, out_channels,
-                               out_expand, norm_epsilon, instance_norm)
+                               out_expand, norm_epsilon, instance_norm, **mix)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x, skips, res = self.encoder(x[:, :, 0])  # frames as NCHW channels
@@ -265,9 +287,11 @@ class ADNMUNet(nn.Module):
         return self.refiner(x, res)[:, :, None]
 
 
-def create_adnm_unet(input_frames: int, output_frames: int, frame_interval: int) -> ADNMUNet:
+def create_adnm_unet(input_frames: int, output_frames: int, frame_interval: int,
+                     **kwargs) -> ADNMUNet:
     """Reference: models/ADNMUNet.py:906-940 (create_ADNMUNet). The model
-    takes any frame size that five halvings divide."""
+    takes any frame size that five halvings divide; ``kwargs`` go to
+    ``ADNMUNet`` (``linear_attn_duality``, ``mixer_type``)."""
     refine_dim = (32, 32, 32, 32) if output_frames > 5 else (32, 32, 16, 16)
     if frame_interval < 120 / input_frames:
         instance_norm, kernel = True, (5, 5, 5)
@@ -278,5 +302,5 @@ def create_adnm_unet(input_frames: int, output_frames: int, frame_interval: int)
         refine_headdim=(4, 4, 4, 4), refine_dim=refine_dim, headdim=4,
         channels=input_frames, out_channels=output_frames, kernel=kernel,
         ratio=(2, 2, 2, 2, 2, 2), wt_levels=(3, 2, 1), out_expand=2, norm_epsilon=1e-6,
-        instance_norm=instance_norm,
+        instance_norm=instance_norm, **kwargs,
     )

@@ -1,13 +1,38 @@
-"""State-space duality ops (counterpart of adnm_tpu/ops/ssd.py).
+"""State-space duality ops (counterpart of adnm_tpu/ops/ssd.py), in the
+port's sequence-minor layout: x (B, H, P, L); dt (B, H, L) already
+softplus'd; A, D (H,); B, C (B, N, L) shared by the heads.
 
-Only the non-causal linear-attention dual is ported: the mixer's default
-path. It is two batched matrix products, computed outside any kernel in
-the JAX package too.
+* ``linear_attn_dual_seqminor``: the non-causal linear-attention dual,
+  the mixers' default path. Two batched matrix products, outside any
+  kernel in the JAX package too.
+* ``ssd_chunked_scan``: the causal chunked SSD scan of the bimamba path.
+  A CPU tensor goes to ``ssd_chunked_scan_reference``; a CUDA tensor goes
+  to kernel K2, the hand-written Hopper kernel in ``csrc/ssd_scan.cu``
+  (the Pallas ``adnm_tpu/ops/pallas/ssd_scan.py::ssd_chunked_scan_pallas``
+  rewritten), or the call raises. Forward only: a call that would need a
+  gradient raises on either device.
+* ``ssd_naive_scan``: the O(L^2) causal oracle for the tests.
+
+The scan takes ``dA = dt * A`` with A < 0 as it is; only the duality
+negates it (``ssd_positive_dA``).
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
+
+from adnm_tpu_torch.ops._build import load_library
+
+SOURCES = ("ssd_scan.cu",)
+MAX_CHUNK = 256  # K2 holds one chunk per block: at most 256 tokens
+KERNEL_N = 16  # K2's state size (d_state of every mixer)
+KERNEL_P = 4  # K2's head width (headdim of every model)
+# The plain version's intra-chunk (B, H, chunks, Q, Q) decay tensor is
+# built a group of chunks at a time, about this many bytes per group.
+_INTRA_BYTES = 64 << 20
 
 
 def linear_attn_dual_seqminor(
@@ -18,11 +43,7 @@ def linear_attn_dual_seqminor(
     C: torch.Tensor,
     D: torch.Tensor,
 ) -> torch.Tensor:
-    """``y = C^T (B (x * dA)^T) + x * D`` in the sequence-minor layout.
-
-    x: (B, H, P, L); dt: (B, H, L) already softplus'd; A, D: (H,);
-    B, C: (B, N, L) shared across heads. Returns (B, H, P, L).
-    """
+    """``y = C^T (B (x * dA)^T) + x * D``. Returns (B, H, P, L)."""
     b, h, p, l = x.shape
     # A is negative and every reference mixer keeps ssd_positive_dA=True,
     # so dA = -(dt * A) >= 0.
@@ -31,3 +52,149 @@ def linear_attn_dual_seqminor(
     kv = torch.bmm(B, v.transpose(1, 2))  # (B, N, H*P)
     y = torch.bmm(kv.transpose(1, 2), C).reshape(b, h, p, l)
     return y + x * D[None, :, None, None]
+
+
+def ssd_naive_scan(x, dt, A, B, C, D) -> torch.Tensor:
+    """``y_t = sum_{s<=t} exp(sum_{r=s+1..t} dA_r) (C_t . B_s) x_s dt_s + D x_t``
+    as one (B, H, L, L) product (JAX: ``ops/ssd.py::ssd_naive_scan``)."""
+    l = x.shape[-1]
+    cum = torch.cumsum(dt * A[None, :, None], dim=-1)  # (B, H, L)
+    seg = cum[:, :, :, None] - cum[:, :, None, :]  # (B, H, T, S)
+    causal = torch.ones(l, l, dtype=torch.bool, device=x.device).tril()
+    decay = torch.exp(seg.masked_fill(~causal, float("-inf")))
+    qk = torch.einsum("bnt,bns->bts", C, B)
+    y = torch.einsum("bhts,bhps->bhpt", decay * qk[:, None], x * dt[:, :, None])
+    return y + x * D[None, :, None, None]
+
+
+def _chunk(l: int, chunk_size: int) -> int:
+    q = min(chunk_size, l)
+    if q <= 0 or l % q:
+        raise ValueError(f"sequence length {l} is not a multiple of the chunk {q}")
+    return q
+
+
+def ssd_chunked_scan_reference(x, dt, A, B, C, D, chunk_size: int = 256) -> torch.Tensor:
+    """Plain PyTorch version of K2, the three phases of the JAX
+    ``ssd_chunked_scan`` (``adnm_tpu/ops/ssd.py:146-208``): every chunk's
+    end state, the sequential carry of the state over chunks, then every
+    chunk's output (intra-chunk masked product + carried state + D skip)."""
+    b, h, p, l = x.shape
+    n = B.shape[1]
+    q = _chunk(l, chunk_size)
+    nc = l // q
+    cum = (dt * A[None, :, None]).reshape(b, h, nc, q).cumsum(-1)  # (B, H, C, Q)
+    xd = (x * dt[:, :, None]).reshape(b, h, p, nc, q)
+    Bc, Cc = B.reshape(b, n, nc, q), C.reshape(b, n, nc, q)
+
+    # chunk end states S_c = sum_s exp(cum_end - cum_s) B_s (x_s dt_s)
+    w = xd * torch.exp(cum[..., -1:] - cum)[:, :, None]
+    states = torch.einsum("bncs,bhpcs->bhcnp", Bc, w)  # (B, H, C, N, P)
+    decay = torch.exp(cum[..., -1])  # (B, H, C): the decay across a chunk
+    s_in = torch.empty_like(states)  # the state entering each chunk
+    s = torch.zeros_like(states[:, :, 0])
+    for c in range(nc):
+        s_in[:, :, c] = s
+        s = s * decay[:, :, c, None, None] + states[:, :, c]
+
+    # inter-chunk: (C_t . S_in) exp(cum_t)
+    y = torch.einsum("bnct,bhcnp->bhpct", Cc, s_in) * torch.exp(cum)[:, :, None]
+    # intra-chunk, a group of chunks at a time
+    causal = torch.ones(q, q, dtype=torch.bool, device=x.device).tril()
+    group = max(1, _INTRA_BYTES // (b * h * q * q * x.element_size()))
+    for c0 in range(0, nc, group):
+        sl = slice(c0, min(c0 + group, nc))
+        cs = cum[:, :, sl]
+        seg = (cs[..., :, None] - cs[..., None, :]).masked_fill(~causal, float("-inf"))
+        qk = torch.einsum("bnct,bncs->bcts", Cc[:, :, sl], Bc[:, :, sl])
+        y[:, :, :, sl] += torch.einsum("bhcts,bhpcs->bhpct", torch.exp(seg) * qk[:, None],
+                                       xd[:, :, :, sl])
+    return y.reshape(b, h, p, l) + x * D[None, :, None, None]
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = load_library("ssd_scan", SOURCES)
+    lib.adnm_ssd_chunked_scan.argtypes = [
+        *(ctypes.c_void_p,) * 9,  # x, dt, A, B, C, D, y, states, decay
+        *(ctypes.c_int64,) * 4,  # batch strides of x, dt, B, C (elements)
+        *(ctypes.c_int,) * 6,  # batch, heads, P, N, L, Q
+        ctypes.c_int,  # reverse
+        ctypes.c_void_p,  # stream
+    ]
+    lib.adnm_ssd_chunked_scan.restype = ctypes.c_int
+    lib.adnm_ssd_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.adnm_ssd_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _batch_stride(name: str, t: torch.Tensor) -> int:
+    """The batch stride of ``t``, whose every sample must be contiguous
+    (a slice of a larger NCHW tensor along the channels is)."""
+    if t.shape[0] and not t[0].is_contiguous():
+        raise ValueError(f"ssd_chunked_scan kernel needs each sample of {name} contiguous")
+    return t.stride(0)
+
+
+def ssd_chunked_scan(x, dt, A, B, C, D, chunk_size: int = 256,
+                     reverse: bool = False) -> torch.Tensor:
+    """Causal chunked SSD scan over L; with ``reverse`` the scan runs from
+    the last token to the first, ``flip(scan(flip(x, dt, B, C)))`` along L
+    (the bimamba mixers' second path)."""
+    if x.dim() != 4:
+        raise ValueError(f"x must be (B, H, P, L), got {tuple(x.shape)}")
+    b, h, p, l = x.shape
+    n = B.shape[1]
+    if (dt.shape != (b, h, l) or A.shape != (h,) or D.shape != (h,)
+            or B.shape != (b, n, l) or C.shape != (b, n, l)):
+        raise ValueError(f"shapes do not fit x {tuple(x.shape)}: dt {tuple(dt.shape)}, "
+                         f"A {tuple(A.shape)}, B {tuple(B.shape)}, C {tuple(C.shape)}, "
+                         f"D {tuple(D.shape)}")
+    q = _chunk(l, chunk_size)
+    args = {"x": x, "dt": dt, "A": A, "B": B, "C": C, "D": D}
+    # Forward only on every device, so that no caller trains through the
+    # plain version on the CPU what the kernel cannot train on the card.
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args.values()):
+        raise RuntimeError("ssd_chunked_scan is forward only (K2 has no backward yet)")
+    if x.device.type == "cpu":
+        if not reverse:
+            return ssd_chunked_scan_reference(x, dt, A, B, C, D, chunk_size)
+        x, dt, B, C = (t.flip(-1) for t in (x, dt, B, C))
+        return ssd_chunked_scan_reference(x, dt, A, B, C, D, chunk_size).flip(-1)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_chunked_scan runs on CPU or CUDA tensors, got {x.device}")
+    for name, t in args.items():
+        if t.device != x.device:
+            raise ValueError(f"{name} on {t.device}, x on {x.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"ssd_chunked_scan kernel takes float32 tensors, {name} is {t.dtype}")
+    if n != KERNEL_N or p != KERNEL_P:
+        raise ValueError(f"ssd_chunked_scan kernel takes N = {KERNEL_N} and P = {KERNEL_P}, "
+                         f"got N = {n}, P = {p}")
+    if q > MAX_CHUNK:
+        raise ValueError(f"ssd_chunked_scan kernel takes chunks of at most {MAX_CHUNK}, got {q}")
+    if not (A.is_contiguous() and D.is_contiguous()):
+        raise ValueError("ssd_chunked_scan kernel needs contiguous A and D")
+    strides = [_batch_stride(name, args[name]) for name in ("x", "dt", "B", "C")]
+    nc = l // q
+    y = torch.empty((b, h, p, l), dtype=x.dtype, device=x.device)
+    # Scratch of the carry (phases 1 and 2); one chunk carries nothing.
+    states = torch.empty((b, h, nc, n, p) if nc > 1 else (0,), dtype=torch.float32,
+                         device=x.device)
+    decay = torch.empty((b, h, nc) if nc > 1 else (0,), dtype=torch.float32, device=x.device)
+    lib = _library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.adnm_ssd_chunked_scan(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
+            D.data_ptr(), y.data_ptr(), states.data_ptr(), decay.data_ptr(),
+            *strides, b, h, p, n, l, q, int(reverse), stream)
+    if rc != 0:
+        msg = lib.adnm_ssd_cuda_error_string(rc).decode()
+        raise RuntimeError(f"ssd_chunked_scan kernel launch failed: CUDA error {rc} ({msg})")
+    ssd_chunked_scan.launches += 1
+    return y
+
+
+ssd_chunked_scan.launches = 0  # kernel launches since the last reset (set to 0 to reset)
+

@@ -1,4 +1,5 @@
-"""Kernel K1 (RMS norm) of the PyTorch port on an NVIDIA card.
+"""Kernels K1 (RMS norm) and K2 (chunked SSD scan) of the PyTorch port on
+an NVIDIA card.
 
 Every test here is marked ``cuda`` and skips where there is no card. The
 file imports no JAX; ``tests/conftest.py`` does, so on a machine with the
@@ -12,6 +13,7 @@ from __future__ import annotations
 import pytest
 import torch
 
+from adnm_tpu_torch.ops import ssd
 from adnm_tpu_torch.ops.rms_norm import rms_norm, rms_norm_reference
 
 # The main path's shapes: refiner (B, 32, 256, 256), the Blocks at
@@ -64,3 +66,99 @@ def test_kernel_wrapper_raises_on_what_the_kernel_does_not_take(card):
         rms_norm(x, w.cpu(), 1e-6, 1)
     with pytest.raises(RuntimeError, match="forward only"):
         rms_norm(x.requires_grad_(), w, 1e-6, 1)
+
+
+def scan_inputs(b, h, p, l, gen, carry=False, n=16, device="cuda"):
+    """Scan inputs at the model's scales (A = -exp(U(0, ln 16)), dt from a
+    softplus near 1e-3...0.1) or, with ``carry``, with |dA| ~ 3e-4, where
+    the state carried from earlier chunks dominates y."""
+    def u(*shape):
+        return torch.rand(shape, generator=gen, device=device)
+
+    x = torch.randn(b, h, p, l, generator=gen, device=device)
+    if carry:
+        dt, A = 0.005 + 0.01 * u(b, h, l), -(0.01 + 0.04 * u(h))
+    else:
+        dt = torch.nn.functional.softplus(torch.randn(b, h, l, generator=gen, device=device) - 4)
+        A = -torch.exp(u(h) * 2.77)
+    B, C = (torch.randn(b, n, l, generator=gen, device=device) for _ in range(2))
+    return x, dt, A, B, C, 0.5 + u(h)
+
+
+# (batch, heads, P, L, chunk): the main path's (at batch 1) and ragged
+# ones: Q below 32 and not a multiple of 32, head counts that do not fill
+# the block's group of 4 heads.
+K2_CASES = [(1, 32, 4, 1024, 256), (1, 64, 4, 256, 256), (1, 128, 4, 64, 256),
+            (1, 8, 4, 65536, 256), (2, 3, 4, 96, 48), (3, 5, 4, 40, 8), (1, 6, 4, 512, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("carry", [False, True])
+def test_ssd_kernel_matches_plain_version_on_the_card(card, reverse, carry):
+    gen = torch.Generator(device=card).manual_seed(1)
+    for b, h, p, l, q in K2_CASES:
+        args = scan_inputs(b, h, p, l, gen, carry)
+        before = ssd.ssd_chunked_scan.launches
+        got = ssd.ssd_chunked_scan(*args, chunk_size=q, reverse=reverse)
+        torch.cuda.synchronize()
+        assert ssd.ssd_chunked_scan.launches == before + 1
+        flip = (lambda t: t.flip(-1)) if reverse else (lambda t: t)
+        x, dt, A, B, C, D = args
+        want = flip(ssd.ssd_chunked_scan_reference(flip(x), flip(dt), A, flip(B), flip(C), D, q))
+        # fp32 both, sums and exps in another order: y is of order 1-10.
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_matches_the_naive_oracle_across_many_chunks(card):
+    """16 chunks of 32 with a small |dA|: a broken carry cannot hide."""
+    gen = torch.Generator(device=card).manual_seed(2)
+    args = scan_inputs(2, 8, 4, 512, gen, carry=True)
+    got = ssd.ssd_chunked_scan(*args, chunk_size=32)
+    one_chunk = ssd.ssd_chunked_scan(*args, chunk_size=256)
+    want = ssd.ssd_naive_scan(*args)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(one_chunk, want, rtol=1e-4, atol=1e-4)
+    x, dt, A, B, C, D = args
+    # What the first half's state adds to the second half (0.49 on average
+    # on the CPU at this seed) is thousands of times the tolerance.
+    x, dt, B, C = (t[..., 256:].contiguous() for t in (x, dt, B, C))
+    alone = ssd.ssd_chunked_scan(x, dt, A, B, C, D, chunk_size=32)
+    assert (got[..., 256:] - alone).abs().mean() > 0.1
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_reads_channel_slices_in_place(card):
+    """The mixers hand over channel slices of NCHW tensors (each sample
+    contiguous, a larger batch stride); the kernel reads them as they are."""
+    gen = torch.Generator(device=card).manual_seed(3)
+    b, h, p, l = 2, 8, 4, 512
+    big = torch.randn(b, 2 * h * p + 2 * 16 + 16, l, generator=gen, device=card)
+    x = big[:, :h * p].view(b, h, p, l)
+    B, C = big[:, 2 * h * p:2 * h * p + 16], big[:, 2 * h * p + 16:2 * h * p + 32]
+    dt = torch.nn.functional.softplus(big[:, -16:-8] - 4)
+    A, D = -torch.rand(2 * h, generator=gen, device=card)[h:] - 0.5, torch.ones(h, device=card)
+    got = ssd.ssd_chunked_scan(x, dt, A, B, C, D, chunk_size=128, reverse=True)
+    want = ssd.ssd_chunked_scan(*(t.contiguous() for t in (x, dt, A, B, C, D)),
+                                chunk_size=128, reverse=True)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_wrapper_raises_on_what_the_kernel_does_not_take(card):
+    gen = torch.Generator(device=card).manual_seed(4)
+    args = scan_inputs(1, 4, 4, 64, gen)
+    x, dt, A, B, C, D = args
+    with pytest.raises(TypeError, match="float32"):
+        ssd.ssd_chunked_scan(x.double(), dt, A, B, C, D)
+    with pytest.raises(ValueError, match="N = 16"):
+        ssd.ssd_chunked_scan(x, dt, A, B[:, :8], C[:, :8], D)
+    with pytest.raises(ValueError, match="P = 4"):
+        ssd.ssd_chunked_scan(*scan_inputs(1, 4, 8, 64, gen))
+    with pytest.raises(ValueError, match="at most 256"):
+        ssd.ssd_chunked_scan(*scan_inputs(1, 2, 4, 1024, gen), chunk_size=512)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd.ssd_chunked_scan(x.transpose(1, 2), dt, A, B, C, D)
+    with pytest.raises(ValueError, match="on cpu"):
+        ssd.ssd_chunked_scan(x, dt, A.cpu(), B, C, D)

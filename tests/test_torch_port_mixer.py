@@ -1,8 +1,9 @@
-"""The PyTorch port's ADN-SSD mixer, duality op and softmax attention
-against their JAX counterparts, on the CPU at small sizes.
+"""The PyTorch port's ADN-SSD and VSSD mixers, duality op and softmax
+attention against their JAX counterparts, on the CPU at small sizes.
 
-The JAX mixer runs token-minor below L = 16384 tokens and channel-major
-from there on; the port has one NCHW path, held against both. Tolerance
+The JAX ADN-SSD mixer runs token-minor below L = 16384 tokens and
+channel-major from there on, and always token-minor with the chunked
+scan; the port has one NCHW path, held against all of them. Tolerance
 rtol 1e-4 / atol 1e-5 (fp32 both sides, sums in another order)."""
 
 from __future__ import annotations
@@ -14,15 +15,19 @@ import torch
 
 from adnm_tpu.mixers.attention import StandardAttention as JStandardAttention
 from adnm_tpu.mixers.ssd_mixer import ADNSSDMixer as JADNSSDMixer
+from adnm_tpu.mixers.vssd import VSSDMixer as JVSSDMixer
 from adnm_tpu.ops import ssd as jssd
 from adnm_tpu_torch.mixers.attention import StandardAttention
 from adnm_tpu_torch.mixers.ssd_mixer import ADNSSDMixer
+from adnm_tpu_torch.mixers.vssd import VSSDMixer
 from adnm_tpu_torch.ops import ssd
 from test_torch_port_layers import (  # noqa: F401 (one_torch_thread is a fixture)
     ATOL,
     RTOL,
     check_nchw,
     jax_apply,
+    nchw,
+    nhwc,
     one_torch_thread,
     random_params,
     rand,
@@ -63,6 +68,42 @@ def test_mixer_matches_jax_channel_major_io():
     want = np.asarray(jax_apply(jm, params, jnp.asarray(x), cl=True))
     got = run_port(ADNSSDMixer(8, headdim=4), params, x)
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+def slow_decay(params, seed=0):
+    """A_log of every mixer set to log U(0.001, 0.01): with dt near 1 the
+    state then lasts for hundreds of tokens, so the chunked scan's carry
+    between chunks shows in the output."""
+    rng = np.random.RandomState(seed)
+    return {k: slow_decay(v, seed + 1) if isinstance(v, dict) else
+            np.log(rng.uniform(0.001, 0.01, v.shape)).astype(np.float32) if k == "A_log" else v
+            for k, v in params.items()}
+
+
+def check_scan_mixer(jm, pm, x):
+    """``check_nchw`` with the slow decay of ``slow_decay``."""
+    jx = jnp.asarray(nhwc(x))
+    params = slow_decay(random_params(jm, jx))
+    want = nchw(jax_apply(jm, params, jx))
+    np.testing.assert_allclose(run_port(pm, params, x), want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("grid", [16, 32])
+def test_bimamba_mixer_matches_the_jax_token_minor_path(grid):
+    """The chunked scan over grid^2 tokens: JAX in chunks of 16 and with
+    its path-2 channels of a head interleaved [a, b, a, b]; the port in
+    chunks of 256 (one at 16^2, four at 32^2) and assembled [a, a, b, b]."""
+    x = rand(2, 8, grid, grid)
+    check_scan_mixer(JADNSSDMixer(8, headdim=4, linear_attn_duality=False, chunk_size=16),
+                     ADNSSDMixer(8, headdim=4, linear_attn_duality=False), x)
+
+
+@pytest.mark.parametrize("duality", [True, False])
+def test_vssd_mixer(duality):
+    """The bimamba branch as above: JAX in chunks of 16, the port in one."""
+    x = rand(2, 8, 16, 16, seed=1)
+    check_scan_mixer(JVSSDMixer(8, headdim=4, linear_attn_duality=duality, chunk_size=16),
+                     VSSDMixer(8, headdim=4, linear_attn_duality=duality), x)
 
 
 def test_mixer_rejects_an_odd_head_count():

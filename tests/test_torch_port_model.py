@@ -3,10 +3,14 @@ against the JAX package, on the CPU.
 
 The whole model runs at narrow widths (embed 8, refine 8, one wavelet
 level) at 32^2, and at 128^2, where the JAX refiner switches to its
-channel-major layout. Tolerance for the whole model: rtol 1e-4 / atol
-5e-5 on outputs of order 1, for fp32 sums taken in another order through
-some 150 layers in a row (the measured gap is below 1e-5). The predict
-CLI runs the full-width ``create_adnm_unet(5, 20, 6)`` at 32^2.
+channel-major layout; in its bimamba configurations
+(``linear_attn_duality=False``, ADN-SSD and VSSD mixers) at 32^2, where
+the refiner's L = 1024 makes four chunks of the scan. Tolerance for the
+whole model: rtol 1e-4 / atol 5e-5 on outputs of order 1, for fp32 sums
+taken in another order through some 150 layers in a row (the measured gap
+is below 1e-5). The predict CLI runs the full-width
+``create_adnm_unet(5, 20, 6)`` at 32^2, and ``predict.load_model`` its
+bimamba configuration.
 """
 
 from __future__ import annotations
@@ -50,6 +54,16 @@ def narrow_params():
     return random_params(jmodel.ADNMUNet(**NARROW), jnp.asarray(frames(1, 32)), train=False)
 
 
+@pytest.fixture(scope="module")
+def vssd_params():
+    return random_params(jmodel.ADNMUNet(**NARROW, mixer_type="vssd"), jnp.asarray(frames(1, 32)),
+                         train=False)
+
+
+# (mixer_type, linear_attn_duality): the configurations besides the default
+SCAN_CONFIGS = [("adnssd", False), ("vssd", True), ("vssd", False)]
+
+
 def test_schedule_headdim():
     assert [model.schedule_headdim(d) for d in (32, 128, 512, 768, 1024)] == [4, 8, 16, 24, 32]
 
@@ -59,6 +73,20 @@ def test_block(mode):
     args = (rand(2, 16, 8, 8),) if mode == "plain" else \
         (rand(2, 8, 8, 8), rand(2, 8, 8, 8, seed=1), rand(2, 8, 8, 8, seed=2))
     check_nchw(jmodel.Block(16, 12, 4), model.Block(16, 12, 4), *args)
+
+
+@pytest.mark.parametrize("mixer_type,duality", SCAN_CONFIGS)
+def test_block_with_each_mixer_configuration(mixer_type, duality):
+    kw = dict(linear_attn_duality=duality, mixer_type=mixer_type)
+    args = (rand(2, 8, 8, 8), rand(2, 8, 8, 8, seed=1), rand(2, 8, 8, 8, seed=2))
+    check_nchw(jmodel.Block(16, 12, 4, **kw), model.Block(16, 12, 4, **kw), *args)
+
+
+def test_unknown_mixer_or_attention_raises():
+    with pytest.raises(ValueError, match="mixer_type"):
+        model.Block(16, 16, 4, mixer_type="mamba")
+    with pytest.raises(NotImplementedError, match="mla"):
+        model.create_adnm_unet(5, 20, 6, attn_type="mla")
 
 
 def test_block_norms_are_kernel_k1():
@@ -86,6 +114,21 @@ def test_whole_model_matches_jax(size, narrow_params):
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=MODEL_ATOL)
 
 
+@pytest.mark.parametrize("mixer_type", ["adnssd", "vssd"])
+def test_whole_bimamba_model_matches_jax(mixer_type, narrow_params, vssd_params):
+    """The bimamba ADN-SSD tree is the duality tree; VSSD has its own."""
+    kw = dict(linear_attn_duality=False, mixer_type=mixer_type)
+    params = narrow_params if mixer_type == "adnssd" else vssd_params
+    x = frames(2, 32, seed=4)
+    want = np.asarray(jax_apply(jmodel.ADNMUNet(**NARROW, **kw), params, jnp.asarray(x),
+                                train=False))
+    m = convert.from_jax_params(model.ADNMUNet(**NARROW, **kw), params).eval()
+    with torch.no_grad():
+        got = m(torch.from_numpy(x)).numpy()
+    assert got.shape == (2, 20, 1, 32, 32)
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=MODEL_ATOL)
+
+
 def _without(tree, path):
     flat = convert.flatten_tree(tree)
     del flat[path]
@@ -103,6 +146,34 @@ def test_converter_is_strict_both_ways(narrow_params):
     bad = convert.unflatten_tree({**flat, "encoder/attn/gamma": np.ones(9, np.float32)})
     with pytest.raises(ValueError, match="encoder/attn/gamma"):
         convert.from_jax_params(model.ADNMUNet(**NARROW), bad)
+
+
+def test_converter_is_strict_on_the_vssd_tree(vssd_params):
+    m = model.ADNMUNet(**NARROW, mixer_type="vssd")
+    flat = convert.flatten_tree(vssd_params)
+    missing = "refiner/refiner2/mixer_0/conv2d/kernel"
+    with pytest.raises(KeyError, match=missing):
+        convert.from_jax_params(m, _without(vssd_params, missing))
+    extra = convert.unflatten_tree({**flat, "encoder/encoder4/mixer_0/alpha2": np.ones(())})
+    with pytest.raises(KeyError, match="encoder4/mixer_0/alpha2"):
+        convert.from_jax_params(m, extra)
+    bad = convert.unflatten_tree({**flat, "decoder/decoder1/mixer_0/A_log": np.ones(7)})
+    with pytest.raises(ValueError, match="decoder1/mixer_0/A_log"):
+        convert.from_jax_params(m, bad)
+    with pytest.raises(KeyError, match="no leaf 'encoder/encoder4/mixer_0/"):
+        convert.from_jax_params(model.ADNMUNet(**NARROW), vssd_params)  # ADN-SSD on a VSSD tree
+
+
+def test_converter_sets_every_vssd_parameter(vssd_params):
+    """VSSD reads every leaf of its own; only the Blocks' beta3/beta4 go unread."""
+    m = model.ADNMUNet(**NARROW, mixer_type="vssd")
+    with torch.no_grad():
+        for p in m.parameters():
+            p.fill_(float("nan"))
+    convert.from_jax_params(m, vssd_params)
+    assert all(torch.isfinite(p).all() for p in m.parameters())
+    n_flat = len(convert.flatten_tree(vssd_params))
+    assert sum(1 for _ in m.parameters()) + 10 * 2 == n_flat
 
 
 def test_converter_sets_every_port_parameter(narrow_params):
@@ -150,6 +221,21 @@ def test_predict_cli_reproduces_the_jax_forward(tmp_path):
     first = np.asarray(fwd(jp, jnp.asarray(x)))
     second = np.asarray(fwd(jp, jnp.asarray(np.clip(first[:, -5:], 0.0, 1.0))))
     want = np.concatenate([first, second], axis=1)[:, :30]
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=MODEL_ATOL)
+
+
+def test_predict_load_model_builds_the_bimamba_configuration(tmp_path):
+    """Full-width create_adnm_unet(5, 20, 6, linear_attn_duality=False) at
+    32^2 through ``predict.load_model`` and ``predict.forecast`` on the CPU."""
+    jm = jmodel.create_adnm_unet(5, 20, 6, linear_attn_duality=False)
+    x = frames(1, 32, seed=5)
+    params = random_params(jm, jnp.asarray(x), train=False)
+    convert.save_params_npz(str(tmp_path / "p.npz"), params)
+    cpu = torch.device("cpu")
+    m = predict.load_model(str(tmp_path / "p.npz"), cpu, linear_attn_duality=False)
+    assert not m.refiner.refiner1.mixer_0.linear_attn_duality
+    got = predict.forecast(m, x, 1, cpu)
+    want = np.asarray(jax_apply(jm, params, jnp.asarray(x), train=False))
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=MODEL_ATOL)
 
 

@@ -1,0 +1,132 @@
+"""The chunked SSD scan of the PyTorch port (kernel K2's plain version, its
+wrapper and the naive oracle) against the JAX package, on the CPU.
+
+The port's layout is sequence-minor, x (B, H, P, L), dt (B, H, L), B and C
+(B, N, L); JAX's is token-minor, x (B, L, H, P), dt (B, L, H), B and C
+(B, L, N): the same numpy inputs go to both, transposed. Tolerance rtol
+1e-4 / atol 1e-5 on outputs of order 1-30: both sides compute in fp32 and
+differ in the order of their sums (JAX's dots run at full fp32 precision
+in the tests). The CUDA kernel itself is held against the plain version
+on the card by ``tests/test_torch_port_cuda.py``.
+"""
+
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from adnm_tpu.ops import ssd as jssd
+from adnm_tpu.ops.pallas import ssd_chunked_scan_pallas
+from adnm_tpu_torch.ops import ssd
+from test_torch_port_layers import one_torch_thread  # noqa: F401 (a fixture)
+
+RTOL, ATOL = 1e-4, 1e-5
+
+
+def scan_inputs(b, h, p, n, l, seed=0, carry=False):
+    """The model's scales, or with ``carry`` |dA| ~ 3e-4 (A in [-0.05,
+    -0.01], dt ~ 0.01), where the state carried between chunks dominates y."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(b, h, p, l)
+    if carry:
+        dt, A = rng.uniform(0.005, 0.015, (b, h, l)), -rng.uniform(0.01, 0.05, h)
+    else:
+        dt, A = np.log1p(np.exp(rng.randn(b, h, l) - 2)), -np.exp(rng.uniform(0, 2.77, h))
+    B, C = rng.randn(b, n, l), rng.randn(b, n, l)
+    D = rng.uniform(0.5, 1.5, h)
+    return [a.astype(np.float32) for a in (x, dt, A, B, C, D)]
+
+
+def to_jax(x, dt, A, B, C, D):
+    return (jnp.asarray(x.transpose(0, 3, 1, 2)), jnp.asarray(dt.transpose(0, 2, 1)),
+            jnp.asarray(A), jnp.asarray(B.transpose(0, 2, 1)), jnp.asarray(C.transpose(0, 2, 1)),
+            jnp.asarray(D))
+
+
+def from_jax(y) -> np.ndarray:
+    return np.asarray(y).transpose(0, 2, 3, 1)
+
+
+def flip_l(*arrays):
+    return [np.ascontiguousarray(a[..., ::-1]) if a.ndim > 1 else a for a in arrays]
+
+
+@pytest.mark.parametrize("b,h,p,n,l,chunk,carry", [
+    (2, 3, 4, 5, 64, 256, False),   # one chunk, q = L < chunk
+    (1, 4, 4, 16, 256, 64, False),  # four chunks
+    (2, 2, 2, 8, 96, 16, True),     # six chunks, the carry dominates
+    (1, 3, 8, 16, 1024, 256, True),  # the encoder4 Blocks' L and chunk
+])
+def test_plain_version_matches_jax_chunked_scan(b, h, p, n, l, chunk, carry):
+    args = scan_inputs(b, h, p, n, l, seed=l, carry=carry)
+    want = from_jax(jssd.ssd_chunked_scan(*to_jax(*args), chunk_size=chunk))
+    got = ssd.ssd_chunked_scan(*map(torch.from_numpy, args), chunk_size=chunk).numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("carry", [False, True])
+def test_plain_and_naive_scans_match_the_jax_oracle(carry):
+    args = scan_inputs(2, 3, 4, 8, 128, seed=1, carry=carry)
+    want = from_jax(jssd.ssd_naive_scan(*to_jax(*args)))
+    t_args = list(map(torch.from_numpy, args))
+    np.testing.assert_allclose(ssd.ssd_naive_scan(*t_args).numpy(), want, rtol=RTOL, atol=ATOL)
+    got = ssd.ssd_chunked_scan_reference(*t_args, chunk_size=16).numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+def test_the_carry_case_depends_on_the_carry():
+    """Scanning the second half alone drops what the first half's state
+    adds: in the small-|dA| case that is far above the tolerance."""
+    x, dt, A, B, C, D = map(torch.from_numpy, scan_inputs(1, 4, 4, 16, 512, carry=True))
+    y = ssd.ssd_chunked_scan(x, dt, A, B, C, D, chunk_size=64)
+    alone = ssd.ssd_chunked_scan(*(t[..., 256:] for t in (x, dt)), A,
+                                 *(t[..., 256:] for t in (B, C)), D, chunk_size=64)
+    assert (y[..., 256:] - alone).abs().mean() > 0.1
+
+
+def test_reverse_is_the_flipped_scan_of_the_bimamba_path():
+    """``reverse=True`` is what the JAX mixers do for path 2: flip x, dt, B
+    and C along L, scan, flip the result back."""
+    args = scan_inputs(2, 4, 4, 16, 256, seed=2, carry=True)
+    x, dt, A, B, C, D = args
+    fx, fdt, fB, fC = flip_l(x, dt, B, C)
+    want = from_jax(jssd.ssd_chunked_scan(*to_jax(fx, fdt, A, fB, fC, D), chunk_size=64))[..., ::-1]
+    got = ssd.ssd_chunked_scan(*map(torch.from_numpy, args), chunk_size=64, reverse=True)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
+def test_plain_version_matches_the_pallas_kernel():
+    """ssd_chunked_scan_pallas in interpret mode, as the JAX package's tests
+    run it on the CPU; two chunks of 16."""
+    args = scan_inputs(1, 2, 4, 8, 32, seed=3)
+    want = from_jax(ssd_chunked_scan_pallas(*to_jax(*args), 16))
+    got = ssd.ssd_chunked_scan_reference(*map(torch.from_numpy, args), chunk_size=16).numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=1e-4)
+
+
+def test_cpu_tensor_takes_the_plain_version_without_launching():
+    args = list(map(torch.from_numpy, scan_inputs(1, 2, 4, 16, 64)))
+    before = ssd.ssd_chunked_scan.launches
+    got = ssd.ssd_chunked_scan(*args, chunk_size=32)
+    assert ssd.ssd_chunked_scan.launches == before
+    assert torch.equal(got, ssd.ssd_chunked_scan_reference(*args, chunk_size=32))
+
+
+def test_wrapper_raises_on_a_gradient_a_ragged_chunk_and_other_devices():
+    x, dt, A, B, C, D = map(torch.from_numpy, scan_inputs(1, 2, 4, 16, 96))
+    with pytest.raises(RuntimeError, match="forward only"):
+        ssd.ssd_chunked_scan(x.requires_grad_(), dt, A, B, C, D)
+    x = x.detach()
+    with torch.no_grad():
+        ssd.ssd_chunked_scan(x, dt, A, B, C, D.requires_grad_())  # no gradient is needed
+    with pytest.raises(ValueError, match="not a multiple of the chunk 64"):
+        ssd.ssd_chunked_scan(x, dt, A, B, C, D.detach(), chunk_size=64)
+    with pytest.raises(ValueError, match="not a multiple"):
+        ssd.ssd_chunked_scan_reference(x, dt, A, B, C, D.detach(), chunk_size=64)
+    with pytest.raises(ValueError, match="shapes do not fit"):
+        ssd.ssd_chunked_scan(x, dt[:, :1], A, B, C, D.detach())
+    meta = [t.detach().to("meta") for t in (x, dt, A, B, C, D)]
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        ssd.ssd_chunked_scan(*meta)
