@@ -1,0 +1,81 @@
+"""Shared CLI plumbing of the port (counterpart of adnm_tpu/cli/common.py):
+flags, the task shape, and the Trainer and loaders they build."""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+from adnm_tpu_torch.cli.predict import resolve_device
+from adnm_tpu_torch.data.loader import BatchLoader
+from adnm_tpu_torch.data.shanghai import make_datasets
+from adnm_tpu_torch.models.adnm_unet import apply_reference_init, create_adnm_unet
+from adnm_tpu_torch.train.loop import Trainer
+from adnm_tpu_torch.train.presets import get_preset
+
+PORTED_MODELS = ("ADNMUnet",)
+
+
+def add_common_args(p: argparse.ArgumentParser):
+    p.add_argument("--model", default="ADNMUnet",
+                   help="model name; only ADNMUnet is ported, the baselines raise")
+    p.add_argument("--dataset", default="Shanghai", choices=["Shanghai", "LAPS"],
+                   help="LAPS is not ported and raises")
+    p.add_argument("--data-path", default=os.environ.get("ADNM_DATA", "datasets/shanghai.h5"))
+    p.add_argument("--synthetic", action="store_true",
+                   help="use the synthetic dataset (no h5 needed)")
+    p.add_argument("--synthetic-len", type=int, default=64)
+    p.add_argument("--img-size", type=int, default=256)
+    p.add_argument("--batch-size", type=int, default=4)
+    p.add_argument("--root", default=os.environ.get("ADNM_ROOT", "runs"),
+                   help="output root for model_params/ and results/ (reference: config.py:5)")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute the whole training forward in the backward "
+                        "(torch.utils.checkpoint): less activation memory, more "
+                        "step time, the same gradients")
+    p.add_argument("--no-refiner-remat", action="store_true",
+                   help="keep the refiner Blocks' activations instead of recomputing "
+                        "their forward in the backward: faster step, more memory")
+    p.add_argument("--attn-type", default="standard", choices=["standard", "mla"],
+                   help="mixer at the AttentionBlock sites; mla is not ported and raises")
+    p.add_argument("--transfer-dtype", default="float32", choices=["float32", "uint8"],
+                   help="batch wire format host->device; uint8 ships round(x*255) "
+                        "and normalizes on the device (4x fewer bytes)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; raises when CUDA is absent) or cpu")
+
+
+def task_shape(args):
+    """(input_frames, output_frames, frame_interval) of the Shanghai task
+    (reference: train.py:40-66)."""
+    if args.dataset != "Shanghai":
+        raise NotImplementedError(f"dataset {args.dataset!r} is not ported (only Shanghai)")
+    return 5, 20, 6
+
+
+def build(args):
+    """(Trainer, (train, val, test) loaders)."""
+    if args.model not in PORTED_MODELS:
+        raise NotImplementedError(f"--model {args.model!r} is not ported (only ADNMUnet)")
+    if args.attn_type != "standard":
+        raise NotImplementedError(f"--attn-type {args.attn_type!r} is not ported")
+    input_frames, output_frames, frame_interval = task_shape(args)
+    device = resolve_device(args.device)
+    accum = getattr(args, "accum_steps", 1) or 1
+    if args.batch_size % accum:
+        raise SystemExit(f"--accum-steps {accum} must divide --batch-size {args.batch_size}")
+    model = create_adnm_unet(input_frames, output_frames, frame_interval,
+                             refiner_remat=not args.no_refiner_remat)
+    preset = get_preset(args.model, input_frames, output_frames, frame_interval, args.dataset)
+    trainer = Trainer(model, preset, input_frames, device, seed=args.seed,
+                      param_transform=apply_reference_init, remat_forward=args.remat,
+                      accum_steps=accum)
+    data_path = None if args.synthetic else args.data_path
+    tr, va, te = make_datasets(data_path, args.img_size, synthetic_len=args.synthetic_len)
+    tdt = args.transfer_dtype
+    return trainer, (
+        BatchLoader(tr, args.batch_size, shuffle=True, seed=args.seed, transfer_dtype=tdt),
+        BatchLoader(va, args.batch_size, drop_last=False, transfer_dtype=tdt),
+        BatchLoader(te, args.batch_size, drop_last=False, transfer_dtype=tdt),
+    )

@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from adnm_tpu_torch.ops.rms_norm import rms_norm
+from adnm_tpu_torch.ops.rms_norm import gated_rms_norm, rms_norm
 
 IntPair = Union[int, Tuple[int, int]]
 
@@ -77,6 +77,22 @@ class RMSNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return rms_norm(x, self.weight, self.eps, self.axis)
+
+
+class GatedRMSNorm(nn.Module):
+    """``RMSNorm(x * silu(z)) * weight`` over ``axis``, the norm after the
+    gate, as the JAX module's code and the Pallas kernel compute it (its
+    docstring, ``RMSNorm(x) * silu(z)``, says otherwise): kernel K3 on CUDA
+    tensors, its plain version on CPU tensors; forward only."""
+
+    def __init__(self, dim: int, eps: float = 1e-6, axis: int = -1):
+        super().__init__()
+        self.eps = eps
+        self.axis = axis
+        self.weight = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+        return gated_rms_norm(x, z, self.weight, self.eps, self.axis)
 
 
 class InstanceNorm(nn.Module):

@@ -8,18 +8,25 @@ features) and Refiner (4 Blocks at full resolution + the OutProj head
 with the last-input-frame residual). Contract:
 (B, T_in, 1, H, W) -> (B, T_out, 1, H, W).
 
-Ported for serving: the ADN-SSD and VSSD mixers (``mixer_type``), each
-with the duality or the bimamba chunked scan (``linear_attn_duality``),
-and softmax attention; the decoder computes only the features it consumes
-(the JAX default, ``compute_dead_features=False``).
+The ADN-SSD and VSSD mixers (``mixer_type``), each with the duality or
+the bimamba chunked scan (``linear_attn_duality``), and softmax attention;
+the decoder computes only the features it consumes (the JAX default,
+``compute_dead_features=False``). Trained through the duality only: the
+chunked scan (K2) is forward only. ``refiner_remat`` recomputes each
+refiner Block's forward in the backward, as the JAX model does;
+``apply_reference_init`` is the reference's init scheme.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from adnm_tpu_torch.convert import jax_keys
 
 from adnm_tpu_torch.core.blocks import (
     ChannelAttBridge,
@@ -238,13 +245,19 @@ class Decoder(nn.Module):
 
 
 class Refiner(nn.Module):
-    """Four Blocks at full resolution, then the OutProj head."""
+    """Four Blocks at full resolution, then the OutProj head. With
+    ``remat``, while gradients are enabled, each Block runs under
+    ``torch.utils.checkpoint``: the backward recomputes its forward instead
+    of keeping its activations (the 65,536-token mixers), as the JAX model's
+    ``nn.remat`` does."""
 
     def __init__(self, refine_dim: Sequence[int], refine_depth: Sequence[int],
                  refine_headdim: Sequence[int], out_channels: int, out_expand: int = 2,
                  norm_epsilon: float = 1e-5, instance_norm: bool = True,
-                 linear_attn_duality: bool = True, mixer_type: str = "adnssd"):
+                 linear_attn_duality: bool = True, mixer_type: str = "adnssd",
+                 remat: bool = True):
         super().__init__()
+        self.remat = remat
         rd = refine_dim
         for i in range(4):
             self.add_module(f"refiner{i + 1}", Block(
@@ -254,7 +267,11 @@ class Refiner(nn.Module):
 
     def forward(self, x: torch.Tensor, res: torch.Tensor) -> torch.Tensor:
         for i in range(4):
-            x = getattr(self, f"refiner{i + 1}")(x)
+            block = getattr(self, f"refiner{i + 1}")
+            if self.remat and torch.is_grad_enabled():
+                x = checkpoint(block, x, use_reentrant=False)
+            else:
+                x = block(x)
         return self.out_proj(x, res)
 
 
@@ -269,7 +286,7 @@ class ADNMUNet(nn.Module):
                  ratio: Sequence[int] = (2, 2, 2, 2, 2, 2), wt_levels: Sequence[int] = (3, 2, 1),
                  out_expand: int = 2, norm_epsilon: float = 1e-6, instance_norm: bool = True,
                  linear_attn_duality: bool = True, mixer_type: str = "adnssd",
-                 attn_type: str = "standard"):
+                 attn_type: str = "standard", refiner_remat: bool = True):
         super().__init__()
         if attn_type != "standard":
             raise NotImplementedError(f"attn_type {attn_type!r}: only 'standard' is ported")
@@ -279,7 +296,8 @@ class ADNMUNet(nn.Module):
         self.decoder = Decoder(embed_dim, depth, headdim, refine_dim, kernel, ratio, wt_levels,
                                norm_epsilon, instance_norm, **mix)
         self.refiner = Refiner(refine_dim, refine_depth, refine_headdim, out_channels,
-                               out_expand, norm_epsilon, instance_norm, **mix)
+                               out_expand, norm_epsilon, instance_norm, **mix,
+                               remat=refiner_remat)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x, skips, res = self.encoder(x[:, :, 0])  # frames as NCHW channels
@@ -291,7 +309,8 @@ def create_adnm_unet(input_frames: int, output_frames: int, frame_interval: int,
                      **kwargs) -> ADNMUNet:
     """Reference: models/ADNMUNet.py:906-940 (create_ADNMUNet). The model
     takes any frame size that five halvings divide; ``kwargs`` go to
-    ``ADNMUNet`` (``linear_attn_duality``, ``mixer_type``)."""
+    ``ADNMUNet`` (``linear_attn_duality``, ``mixer_type``,
+    ``refiner_remat``)."""
     refine_dim = (32, 32, 32, 32) if output_frames > 5 else (32, 32, 16, 16)
     if frame_interval < 120 / input_frames:
         instance_norm, kernel = True, (5, 5, 5)
@@ -304,3 +323,41 @@ def create_adnm_unet(input_frames: int, output_frames: int, frame_interval: int,
         ratio=(2, 2, 2, 2, 2, 2), wt_levels=(3, 2, 1), out_expand=2, norm_epsilon=1e-6,
         instance_norm=instance_norm, **kwargs,
     )
+
+
+def _trunc_normal_(t: torch.Tensor, gen: torch.Generator, std: float, bound: float = 2.0):
+    """N(0, 1) truncated to [-bound, bound], times ``std`` (as
+    ``jax.random.truncated_normal``): the inverse CDF of a uniform draw."""
+    lo = (1.0 + math.erf(-bound / math.sqrt(2.0))) / 2.0
+    t.uniform_(2.0 * lo - 1.0, 1.0 - 2.0 * lo, generator=gen).erfinv_()
+    t.mul_(math.sqrt(2.0)).clamp_(-bound, bound).mul_(std)
+
+
+def apply_reference_init(model: nn.Module, gen: torch.Generator) -> nn.Module:
+    """Reference init scheme (models/ADNMUNet.py:294-323,794-804), the
+    counterpart of the JAX ``apply_reference_init``: every Dense kernel
+    (a 2-D ``kernel`` leaf of the JAX tree) gets trunc_normal(0.02), then
+    the ``out_proj`` and ``fc2`` kernels kaiming_uniform(a=sqrt(5)) /
+    sqrt(3) (the reference's n_layer), and the biases of those Dense
+    modules are zeroed. The
+    leaves are found by their JAX paths (``convert.jax_keys``); the values
+    come from ``gen``, so they differ from JAX's draws."""
+    params = dict(model.named_parameters())
+    keys = jax_keys(model)
+
+    def is_dense_kernel(name: str) -> bool:
+        return keys[name].endswith("/kernel") and params[name].dim() == 2
+
+    dense = {keys[name].rpartition("/")[0] for name in params if is_dense_kernel(name)}
+    with torch.no_grad():
+        for name, p in params.items():
+            module_path, _, leaf = keys[name].rpartition("/")
+            if is_dense_kernel(name):
+                if module_path.rpartition("/")[2] in ("out_proj", "fc2"):
+                    bound = 1.0 / math.sqrt(p.shape[1])  # fan_in: the JAX kernel's rows
+                    p.uniform_(-bound, bound, generator=gen).div_(math.sqrt(3.0))
+                else:
+                    _trunc_normal_(p, gen, 0.02)
+            elif leaf == "bias" and module_path in dense:
+                p.zero_()
+    return model

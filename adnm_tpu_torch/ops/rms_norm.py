@@ -1,12 +1,19 @@
-"""RMS normalisation over one axis: kernel K1 and its plain version.
+"""RMS normalisation over one axis: kernel K1, its backward, and kernel K3.
 
 ``rms_norm`` computes ``y = x * rsqrt(mean(x^2) + eps) * weight`` over
 ``axis`` with fp32 statistics and returns ``x``'s dtype, the function of
 the Pallas kernel ``adnm_tpu/ops/pallas/fused_norm.py::rms_norm_pallas``
-(there over the last axis only). A CPU tensor goes to
-``rms_norm_reference``; a CUDA tensor goes to the hand-written Hopper
-kernel in ``csrc/rms_norm.cu`` or the call raises. Forward only: a call
-that would need a gradient through the kernel raises.
+(there over the last axis only). It is differentiable: a
+``torch.autograd.Function`` whose backward is ``rms_norm_backward``.
+
+``gated_rms_norm`` computes ``RMSNorm(x * silu(z)) * weight``, the function
+of ``gated_rms_norm_pallas`` (K3), forward only, as the Pallas kernel has
+no VJP.
+
+A CPU tensor goes to the plain PyTorch versions (``rms_norm_reference``,
+``rms_norm_backward_reference``, ``gated_rms_norm_reference``); a CUDA
+tensor goes to the hand-written Hopper kernels in ``csrc/rms_norm.cu`` or
+the call raises. Each wrapper counts its kernel launches in ``launches``.
 """
 
 from __future__ import annotations
@@ -14,13 +21,26 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from adnm_tpu_torch.ops._build import load_library
 
 SOURCES = ("rms_norm.cu",)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# What the backward kernel keeps in 48 KB of shared memory: 8 warps x d
+# fp32 sums on the last axis, C fp32 sums (beside two small tiles) on an
+# inner axis.
+MAX_BACKWARD_ROW_D = 1536
+MAX_BACKWARD_C = 11264
+
+
+def _axis_shape(x: torch.Tensor, axis: int):
+    shape = [1] * x.dim()
+    shape[axis] = -1
+    return shape
 
 
 def rms_norm_reference(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
@@ -29,61 +49,195 @@ def rms_norm_reference(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
     axis = axis % x.dim()
     xf = x.float()
     ms = xf.square().mean(dim=axis, keepdim=True)
-    shape = [1] * x.dim()
-    shape[axis] = -1
-    return (xf * torch.rsqrt(ms + eps) * weight.float().view(shape)).to(x.dtype)
+    return (xf * torch.rsqrt(ms + eps) * weight.float().view(_axis_shape(x, axis))).to(x.dtype)
+
+
+def rms_norm_backward_reference(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor,
+                                eps: float = 1e-6,
+                                axis: int = -1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the backward kernel: with
+    ``r = rsqrt(mean(x^2) + eps)`` and ``gw = dy * w``,
+    ``dx = r*gw - x*r^3*mean(gw*x)`` over ``axis`` (in x's dtype) and
+    ``dw = sum(dy * x * r)`` over every other axis (fp32)."""
+    axis = axis % x.dim()
+    xf, gf = x.float(), dy.float()
+    r = torch.rsqrt(xf.square().mean(dim=axis, keepdim=True) + eps)
+    gw = gf * weight.float().view(_axis_shape(x, axis))
+    dx = r * gw - xf * r.pow(3) * (gw * xf).mean(dim=axis, keepdim=True)
+    others = [d for d in range(x.dim()) if d != axis]
+    dw = gf * xf * r
+    return dx.to(x.dtype), (dw.sum(dim=others) if others else dw)
+
+
+def gated_rms_norm_reference(x: torch.Tensor, z: torch.Tensor, weight: torch.Tensor,
+                             eps: float = 1e-6, axis: int = -1) -> torch.Tensor:
+    """Plain PyTorch version of K3: ``g = x * silu(z)`` in fp32, then the
+    RMS norm of ``g`` over ``axis`` scaled by ``weight``, in x's dtype."""
+    axis = axis % x.dim()
+    g = x.float() * F.silu(z.float())
+    ms = g.square().mean(dim=axis, keepdim=True)
+    return (g * torch.rsqrt(ms + eps) * weight.float().view(_axis_shape(x, axis))).to(x.dtype)
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = load_library("rms_norm", SOURCES)
-    lib.adnm_rms_norm.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-    ]
-    lib.adnm_rms_norm.restype = ctypes.c_int
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.adnm_rms_norm.argtypes = [p, p, p, i64, i64, i64, ctypes.c_float, ctypes.c_int, p]
+    lib.adnm_gated_rms_norm.argtypes = [p, p, p, p, i64, i64, i64, ctypes.c_float,
+                                        ctypes.c_int, p]
+    lib.adnm_rms_norm_backward.argtypes = [p, p, p, p, p, p, i64, i64, i64, ctypes.c_float,
+                                           ctypes.c_int, i64, p]
+    lib.adnm_rms_norm_backward_grid.argtypes = [i64, i64]
+    lib.adnm_rms_norm_backward_grid.restype = i64
+    for fn in (lib.adnm_rms_norm, lib.adnm_gated_rms_norm, lib.adnm_rms_norm_backward):
+        fn.restype = ctypes.c_int
     lib.adnm_cuda_error_string.argtypes = [ctypes.c_int]
     lib.adnm_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
-             axis: int = -1) -> torch.Tensor:
-    """RMS norm of ``x`` over ``axis`` scaled by ``weight`` (shape (C,))."""
+def _check(name: str, x: torch.Tensor, weight: torch.Tensor, axis: int, *like: torch.Tensor):
+    """(axis, C) after checking the shapes; for a CUDA ``x``, also what the
+    kernels take: device, dtypes and contiguity of x, weight and ``like``
+    (tensors of x's shape and dtype). Raises on anything else."""
     if x.dim() == 0:
-        raise ValueError("rms_norm needs at least one axis")
+        raise ValueError(f"{name} needs at least one axis")
     axis = axis % x.dim()
     c = x.shape[axis]
     if weight.shape != (c,):
         raise ValueError(f"weight shape {tuple(weight.shape)} != ({c},)")
+    for t in like:
+        if t.shape != x.shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)} != x's {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return axis, c
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} runs on CPU or CUDA tensors, got {x.device}")
+    for t in (weight, *like):
+        if t.device != x.device:
+            raise ValueError(f"{name}: a tensor on {t.device}, x on {x.device}")
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{name} kernel takes float32 or bfloat16 x, got {x.dtype}")
+    if weight.dtype != torch.float32:
+        raise TypeError(f"{name} kernel takes a float32 weight, got {weight.dtype}")
+    for t in like:
+        if t.dtype != x.dtype:
+            raise TypeError(f"{name} kernel takes one dtype for x and {t.dtype} != {x.dtype}")
+    if not all(t.is_contiguous() for t in (x, weight, *like)):
+        raise ValueError(f"{name} kernel needs contiguous tensors")
+    return axis, c
+
+
+def _raise_on(lib, rc: int, name: str) -> None:
+    if rc != 0:
+        msg = lib.adnm_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} ({msg})")
+
+
+def _outer_inner(x: torch.Tensor, axis: int):
+    return math.prod(x.shape[:axis]), math.prod(x.shape[axis + 1:])
+
+
+def _forward(x: torch.Tensor, weight: torch.Tensor, eps: float, axis: int) -> torch.Tensor:
+    """K1 forward on a CUDA tensor, the plain version on a CPU tensor."""
+    axis, c = _check("rms_norm", x, weight, axis)
     if x.device.type == "cpu":
         return rms_norm_reference(x, weight, eps, axis)
-    if x.device.type != "cuda":
-        raise ValueError(f"rms_norm runs on CPU or CUDA tensors, got {x.device}")
-    if weight.device != x.device:
-        raise ValueError(f"weight on {weight.device}, x on {x.device}")
-    if x.dtype not in _DTYPE_CODES:
-        raise TypeError(f"rms_norm kernel takes float32 or bfloat16 x, got {x.dtype}")
-    if weight.dtype != torch.float32:
-        raise TypeError(f"rms_norm kernel takes a float32 weight, got {weight.dtype}")
-    if not (x.is_contiguous() and weight.is_contiguous()):
-        raise ValueError("rms_norm kernel needs contiguous x and weight")
-    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
-        raise RuntimeError("the rms_norm CUDA kernel is forward only (no backward yet)")
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-    outer = math.prod(x.shape[:axis])
-    inner = math.prod(x.shape[axis + 1:])
+    outer, inner = _outer_inner(x, axis)
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.adnm_rms_norm(x.data_ptr(), weight.data_ptr(), y.data_ptr(),
                                outer, c, inner, float(eps), _DTYPE_CODES[x.dtype], stream)
-    if rc != 0:
-        msg = lib.adnm_cuda_error_string(rc).decode()
-        raise RuntimeError(f"rms_norm kernel launch failed: CUDA error {rc} ({msg})")
+    _raise_on(lib, rc, "rms_norm")
     rms_norm.launches += 1
     return y
 
 
-rms_norm.launches = 0  # kernel launches since the last reset (set to 0 to reset)
+def rms_norm_backward(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor,
+                      eps: float = 1e-6, axis: int = -1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dx, dw) of ``rms_norm(x, weight, eps, axis)`` for the output
+    gradient ``dy``: the K1 backward kernel on CUDA tensors (dx in x's
+    dtype, dw fp32, bit-equal from run to run), the plain version on CPU
+    tensors."""
+    axis, c = _check("rms_norm_backward", x, weight, axis, dy)
+    if x.device.type == "cpu":
+        return rms_norm_backward_reference(x, weight, dy, eps, axis)
+    outer, inner = _outer_inner(x, axis)
+    limit = MAX_BACKWARD_ROW_D if inner == 1 else MAX_BACKWARD_C
+    if c > limit:
+        raise ValueError(f"rms_norm_backward kernel takes at most {limit} channels on this "
+                         f"axis, got {c}")
+    lib = _library()
+    grid = lib.adnm_rms_norm_backward_grid(outer, inner)
+    dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    partial = torch.empty((grid, c), dtype=torch.float32, device=x.device)
+    dw = torch.empty((c,), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.adnm_rms_norm_backward(x.data_ptr(), weight.data_ptr(), dy.data_ptr(),
+                                        dx.data_ptr(), partial.data_ptr(), dw.data_ptr(),
+                                        outer, c, inner, float(eps), _DTYPE_CODES[x.dtype],
+                                        grid, stream)
+    _raise_on(lib, rc, "rms_norm_backward")
+    rms_norm_backward.launches += 1
+    return dx, dw
+
+
+class _RMSNorm(torch.autograd.Function):
+    """K1 forward, and ``rms_norm_backward`` for the gradients. The
+    backward recomputes the statistics from the saved x, which it reads
+    anyway, so the forward saves nothing beyond its inputs."""
+
+    @staticmethod
+    def forward(ctx, x, weight, eps, axis):
+        ctx.save_for_backward(x, weight)
+        ctx.eps, ctx.axis = eps, axis
+        return _forward(x, weight, eps, axis)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight = ctx.saved_tensors
+        dx, dw = rms_norm_backward(x, weight, dy.contiguous(), ctx.eps, ctx.axis)
+        return dx, dw, None, None
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
+             axis: int = -1) -> torch.Tensor:
+    """RMS norm of ``x`` over ``axis`` scaled by ``weight`` (shape (C,));
+    differentiable in x and weight."""
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
+        return _RMSNorm.apply(x, weight, eps, axis)
+    return _forward(x, weight, eps, axis)
+
+
+def gated_rms_norm(x: torch.Tensor, z: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
+                   axis: int = -1) -> torch.Tensor:
+    """K3: RMS norm of ``x * silu(z)`` over ``axis`` scaled by ``weight``,
+    in x's dtype. Forward only on every device, so that nothing trains
+    through the plain version on the CPU what the kernel cannot train on
+    the card."""
+    axis, c = _check("gated_rms_norm", x, weight, axis, z)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, z, weight)):
+        raise RuntimeError("gated_rms_norm is forward only (K3 has no backward yet)")
+    if x.device.type == "cpu":
+        return gated_rms_norm_reference(x, z, weight, eps, axis)
+    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    outer, inner = _outer_inner(x, axis)
+    lib = _library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.adnm_gated_rms_norm(x.data_ptr(), z.data_ptr(), weight.data_ptr(), y.data_ptr(),
+                                     outer, c, inner, float(eps), _DTYPE_CODES[x.dtype], stream)
+    _raise_on(lib, rc, "gated_rms_norm")
+    gated_rms_norm.launches += 1
+    return y
+
+
+# Kernel launches since the last reset (set to 0 to reset); one backward
+# launch is the dx kernel and the dw reduction after it.
+rms_norm.launches = 0
+rms_norm_backward.launches = 0
+gated_rms_norm.launches = 0

@@ -1,0 +1,263 @@
+"""The training loop (counterpart of adnm_tpu/train/loop.py; reference:
+train.py:107-250), on one device.
+
+One step per batch: forward, loss, backward (with gradient accumulation
+over ``accum_steps`` microbatches), the global fp32 gradient norm, the
+adaptive clip, the epoch's LR and an AdamW step. LR and clip threshold are
+host-side scalars set per epoch, as in the reference's per-epoch Python
+schedules (train.py:122-130,186-191). Losses and gradient norms stay on
+the device until the epoch ends, so the host never waits for a step.
+
+As in the JAX package, validation consumes the val batches (the
+reference re-evaluates the last training batch, train.py:159-160).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import glob
+import json
+import os
+import time
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from adnm_tpu_torch.core.layers import seeded_init_
+from adnm_tpu_torch.data.loader import device_prefetch, to_device
+from adnm_tpu_torch.train import checkpoint as ckpt
+from adnm_tpu_torch.train.presets import TrainPreset
+
+
+@dataclasses.dataclass
+class EpochLog:
+    epoch: int
+    train_loss: float
+    val_loss: float
+    test_loss: float
+    lr: float
+    grad_norm_avg: float
+    clip_threshold: float
+    clip_ratio: float
+    seconds: float
+
+
+class Trainer:
+    def __init__(self, model: nn.Module, preset: TrainPreset, input_frames: int,
+                 device: torch.device, seed: int = 0,
+                 param_transform: Optional[Callable[[nn.Module, torch.Generator], nn.Module]] = None,
+                 remat_forward: bool = False, accum_steps: int = 1):
+        """The model's weights come from the init seeded with ``seed``
+        (``seeded_init_``, on the CPU), then ``param_transform(model,
+        generator seeded with seed + 1)`` (``apply_reference_init`` for
+        ADNMUnet); then the model moves to ``device``.
+
+        ``remat_forward=True`` runs the whole training forward under
+        ``torch.utils.checkpoint``: the backward recomputes it instead of
+        keeping activations; the gradients are the same.
+
+        ``accum_steps=m`` (m > 1) splits each batch into m equal
+        microbatches, runs them one after another and averages their
+        gradients before one optimizer step: activation memory drops about
+        m-fold. Exact for the reference losses, which are elementwise
+        means. Needs batch % accum_steps == 0."""
+        if accum_steps < 1:
+            raise ValueError("accum_steps must be >= 1")
+        self.model = model
+        self.preset = preset
+        self.input_frames = input_frames
+        self.device = device
+        self.remat_forward = remat_forward
+        self.accum_steps = int(accum_steps)
+        seeded_init_(model, seed)
+        if param_transform is not None:
+            param_transform(model, torch.Generator().manual_seed(seed + 1))
+        model.to(device)
+        self.params = list(model.parameters())
+        self.optimizer = preset.make_optimizer(self.params)
+        self.step = 0
+
+    # ---- one batch ----------------------------------------------------
+
+    def _split_batch(self, batch: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(imgs, targets) from a (B, T_in+T_out, 1, S, S) batch, in one of
+        two wire formats: float (already in [0, 1]) or uint8 (round(x*255),
+        brought back to [0, 1] in fp32 on the device)."""
+        if not batch.is_floating_point():
+            batch = batch.to(torch.float32) * (1.0 / 255.0)
+        return batch[:, :self.input_frames], batch[:, self.input_frames:]
+
+    def _forward(self, imgs: torch.Tensor) -> torch.Tensor:
+        if self.remat_forward and torch.is_grad_enabled():
+            return checkpoint(self.model, imgs, use_reentrant=False)
+        return self.model(imgs)
+
+    def _backward(self, batch: torch.Tensor) -> torch.Tensor:
+        """The batch's loss, with its gradients in the parameters' ``grad``
+        (the mean over the microbatches). A parameter the loss does not
+        reach gets a zero gradient, as in JAX, so AdamW still decays it."""
+        imgs, targets = self._split_batch(batch)
+        m = self.accum_steps
+        if imgs.shape[0] % m:
+            raise ValueError(f"batch {imgs.shape[0]} not divisible by accum_steps {m}")
+        for p in self.params:
+            p.grad = None
+        loss = torch.zeros((), device=imgs.device)
+        for im, tg in zip(imgs.chunk(m), targets.chunk(m)):
+            part = self.preset.loss_fn(self._forward(im).float(), tg)
+            part.backward()
+            loss = loss + part.detach()
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            elif m > 1:
+                p.grad.div_(m)
+        return loss / m
+
+    def grads(self, batch: np.ndarray) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(loss, {parameter name: gradient}) of one host batch, with no
+        optimizer step."""
+        loss = self._backward(to_device(batch, self.device))
+        return loss, {name: p.grad for name, p in self.model.named_parameters()}
+
+    def train_step(self, batch: torch.Tensor, lr: float,
+                   clip_norm: float) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(loss, global gradient norm) on the device, after one step: the
+        gradients scaled by min(1, clip_norm / (norm + 1e-6)), then AdamW at
+        ``lr``."""
+        loss = self._backward(batch)
+        # the same scale: clip_grad_norm_ multiplies by
+        # clamp(max_norm / (norm + 1e-6), max=1)
+        gnorm = nn.utils.clip_grad_norm_(self.params, clip_norm)
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr
+        self.optimizer.step()
+        self.step += 1
+        return loss, gnorm
+
+    @torch.no_grad()
+    def eval_step(self, batch: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        imgs, targets = self._split_batch(batch)
+        out = self.model(imgs).float()
+        return self.preset.loss_fn(out, targets), out
+
+    # ---- loops ----------------------------------------------------------
+
+    def train_epoch(self, loader, lr: float, clip_norm: float) -> Dict[str, float]:
+        losses, gnorms = [], []
+        for batch in device_prefetch(loader, self.device):
+            loss, gnorm = self.train_step(batch, lr, clip_norm)
+            losses.append(loss)
+            gnorms.append(gnorm)
+        losses = torch.stack(losses).cpu().numpy() if losses else np.zeros(0, np.float32)
+        gnorms = torch.stack(gnorms).cpu().numpy() if gnorms else np.zeros(0, np.float32)
+        n = int(losses.size)
+        clip_count = int(np.sum(gnorms > clip_norm))
+        return {
+            "loss": float(losses.sum()),
+            "avg_grad_norm": float(gnorms.mean()) if n else 0.0,
+            "clip_ratio": clip_count / max(n, 1),
+            "steps": n,
+        }
+
+    def predict(self, batch: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(loss, predictions) for one host batch."""
+        return self.eval_step(to_device(batch, self.device))
+
+    def eval_epoch(self, loader, collect: bool = False):
+        """(summed loss, predictions, ground truths); the last two are None
+        unless ``collect``, else (N, T_out, S, S) arrays in [0, 1]."""
+        losses, preds, gts = [], [], []
+        for batch in device_prefetch(loader, self.device):
+            loss, out = self.eval_step(batch)
+            losses.append(loss)
+            if collect:
+                preds.append(out[:, :, 0].cpu().numpy())
+                gts.append(self._split_batch(batch)[1][:, :, 0].float().cpu().numpy())
+        total = float(torch.stack(losses).sum().cpu()) if losses else 0.0
+        if not collect:
+            return total, None, None
+        if not preds:
+            return total, np.zeros((0,)), np.zeros((0,))
+        return total, np.concatenate(preds), np.concatenate(gts)
+
+    def fit(self, train_loader, val_loader, test_loader=None, epochs: Optional[int] = None,
+            ckpt_path: Optional[str] = None, metrics_path: Optional[str] = None,
+            save_every: Optional[int] = None):
+        """The reference's epochs: LR and clip threshold from the preset,
+        train, validate, save the best checkpoint once past the save-epoch
+        gate, early stop; the test loss every epoch when there is a test
+        loader. ``save_every=N`` also writes {ckpt_path}_epoch{E} every N
+        epochs, keeping the last two."""
+        preset = self.preset
+        clip = preset.clip_schedule
+        epochs = epochs or preset.epochs
+        best = float("inf")
+        prev_avg_grad_norm = 0.0
+        early_stop_count = 0
+        logs = []
+        for epoch in range(1, epochs + 1):
+            t0 = time.time()
+            lr = preset.lr_at_epoch(epoch, epochs)
+            clip_norm = clip.threshold(epoch, prev_avg_grad_norm)
+            tr = self.train_epoch(train_loader, lr, clip_norm)
+            prev_avg_grad_norm = tr["avg_grad_norm"]
+
+            val_loss, _, _ = self.eval_epoch(val_loader)
+            save_gate = epoch > clip.save_epoch
+            if save_gate and val_loss < best:
+                best = val_loss
+                early_stop_count = 0
+                if ckpt_path:
+                    ckpt.save_state(ckpt_path, self.state_dict())
+                print(f"epoch {epoch}: best_val_loss {val_loss:.6f} (saved)")
+            else:
+                if save_gate:
+                    early_stop_count += 1
+                print(f"epoch {epoch}: val_loss {val_loss:.6f}")
+
+            if save_every and ckpt_path and epoch % save_every == 0:
+                ckpt.save_state(f"{ckpt_path}_epoch{epoch}", self.state_dict())
+                snaps = sorted(glob.glob(f"{ckpt_path}_epoch*"),
+                               key=lambda p: int(p.rsplit("epoch", 1)[1]))
+                for old in snaps[:-2]:
+                    os.remove(old)
+
+            test_loss = 0.0
+            if test_loader is not None:
+                test_loss, _, _ = self.eval_epoch(test_loader)
+
+            dt = time.time() - t0
+            logs.append(EpochLog(epoch, tr["loss"], val_loss, test_loss, lr, tr["avg_grad_norm"],
+                                 clip_norm, tr["clip_ratio"], dt))
+            if metrics_path:
+                os.makedirs(os.path.dirname(os.path.abspath(metrics_path)), exist_ok=True)
+                with open(metrics_path, "a") as f:
+                    f.write(json.dumps(dict(
+                        epoch=epoch, train_loss=tr["loss"], val_loss=val_loss,
+                        test_loss=test_loss, lr=lr, grad_norm=tr["avg_grad_norm"],
+                        clip_threshold=clip_norm, clip_ratio=tr["clip_ratio"],
+                        steps=tr["steps"], seconds=dt)) + "\n")
+            print(f"epoch {epoch}: train_loss {tr['loss']:.6f} test_loss {test_loss:.6f} "
+                   f"lr {lr:.2e} grad_norm {tr['avg_grad_norm']:.4f} "
+                   f"clip_thr {clip_norm:.4f} clip_ratio {tr['clip_ratio']:.3f} ({dt:.1f}s)")
+            if early_stop_count >= preset.early_stop:
+                print(f"early stop at epoch {epoch}")
+                break
+        return logs
+
+    # ---- state ----------------------------------------------------------
+
+    def state_dict(self) -> dict:
+        return {"params": self.model.state_dict(), "opt_state": self.optimizer.state_dict(),
+                "step": self.step}
+
+    def load(self, ckpt_path: str) -> None:
+        """Restore parameters, optimizer state and step from a checkpoint."""
+        state = ckpt.restore_state(ckpt_path, self.state_dict())
+        self.model.load_state_dict(state["params"])
+        self.optimizer.load_state_dict(state["opt_state"])
+        self.step = int(state["step"])

@@ -5,19 +5,21 @@
 
 1. Needs CUDA. Prints the card's name and power limit (nvidia-smi) and the
    torch/CUDA versions, and turns TF32 off for every fp32 comparison.
-2. Builds every kernel of the serving paths from ``adnm_tpu_torch/csrc``,
-   one nvcc per source, all started together, and prints each build time
-   and ptxas report.
+2. Builds every kernel from ``adnm_tpu_torch/csrc``, one nvcc per source,
+   all started together (``rms_norm.cu``: K1 forward, K1 backward and K3;
+   ``ssd_scan.cu``: K2), and prints each build time and ptxas report.
 3. Holds each kernel against its plain PyTorch version on the card at the
    main paths' shapes and times the kernel, the plain version and, where
    one PyTorch call computes the same function, that call, with CUDA
    events around calls replayed from a CUDA graph (device time, without
    the host's launch cost); prints each beside its bound, the least time
    the card could take (bytes over 3.35 TB/s, operations over 67 TFLOP/s
-   fp32). K1 (rms_norm) in fp32 and bf16; K2 (ssd_chunked_scan) in fp32
-   at every Block shape of both bimamba configurations, at batch 1 and 4,
-   plus cases with a small |dA|, in which the state carried between
-   chunks dominates the output, and reversed scans.
+   fp32). K1 (rms_norm) forward and backward (dx and dw, two launches
+   bit-equal in dw) and K3 (gated_rms_norm) in fp32 and bf16; K2
+   (ssd_chunked_scan) in fp32 at every Block shape of both bimamba
+   configurations, at batch 1 and 4, plus cases with a small |dA|, in
+   which the state carried between chunks dominates the output, and
+   reversed scans.
 4. Serves three paths at full width, 256x256, seeded weights, with the
    kernels' launch counts set to 0 just before each request and read just
    after:
@@ -30,13 +32,24 @@
    - the VSSD bimamba configuration (``mixer_type="vssd"``): one batch-1
      request; 20 K1 and 20 K2 launches.
    Checks shapes and finiteness, and runs each batch-1 request on the CPU
-   (the kernels' plain versions) against the card's output.
-5. For the duality and the bimamba ADN-SSD models: times the batch-1
-   forward latency and the batch-4 frames/s, reads the peak device
-   memory, and traces 5 forwards at batch 1 and 4 with ``torch.profiler``
-   (device busy time and share, kernels per forward, device time by
-   kernel group and by kernel).
-6. Prints the kernels' JSON line, the card line, then the result line last.
+   (the kernels' plain versions) against the card's output. No backward
+   kernel runs while serving.
+5. Trains the duality model through ``adnm_tpu_torch.cli.train.main``:
+   one epoch of 4 steps at batch 4, 256x256 (24 synthetic clips), then
+   validation, an epoch snapshot, the test loss; with the launch counts
+   set to 0 just before each step and read just after: 28 K1 forward (20
+   and the refiner's 8 recomputed under remat), 20 K1 backward, no K2 or
+   K3. Then one step's loss, global gradient norm and every gradient
+   tensor on the card against the CPU, from the same seeded weights and
+   batch, within tolerances set from the spread of two card runs.
+6. For the duality and the bimamba models: times the batch-1 forward
+   latency and the batch-4 frames/s, reads the peak device memory, and
+   traces 5 forwards at batch 1 and 4 with ``torch.profiler`` (device busy
+   time and share, kernels per forward, device time by kernel group and
+   by kernel). For training: the median step time at batch 1 and 4,
+   frames/s, the peak memory of a step with and without the refiner's
+   remat, and a trace of 3 steps at each batch.
+7. Prints the kernels' JSON line, the card line, then the result line last.
 
 Any failure raises: the exit code is then non-zero and no result line is
 printed.
@@ -70,6 +83,14 @@ K1_CASES = [((1, 32, 256, 256), 1), ((4, 32, 256, 256), 1), ((1, 128, 32, 32), 1
 # few ulp. bf16: both round the same fp32 value, so at most one bf16 step
 # (2^-7 relative) apart where the fp32 values straddle a rounding boundary.
 K1_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2 ** -7, 1e-5)}
+# K1 backward: dx as K1's output (the same argument, on r*g*w - x*coef);
+# dw sums up to 262,144 products per channel (batch 4 at 256^2) in another
+# order than torch.sum: relative 1e-4 of the sum of the terms' magnitudes.
+K1B_DW_RTOL = 1e-4
+# Main path shapes of K3 (gated_rms_norm): the (B*L, d) rows of the JAX
+# package's kernel benchmark at the refiner (scripts/bench_kernels.py
+# :149-173), d in {32, 64}, and a small one.
+K3_CASES = [((65536, 32), -1), ((262144, 32), -1), ((262144, 64), -1), ((4096, 32), -1)]
 # Main path shapes of K2 per path of a Block, (heads, L): encoder4 /
 # decoder3 at 32^2, encoder5 / decoder2 at 16^2, encoder6 / decoder1 at
 # 8^2, refiner1-4 at 256^2; P = 4, N = 16, chunks of 256 (64 at 8^2).
@@ -92,6 +113,16 @@ FORWARD_ATOL = {"duality": 5e-3, "bimamba": 1e-4, "vssd-bimamba": 1e-4}
 FORWARDS_PER_REQUEST = {"batch1": 1, "batch4": 1, "horizon40": 2}
 K1_PER_FORWARD = 20  # 10 Blocks x (norm1, norm2)
 K2_PER_FORWARD = 20  # 10 Blocks x (path 1, path 2), on the bimamba paths
+# Per training step: the forward's 20 K1 launches and the 8 of the four
+# refiner Blocks, whose forward the backward recomputes (refiner remat);
+# one K1 backward launch per norm.
+K1_PER_STEP, K1B_PER_STEP = 28, 20
+TRAIN_ARGS = ["--synthetic", "--synthetic-len", "24", "--batch-size", "4", "--epochs", "1",
+              "--save-every", "1"]
+TRAIN_STEPS = 4  # int(24 * 0.7) = 16 training clips in batches of 4
+LR, CLIP = 1e-3, 0.025  # the preset's first-epoch clip threshold
+NO_LAUNCHES = dict.fromkeys(["rms_norm", "rms_norm_backward", "ssd_chunked_scan",
+                             "gated_rms_norm"], 0)
 BIMAMBA = {"linear_attn_duality": False}
 VSSD_BIMAMBA = {"linear_attn_duality": False, "mixer_type": "vssd"}
 
@@ -198,6 +229,112 @@ def check_k1(rms_norm, rms_norm_reference) -> dict:
             if dtype == torch.float32:
                 worst = max(worst, max_err)
             timing[(name, shape)] = (ms, plain_ms, lib_ms, bnd, by)
+    return {"max_abs_err": worst, "timing": timing}
+
+
+def fused_rms_norm_backward(x, w, dy, axis):
+    """PyTorch's one-call RMSNorm backward on the channel-last view, as a
+    timed yardstick, or None (with the reason printed) where the
+    installed torch has none for this card."""
+    op = getattr(torch.ops.aten, "_fused_rms_norm_backward", None)
+    if op is None:
+        print("library yardstick: torch has no aten._fused_rms_norm_backward")
+        return None
+    c = x.shape[axis]
+    x_lib, dy_lib, w_lib = x.movedim(axis, -1), dy.movedim(axis, -1), w.to(x.dtype)
+    try:
+        rstd = torch.ops.aten._fused_rms_norm(x_lib, [c], w_lib, 1e-6)[1]
+        op(dy_lib, x_lib, [c], rstd, w_lib, [True, True])
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        print(f"library yardstick: aten._fused_rms_norm_backward refused: {str(e)[:200]}")
+        return None
+    return lambda: op(dy_lib, x_lib, [c], rstd, w_lib, [True, True])
+
+
+def check_k1_backward(k1_module) -> dict:
+    bwd, ref = k1_module.rms_norm_backward, k1_module.rms_norm_backward_reference
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    worst, timing = 0.0, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        rtol, atol = K1_TOL[dtype]
+        name = str(dtype).replace("torch.", "")
+        for shape, axis in K1_CASES:
+            c = shape[axis]
+            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            w = torch.rand(c, generator=gen, device="cuda") + 0.5
+            dx, dw = bwd(x, w, dy, 1e-6, axis)
+            dw_again = bwd(x, w, dy, 1e-6, axis)[1]
+            torch.cuda.synchronize()
+            if not torch.equal(dw, dw_again):
+                raise AssertionError(f"K1 backward: two launches differ in dw at {name} {shape}")
+            dx_want, dw_want = ref(x, w, dy, 1e-6, axis)
+            dx_err = (dx.float() - dx_want.float()).abs()
+            dims = [d for d in range(x.dim()) if d != axis % x.dim()]
+            r = torch.rsqrt(x.float().square().mean(dim=axis, keepdim=True) + 1e-6)
+            terms = (dy.float() * x.float() * r).abs().sum(dim=dims)
+            dw_err = (dw - dw_want).abs()
+            if not bool((dx_err <= atol + rtol * dx_want.float().abs()).all()):
+                raise AssertionError(f"K1 backward dx disagrees with its plain version at "
+                                     f"{name} {shape}: {dx_err.max().item():.3e}")
+            if not bool((dw_err <= K1B_DW_RTOL * terms + 1e-6).all()):
+                raise AssertionError(f"K1 backward dw disagrees with its plain version at "
+                                     f"{name} {shape}: {dw_err.max().item():.3e}")
+            max_err = max(dx_err.max().item(), dw_err.max().item())
+            ms, plain_ms, lib_ms = in_turns(
+                lambda: bwd(x, w, dy, 1e-6, axis), lambda: ref(x, w, dy, 1e-6, axis),
+                fused_rms_norm_backward(x, w, dy, axis))
+            n = x.numel()
+            # x, dy read and dx written once, w and dw; per element about 12
+            # fp32 operations (two sums of products, dx, the dw term)
+            bnd, by = bound_ms(3 * n * x.element_size() + 8 * c, 12 * n)
+            lib = "none" if lib_ms is None else f"{lib_ms * 1e3:.2f} us"
+            print(f"K1 backward {name} {shape} axis={axis}: max_abs_err dx "
+                  f"{dx_err.max().item():.3e} (tol {atol:g} + {rtol:g}*|ref|), dw "
+                  f"{dw_err.max().item():.3e} (tol {K1B_DW_RTOL:g}*sum|terms|, max |dw| "
+                  f"{dw_want.abs().max().item():.3e}), dw bit-equal across launches; device "
+                  f"time: kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
+                  f"aten._fused_rms_norm_backward {lib}, bound {bnd * 1e3:.2f} us ({by}, "
+                  f"{bnd / ms:.0%} of it)")
+            if dtype == torch.float32:
+                worst = max(worst, max_err)
+            timing[(name, shape)] = (ms, plain_ms, lib_ms, bnd, by)
+    return {"max_abs_err": worst, "timing": timing}
+
+
+def check_k3(k1_module) -> dict:
+    k3, ref = k1_module.gated_rms_norm, k1_module.gated_rms_norm_reference
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    worst, timing = 0.0, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        rtol, atol = K1_TOL[dtype]  # K1's argument, with the kernel's own expf
+        name = str(dtype).replace("torch.", "")
+        for shape, axis in K3_CASES:
+            c = shape[axis]
+            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            z = (2 * torch.randn(shape, generator=gen, device="cuda")).to(dtype)
+            w = torch.rand(c, generator=gen, device="cuda") + 0.5
+            got = k3(x, z, w, 1e-6, axis)
+            torch.cuda.synchronize()
+            want = ref(x, z, w, 1e-6, axis)
+            err = (got.float() - want.float()).abs()
+            max_err = err.max().item()
+            if not bool((err <= atol + rtol * want.float().abs()).all()):
+                raise AssertionError(f"K3 disagrees with its plain version at {name} {shape}")
+            ms, plain_ms, _ = in_turns(lambda: k3(x, z, w, 1e-6, axis),
+                                       lambda: ref(x, z, w, 1e-6, axis))
+            n = x.numel()
+            # x, z read and y written once, and w; per element about 10 fp32
+            # operations (the gate's exp, divide and products, the sum, the scale)
+            bnd, by = bound_ms(3 * n * x.element_size() + 4 * c, 10 * n)
+            print(f"K3 {name} {shape} axis={axis}: max_abs_err={max_err:.3e} (tol {atol:g} + "
+                  f"{rtol:g}*|ref|) device time: kernel {ms * 1e3:.2f} us, plain "
+                  f"{plain_ms * 1e3:.2f} us, library none, bound {bnd * 1e3:.2f} us ({by}, "
+                  f"{bnd / ms:.0%} of it)")
+            if dtype == torch.float32:
+                worst = max(worst, max_err)
+            timing[(name, shape)] = (ms, plain_ms, bnd, by)
     return {"max_abs_err": worst, "timing": timing}
 
 
@@ -343,7 +480,7 @@ def serve_duality(predict, inputs, counts) -> dict:
             print(f"duality request {name}: {outs[name].shape} in "
                   f"{time.perf_counter() - t0:.2f} s, launches {per_request[name]}")
         check_requests("duality", inputs, outs, per_request,
-                       {"rms_norm": K1_PER_FORWARD, "ssd_chunked_scan": 0})
+                       {**NO_LAUNCHES, "rms_norm": K1_PER_FORWARD})
         t0 = time.perf_counter()
         cpu = serve("batch1", "--device", "cpu")
         print(f"duality CPU run {time.perf_counter() - t0:.1f} s")
@@ -366,7 +503,8 @@ def serve_model(predict, label, kwargs, inputs, counts, requests) -> dict:
         print(f"{label} request {name}: {outs[name].shape} in {time.perf_counter() - t0:.2f} s, "
               f"launches {per_request[name]}")
     check_requests(label, inputs, outs, per_request,
-                   {"rms_norm": K1_PER_FORWARD, "ssd_chunked_scan": K2_PER_FORWARD})
+                   {**NO_LAUNCHES, "rms_norm": K1_PER_FORWARD,
+                    "ssd_chunked_scan": K2_PER_FORWARD})
     t0 = time.perf_counter()
     cpu_dev = torch.device("cpu")
     cpu = predict.forecast(predict.load_model(None, cpu_dev, **kwargs), inputs["batch1"], 1,
@@ -376,36 +514,42 @@ def serve_model(predict, label, kwargs, inputs, counts, requests) -> dict:
     return per_request
 
 
-# Kernel groups of the forward's device time, matched on the kernel's name
-# in this order; what matches none is elementwise or other.
+# Kernel groups of the device time, matched on the kernel's name in this
+# order; what matches none is elementwise or other.
 KERNEL_GROUPS = {
+    "K1 backward (rms_norm_bwd, dw reduce)": ("rms_norm_bwd", "rms_norm_dw_reduce"),
     "K1 rms_norm": ("rms_norm",),
     "K2 ssd_chunked_scan": ("ssd_chunk", "ssd_carry"),
     "depthwise conv": ("depthwise",),
     "conv (cuDNN implicit gemm, transposes)": ("xmma_fprop", "implicit_convolve", "cudnn",
-                                              "convolve", "fft", "winograd"),
+                                              "convolve", "fft", "winograd", "wgrad", "dgrad",
+                                              "nchwToNhwc", "nhwcToNchw"),
     "bmm/gemm": ("gemm", "gemv", "Kernel2"),
+    "AdamW and grad norm (multi-tensor)": ("multi_tensor_apply",),
     "reductions": ("reduce_kernel",),
     "softmax": ("softmax",),
-    "cat/copy/index": ("Cat", "copy", "index", "gather"),
+    "cat/copy/index": ("Cat", "copy", "index", "gather", "scatter"),
 }
 
 
-def profile_forward(model, x, card: str, label: str, n: int = 5) -> None:
-    """Trace ``n`` forwards and print the device's busy time (the union of
-    kernel intervals), its share of the first-to-last-kernel span, the
-    kernels per forward, and device time by group and by kernel."""
+def profile_device(run, card: str, label: str, unit: str, n: int) -> None:
+    """Trace ``n`` calls of ``run`` (after 3 untraced ones) and print the
+    device's busy time (the union of kernel intervals), its share of the
+    first-to-last-kernel span, the kernels per call, and device time by
+    group and by kernel."""
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.inference_mode():
-        for _ in range(3):
-            model(x)
+    for _ in range(3):
+        run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            run()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                model(x)
-            torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # device events, without the ranges that annotate them (the optimizer's
+    # "Optimizer.step#AdamW.step" spans its kernels and the gaps between them)
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     if not kernels:
         raise AssertionError("the profiler recorded no kernel on the card")
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
@@ -425,13 +569,26 @@ def profile_forward(model, x, card: str, label: str, n: int = 5) -> None:
         group = next((g for g, pats in KERNEL_GROUPS.items() if any(p in name for p in pats)),
                      "elementwise and other")
         groups[group] += t
-    print(f"[{card}] {label} profile batch {x.shape[0]}: device busy {busy / n / 1e3:.2f} "
-          f"ms/forward, busy share {share:.3f}, {len(kernels) / n:.0f} kernels/forward "
-          f"({n} forwards)")
+    print(f"[{card}] {label}: device busy {busy / n / 1e3:.2f} ms/{unit}, busy share "
+          f"{share:.3f}, {len(kernels) / n:.0f} kernels/{unit} ({n} {unit}s)")
     for group, t in sorted(groups.items(), key=lambda kv: -kv[1]):
-        print(f"  {group:40s} {t:8.3f} ms/forward")
+        print(f"  {group:40s} {t:8.3f} ms/{unit}")
     for name, (t, k) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
-        print(f"  {t:8.3f} ms/forward {k / n:5.0f}x  {name[:100]}")
+        print(f"  {t:8.3f} ms/{unit} {k / n:5.0f}x  {name[:100]}")
+
+
+def host_times(run, n: int, warm: int = 3) -> list:
+    """Host-clock ms of ``n`` synchronised calls of ``run``, after ``warm``."""
+    for _ in range(warm):
+        run()
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return times
 
 
 def time_forward(predict, label, kwargs, inputs, card) -> None:
@@ -441,34 +598,195 @@ def time_forward(predict, label, kwargs, inputs, card) -> None:
     model = predict.load_model(None, device, **kwargs)
     x1 = torch.from_numpy(inputs["batch1"]).to(device)
     x4 = torch.from_numpy(inputs["batch4"]).to(device)
+    with torch.inference_mode():
+        lat = host_times(lambda: model(x1), 20)
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()  # weights, inputs and whatever else is live
+        step = host_times(lambda: model(x4), 10)
+        peak = torch.cuda.max_memory_allocated()
+        fps = 4 * 20 / (statistics.median(step) / 1e3)
+        print(f"[{card}] {label} batch-1 forward latency: median "
+              f"{statistics.median(lat):.2f} ms, min {min(lat):.2f} ms, mean "
+              f"{statistics.mean(lat):.2f} ms (20 runs)")
+        print(f"[{card}] {label} batch-4 forward: median {statistics.median(step):.2f} ms -> "
+              f"{fps:.1f} frames/s (4*20 frames per step)")
+        print(f"[{card}] {label} peak device memory (batch-4 forward): {peak / 2**20:.1f} MiB, "
+              f"of which {before / 2**20:.1f} MiB allocated before it")
+        for x in (x1, x4):
+            profile_device(lambda: model(x), card, f"{label} profile batch {x.shape[0]}",
+                           "forward", 5)
 
-    def host_times(x, n):
-        times = []
-        with torch.inference_mode():
-            for _ in range(3):
-                model(x)
-            for _ in range(n):
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                model(x)
-                torch.cuda.synchronize()
-                times.append((time.perf_counter() - t) * 1e3)
-        return times
 
-    lat = host_times(x1, 20)
-    torch.cuda.reset_peak_memory_stats()
-    before = torch.cuda.memory_allocated()  # weights, inputs and whatever else is live
-    step = host_times(x4, 10)
-    peak = torch.cuda.max_memory_allocated()
-    fps = 4 * 20 / (statistics.median(step) / 1e3)
-    print(f"[{card}] {label} batch-1 forward latency: median {statistics.median(lat):.2f} ms, "
-          f"min {min(lat):.2f} ms, mean {statistics.mean(lat):.2f} ms (20 runs)")
-    print(f"[{card}] {label} batch-4 forward: median {statistics.median(step):.2f} ms -> "
-          f"{fps:.1f} frames/s (4*20 frames per step)")
-    print(f"[{card}] {label} peak device memory (batch-4 forward): {peak / 2**20:.1f} MiB, "
-          f"of which {before / 2**20:.1f} MiB allocated before it")
-    for x in (x1, x4):
-        profile_forward(model, x, card, label)
+# -- training -------------------------------------------------------------
+
+def train_through_cli(counts) -> dict:
+    """One epoch through ``cli.train.main`` on the card, with each step's
+    launches counted from 0 (``Trainer.train_step`` wrapped for the run)."""
+    from adnm_tpu_torch.cli import train as train_cli
+    from adnm_tpu_torch.train.checkpoint import best_ckpt_dir
+    from adnm_tpu_torch.train.loop import Trainer
+
+    per_step, step = [], Trainer.train_step
+
+    def counted(self, batch, lr, clip_norm):
+        torch.cuda.synchronize()
+        counts.reset()
+        out = step(self, batch, lr, clip_norm)
+        torch.cuda.synchronize()
+        per_step.append(counts.read())
+        return out
+
+    Trainer.train_step = counted
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            t0 = time.perf_counter()
+            out = train_cli.main([*TRAIN_ARGS, "--img-size", str(IMG), "--root", root])
+            secs = time.perf_counter() - t0
+            snapshot = os.path.exists(best_ckpt_dir(root, "Shanghai", "ADNMUnet") + "_epoch1")
+    finally:
+        Trainer.train_step = step
+    trainer, (log,) = out["trainer"], out["logs"]
+    print(f"train CLI: {trainer.step} steps at batch 4 on {trainer.device} in {secs:.1f} s; "
+          f"train loss {log.train_loss:.6f}, val loss {log.val_loss:.6f}, best-checkpoint "
+          f"test loss {out['test_loss']:.6f}, grad norm {log.grad_norm_avg:.4f}; launches per "
+          f"step {per_step}")
+    if trainer.device.type != "cuda" or trainer.step != TRAIN_STEPS or len(per_step) != TRAIN_STEPS:
+        raise AssertionError(f"train CLI: {trainer.step} steps on {trainer.device}, want "
+                             f"{TRAIN_STEPS} on cuda")
+    if not all(np.isfinite([log.train_loss, log.val_loss, out["test_loss"], log.grad_norm_avg])):
+        raise AssertionError("train CLI: a loss or the gradient norm is not finite")
+    if not snapshot:
+        raise AssertionError("train CLI: no epoch snapshot was written")
+    want = {**NO_LAUNCHES, "rms_norm": K1_PER_STEP, "rms_norm_backward": K1B_PER_STEP}
+    if any(c != want for c in per_step):
+        raise AssertionError(f"train CLI: launches per step {per_step}, want {want}")
+    return {k: sum(c[k] for c in per_step) for k in want}
+
+
+def train_batch(b: int) -> np.ndarray:
+    """(b, 25, 1, IMG, IMG) synthetic clips, as the CLI's loader makes them."""
+    from adnm_tpu_torch.data.shanghai import _synthetic_clip
+
+    return np.stack([_synthetic_clip(np.random.default_rng(i), 25, IMG)
+                     for i in range(b)])[:, :, None]
+
+
+def make_trainer(device, **model_kwargs):
+    """The CLI's trainer: seeded init, reference init, the ADNMUnet preset."""
+    from adnm_tpu_torch.models.adnm_unet import apply_reference_init, create_adnm_unet
+    from adnm_tpu_torch.train.loop import Trainer
+    from adnm_tpu_torch.train.presets import get_preset
+
+    return Trainer(create_adnm_unet(5, 20, 6, **model_kwargs),
+                   get_preset("ADNMUnet", 5, 20, 6, "Shanghai"), 5, device, seed=0,
+                   param_transform=apply_reference_init)
+
+
+def rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """||a - b|| / ||b||, 0 where both are 0."""
+    nb = float(b.norm())
+    return float((a - b).norm()) / nb if nb else (0.0 if float(a.norm()) == 0 else float("inf"))
+
+
+# Card against CPU for one training step: each tolerance is
+# STEP_SPREAD_FACTOR times the spread of two card runs of the same step
+# (the card's own sums run in a varying order: its gradient tensors differ
+# by ~7e-4 relative from run to run, about what separates card and CPU),
+# and never below the floor: the loss 1e-4 and the global norm 1e-3
+# relative, a tensor 2e-2 of its norm plus 1e-7 of the global norm (the
+# gates' gradients of 1e-9...1e-8 are rounding noise on both sides).
+STEP_SPREAD_FACTOR = 10
+STEP_FLOOR = {"loss": 1e-4, "grad_norm": 1e-3, "tensor": 2e-2, "tensor_of_global": 1e-7}
+
+
+def compare_step_with_cpu() -> None:
+    """Loss, global gradient norm and every gradient tensor of one batch-1
+    step, card against CPU, from the same seeded weights and batch."""
+    batch = train_batch(1)
+    card = make_trainer(torch.device("cuda"))
+    runs = []
+    for _ in range(2):
+        loss, grads = card.grads(batch)
+        runs.append((float(loss), {k: g.detach().to("cpu", torch.float64)
+                                   for k, g in grads.items()}))
+    del card, grads
+    t0 = time.perf_counter()
+    loss_cpu, grads_cpu = make_trainer(torch.device("cpu")).grads(batch)
+    print(f"train step on the CPU (full width, {IMG}^2, batch 1): "
+          f"{time.perf_counter() - t0:.1f} s")
+    grads_cpu = {k: g.to(torch.float64) for k, g in grads_cpu.items()}
+    loss_cpu = float(loss_cpu)
+
+    def gnorm(g):
+        return float(torch.sqrt(sum(v.square().sum() for v in g.values())))
+
+    (loss_a, ga), (loss_b, gb) = runs
+    tol = {"loss": max(STEP_SPREAD_FACTOR * abs(loss_a - loss_b) / abs(loss_cpu),
+                       STEP_FLOOR["loss"]),
+           "grad_norm": max(STEP_SPREAD_FACTOR * abs(gnorm(ga) - gnorm(gb)) / gnorm(grads_cpu),
+                            STEP_FLOOR["grad_norm"])}
+    err = {"loss": abs(loss_a - loss_cpu) / abs(loss_cpu),
+           "grad_norm": abs(gnorm(ga) - gnorm(grads_cpu)) / gnorm(grads_cpu)}
+    print(f"train step card vs CPU: loss {loss_a:.8f} vs {loss_cpu:.8f} (rel {err['loss']:.3e}, "
+          f"card spread {abs(loss_a - loss_b):.3e}, tol {tol['loss']:.3e}); grad norm "
+          f"{gnorm(ga):.6f} vs {gnorm(grads_cpu):.6f} (rel {err['grad_norm']:.3e}, card spread "
+          f"{abs(gnorm(ga) - gnorm(gb)):.3e}, tol {tol['grad_norm']:.3e})")
+    rows, total = [], gnorm(grads_cpu)
+    for k, want in grads_cpu.items():
+        norm = float(want.norm())
+        spread = float((ga[k] - gb[k]).norm()) / norm if norm else 0.0
+        t = max(STEP_SPREAD_FACTOR * spread, STEP_FLOOR["tensor"]) + (
+            STEP_FLOOR["tensor_of_global"] * total / norm if norm else float("inf"))
+        e = rel(ga[k], want)
+        rows.append((e / t if norm else e, e, spread, t, norm, k))  # e: 0 or inf at norm 0
+    rows.sort(reverse=True)
+    spreads = sorted(r[2] for r in rows)
+    errs = sorted(r[1] for r in rows if np.isfinite(r[1]))
+    print(f"train step card vs CPU, {len(rows)} gradient tensors: rel err median "
+          f"{errs[len(errs) // 2]:.3e}, max {errs[-1]:.3e}; card spread median "
+          f"{spreads[len(spreads) // 2]:.3e}, max {spreads[-1]:.3e}; worst against its tolerance:")
+    for ratio, e, spread, t, norm, k in rows[:8]:
+        print(f"  {k}: rel err {e:.3e}, card spread {spread:.3e}, tol {t:.3e}, |g| {norm:.3e}")
+    big = [r for r in rows if r[4] > 1e-4 * total]
+    print(f"  tensors with |g| > 1e-4 of the global norm: {len(big)}, rel err max "
+          f"{max(r[1] for r in big):.3e}, card spread max {max(r[2] for r in big):.3e}")
+    bad = [r[-1] for r in rows if not r[0] <= 1.0]
+    if not (err["loss"] <= tol["loss"] and err["grad_norm"] <= tol["grad_norm"]) or bad:
+        raise AssertionError(f"train step: card disagrees with CPU (loss, grad norm or {bad[:5]})")
+
+
+def time_train(card) -> None:
+    """Median step time, frames/s and the peak memory of a step at batch 1
+    and 4, a profile of 3 steps at each, and the peak memory and step time
+    at batch 4 without the refiner's remat."""
+    device = torch.device("cuda")
+    batches = {b: torch.from_numpy(train_batch(b)).to(device) for b in (1, 4)}
+
+    def measure(trainer, b, label, profile):
+        def run():
+            trainer.train_step(batches[b], LR, CLIP)
+
+        times = host_times(run, 10)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()  # weights, optimizer state, batches
+        run()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        med = statistics.median(times)
+        print(f"[{card}] train {label} batch {b}: step median {med:.2f} ms, min "
+              f"{min(times):.2f} ms, mean {statistics.mean(times):.2f} ms (10 steps after 3) -> "
+              f"{b * 20 / (med / 1e3):.1f} frames/s; peak device memory of a step "
+              f"{peak / 2**20:.1f} MiB, of which {before / 2**20:.1f} MiB allocated before it")
+        if profile:
+            profile_device(run, card, f"train {label} profile batch {b}", "step", 3)
+
+    trainer = make_trainer(device)
+    for b in (1, 4):
+        measure(trainer, b, "refiner remat", True)
+    del trainer
+    torch.cuda.empty_cache()
+    measure(make_trainer(device, refiner_remat=False), 4, "no refiner remat", False)
 
 
 def main() -> None:
@@ -490,10 +808,14 @@ def main() -> None:
 
     # -- kernels against their plain versions ---------------------------
     k1 = check_k1(rms_norm, rms_norm_reference)
+    k1b = check_k1_backward(k1_module)
+    k3 = check_k3(k1_module)
     k2 = check_k2(ssd)
 
     # -- the main paths -------------------------------------------------
-    counts = Counts(rms_norm=rms_norm, ssd_chunked_scan=ssd.ssd_chunked_scan)
+    counts = Counts(rms_norm=rms_norm, rms_norm_backward=k1_module.rms_norm_backward,
+                    ssd_chunked_scan=ssd.ssd_chunked_scan,
+                    gated_rms_norm=k1_module.gated_rms_norm)
     rng = np.random.RandomState(0)
     inputs = {"batch1": rng.rand(1, 5, 1, IMG, IMG).astype(np.float32),
               "batch4": rng.rand(4, 5, 1, IMG, IMG).astype(np.float32)}
@@ -501,13 +823,23 @@ def main() -> None:
     serve_duality(predict, inputs, counts)
     bimamba = serve_model(predict, "bimamba", BIMAMBA, inputs, counts, FORWARDS_PER_REQUEST)
     serve_model(predict, "vssd-bimamba", VSSD_BIMAMBA, inputs, counts, ["batch1"])
+    trained = train_through_cli(counts)
 
     # -- timing -----------------------------------------------------------
     time_forward(predict, "duality", {}, inputs, card)
     time_forward(predict, "bimamba", BIMAMBA, inputs, card)
+    time_train(card)
 
+    # -- one training step, card against CPU ------------------------------
+    compare_step_with_cpu()
+
+    # Launches: serving kernels from the bimamba requests, training
+    # kernels from the training run; K3 is on no path.
     launches = {k: sum(r[k] for r in bimamba.values()) for k in counts.wrappers}
+    launches["rms_norm_backward"] = trained["rms_norm_backward"]
     k1_ms, k1_plain, k1_lib, k1_bound, k1_by = k1["timing"][("float32", K1_CASES[0][0])]
+    k1b_ms, k1b_plain, k1b_lib, k1b_bound, k1b_by = k1b["timing"][("float32", K1_CASES[1][0])]
+    k3_ms, k3_plain, k3_bound, k3_by = k3["timing"][("float32", (262144, 64))]
     k2_ms, k2_plain, k2_bound, k2_by = k2["timing"][(1, 8, 65536)]
     print(json.dumps({"kernels": [{
         "name": "rms_norm", "route": "cuda", "source": "adnm_tpu_torch/csrc/rms_norm.cu",
@@ -515,10 +847,22 @@ def main() -> None:
         "max_abs_err": k1["max_abs_err"], "ms": k1_ms, "plain_ms": k1_plain,
         "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": k1_lib,
     }, {
+        "name": "rms_norm_backward", "route": "cuda", "source": "adnm_tpu_torch/csrc/rms_norm.cu",
+        "replaces": "adnm_tpu/ops/pallas/fused_norm.py:57",
+        "launches": launches["rms_norm_backward"], "max_abs_err": k1b["max_abs_err"],
+        "ms": k1b_ms, "plain_ms": k1b_plain, "bound_ms": k1b_bound, "bound_by": k1b_by,
+        "library_ms": k1b_lib,
+    }, {
         "name": "ssd_chunked_scan", "route": "cuda", "source": "adnm_tpu_torch/csrc/ssd_scan.cu",
         "replaces": "adnm_tpu/ops/pallas/ssd_scan.py:132",
         "launches": launches["ssd_chunked_scan"], "max_abs_err": k2["max_abs_err"],
         "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound, "bound_by": k2_by,
+        "library_ms": None,
+    }, {
+        "name": "gated_rms_norm", "route": "cuda", "source": "adnm_tpu_torch/csrc/rms_norm.cu",
+        "replaces": "adnm_tpu/ops/pallas/fused_norm.py:63",
+        "launches": launches["gated_rms_norm"], "max_abs_err": k3["max_abs_err"],
+        "ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound, "bound_by": k3_by,
         "library_ms": None,
     }]}))
     print(card)

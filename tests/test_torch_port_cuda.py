@@ -1,5 +1,5 @@
-"""Kernels K1 (RMS norm) and K2 (chunked SSD scan) of the PyTorch port on
-an NVIDIA card.
+"""Kernels K1 (RMS norm, forward and backward), K2 (chunked SSD scan) and
+K3 (gated RMS norm) of the PyTorch port on an NVIDIA card.
 
 Every test here is marked ``cuda`` and skips where there is no card. The
 file imports no JAX; ``tests/conftest.py`` does, so on a machine with the
@@ -14,7 +14,14 @@ import pytest
 import torch
 
 from adnm_tpu_torch.ops import ssd
-from adnm_tpu_torch.ops.rms_norm import rms_norm, rms_norm_reference
+from adnm_tpu_torch.ops.rms_norm import (
+    gated_rms_norm,
+    gated_rms_norm_reference,
+    rms_norm,
+    rms_norm_backward,
+    rms_norm_backward_reference,
+    rms_norm_reference,
+)
 
 # The main path's shapes: refiner (B, 32, 256, 256), the Blocks at
 # 32^2 ... 8^2, and the Pallas contract's (rows, d) on the last axis; then
@@ -62,10 +69,93 @@ def test_kernel_wrapper_raises_on_what_the_kernel_does_not_take(card):
         rms_norm(x, w.double(), 1e-6, 1)
     with pytest.raises(ValueError, match="contiguous"):
         rms_norm(x.transpose(2, 3), w, 1e-6, 1)
-    with pytest.raises(ValueError, match="weight on"):
+    with pytest.raises(ValueError, match="a tensor on cpu"):
         rms_norm(x, w.cpu(), 1e-6, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        rms_norm_backward(x, w, x.transpose(2, 3), 1e-6, 1)
+    with pytest.raises(TypeError, match="one dtype"):
+        rms_norm_backward(x, w, x.bfloat16(), 1e-6, 1)
+    with pytest.raises(ValueError, match="at most 1536"):
+        wide = torch.ones(2, 2048, device=card)
+        rms_norm_backward(wide, torch.ones(2048, device=card), wide)
     with pytest.raises(RuntimeError, match="forward only"):
-        rms_norm(x.requires_grad_(), w, 1e-6, 1)
+        gated_rms_norm(x.requires_grad_(), x, w, 1e-6, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernel_matches_plain_version_on_the_card(card, dtype):
+    """dx in x's dtype and dw in fp32 against the explicit formula. dx:
+    fp32 a few ulp of its terms; bf16 one rounding step of the output. dw
+    sums up to 262,144 products per channel (batch 4 at 256^2) in another
+    order: relative 1e-4 of the channel's sum of |terms| covers it. Two
+    launches give bit-equal dw (no atomics)."""
+    gen = torch.Generator(device=card).manual_seed(5)
+    for shape, axis in CARD_CASES:
+        c = shape[axis]
+        x = torch.randn(shape, generator=gen, device=card).to(dtype)
+        dy = torch.randn(shape, generator=gen, device=card).to(dtype)
+        w = torch.rand(c, generator=gen, device=card) + 0.5
+        before = rms_norm_backward.launches
+        dx, dw = rms_norm_backward(x, w, dy, 1e-6, axis)
+        dw2 = rms_norm_backward(x, w, dy, 1e-6, axis)[1]
+        torch.cuda.synchronize()
+        assert rms_norm_backward.launches == before + 2
+        assert dx.dtype == dtype and dx.shape == x.shape and dw.dtype == torch.float32
+        assert torch.equal(dw, dw2)
+        dx_want, dw_want = rms_norm_backward_reference(x, w, dy, 1e-6, axis)
+        rtol, atol = (1e-5, 1e-5) if dtype == torch.float32 else (8e-3, 1e-5)
+        torch.testing.assert_close(dx.float(), dx_want.float(), rtol=rtol, atol=atol)
+        dims = [d for d in range(x.dim()) if d != axis % x.dim()]
+        r = torch.rsqrt(x.float().square().mean(dim=axis, keepdim=True) + 1e-6)
+        scale = (dy.float() * x.float() * r).abs().sum(dim=dims)
+        assert bool(((dw - dw_want).abs() <= 1e-4 * scale + 1e-6).all()), shape
+
+
+@pytest.mark.cuda
+def test_rms_norm_trains_through_both_kernels(card):
+    """Autograd on CUDA tensors runs K1 forward and the backward kernel,
+    and the gradients match autograd through the plain forward."""
+    gen = torch.Generator(device=card).manual_seed(6)
+    x = torch.randn(2, 32, 16, 16, generator=gen, device=card, requires_grad=True)
+    w = (torch.rand(32, generator=gen, device=card) + 0.5).requires_grad_()
+    dy = torch.randn(2, 32, 16, 16, generator=gen, device=card)
+    fwd, bwd = rms_norm.launches, rms_norm_backward.launches
+    (rms_norm(x, w, 1e-6, 1) * dy).sum().backward()
+    torch.cuda.synchronize()
+    assert (rms_norm.launches - fwd, rms_norm_backward.launches - bwd) == (1, 1)
+    gx, gw = x.grad.clone(), w.grad.clone()
+    x.grad = w.grad = None
+    (rms_norm_reference(x, w, 1e-6, 1) * dy).sum().backward()
+    torch.testing.assert_close(gx, x.grad, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(gw, w.grad, rtol=1e-4, atol=1e-4)
+
+
+# K3's shapes: the refiner's (B*L, d) rows at d = 32 and 64 and a small
+# one (the JAX package's kernel benchmark), NCHW channels, ragged ones.
+K3_CASES = [((65536, 32), -1), ((262144, 32), -1), ((262144, 64), -1), ((4096, 32), -1),
+            ((2, 32, 64, 64), 1), ((3, 33, 7, 5), 1), ((5, 1000), -1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gated_kernel_matches_plain_version_on_the_card(card, dtype):
+    gen = torch.Generator(device=card).manual_seed(7)
+    for shape, axis in K3_CASES:
+        c = shape[axis]
+        x = torch.randn(shape, generator=gen, device=card).to(dtype)
+        z = (2 * torch.randn(shape, generator=gen, device=card)).to(dtype)
+        w = torch.rand(c, generator=gen, device=card) + 0.5
+        before = gated_rms_norm.launches
+        got = gated_rms_norm(x, z, w, 1e-6, axis)
+        torch.cuda.synchronize()
+        assert gated_rms_norm.launches == before + 1
+        assert got.dtype == dtype and got.shape == x.shape
+        want = gated_rms_norm_reference(x, z, w, 1e-6, axis)
+        # fp32: the kernel's expf and the sums differ by a few ulp; bf16: one
+        # rounding step of the output.
+        rtol, atol = (1e-5, 1e-5) if dtype == torch.float32 else (8e-3, 1e-5)
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
 
 
 def scan_inputs(b, h, p, l, gen, carry=False, n=16, device="cuda"):

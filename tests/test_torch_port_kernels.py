@@ -1,22 +1,34 @@
-"""Kernel K1 (RMS norm) of the PyTorch port: its plain version against the
-JAX package, the wrapper's dispatch and checks, and the build helper.
+"""Kernels K1 (RMS norm, forward and backward) and K3 (gated RMS norm) of
+the PyTorch port: their plain versions against the JAX package, the
+wrappers' dispatch and checks, and the build helper.
 
-On the CPU the wrapper takes the plain version; the CUDA kernel itself is
-tested on the card by ``tests/test_torch_port_cuda.py``.
+On the CPU the wrappers take the plain versions; the CUDA kernels
+themselves are tested on the card by ``tests/test_torch_port_cuda.py``.
 """
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from adnm_tpu.core.layers import GatedRMSNorm as JGatedRMSNorm
 from adnm_tpu.core.layers import RMSNorm as JRMSNorm
 from adnm_tpu.ops.pallas import rms_norm_pallas
-from adnm_tpu_torch.core.layers import RMSNorm
+from adnm_tpu.ops.pallas.fused_norm import gated_rms_norm_pallas
+from adnm_tpu_torch import convert
+from adnm_tpu_torch.core.layers import GatedRMSNorm, RMSNorm
 from adnm_tpu_torch.ops import _build
-from adnm_tpu_torch.ops.rms_norm import rms_norm, rms_norm_reference
+from adnm_tpu_torch.ops.rms_norm import (
+    gated_rms_norm,
+    gated_rms_norm_reference,
+    rms_norm,
+    rms_norm_backward,
+    rms_norm_backward_reference,
+    rms_norm_reference,
+)
 from test_torch_port_layers import one_torch_thread  # noqa: F401 (a fixture)
 
 TOL = 1e-5  # fp32; rsqrt and the sum order differ
@@ -73,6 +85,85 @@ def test_other_devices_and_bad_shapes_raise():
         rms_norm(torch.empty(2, 4, device="meta"), torch.empty(4, device="meta"))
     with pytest.raises(ValueError, match="weight shape"):
         rms_norm(torch.ones(2, 4), torch.ones(3))
+
+
+@pytest.mark.parametrize("shape,axis", [((2, 32, 8, 8), 1), ((3, 12, 5, 3), 1), ((300, 16), -1),
+                                        ((4, 6, 40), -1)])
+def test_backward_plain_version_matches_jax_vjp(shape, axis):
+    """dx and dw of ``rms_norm_backward_reference`` against ``jax.vjp`` of
+    the JAX RMSNorm module; fp32 both, sums in another order."""
+    c = shape[axis]
+    x, w = _inputs(shape, c, seed=3)
+    dy = np.random.RandomState(4).randn(*shape).astype(np.float32)
+    m = JRMSNorm(c, 1e-6, axis=axis)
+    _, vjp = jax.vjp(lambda p, v: m.apply({"params": {"weight": p}}, v), jnp.asarray(w),
+                     jnp.asarray(x))
+    dw_want, dx_want = vjp(jnp.asarray(dy))
+    dx, dw = rms_norm_backward_reference(torch.from_numpy(x), torch.from_numpy(w),
+                                         torch.from_numpy(dy), 1e-6, axis)
+    assert dx.dtype == torch.float32 and dw.dtype == torch.float32 and dw.shape == (c,)
+    np.testing.assert_allclose(dx.numpy(), np.asarray(dx_want), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(dw.numpy(), np.asarray(dw_want), rtol=1e-4, atol=1e-4)
+
+
+def test_rms_norm_is_differentiable_on_the_cpu_through_the_explicit_formula():
+    """Autograd through ``rms_norm`` runs ``rms_norm_backward_reference``
+    on a CPU tensor and agrees with autograd of the plain forward."""
+    x, w = _inputs((2, 16, 4, 4), 16, seed=5)
+    dy = torch.from_numpy(np.random.RandomState(6).randn(2, 16, 4, 4).astype(np.float32))
+    xt, wt = torch.from_numpy(x).requires_grad_(), torch.from_numpy(w).requires_grad_()
+    (rms_norm(xt, wt, 1e-6, 1) * dy).sum().backward()
+    xr, wr = torch.from_numpy(x).requires_grad_(), torch.from_numpy(w).requires_grad_()
+    (rms_norm_reference(xr, wr, 1e-6, 1) * dy).sum().backward()
+    torch.testing.assert_close(xt.grad, xr.grad, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(wt.grad, wr.grad, rtol=1e-5, atol=1e-5)
+    before = rms_norm_backward.launches
+    rms_norm_backward(torch.from_numpy(x), torch.from_numpy(w), dy, 1e-6, 1)
+    assert rms_norm_backward.launches == before
+
+
+@pytest.mark.parametrize("shape", [(4, 8, 32), (300, 16), (3, 5, 7, 40)])
+def test_gated_plain_version_matches_pallas_kernel_and_jax_module(shape):
+    """K3's plain version against ``gated_rms_norm_pallas`` in interpret
+    mode and against the JAX ``GatedRMSNorm`` (the norm after the gate)."""
+    x, w = _inputs(shape, shape[-1], seed=7)
+    z = np.random.RandomState(8).randn(*shape).astype(np.float32) * 2
+    pallas = np.asarray(gated_rms_norm_pallas(jnp.asarray(x), jnp.asarray(z), jnp.asarray(w)))
+    module = np.asarray(JGatedRMSNorm(shape[-1], 1e-6).apply(
+        {"params": {"weight": jnp.asarray(w)}}, jnp.asarray(x), jnp.asarray(z)))
+    got = gated_rms_norm_reference(torch.from_numpy(x), torch.from_numpy(z),
+                                   torch.from_numpy(w), 1e-6, -1)
+    np.testing.assert_allclose(got.numpy(), pallas, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(got.numpy(), module, rtol=TOL, atol=TOL)
+    m = GatedRMSNorm(shape[-1], 1e-6)
+    convert.from_jax_params(m, {"weight": w})
+    with torch.no_grad():
+        np.testing.assert_array_equal(m(torch.from_numpy(x), torch.from_numpy(z)).numpy(),
+                                      got.numpy())
+
+
+def test_gated_module_on_nchw_channels_matches_the_last_axis():
+    x, w = _inputs((2, 12, 5, 3), 12, seed=9)
+    z = np.random.RandomState(10).randn(2, 12, 5, 3).astype(np.float32)
+    got = GatedRMSNorm(12, 1e-6, axis=1)
+    convert.from_jax_params(got, {"weight": w})
+    with torch.no_grad():
+        nchw = got(torch.from_numpy(x), torch.from_numpy(z))
+    last = gated_rms_norm_reference(torch.from_numpy(x).movedim(1, -1),
+                                    torch.from_numpy(z).movedim(1, -1), torch.from_numpy(w))
+    torch.testing.assert_close(nchw, last.movedim(-1, 1), rtol=1e-6, atol=1e-6)
+
+
+def test_gated_rms_norm_is_forward_only_and_counts_no_launch_on_the_cpu():
+    x, w = _inputs((4, 8), 8)
+    z = torch.ones(4, 8)
+    before = gated_rms_norm.launches
+    y = gated_rms_norm(torch.from_numpy(x), z, torch.from_numpy(w))
+    assert gated_rms_norm.launches == before and y.dtype == torch.float32
+    with pytest.raises(RuntimeError, match="forward only"):
+        gated_rms_norm(torch.from_numpy(x).requires_grad_(), z, torch.from_numpy(w))
+    with pytest.raises(ValueError, match="shape"):
+        gated_rms_norm(torch.from_numpy(x), torch.ones(4, 7), torch.from_numpy(w))
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
