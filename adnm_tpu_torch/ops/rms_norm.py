@@ -30,11 +30,11 @@ from adnm_tpu_torch.ops._build import load_library
 
 SOURCES = ("rms_norm.cu",)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# What the backward kernel keeps in 48 KB of shared memory: 8 warps x d
-# fp32 sums on the last axis, C fp32 sums (beside two small tiles) on an
-# inner axis.
+# What the backward kernel holds: 8 warps x d fp32 sums in 48 KB of shared
+# memory on the last axis; on an inner axis, 8 channels in the registers of
+# each of 256 threads in each of a cluster's 8 blocks.
 MAX_BACKWARD_ROW_D = 1536
-MAX_BACKWARD_C = 11264
+MAX_BACKWARD_C = 16384
 
 
 def _axis_shape(x: torch.Tensor, axis: int):
@@ -88,8 +88,8 @@ def _library() -> ctypes.CDLL:
                                         ctypes.c_int, p]
     lib.adnm_rms_norm_backward.argtypes = [p, p, p, p, p, p, i64, i64, i64, ctypes.c_float,
                                            ctypes.c_int, i64, p]
-    lib.adnm_rms_norm_backward_grid.argtypes = [i64, i64]
-    lib.adnm_rms_norm_backward_grid.restype = i64
+    lib.adnm_rms_norm_backward_rows.argtypes = [p, p, p, i64, i64, i64, ctypes.c_int]
+    lib.adnm_rms_norm_backward_rows.restype = i64
     for fn in (lib.adnm_rms_norm, lib.adnm_gated_rms_norm, lib.adnm_rms_norm_backward):
         fn.restype = ctypes.c_int
     lib.adnm_cuda_error_string.argtypes = [ctypes.c_int]
@@ -171,16 +171,18 @@ def rms_norm_backward(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor,
         raise ValueError(f"rms_norm_backward kernel takes at most {limit} channels on this "
                          f"axis, got {c}")
     lib = _library()
-    grid = lib.adnm_rms_norm_backward_grid(outer, inner)
     dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-    partial = torch.empty((grid, c), dtype=torch.float32, device=x.device)
     dw = torch.empty((c,), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
+        # the kernel's split, and so its scratch, depends on the tensors' alignment
+        rows = lib.adnm_rms_norm_backward_rows(x.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+                                               outer, c, inner, _DTYPE_CODES[x.dtype])
+        partial = torch.empty((rows, c), dtype=torch.float32, device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.adnm_rms_norm_backward(x.data_ptr(), weight.data_ptr(), dy.data_ptr(),
                                         dx.data_ptr(), partial.data_ptr(), dw.data_ptr(),
                                         outer, c, inner, float(eps), _DTYPE_CODES[x.dtype],
-                                        grid, stream)
+                                        rows, stream)
     _raise_on(lib, rc, "rms_norm_backward")
     rms_norm_backward.launches += 1
     return dx, dw

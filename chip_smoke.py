@@ -14,8 +14,9 @@
    events around calls replayed from a CUDA graph (device time, without
    the host's launch cost); prints each beside its bound, the least time
    the card could take (bytes over 3.35 TB/s, operations over 67 TFLOP/s
-   fp32). K1 (rms_norm) forward and backward (dx and dw, two launches
-   bit-equal in dw) and K3 (gated_rms_norm) in fp32 and bf16; K2
+   fp32), and the kernel's time over the library call's. K1 (rms_norm)
+   forward and backward (dx and dw, two launches bit-equal in dw) at every
+   Block norm's shape, and K3 (gated_rms_norm), in fp32 and bf16; K2
    (ssd_chunked_scan) in fp32 at every Block shape of both bimamba
    configurations, at batch 1 and 4, plus cases with a small |dA|, in
    which the state carried between chunks dominates the output, and
@@ -49,7 +50,9 @@
    by kernel). For training: the median step time at batch 1 and 4,
    frames/s, the peak memory of a step with and without the refiner's
    remat, and a trace of 3 steps at each batch.
-7. Prints the kernels' JSON line, the card line, then the result line last.
+7. Prints the kernels' JSON line (each K1 entry with its largest kernel /
+   library time over the fp32 main-path shapes, ``worst_vs_library``), the
+   card line, then the result line last.
 
 Any failure raises: the exit code is then non-zero and no result line is
 printed.
@@ -74,11 +77,14 @@ import torch.nn.functional as F
 IMG = 256
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
-# Main path shapes of K1 (rms_norm): the refiner Blocks' (B, 32, 256, 256)
-# at batch 1 and 4, the smallest and largest encoder/decoder Blocks, and
-# the Pallas kernel's own (rows, d) contract on the last axis.
-K1_CASES = [((1, 32, 256, 256), 1), ((4, 32, 256, 256), 1), ((1, 128, 32, 32), 1),
-            ((1, 1024, 8, 8), 1), ((4096, 32), -1)]
+# Main path shapes of K1 (rms_norm), over axis 1: the norm1 and norm2 of
+# every Block of create_adnm_unet(5, 20, 6) at batch 1 (refiner1-4,
+# encoder4, encoder5, encoder6, decoder1, decoder2, decoder3), and the
+# refiner's at batch 4; then the Pallas kernel's own (rows, d) contract on
+# the last axis, which no model runs.
+K1_MAIN = [(1, 32, 256, 256), (4, 32, 256, 256), (1, 128, 32, 32), (1, 256, 16, 16),
+           (1, 512, 8, 8), (1, 1024, 8, 8), (1, 1024, 16, 16), (1, 512, 32, 32)]
+K1_CASES = [(shape, 1) for shape in K1_MAIN] + [((4096, 32), -1)]
 # fp32: rsqrtf and the summation order differ from the plain version by a
 # few ulp. bf16: both round the same fp32 value, so at most one bf16 step
 # (2^-7 relative) apart where the fp32 values straddle a rounding boundary.
@@ -223,13 +229,24 @@ def check_k1(rms_norm, rms_norm_reference) -> dict:
             print(f"K1 {name} {shape} axis={axis}: max_abs_err={max_err:.3e} "
                   f"(tol {atol:g} + {rtol:g}*|ref|) device time: kernel {ms * 1e3:.2f} us, "
                   f"plain {plain_ms * 1e3:.2f} us, F.rms_norm {lib_ms * 1e3:.2f} us, "
-                  f"bound {bnd * 1e3:.2f} us ({by}, {bnd / ms:.0%} of it)")
+                  f"bound {bnd * 1e3:.2f} us ({by}, {bnd / ms:.0%} of it), kernel/library "
+                  f"{ms / lib_ms:.2f}")
             if not bool((err <= atol + rtol * want.float().abs()).all()):
                 raise AssertionError(f"K1 disagrees with its plain version at {name} {shape}")
             if dtype == torch.float32:
                 worst = max(worst, max_err)
             timing[(name, shape)] = (ms, plain_ms, lib_ms, bnd, by)
     return {"max_abs_err": worst, "timing": timing}
+
+
+def worst_vs_library(timing: dict) -> dict:
+    """The largest kernel / library time over the fp32 main-path shapes."""
+    ratios = [(None if t[2] is None else t[0] / t[2], shape) for shape in K1_MAIN
+              for t in [timing[("float32", shape)]]]
+    if any(r is None for r, _ in ratios):
+        return {"ratio": None, "shape": None}
+    ratio, shape = max(ratios)
+    return {"ratio": ratio, "shape": list(shape)}
 
 
 def fused_rms_norm_backward(x, w, dy, axis):
@@ -289,7 +306,8 @@ def check_k1_backward(k1_module) -> dict:
             # x, dy read and dx written once, w and dw; per element about 12
             # fp32 operations (two sums of products, dx, the dw term)
             bnd, by = bound_ms(3 * n * x.element_size() + 8 * c, 12 * n)
-            lib = "none" if lib_ms is None else f"{lib_ms * 1e3:.2f} us"
+            lib = "none" if lib_ms is None else (f"{lib_ms * 1e3:.2f} us (kernel/library "
+                                                 f"{ms / lib_ms:.2f})")
             print(f"K1 backward {name} {shape} axis={axis}: max_abs_err dx "
                   f"{dx_err.max().item():.3e} (tol {atol:g} + {rtol:g}*|ref|), dw "
                   f"{dw_err.max().item():.3e} (tol {K1B_DW_RTOL:g}*sum|terms|, max |dw| "
@@ -837,8 +855,8 @@ def main() -> None:
     # kernels from the training run; K3 is on no path.
     launches = {k: sum(r[k] for r in bimamba.values()) for k in counts.wrappers}
     launches["rms_norm_backward"] = trained["rms_norm_backward"]
-    k1_ms, k1_plain, k1_lib, k1_bound, k1_by = k1["timing"][("float32", K1_CASES[0][0])]
-    k1b_ms, k1b_plain, k1b_lib, k1b_bound, k1b_by = k1b["timing"][("float32", K1_CASES[1][0])]
+    k1_ms, k1_plain, k1_lib, k1_bound, k1_by = k1["timing"][("float32", (1, 32, 256, 256))]
+    k1b_ms, k1b_plain, k1b_lib, k1b_bound, k1b_by = k1b["timing"][("float32", (4, 32, 256, 256))]
     k3_ms, k3_plain, k3_bound, k3_by = k3["timing"][("float32", (262144, 64))]
     k2_ms, k2_plain, k2_bound, k2_by = k2["timing"][(1, 8, 65536)]
     print(json.dumps({"kernels": [{
@@ -846,12 +864,13 @@ def main() -> None:
         "replaces": "adnm_tpu/ops/pallas/fused_norm.py:57", "launches": launches["rms_norm"],
         "max_abs_err": k1["max_abs_err"], "ms": k1_ms, "plain_ms": k1_plain,
         "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": k1_lib,
+        "worst_vs_library": worst_vs_library(k1["timing"]),
     }, {
         "name": "rms_norm_backward", "route": "cuda", "source": "adnm_tpu_torch/csrc/rms_norm.cu",
         "replaces": "adnm_tpu/ops/pallas/fused_norm.py:57",
         "launches": launches["rms_norm_backward"], "max_abs_err": k1b["max_abs_err"],
         "ms": k1b_ms, "plain_ms": k1b_plain, "bound_ms": k1b_bound, "bound_by": k1b_by,
-        "library_ms": k1b_lib,
+        "library_ms": k1b_lib, "worst_vs_library": worst_vs_library(k1b["timing"]),
     }, {
         "name": "ssd_chunked_scan", "route": "cuda", "source": "adnm_tpu_torch/csrc/ssd_scan.cu",
         "replaces": "adnm_tpu/ops/pallas/ssd_scan.py:132",

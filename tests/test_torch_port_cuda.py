@@ -23,11 +23,29 @@ from adnm_tpu_torch.ops.rms_norm import (
     rms_norm_reference,
 )
 
-# The main path's shapes: refiner (B, 32, 256, 256), the Blocks at
+# The main path's shapes: refiner (B, 32, 256, 256), every Block norm at
 # 32^2 ... 8^2, and the Pallas contract's (rows, d) on the last axis; then
-# ragged ones (C not a multiple of 8, H*W not of 32, d not of 32).
+# ones that reach each branch of the kernels' split: C not a multiple of
+# the cluster size, H*W below the narrowest 16-byte tile, H*W not a
+# multiple of 4 (the scalar variant), batch 4 at 8^2, a channel axis too
+# wide for registers (the forward's chunks), and d not a multiple of 32.
 CARD_CASES = [((1, 32, 256, 256), 1), ((4, 32, 256, 256), 1), ((1, 128, 32, 32), 1),
-              ((1, 1024, 8, 8), 1), ((4096, 32), -1), ((3, 33, 7, 5), 1), ((5, 1000), -1)]
+              ((1, 256, 16, 16), 1), ((1, 512, 8, 8), 1), ((1, 1024, 8, 8), 1),
+              ((1, 1024, 16, 16), 1), ((1, 512, 32, 32), 1), ((4096, 32), -1),
+              ((1, 1000, 8, 8), 1), ((2, 64, 3, 3), 1), ((3, 33, 7, 5), 1), ((4, 1024, 8, 8), 1),
+              ((5, 1000), -1)]
+# Forward only: beyond the backward's MAX_BACKWARD_C.
+FORWARD_CASES = [((1, 20000, 2, 2), 1)]
+
+
+def misaligned(shape, dtype, gen, device):
+    """A contiguous tensor of ``shape`` whose storage starts one element
+    past a 16-byte boundary."""
+    n = 1
+    for s in shape:
+        n *= s
+    flat = torch.randn(n + 1, generator=gen, device=device).to(dtype)
+    return flat[1:].view(shape)
 
 
 @pytest.fixture
@@ -43,9 +61,11 @@ def card():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain_version_on_the_card(card, dtype):
     gen = torch.Generator(device=card).manual_seed(0)
-    for shape, axis in CARD_CASES:
-        c = shape[axis]
-        x = torch.randn(shape, generator=gen, device=card).to(dtype)
+    cases = [(torch.randn(shape, generator=gen, device=card).to(dtype), axis)
+             for shape, axis in CARD_CASES + FORWARD_CASES]
+    cases.append((misaligned((1, 128, 32, 32), dtype, gen, card), 1))
+    for x, axis in cases:
+        c = x.shape[axis]
         w = torch.rand(c, generator=gen, device=card) + 0.5
         before = rms_norm.launches
         got = rms_norm(x, w, 1e-6, axis)
@@ -55,7 +75,8 @@ def test_kernel_matches_plain_version_on_the_card(card, dtype):
         want = rms_norm_reference(x, w, 1e-6, axis)
         # fp32: a few ulp; bf16: one bf16 rounding step of the output.
         rtol, atol = (1e-5, 1e-5) if dtype == torch.float32 else (8e-3, 1e-5)
-        torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol,
+                                   msg=lambda m: f"{tuple(x.shape)}: {m}")
 
 
 @pytest.mark.cuda
@@ -78,6 +99,9 @@ def test_kernel_wrapper_raises_on_what_the_kernel_does_not_take(card):
     with pytest.raises(ValueError, match="at most 1536"):
         wide = torch.ones(2, 2048, device=card)
         rms_norm_backward(wide, torch.ones(2048, device=card), wide)
+    with pytest.raises(ValueError, match="at most 16384"):
+        wide = torch.ones(1, 16385, 2, 2, device=card)
+        rms_norm_backward(wide, torch.ones(16385, device=card), wide, 1e-6, 1)
     with pytest.raises(RuntimeError, match="forward only"):
         gated_rms_norm(x.requires_grad_(), x, w, 1e-6, 1)
 
@@ -91,10 +115,13 @@ def test_backward_kernel_matches_plain_version_on_the_card(card, dtype):
     order: relative 1e-4 of the channel's sum of |terms| covers it. Two
     launches give bit-equal dw (no atomics)."""
     gen = torch.Generator(device=card).manual_seed(5)
-    for shape, axis in CARD_CASES:
-        c = shape[axis]
-        x = torch.randn(shape, generator=gen, device=card).to(dtype)
-        dy = torch.randn(shape, generator=gen, device=card).to(dtype)
+    cases = [(torch.randn(shape, generator=gen, device=card).to(dtype),
+              torch.randn(shape, generator=gen, device=card).to(dtype), axis)
+             for shape, axis in CARD_CASES]
+    cases.append((misaligned((1, 128, 32, 32), dtype, gen, card),
+                  misaligned((1, 128, 32, 32), dtype, gen, card), 1))
+    for x, dy, axis in cases:
+        shape, c = tuple(x.shape), x.shape[axis]
         w = torch.rand(c, generator=gen, device=card) + 0.5
         before = rms_norm_backward.launches
         dx, dw = rms_norm_backward(x, w, dy, 1e-6, axis)
@@ -102,10 +129,11 @@ def test_backward_kernel_matches_plain_version_on_the_card(card, dtype):
         torch.cuda.synchronize()
         assert rms_norm_backward.launches == before + 2
         assert dx.dtype == dtype and dx.shape == x.shape and dw.dtype == torch.float32
-        assert torch.equal(dw, dw2)
+        assert torch.equal(dw, dw2), shape
         dx_want, dw_want = rms_norm_backward_reference(x, w, dy, 1e-6, axis)
         rtol, atol = (1e-5, 1e-5) if dtype == torch.float32 else (8e-3, 1e-5)
-        torch.testing.assert_close(dx.float(), dx_want.float(), rtol=rtol, atol=atol)
+        torch.testing.assert_close(dx.float(), dx_want.float(), rtol=rtol, atol=atol,
+                                   msg=lambda m: f"{shape}: {m}")
         dims = [d for d in range(x.dim()) if d != axis % x.dim()]
         r = torch.rsqrt(x.float().square().mean(dim=axis, keepdim=True) + 1e-6)
         scale = (dy.float() * x.float() * r).abs().sum(dim=dims)
@@ -132,9 +160,10 @@ def test_rms_norm_trains_through_both_kernels(card):
 
 
 # K3's shapes: the refiner's (B*L, d) rows at d = 32 and 64 and a small
-# one (the JAX package's kernel benchmark), NCHW channels, ragged ones.
+# one (the JAX package's kernel benchmark), NCHW channels (one split across
+# a cluster), ragged ones.
 K3_CASES = [((65536, 32), -1), ((262144, 32), -1), ((262144, 64), -1), ((4096, 32), -1),
-            ((2, 32, 64, 64), 1), ((3, 33, 7, 5), 1), ((5, 1000), -1)]
+            ((2, 32, 64, 64), 1), ((1, 1024, 8, 8), 1), ((3, 33, 7, 5), 1), ((5, 1000), -1)]
 
 
 @pytest.mark.cuda

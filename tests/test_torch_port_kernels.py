@@ -50,7 +50,12 @@ def test_plain_version_matches_pallas_kernel_on_last_axis(shape):
     np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
 
 
-@pytest.mark.parametrize("shape", [(2, 32, 16, 16), (1, 128, 4, 4), (2, 12, 5, 3)])
+# The main path's channel counts at its 8^2 Blocks (encoder6, decoder1),
+# at 4x4 and 8x8, batch 1.
+WIDE = [(1, 512, 4, 4), (1, 1024, 4, 4), (1, 512, 8, 8), (1, 1024, 8, 8)]
+
+
+@pytest.mark.parametrize("shape", [(2, 32, 16, 16), (1, 128, 4, 4), (2, 12, 5, 3), *WIDE])
 def test_rms_norm_module_matches_jax_on_nchw_channels(shape):
     x, w = _inputs(shape, shape[1], seed=1)
     want = JRMSNorm(shape[1], 1e-6, axis=1).apply({"params": {"weight": jnp.asarray(w)}},
@@ -88,7 +93,7 @@ def test_other_devices_and_bad_shapes_raise():
 
 
 @pytest.mark.parametrize("shape,axis", [((2, 32, 8, 8), 1), ((3, 12, 5, 3), 1), ((300, 16), -1),
-                                        ((4, 6, 40), -1)])
+                                        ((4, 6, 40), -1), *((s, 1) for s in WIDE)])
 def test_backward_plain_version_matches_jax_vjp(shape, axis):
     """dx and dw of ``rms_norm_backward_reference`` against ``jax.vjp`` of
     the JAX RMSNorm module; fp32 both, sums in another order."""
@@ -104,6 +109,32 @@ def test_backward_plain_version_matches_jax_vjp(shape, axis):
     assert dx.dtype == torch.float32 and dw.dtype == torch.float32 and dw.shape == (c,)
     np.testing.assert_allclose(dx.numpy(), np.asarray(dx_want), rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(dw.numpy(), np.asarray(dw_want), rtol=1e-4, atol=1e-4)
+
+
+def test_chip_smoke_times_k1_at_every_shape_the_model_gives_it(one_torch_thread, monkeypatch):
+    """The duality model (create_adnm_unet(5, 20, 6), seeded) at 64^2 on
+    the CPU: the shapes that reach K1, with H and W scaled to 256^2, are the
+    ones chip_smoke.py checks and times, and a forward makes 20 calls."""
+    import chip_smoke
+    from adnm_tpu_torch.cli import predict
+    from adnm_tpu_torch.core import layers
+
+    seen = []
+
+    def recording(x, weight, eps=1e-6, axis=-1):
+        seen.append((tuple(x.shape), axis))
+        return rms_norm(x, weight, eps, axis)
+
+    monkeypatch.setattr(layers, "rms_norm", recording)
+    model = predict.load_model(None, torch.device("cpu"))
+    x = torch.from_numpy(np.random.RandomState(0).rand(1, 5, 1, 64, 64).astype(np.float32))
+    with torch.inference_mode():
+        model(x)
+    assert len(seen) == chip_smoke.K1_PER_FORWARD == 20
+    cases = {shape for shape, axis in chip_smoke.K1_CASES if axis == 1}
+    for (b, c, h, w), axis in seen:
+        assert axis == 1 and (b, c, 4 * h, 4 * w) in cases, (b, c, h, w)
+    assert {(b, c, 4 * h, 4 * w) for (b, c, h, w), _ in seen} | {(4, 32, 256, 256)} == cases
 
 
 def test_rms_norm_is_differentiable_on_the_cpu_through_the_explicit_formula():
