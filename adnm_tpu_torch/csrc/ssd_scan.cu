@@ -1,65 +1,92 @@
-// Causal chunked SSD scan (kernel K2), written by hand for Hopper (sm_90a).
+// Causal SSD scan (kernel K2), written by hand for Hopper (sm_90a), as a
+// chunk-recurrent state scan.
 //
 // Replaces the Pallas TPU kernel adnm_tpu/ops/pallas/ssd_scan.py
 // ssd_chunked_scan_pallas (_forward with the body _kernel), the function of
 // adnm_tpu/ops/ssd.py::ssd_chunked_scan. Forward only, fp32 throughout
 // (no TF32, no tensor cores). In the port's sequence-minor layout, per
-// batch b and head h, with dA = dt * A (A < 0, not negated):
+// batch b and head h, with dA_t = dt_t * A (A < 0, not negated), the scan
+// is the recurrence
 //
-//     y_t = sum_{s<=t} exp(sum_{r=s+1..t} dA_r) (C_t . B_s) x_s dt_s + D x_t
+//     S_t = exp(dA_t) S_{t-1} + B_t (x_t dt_t)      (S: N x P = 16 x 4)
+//     y_t = C_t . S_t + D x_t
 //
-// x (B, H, P, L), dt (B, H, L), A and D (H,), B and C (B, N, L) shared by
-// the heads, y (B, H, P, L), with every model's P = 4 and N = 16. Each sample of x, dt, B and C is contiguous;
-// the samples lie at a batch stride of their own, so channel slices of the
-// mixer's NCHW tensors are read in place. With reverse != 0 the scan runs
-// from the last token to the first: token i of the scan is position
-// L - 1 - i, which is flip(scan(flip(x, dt, B, C))) without the copies.
+// which equals the chunked form y_t = sum_{s<=t} exp(sum_{r=s+1..t} dA_r)
+// (C_t . B_s) x_s dt_s + D x_t up to rounding; the result does not depend
+// on the chunk. x (B, H, P, L), dt (B, H, L), A and D (H,), B and C
+// (B, N, L) shared by the heads, y (B, H, P, L), with every model's P = 4
+// and N = 16. Each sample of x, dt, B and C is contiguous; the samples lie
+// at a batch stride of their own, so channel slices of the mixer's NCHW
+// tensors are read in place. With reverse != 0 the scan runs from the last
+// token to the first: token i of the scan is position L - 1 - i, which is
+// flip(scan(flip(x, dt, B, C))) without the copies.
 //
-// The Pallas kernel walks the chunks of Q tokens in grid order and keeps
-// the (N, H*P) state in VMEM. Hopper runs blocks in no order, and one
-// block per (batch, head) walking 256 chunks would leave the refiner
-// (L = 65,536, 8 heads) 8 blocks for 132 SMs. So the scan is split into
-// the three phases of the XLA version:
+// Why not the TPU's quadratic form. The Pallas kernel computes each chunk
+// of Q = 256 tokens as a masked Q x Q product, which suits a matrix unit.
+// On CUDA cores in fp32 every chunk then visits Q(Q+1)/2 causal pairs, each
+// N multiply-adds for C_t . B_s and per head an exp, a subtract and P
+// multiply-adds: about 1.2 GFLOP and 67 M exps per refiner call (L =
+// 65,536, 8 heads, batch 1), where the recurrence needs 0.17 GFLOP
+// (chip_smoke.py::k2_flops). The pairs alone cost 20-35 us there, and the
+// tuned quadratic kernel took 17 times its 8.1 us byte bound (PERF.md).
+// Here no pair is visited: a token costs 3 multiply-adds per state value
+// (decay, rank-1 update, C_t . S_t) and one exp per head.
 //
-//   1. ssd_chunk_states, a block per (chunk, batch, group of heads): the
-//      in-chunk cumsum of dA (block-wide scans) and the chunk's end state
-//      S_c = sum_s B_s (x_s dt_s exp(cum_end - cum_s)) of N x P values per
-//      head, and the decay exp(cum_end) across the chunk.
-//   2. ssd_carry, a warp per (batch, head, n, p): the carry
-//      S_in(c+1) = S_in(c) exp(cum_end(c)) + S_c over the chunks, as warp
-//      scans of 32 chunks at a time, written over S_c.
-//   3. ssd_chunk_outputs, a block per (chunk, batch, group of heads, tile
-//      of 64 rows t): the masked intra-chunk product
-//      sum_{s<=t} (C_t . B_s) exp(cum_t - cum_s) x_s dt_s, the carried
-//      state's exp(cum_t) (C_t . S_in), and D x_t.
+// Walkers. The sequence is cut into sub-chunks of T tokens (T = 32 up to
+// L = 256, else 64). A walker is one (sub-chunk, head, p) that walks its T
+// tokens in order, keeping the N state values in registers; kNQ = 2
+// threads share a walker, thread nq keeping the states n = nq, nq + 2, ...,
+// and the two partial sums of y_t meet by a shuffle. Splitting N halves
+// each thread's serial walk, which bounds the small grids of the 8^2..32^2
+// Blocks. The threads of a warp belong to one sub-chunk (4 heads), so they
+// read the same tokens: B_t and C_t are shared-memory broadcasts, and a
+// thread reads 4 tokens per 16-byte load. A block is a tile: 256 threads,
+// 8 heads, 4 sub-chunks, for one batch sample. It stages x, dt, B and C of
+// its tile in shared memory with 16-byte cp.async copies, coalesced in
+// device memory (a walker reading its own row would not coalesce with the
+// rest of its warp); rows are padded by 4 floats, so the 16-byte reads of 8
+// rows fall in distinct banks. Tokens past L are staged as zeros (dt = 0
+// leaves the state as it is), and where L or a batch stride is not a
+// multiple of 4 or a pointer is not 16-byte aligned the copies are 4-byte
+// ones.
 //
-// One chunk (L <= Q) carries nothing: phases 1 and 2 are skipped.
+// Carry. Each walker first walks its sub-chunk from zero, to its end state
+// and decay. The block combines its sub-chunks in order through shared
+// memory: the state entering sub-chunk w from the tile's start,
+// P_w = P_{w-1} exp(dA across w-1) + E_{w-1}, and its decay G_w. Then
 //
-// What bounds it: bytes. At the refiner's shape (L = 65,536, Q = 256, 8
-// heads of P = 4, N = 16) one batch moves 26 MiB (8.1 us at 3.35 TB/s),
-// while the scan written as a state update per token needs about 5 N P
-// operations per token and head, 0.17 GFLOP (2.6 us at the 67 TFLOP/s fp32
-// rate). The chunked form does about 1.2 GFLOP instead, most of it in the
-// Q(Q+1)/2 causal pairs of every chunk: N multiply-adds for C_t . B_s, then
-// per head a subtract, an exp, a multiply and P multiply-adds. It trades
-// those operations for parallel chunks and no sequential walk over L. What
-// the design does about them:
-//   * C_t . B_s is the same for all heads, so a block takes 4 heads and
-//     computes it once for all of them; 16 sums a thread keep it within 80
-//     registers, three blocks to an SM.
-//   * Pairs with s > t are never visited, so the masked half costs nothing.
-//   * Each row is split over 4 lanes, lane j taking s = j, j + 4, ...: the
-//     longest row walks 64 pairs, not 256, and the small grids of the
-//     8^2..32^2 Blocks get 4 times the blocks.
-//   * B, the cumsums and x dt of the chunk sit in shared memory laid out so
-//     that every load in the pair loop is a 16-byte broadcast; the cumsums
-//     are scaled by log2(e) so that each decay is one exp2f.
-//   * All global loads of a block are issued before its first scan, and
-//     the heads' scans run side by side.
-// The Q x Q product is never stored (at Q = 256 it alone would be 256 KB
-// in fp32, more than a block's 227 KB). What is left: the blocks spend
-// much of their time waiting on those loads and scans, and a refiner call
-// takes about 17 times its bound (PERF.md).
+//   * at most 8 tiles (L <= 8 * 4 T: every 8^2..32^2 Block):
+//     ssd_scan_fused, one launch, a thread cluster of one block per tile.
+//     Each block pushes its tile's end state into the shared memory of
+//     every later block of the cluster, one cluster barrier, then composes
+//     the state entering its tile from its own memory, and the walkers walk
+//     again from S_in G_w + P_w writing y. Nothing goes through device
+//     memory but the inputs and y.
+//   * more tiles (the refiner: 256): three launches. ssd_scan_states writes
+//     the P_w and G_w of every sub-chunk and each tile's end state and
+//     decay; ssd_carry, a block per (batch, head), stages the tiles' end
+//     states in shared memory and walks them in 4 segments, writing the
+//     state entering each tile; ssd_scan_outputs restages the tile, walks
+//     from S_in G_w + P_w and writes y.
+//
+// y_t is written over x_t in shared memory, then stored coalesced. L <= T
+// is one sub-chunk, which walks once from zero.
+//
+// What bounds it. The function's bytes: x, dt, B, C read and y written
+// once, 26 MiB at the refiner (8.1 us at 3.35 TB/s). The three-launch form
+// moves about 1.6 times that (x, dt and B are read twice; the states pass
+// through the L2), and each of its tile kernels stages its tile, then
+// walks, then stores, with no overlap inside a block: at the refiner it
+// takes about 3.6 times the bound, of which the carry launch is a fixed
+// few us (PERF.md). The operations, about 0.1 G multiply-adds at the
+// refiner, are a few us at the fp32 rate. At the 8^2..32^2 Blocks (L =
+// 64..1,024) a call is one launch of 16-128 blocks: its latency (staging,
+// two serial walks of T tokens, the store) bounds it.
+//
+// Left for later: a single-pass form of the many-tile case that fuses
+// phases 1 and 3 with a decoupled look-back across tiles, so that x, dt and
+// B are read once, no carry launch is needed, and a tile's loads overlap
+// the previous tile's walk.
 //
 // Built by adnm_tpu_torch/ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
@@ -67,17 +94,33 @@
 // cudaGetLastError() after the launches, and the wrapper
 // (adnm_tpu_torch/ops/ssd.py) raises if it is not 0.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
 
-constexpr int kN = 16;       // state size N
-constexpr int kP = 4;        // head width P (headdim of every model)
-constexpr int kMaxQ = 256;   // tokens per chunk, one thread each
-constexpr int kHG = 4;       // heads per block: kHG * kP = 16 sums a thread
+namespace cg = cooperative_groups;
+
+constexpr int kN = 16;           // state size N
+constexpr int kP = 4;            // head width P (headdim of every model)
+constexpr int kHeads = 8;        // heads per block
 constexpr int kWarp = 32;
-constexpr int kMaxWarps = kMaxQ / kWarp;
+constexpr int kThreads = 256;    // 8 warps
+constexpr int kPad = 4;          // floats of padding after each staged row
+constexpr int kMaxCluster = 8;   // the portable cluster size: tiles of the one-launch form
+constexpr float kLog2e = 1.4426950408889634f;
+
+// A thread walks one (sub-chunk, head, p) for the states n = m * kNQ + nq,
+// m < kS: kNQ threads share a walker's N values. A warp holds 32 / (4 kNQ)
+// heads of one sub-chunk, so its threads read the same tokens.
+constexpr int kNQ = 2;                      // threads that share a walker
+constexpr int kS = kN / kNQ;                // state values a thread keeps
+constexpr int kCols = kHeads * kP * kNQ;    // threads per sub-chunk
+constexpr int kSubs = kThreads / kCols;     // sub-chunks per tile
+static_assert(kCols % kWarp == 0 && kThreads % kCols == 0, "whole warps per sub-chunk");
 
 struct Args {
     const float* x;
@@ -87,293 +130,397 @@ struct Args {
     const float* C;
     const float* D;
     float* y;
-    float* states;  // (batch, H, chunks, N, P), or null for one chunk
-    float* decay;   // (batch, H, chunks)
+    float* sub_state;   // (batch, H, nsub, P, N): state entering a sub-chunk from its tile's start
+    float* sub_decay;   // (batch, H, nsub): decay from the tile's start to the sub-chunk
+    float* tile_state;  // (batch, H, ntile, P, N): each tile's end state, then the entering one
+    float* tile_decay;  // (batch, H, ntile): decay across each tile
     int64_t sx, sdt, sb, sc;  // batch strides in elements
-    int H, L, Q, nc, reverse;
+    int H, L, nsub, ntile;
+    int tl;   // tokens per tile: kSubs * T, or nsub * T when there is one tile
+    int vec;  // 16-byte copies
 };
 
-__device__ __forceinline__ int position(int i, const Args& a) {
-    return a.reverse ? a.L - 1 - i : i;
+// The positions [lo, hi) of tile k, held at shared index l - base.
+struct Range {
+    int base, lo, hi;
+};
+
+template <bool REV>
+__device__ __forceinline__ Range tile_range(const Args& a, int k) {
+    const int base = REV ? a.L - (k + 1) * a.tl : k * a.tl;
+    return {base, max(base, 0), min(base + a.tl, a.L)};
 }
 
-// K inclusive scans over the block at once, one for each v[k] (blockDim.x
-// a multiple of 32, at most 256; warp_total holds kMaxWarps * K floats).
-// Every thread must call it.
-template <int K>
-__device__ void block_inclusive_scans(float (&v)[K], float* warp_total) {
-    const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+template <int BYTES>
+__device__ __forceinline__ void copy_async(float* dst, const float* src) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src), "n"(BYTES)
+                 : "memory");
+}
+
+__device__ __forceinline__ void copy_wait() {
+    asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// f(r, i) for every r < rows and i < cols, spread over the block's
+// threads, with no division in the loop.
+template <typename F>
+__device__ __forceinline__ void for_each(int rows, int cols, F f) {
+    if (cols <= 0) return;
+    const int dr = blockDim.x / cols, di = blockDim.x % cols;
+    int r = threadIdx.x / cols, i = threadIdx.x % cols;
+    while (r < rows) {
+        f(r, i);
+        r += dr;
+        i += di;
+        if (i >= cols) i -= cols, ++r;
+    }
+}
+
+// Stage `rows` rows of the tile (row r at g + r * L) into s (row stride
+// tl + kPad); shared indices outside the tile's range are zero.
+__device__ void stage(float* s, const float* g, int rows, const Args& a, Range t) {
+    const int rs = a.tl + kPad, z0 = t.lo - t.base, z1 = t.hi - t.base, L = a.L, lo = t.lo;
+    for_each(rows, a.tl - (z1 - z0),
+             [&](int r, int i) { s[r * rs + (i < z0 ? i : i - z0 + z1)] = 0.f; });
+    if (a.vec)
+        for_each(rows, (z1 - z0) / 4, [&](int r, int i) {
+            copy_async<16>(s + r * rs + z0 + 4 * i, g + int64_t(r) * L + lo + 4 * i);
+        });
+    else
+        for_each(rows, z1 - z0, [&](int r, int i) {
+            copy_async<4>(s + r * rs + z0 + i, g + int64_t(r) * L + lo + i);
+        });
+}
+
+// 4 floats from 16-byte aligned shared memory, in scan order.
+template <bool REV>
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = REV ? q.w : q.x;
+    v[1] = REV ? q.z : q.y;
+    v[2] = REV ? q.y : q.z;
+    v[3] = REV ? q.x : q.w;
+}
+
+// A thread's T tokens of sub-chunk w: S (its kS states) advances over
+// them and ld gains their sum of dt A log2(e). With OUT, y_t is written
+// over x_t in xrow, token j of each 4 by the thread with nq == j % kNQ.
+// xrow, dtrow: the walker's rows of x and dt; Bs, Cs: rows n of B and C.
+template <int T, bool REV, bool OUT>
+__device__ __forceinline__ void walk(float* xrow, const float* dtrow, const float* Bs,
+                                     const float* Cs, int rs, int tl, int w, int nq, float A2,
+                                     float d, float (&S)[kS], float& ld) {
+    const int start = REV ? tl - (w + 1) * T : w * T;
+#pragma unroll 2
+    for (int g = 0; g < T / 4; ++g) {
+        const int i = start + 4 * (REV ? T / 4 - 1 - g : g);
+        float xv[4], dv[4], a[4], u[4];
+        load4<REV>(xrow + i, xv);
+        load4<REV>(dtrow + i, dv);
 #pragma unroll
-    for (int off = 1; off < kWarp; off *= 2) {
-#pragma unroll
-        for (int k = 0; k < K; ++k) {
-            const float u = __shfl_up_sync(0xffffffffu, v[k], off);
-            if (lane >= off) v[k] += u;
+        for (int j = 0; j < 4; ++j) {
+            const float e = dv[j] * A2;
+            a[j] = exp2f(e);
+            u[j] = xv[j] * dv[j];
+            ld += e;
         }
-    }
-    if (lane == kWarp - 1) {
+        float y0[4] = {0.f, 0.f, 0.f, 0.f}, y1[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-        for (int k = 0; k < K; ++k) warp_total[warp * K + k] = v[k];
-    }
-    __syncthreads();
+        for (int m = 0; m < kS; ++m) {
+            const int n = m * kNQ + nq;
+            float bv[4], cv[4];
+            load4<REV>(Bs + n * rs + i, bv);
+            if constexpr (OUT) load4<REV>(Cs + n * rs + i, cv);
+            float s = S[m];
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-        float before = 0.f;
-        for (int w = 0; w < warp; ++w) before += warp_total[w * K + k];
-        v[k] += before;
-    }
-}
-
-// The dA cumsums of the chunk for the block's heads, scaled by `scale`,
-// with x and dt of token `tid` at position l (zeros where !loader or past
-// the block's hn heads). All global loads are issued before the first scan.
-__device__ void load_and_scan(const Args& a, int b, int h0, int hn, bool loader, int l,
-                              float scale, float (&cum)[kHG], float (&x)[kHG][kP],
-                              float (&dtv)[kHG], float* warp_total) {
-#pragma unroll
-    for (int hh = 0; hh < kHG; ++hh) {
-        const bool on = loader && hh < hn;
-        dtv[hh] = on ? a.dt[b * a.sdt + int64_t(h0 + hh) * a.L + l] : 0.f;
-#pragma unroll
-        for (int p = 0; p < kP; ++p)
-            x[hh][p] = on ? a.x[b * a.sx + int64_t((h0 + hh) * kP + p) * a.L + l] : 0.f;
-        cum[hh] = hh < hn ? dtv[hh] * a.A[h0 + hh] * scale : 0.f;
-    }
-    block_inclusive_scans<kHG>(cum, warp_total);
-}
-
-// K consecutive floats from shared memory in 16-byte loads (p is aligned
-// to 16 bytes).
-template <int K>
-__device__ __forceinline__ void load_vec(const float* p, float (&out)[K]) {
-    static_assert(K % 4 == 0, "whole float4s");
-#pragma unroll
-    for (int k = 0; k < K / 4; ++k) {
-        const float4 v = reinterpret_cast<const float4*>(p)[k];
-        out[4 * k] = v.x;
-        out[4 * k + 1] = v.y;
-        out[4 * k + 2] = v.z;
-        out[4 * k + 3] = v.w;
-    }
-}
-
-// Phase 1. Shared memory: B of the chunk [N][Q], u = x dt exp(cum_end - cum)
-// [heads * P][Q | 1] (an odd row stride: the rows a warp reads at one s
-// fall in distinct banks).
-__global__ void __launch_bounds__(kMaxQ) ssd_chunk_states(Args a) {
-    constexpr int HG = kHG, P = kP;
-    const int c = blockIdx.x, h0 = blockIdx.y * HG, b = blockIdx.z;
-    const int t = threadIdx.x, Q = a.Q, L = a.L;
-    const int hn = min(HG, a.H - h0);
-    const int ustride = Q | 1;
-    extern __shared__ float4 smem4[];
-    float* Bs = reinterpret_cast<float*>(smem4);
-    float* u = Bs + kN * Q;
-    __shared__ float warp_total[kMaxWarps * HG];
-    __shared__ float end_s[HG];
-
-    const bool valid = t < Q;
-    const int l = valid ? position(c * Q + t, a) : 0;
-    if (valid) {
-#pragma unroll
-        for (int n = 0; n < kN; ++n) Bs[n * Q + t] = a.B[b * a.sb + int64_t(n) * L + l];
-    }
-    float cum[HG], xr[HG][P], dtv[HG];
-    load_and_scan(a, b, h0, hn, valid, l, 1.f, cum, xr, dtv, warp_total);
-    if (t == Q - 1) {
-#pragma unroll
-        for (int hh = 0; hh < HG; ++hh) end_s[hh] = cum[hh];
-    }
-    __syncthreads();
-    if (valid) {
-#pragma unroll
-        for (int hh = 0; hh < HG; ++hh) {
-            if (hh < hn) {
-                const float w = dtv[hh] * expf(end_s[hh] - cum[hh]);
-#pragma unroll
-                for (int p = 0; p < P; ++p) u[(hh * P + p) * ustride + t] = xr[hh][p] * w;
-            }
-        }
-    }
-    if (t < hn) a.decay[(int64_t(b) * a.H + h0 + t) * a.nc + c] = expf(end_s[t]);
-    __syncthreads();
-    // N * HG * P sums over the chunk, a thread each.
-    for (int o = t; o < kN * HG * P; o += blockDim.x) {
-        const int n = o / (HG * P), hp = o % (HG * P), hh = hp / P, p = hp % P;
-        if (hh >= hn) continue;
-        const float* br = Bs + n * Q;
-        const float* ur = u + hp * ustride;
-        float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
-        int k = 0;
-        for (; k + 4 <= Q; k += 4) {
-            s0 = fmaf(br[k], ur[k], s0);
-            s1 = fmaf(br[k + 1], ur[k + 1], s1);
-            s2 = fmaf(br[k + 2], ur[k + 2], s2);
-            s3 = fmaf(br[k + 3], ur[k + 3], s3);
-        }
-        for (; k < Q; ++k) s0 = fmaf(br[k], ur[k], s0);
-        a.states[((int64_t(b) * a.H + h0 + hh) * a.nc + c) * (kN * P) + n * P + p] =
-            (s0 + s1) + (s2 + s3);
-    }
-}
-
-// Phase 2: one warp per (batch, head, n, p) walks the chunks 32 at a time
-// and leaves in states the state entering each chunk. The carry
-// S' = S d + s composes associatively, (d1, s1) then (d2, s2) being
-// (d1 d2, s1 d2 + s2), so each group of 32 chunks is a warp scan.
-__global__ void ssd_carry(float* states, const float* decay, int64_t total, int nc, int np) {
-    const int64_t w = (int64_t(blockIdx.x) * blockDim.x + threadIdx.x) / kWarp;
-    const int lane = threadIdx.x % kWarp;
-    if (w >= total) return;  // whole warps
-    const int64_t bh = w / np;
-    float* st = states + bh * nc * np + w % np;
-    const float* dec = decay + bh * nc;
-    float carry = 0.f;  // the state entering the group
-    for (int c0 = 0; c0 < nc; c0 += kWarp) {
-        const int c = c0 + lane;
-        float d = c < nc ? dec[c] : 1.f, s = c < nc ? st[int64_t(c) * np] : 0.f;
-#pragma unroll
-        for (int off = 1; off < kWarp; off *= 2) {
-            const float dp = __shfl_up_sync(0xffffffffu, d, off);
-            const float sp = __shfl_up_sync(0xffffffffu, s, off);
-            if (lane >= off) {
-                s = fmaf(sp, d, s);
-                d *= dp;
-            }
-        }
-        // (d, s) now spans chunks c0..c; the state entering c spans c0..c-1
-        float de = __shfl_up_sync(0xffffffffu, d, 1), se = __shfl_up_sync(0xffffffffu, s, 1);
-        if (lane == 0) de = 1.f, se = 0.f;
-        if (c < nc) st[int64_t(c) * np] = fmaf(carry, de, se);
-        carry = fmaf(carry, __shfl_sync(0xffffffffu, d, kWarp - 1),
-                     __shfl_sync(0xffffffffu, s, kWarp - 1));
-    }
-}
-
-// Phase 3. A block takes a tile of kRows rows t of one chunk for a group
-// of heads. Each row is split over kSplit lanes, lane j taking the pairs
-// s = j, j + kSplit, ... <= t, and the lanes' sums meet by shuffles: this
-// cuts the longest row's serial walk by kSplit and gives the small grids
-// of the 8^2..32^2 Blocks kSplit times more blocks. Shared memory: B of
-// the chunk [Q][N], x dt [Q][heads][P], the entering states [heads][N][P],
-// cum [Q][heads] (log2-scaled, for exp2f), x of the tile's rows for the D
-// skip [kRows][heads][P]. The kSplit lanes of a row are
-// 8 apart, so a quarter warp reads one s: every load in the pair loop is
-// a 16-byte broadcast.
-constexpr int kSplit = 4;
-constexpr int kRows = kMaxQ / kSplit;  // 64 rows of 4 lanes in 256 threads
-
-__global__ void __launch_bounds__(kMaxQ, 3) ssd_chunk_outputs(Args a) {
-    constexpr int HG = kHG, P = kP;
-    const int tiles = (a.Q + kRows - 1) / kRows;
-    const int c = blockIdx.x, b = blockIdx.z;
-    const int h0 = blockIdx.y / tiles * HG, r0 = blockIdx.y % tiles * kRows;
-    const int tid = threadIdx.x, Q = a.Q, L = a.L;
-    const int hn = min(HG, a.H - h0);
-    extern __shared__ float4 smem4[];
-    float* Bs = reinterpret_cast<float*>(smem4);
-    float* xd_s = Bs + Q * kN;
-    float* S_s = xd_s + Q * HG * P;
-    float* cum_s = S_s + HG * kN * P;
-    float* x_s = cum_s + Q * HG;  // x of the tile's rows [kRows][heads][P]
-    __shared__ float warp_total[kMaxWarps * HG];
-
-    // Row t, split j (lanes 8 apart); rows past Q still join the shuffles.
-    // The row's C goes to registers first: its loads are in flight while
-    // the block loads and scans the chunk.
-    const int lane = tid % kWarp, j = lane / (kWarp / kSplit);
-    const int t = r0 + tid / kWarp * (kWarp / kSplit) + lane % (kWarp / kSplit);
-    const bool valid = t < Q;
-    const int l = valid ? position(c * Q + t, a) : 0;
-    float Cr[kN];
-#pragma unroll
-    for (int n = 0; n < kN; ++n) Cr[n] = valid ? a.C[b * a.sc + int64_t(n) * L + l] : 0.f;
-
-    // Load the tokens s < r0 + kRows, one a thread.
-    const bool loader = tid < min(Q, r0 + kRows);
-    const int ls = loader ? position(c * Q + tid, a) : 0;
-    if (loader) {
-#pragma unroll
-        for (int n = 0; n < kN; ++n) Bs[tid * kN + n] = a.B[b * a.sb + int64_t(n) * L + ls];
-    }
-    {
-        float cum[HG], xr[HG][P], dtv[HG];
-        load_and_scan(a, b, h0, hn, loader, ls, 1.4426950408889634f, cum, xr, dtv, warp_total);
-        if (loader) {
-            const bool own_row = tid >= r0;
-#pragma unroll
-            for (int hh = 0; hh < HG; ++hh) {
-                cum_s[tid * HG + hh] = cum[hh];
-#pragma unroll
-                for (int p = 0; p < P; ++p) {
-                    xd_s[(tid * HG + hh) * P + p] = xr[hh][p] * dtv[hh];
-                    if (own_row) x_s[((tid - r0) * HG + hh) * P + p] = xr[hh][p];
+            for (int j = 0; j < 4; ++j) {
+                s = fmaf(s, a[j], bv[j] * u[j]);
+                if constexpr (OUT) {
+                    if (m % 2 == 0) y0[j] = fmaf(cv[j], s, y0[j]);
+                    else y1[j] = fmaf(cv[j], s, y1[j]);
                 }
             }
+            S[m] = s;
+        }
+        if constexpr (OUT) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                float v = y0[j] + y1[j];
+#pragma unroll
+                for (int off = 1; off < kNQ; off *= 2) v += __shfl_xor_sync(0xffffffffu, v, off);
+                if (j % kNQ == nq) xrow[i + (REV ? 3 - j : j)] = v + d * xv[j];
+            }
         }
     }
-    for (int e = tid; e < hn * kN * P; e += blockDim.x) {
-        const int hh = e / (kN * P);
-        S_s[e] = a.states == nullptr
-                     ? 0.f
-                     : a.states[((int64_t(b) * a.H + h0 + hh) * a.nc + c) * (kN * P) + e % (kN * P)];
+}
+
+// Shared memory of a tile: x [heads * P][tl + kPad] (then y), dt
+// [heads][..], B [N][..], C [N][..] (not in STATES), the sub-chunks' end
+// states and log2 decays for the combine (not in OUTPUTS), and in FUSED the
+// tile end states that earlier blocks of the cluster push
+// [rank][heads * P * N + heads].
+enum Mode { STATES, OUTPUTS, FUSED };
+constexpr int kAgg = kHeads * kP * kN + kHeads;
+
+constexpr int kCombine = kThreads * (kS + 1);  // floats of the combine
+
+template <Mode MODE>
+__host__ __device__ constexpr int staged_rows() {
+    return kHeads * kP + kHeads + (MODE == STATES ? 1 : 2) * kN;
+}
+
+template <Mode MODE>
+size_t smem_bytes(int tl) {
+    return sizeof(float) * (size_t(staged_rows<MODE>()) * (tl + kPad) +
+                            (MODE == OUTPUTS ? 0 : kCombine) +
+                            (MODE == FUSED ? kMaxCluster * kAgg : 0));
+}
+
+// One tile (block) for one batch sample and kHeads heads.
+//   STATES: walk from zero; write each sub-chunk's entering state from the
+//     tile's start and decay, and the tile's end state and decay.
+//   OUTPUTS: walk from the state phase 2 carried in, writing y.
+//   FUSED (at most kMaxCluster tiles, one a block of a cluster): walk from
+//     zero, combine, take the earlier tiles' end states from the cluster,
+//     walk again writing y. No scratch in device memory.
+template <int T, bool REV, Mode MODE>
+__device__ __forceinline__ void scan_tile(const Args& a) {
+    const int k = blockIdx.x, h0 = blockIdx.y * kHeads, b = blockIdx.z;
+    const int c = threadIdx.x % kCols, w = threadIdx.x / kCols;
+    const int hn = min(kHeads, a.H - h0), hh = c / (kP * kNQ), p = c / kNQ % kP, nq = c % kNQ;
+    const bool active = hh < hn;
+    const int h = h0 + min(hh, hn - 1), rs = a.tl + kPad, sub = k * kSubs + w;
+    const int subs = blockDim.x / kCols;  // sub-chunks of this tile's block
+    extern __shared__ float4 smem4[];
+    float* xs = reinterpret_cast<float*>(smem4);
+    float* dts = xs + kHeads * kP * rs;
+    float* Bs = dts + kHeads * rs;
+    float* Cs = Bs + kN * rs;
+    float* comb = xs + staged_rows<MODE>() * rs;
+    float* agg = comb + kCombine;
+    const bool cluster = MODE == FUSED && a.ntile > 1;
+    if (cluster) cluster_arrive_relaxed();  // no block pushes into one that has not started
+
+    const Range t = tile_range<REV>(a, k);
+    stage(xs, a.x + b * a.sx + int64_t(h0) * kP * a.L, hn * kP, a, t);
+    stage(dts, a.dt + b * a.sdt + int64_t(h0) * a.L, hn, a, t);
+    stage(Bs, a.B + b * a.sb, kN, a, t);
+    if constexpr (MODE != STATES) stage(Cs, a.C + b * a.sc, kN, a, t);
+
+    float S[kS], ld = 0.f;
+#pragma unroll
+    for (int m = 0; m < kS; ++m) S[m] = 0.f;
+    const int so = p * kN + nq;  // offset of the thread's first state in a (P, N) record
+    if (MODE == OUTPUTS && a.nsub > 1 && sub < a.nsub) {
+        // the state entering the sub-chunk, loaded under the copies
+        const int64_t o = (int64_t(b) * a.H + h) * a.nsub + sub;
+        const float G = a.sub_decay[o];
+        const float* Pw = a.sub_state + o * (kP * kN) + so;
+        const float* Sin = a.tile_state + ((int64_t(b) * a.H + h) * a.ntile + k) * (kP * kN) + so;
+#pragma unroll
+        for (int m = 0; m < kS; ++m)
+            S[m] = a.ntile > 1 ? fmaf(Sin[m * kNQ], G, Pw[m * kNQ]) : Pw[m * kNQ];
     }
+    const float A2 = a.A[h] * kLog2e, d = a.D[h];
+    copy_wait();
     __syncthreads();
 
-    float ct[HG];
-    load_vec<HG>(cum_s + (valid ? t : 0) * HG, ct);
-    float acc[HG][P];
+    float* xrow = xs + (hh * kP + p) * rs;
+    const float* dtrow = dts + hh * rs;
+    if constexpr (MODE != OUTPUTS) {
+        if (a.nsub > 1) {
+            walk<T, REV, false>(xrow, dtrow, Bs, nullptr, rs, a.tl, w, nq, A2, d, S, ld);
+            // P: the state entering sub-chunk w from the tile's start, G its
+            // log2 decay; the last sub-chunk's threads go on to the tile's end.
+            float* Es = comb;
+            float* lds = comb + kThreads * kS;
 #pragma unroll
-    for (int hh = 0; hh < HG; ++hh)
+            for (int m = 0; m < kS; ++m) Es[(w * kS + m) * kCols + c] = S[m];
+            lds[w * kCols + c] = ld;
+            __syncthreads();
+            float P[kS], G = 0.f;
 #pragma unroll
-        for (int p = 0; p < P; ++p) acc[hh][p] = 0.f;
-
-    for (int s = j; valid && s <= t; s += kSplit) {
-        float bv[kN];
-        load_vec<kN>(Bs + s * kN, bv);
-        float q4[4] = {0.f, 0.f, 0.f, 0.f};
+            for (int m = 0; m < kS; ++m) P[m] = 0.f;
+            auto cross = [&](int v) {  // P and G across sub-chunk v
+                const float e2 = lds[v * kCols + c], dv = exp2f(e2);
 #pragma unroll
-        for (int n = 0; n < kN; ++n) q4[n % 4] = fmaf(Cr[n], bv[n], q4[n % 4]);
-        const float qk = (q4[0] + q4[1]) + (q4[2] + q4[3]);
-        float cs[HG];
-        load_vec<HG>(cum_s + s * HG, cs);
+                for (int m = 0; m < kS; ++m) P[m] = fmaf(P[m], dv, Es[(v * kS + m) * kCols + c]);
+                G += e2;
+            };
+            for (int v = 0; v < w; ++v) cross(v);
+            if constexpr (MODE == STATES) {
+                if (active && sub < a.nsub) {
+                    const int64_t o = (int64_t(b) * a.H + h) * a.nsub + sub;
 #pragma unroll
-        for (int hh = 0; hh < HG; ++hh) {
-            if (hh < hn) {
-                const float w = qk * exp2f(ct[hh] - cs[hh]);
-                float xv[P];
-                load_vec<P>(xd_s + (s * HG + hh) * P, xv);
+                    for (int m = 0; m < kS; ++m) a.sub_state[o * (kP * kN) + so + m * kNQ] = P[m];
+                    if (p == 0 && nq == 0) a.sub_decay[o] = exp2f(G);
+                }
+                if (active && w == subs - 1 && a.ntile > 1) {
+                    cross(w);
+                    const int64_t o = (int64_t(b) * a.H + h) * a.ntile + k;
 #pragma unroll
-                for (int p = 0; p < P; ++p) acc[hh][p] = fmaf(w, xv[p], acc[hh][p]);
+                    for (int m = 0; m < kS; ++m) a.tile_state[o * (kP * kN) + so + m * kNQ] = P[m];
+                    if (p == 0 && nq == 0) a.tile_decay[o] = exp2f(G);
+                }
+                return;
+            } else {
+                const float Gw = exp2f(G);
+                float Pw[kS];
+#pragma unroll
+                for (int m = 0; m < kS; ++m) Pw[m] = P[m];
+                if (cluster) {
+                    // Push the tile's end state into every later block of the
+                    // cluster, then take the earlier tiles' from this block.
+                    auto grp = cg::this_cluster();
+                    cluster_wait();
+                    if (w == subs - 1) {
+                        cross(w);
+                        if (active) {
+                            const float eG = exp2f(G);
+                            for (int q = k + 1; q < a.ntile; ++q) {
+                                float* dst = grp.map_shared_rank(agg + k * kAgg, q);
+#pragma unroll
+                                for (int m = 0; m < kS; ++m)
+                                    dst[hh * kP * kN + so + m * kNQ] = P[m];
+                                if (p == 0 && nq == 0) dst[kHeads * kP * kN + hh] = eG;
+                            }
+                        }
+                    }
+                    grp.sync();
+                    float Sin[kS];
+#pragma unroll
+                    for (int m = 0; m < kS; ++m) Sin[m] = 0.f;
+                    for (int q = 0; q < k; ++q) {
+                        const float* src = agg + q * kAgg;
+                        const float eG = src[kHeads * kP * kN + hh];
+#pragma unroll
+                        for (int m = 0; m < kS; ++m)
+                            Sin[m] = fmaf(Sin[m], eG, src[hh * kP * kN + so + m * kNQ]);
+                    }
+#pragma unroll
+                    for (int m = 0; m < kS; ++m) Pw[m] = fmaf(Sin[m], Gw, Pw[m]);
+                }
+#pragma unroll
+                for (int m = 0; m < kS; ++m) S[m] = Pw[m];
             }
         }
     }
-#pragma unroll
-    for (int hh = 0; hh < HG; ++hh)
-#pragma unroll
-        for (int p = 0; p < P; ++p)
-#pragma unroll
-            for (int off = kWarp / kSplit; off < kWarp; off *= 2)
-                acc[hh][p] += __shfl_xor_sync(0xffffffffu, acc[hh][p], off);
-    if (!valid) return;
 
-    // Lane j writes the heads hh = j, j + kSplit, ...
+    if constexpr (MODE != STATES) {
+        walk<T, REV, true>(xrow, dtrow, Bs, Cs, rs, a.tl, w, nq, A2, d, S, ld);
+        __syncthreads();
+
+        // y of the tile's range, rows (head, p) of the block's heads.
+        const int z0 = t.lo - t.base, n = t.hi - t.lo, rows = hn * kP;
+        float* y = a.y + (int64_t(b) * a.H + h0) * kP * a.L;
+        if (a.vec)
+            for_each(rows, n / 4, [&](int r, int i) {
+                *reinterpret_cast<float4*>(y + int64_t(r) * a.L + t.lo + 4 * i) =
+                    *reinterpret_cast<const float4*>(xs + r * rs + z0 + 4 * i);
+            });
+        else
+            for_each(rows, n, [&](int r, int i) {
+                y[int64_t(r) * a.L + t.lo + i] = xs[r * rs + z0 + i];
+            });
+    }
+}
+
+template <int T, bool REV>
+__global__ void __launch_bounds__(kThreads) ssd_scan_states(Args a) {
+    scan_tile<T, REV, STATES>(a);
+}
+
+template <int T, bool REV>
+__global__ void __launch_bounds__(kThreads) ssd_scan_outputs(Args a) {
+    scan_tile<T, REV, OUTPUTS>(a);
+}
+
+template <int T, bool REV>
+__global__ void __launch_bounds__(kThreads) ssd_scan_fused(Args a) {
+    scan_tile<T, REV, FUSED>(a);
+}
+
+// Phase 2: a block per (batch, head) carries the state across its tiles.
+// The tiles' end states E (nc, P * N) and decays G (nc) are staged in
+// shared memory kWindow tiles at a time with coalesced 16-byte copies. The
+// window is cut into kSeg segments, a thread per (segment, value): each
+// composes its segment from zero, the segments' compositions meet in
+// shared memory, and each thread walks its segment again from the state
+// entering it, S_in(k+1) = S_in(k) G(k) + E(k), writing the state entering
+// each tile over the tile's end state. The window goes back to device
+// memory coalesced.
+constexpr int kCarryThreads = 256;
+constexpr int kSeg = kCarryThreads / (kN * kP);  // segments of a window
+constexpr int kWindow = 256;                      // tiles staged at a time
+constexpr int kBatch = 16;                        // loads issued ahead of their use
+constexpr size_t kCarrySmem = sizeof(float) * (kWindow * (kN * kP + 1) + kSeg * (kN * kP + 1));
+
+// f(c, e, g) for the tiles c of [c0, c1) in order, with the tile's end
+// state e and decay g, kBatch tiles' shared loads at a time ahead of f.
+template <typename F>
+__device__ __forceinline__ void walk_tiles(const float* ss, const float* sd, int v, int c0, int c1,
+                                           F f) {
+    constexpr int np = kN * kP;
+    for (int b0 = c0; b0 < c1; b0 += kBatch) {
+        float e[kBatch], g[kBatch];
 #pragma unroll
-    for (int hh = 0; hh < HG; ++hh) {
-        if (hh % kSplit == j && hh < hn) {
-            const int h = h0 + hh;
-            const float e = exp2f(ct[hh]);
-            const float d = a.D[h];
-#pragma unroll
-            for (int p = 0; p < P; ++p) {
-                float inter = 0.f;
-#pragma unroll
-                for (int n = 0; n < kN; ++n) inter = fmaf(Cr[n], S_s[(hh * kN + n) * P + p], inter);
-                const float xv = x_s[((t - r0) * HG + hh) * P + p];
-                a.y[int64_t(b) * a.H * P * L + int64_t(h * P + p) * L + l] =
-                    acc[hh][p] + inter * e + d * xv;
-            }
+        for (int i = 0; i < kBatch; ++i) {
+            e[i] = ss[min(b0 + i, kWindow - 1) * np + v];
+            g[i] = sd[min(b0 + i, kWindow - 1)];
         }
+#pragma unroll
+        for (int i = 0; i < kBatch; ++i)
+            if (b0 + i < c1) f(b0 + i, e[i], g[i]);
+    }
+}
+
+__global__ void __launch_bounds__(kCarryThreads) ssd_carry(float* states, const float* decay,
+                                                           int nc) {
+    constexpr int np = kN * kP;
+    extern __shared__ float4 smem4[];
+    float* ss = reinterpret_cast<float*>(smem4);
+    float* sd = ss + kWindow * np;
+    float* segE = sd + kWindow;  // [kSeg][np]
+    float* segD = segE + kSeg * np;
+    float* st = states + int64_t(blockIdx.x) * nc * np;
+    const float* dec = decay + int64_t(blockIdx.x) * nc;
+    const int tid = threadIdx.x, v = tid % np, seg = tid / np;
+    float carry = 0.f;  // the state entering the window
+    for (int w0 = 0; w0 < nc; w0 += kWindow) {
+        const int n = min(kWindow, nc - w0);
+        for (int e = tid; e < n * np / 4; e += kCarryThreads)
+            copy_async<16>(ss + 4 * e, st + int64_t(w0) * np + 4 * e);
+        for (int e = tid; e < n; e += kCarryThreads) copy_async<4>(sd + e, dec + w0 + e);
+        copy_wait();
+        __syncthreads();
+        const int len = (n + kSeg - 1) / kSeg, c0 = min(n, seg * len), c1 = min(n, c0 + len);
+        float E = 0.f, D = 1.f;
+        walk_tiles(ss, sd, v, c0, c1, [&](int, float e, float g) {
+            E = fmaf(E, g, e);
+            D *= g;
+        });
+        segE[seg * np + v] = E;
+        if (v == 0) segD[seg] = D;
+        __syncthreads();
+        float S = carry;
+        for (int q = 0; q < seg; ++q) S = fmaf(S, segD[q], segE[q * np + v]);
+        walk_tiles(ss, sd, v, c0, c1, [&](int c, float e, float g) {
+            ss[c * np + v] = S;
+            S = fmaf(S, g, e);
+        });
+        for (int q = 0; q < kSeg; ++q) carry = fmaf(carry, segD[q], segE[q * np + v]);
+        __syncthreads();
+        for (int e = tid; e < n * np / 4; e += kCarryThreads)
+            reinterpret_cast<float4*>(st + int64_t(w0) * np)[e] = smem4[e];
+        __syncthreads();  // stored, and the segments read, before the next window
     }
 }
 
@@ -385,49 +532,116 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                : cudaSuccess;
 }
 
-cudaError_t launch(const Args& a, int batch, cudaStream_t stream) {
-    constexpr int HG = kHG, P = kP;
-    const int groups = (a.H + HG - 1) / HG;
-    if (a.nc > 1) {
-        const int threads = (a.Q + kWarp - 1) / kWarp * kWarp;
-        const size_t smem1 = sizeof(float) * (kN * a.Q + HG * P * (a.Q | 1));
-        cudaError_t err = allow_smem(ssd_chunk_states, smem1);
-        if (err != cudaSuccess) return err;
-        ssd_chunk_states<<<dim3(a.nc, groups, batch), threads, smem1, stream>>>(a);
-        const int64_t warps = int64_t(batch) * a.H * kN * P;
-        ssd_carry<<<static_cast<unsigned>((warps * kWarp + 255) / 256), 256, 0, stream>>>(
-            a.states, a.decay, warps, a.nc, kN * P);
-    }
-    const int tiles = (a.Q + kRows - 1) / kRows;
-    const size_t smem3 =
-        sizeof(float) * (a.Q * kN + a.Q * HG * P + HG * kN * P + a.Q * HG + kRows * HG * P);
-    cudaError_t err = allow_smem(ssd_chunk_outputs, smem3);
+template <typename Kernel>
+cudaError_t launch_tiles(Kernel kernel, const Args& a, int batch, int threads, size_t smem,
+                         int cluster, cudaStream_t stream) {
+    cudaError_t err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return err;
-    ssd_chunk_outputs<<<dim3(a.nc, groups * tiles, batch), kMaxQ, smem3, stream>>>(a);
-    return cudaGetLastError();
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(a.ntile, (a.H + kHeads - 1) / kHeads, batch);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = static_cast<unsigned>(cluster);
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = cluster > 1 ? 1 : 0;
+    return cudaLaunchKernelEx(&cfg, kernel, a);
 }
+
+struct Layout {
+    int nsub, ntile, tl, threads;
+};
+
+Layout layout(int L, int T) {
+    const int nsub = (L + T - 1) / T, ntile = (nsub + kSubs - 1) / kSubs;
+    const int per_tile = std::min(kSubs, nsub);
+    return {nsub, ntile, per_tile * T, per_tile * kCols};
+}
+
+template <int T, bool REV>
+cudaError_t launch(const Args& a, int batch, int threads, cudaStream_t stream) {
+    if (a.ntile <= kMaxCluster)
+        return launch_tiles(ssd_scan_fused<T, REV>, a, batch, threads,
+                            smem_bytes<FUSED>(a.tl), a.ntile, stream);
+    cudaError_t err = launch_tiles(ssd_scan_states<T, REV>, a, batch, threads,
+                                   smem_bytes<STATES>(a.tl), 1, stream);
+    if (err != cudaSuccess) return err;
+    err = allow_smem(ssd_carry, kCarrySmem);
+    if (err != cudaSuccess) return err;
+    ssd_carry<<<static_cast<unsigned>(int64_t(batch) * a.H), kCarryThreads, kCarrySmem, stream>>>(
+        a.tile_state, a.tile_decay, a.ntile);
+    err = launch_tiles(ssd_scan_outputs<T, REV>, a, batch, threads,
+                       smem_bytes<OUTPUTS>(a.tl), 1, stream);
+    return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// The walkers' sub-chunk: 32 tokens up to L = 256 (the 8^2 and 16^2
+// Blocks: more walkers, shorter walks), else 64 (fewer tiles to carry).
+int sub_chunk(int L) { return L <= 256 ? 32 : 64; }
 
 }  // namespace
 
 extern "C" {
 
-// All tensors float32 on the current device; y and the scratch (states,
-// decay: sizes in the Args comments, unused for one chunk) contiguous.
-// Returns cudaGetLastError() after the launches.
+// The sub-chunk T of a scan over L tokens.
+int adnm_ssd_sub_chunk(int L) { return sub_chunk(L); }
+
+// Floats of scratch a call needs: states (batch, H, nsub + ntile, P, N)
+// and decays (batch, H, nsub + ntile); none where the tiles fit one
+// cluster.
+int adnm_ssd_scratch_floats(int batch, int H, int L, int64_t* states, int64_t* decay) {
+    if (batch <= 0 || H <= 0 || L <= 0) return cudaErrorInvalidValue;
+    const Layout s = layout(L, sub_chunk(L));
+    const int64_t n = s.ntile > kMaxCluster ? int64_t(batch) * H * (s.nsub + s.ntile) : 0;
+    *states = n * kN * kP;
+    *decay = n;
+    return cudaSuccess;
+}
+
+// All tensors float32 on the current device; y and the scratch (sizes from
+// adnm_ssd_scratch_floats) contiguous. Q is the caller's chunk: the
+// result does not depend on it, but L must be a multiple of it. Returns
+// cudaGetLastError() after the launches.
 int adnm_ssd_chunked_scan(const void* x, const void* dt, const void* A, const void* B,
                           const void* C, const void* D, void* y, void* states, void* decay,
                           int64_t sx, int64_t sdt, int64_t sb, int64_t sc, int batch, int H,
                           int P, int N, int L, int Q, int reverse, void* stream) {
-    if (P != kP || batch <= 0 || H <= 0 || N != kN || Q <= 0 || Q > kMaxQ || L % Q != 0 ||
-        batch > 65535 || (H + kHG - 1) / kHG * ((Q + kRows - 1) / kRows) > 65535)
+    if (P != kP || N != kN || batch <= 0 || H <= 0 || Q <= 0 || L % Q != 0 || batch > 65535 ||
+        (H + kHeads - 1) / kHeads > 65535)
         return cudaErrorInvalidValue;
-    const int nc = L / Q;
-    Args a{static_cast<const float*>(x), static_cast<const float*>(dt),
-           static_cast<const float*>(A), static_cast<const float*>(B),
-           static_cast<const float*>(C), static_cast<const float*>(D),
-           static_cast<float*>(y), nc > 1 ? static_cast<float*>(states) : nullptr,
-           static_cast<float*>(decay), sx, sdt, sb, sc, H, L, Q, nc, reverse != 0};
-    return static_cast<int>(launch(a, batch, static_cast<cudaStream_t>(stream)));
+    const int T = sub_chunk(L);
+    const Layout s = layout(L, T);
+    const int64_t n = int64_t(batch) * H;
+    const bool scratch = s.ntile > kMaxCluster;
+    float* st = static_cast<float*>(states);
+    float* dec = static_cast<float*>(decay);
+    const bool vec = L % 4 == 0 && sx % 4 == 0 && sdt % 4 == 0 && sb % 4 == 0 && sc % 4 == 0 &&
+                     aligned16(x) && aligned16(dt) && aligned16(B) && aligned16(C) &&
+                     aligned16(y);
+    const Args a{static_cast<const float*>(x), static_cast<const float*>(dt),
+                 static_cast<const float*>(A), static_cast<const float*>(B),
+                 static_cast<const float*>(C), static_cast<const float*>(D),
+                 static_cast<float*>(y),
+                 scratch ? st : nullptr,
+                 scratch ? dec : nullptr,
+                 scratch ? st + n * s.nsub * kN * kP : nullptr,
+                 scratch ? dec + n * s.nsub : nullptr,
+                 sx, sdt, sb, sc, H, L, s.nsub, s.ntile, s.tl, vec};
+    const cudaStream_t strm = static_cast<cudaStream_t>(stream);
+    cudaError_t err;
+    if (T == 32)
+        err = reverse ? launch<32, true>(a, batch, s.threads, strm)
+                      : launch<32, false>(a, batch, s.threads, strm);
+    else
+        err = reverse ? launch<64, true>(a, batch, s.threads, strm)
+                      : launch<64, false>(a, batch, s.threads, strm);
+    return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 const char* adnm_ssd_cuda_error_string(int code) {

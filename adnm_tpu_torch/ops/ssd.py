@@ -9,8 +9,9 @@ softplus'd; A, D (H,); B, C (B, N, L) shared by the heads.
   A CPU tensor goes to ``ssd_chunked_scan_reference``; a CUDA tensor goes
   to kernel K2, the hand-written Hopper kernel in ``csrc/ssd_scan.cu``
   (the Pallas ``adnm_tpu/ops/pallas/ssd_scan.py::ssd_chunked_scan_pallas``
-  rewritten), or the call raises. Forward only: a call that would need a
-  gradient raises on either device.
+  rewritten as a state scan over sub-chunks of ``sub_chunk(L)`` tokens),
+  or the call raises. Forward only: a call that would need a gradient raises
+  on either device.
 * ``ssd_naive_scan``: the O(L^2) causal oracle for the tests.
 
 The scan takes ``dA = dt * A`` with A < 0 as it is; only the duality
@@ -27,7 +28,7 @@ import torch
 from adnm_tpu_torch.ops._build import load_library
 
 SOURCES = ("ssd_scan.cu",)
-MAX_CHUNK = 256  # K2 holds one chunk per block: at most 256 tokens
+MAX_CHUNK = 256  # the Pallas kernel's contract: chunks of at most 256 tokens
 KERNEL_N = 16  # K2's state size (d_state of every mixer)
 KERNEL_P = 4  # K2's head width (headdim of every model)
 # The plain version's intra-chunk (B, H, chunks, Q, Q) decay tensor is
@@ -123,9 +124,23 @@ def _library() -> ctypes.CDLL:
         ctypes.c_void_p,  # stream
     ]
     lib.adnm_ssd_chunked_scan.restype = ctypes.c_int
+    lib.adnm_ssd_scratch_floats.argtypes = [
+        *(ctypes.c_int,) * 3,  # batch, heads, L
+        *(ctypes.POINTER(ctypes.c_int64),) * 2,  # states, decays (out)
+    ]
+    lib.adnm_ssd_scratch_floats.restype = ctypes.c_int
+    lib.adnm_ssd_sub_chunk.argtypes = [ctypes.c_int]
+    lib.adnm_ssd_sub_chunk.restype = ctypes.c_int
     lib.adnm_ssd_cuda_error_string.argtypes = [ctypes.c_int]
     lib.adnm_ssd_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def sub_chunk(l: int) -> int:
+    """The tokens a K2 walker scans in a scan over ``l`` tokens (the
+    kernel's own choice; the result does not depend on it). Builds the
+    kernel."""
+    return _library().adnm_ssd_sub_chunk(l)
 
 
 def _batch_stride(name: str, t: torch.Tensor) -> int:
@@ -176,19 +191,21 @@ def ssd_chunked_scan(x, dt, A, B, C, D, chunk_size: int = 256,
     if not (A.is_contiguous() and D.is_contiguous()):
         raise ValueError("ssd_chunked_scan kernel needs contiguous A and D")
     strides = [_batch_stride(name, args[name]) for name in ("x", "dt", "B", "C")]
-    nc = l // q
-    y = torch.empty((b, h, p, l), dtype=x.dtype, device=x.device)
-    # Scratch of the carry (phases 1 and 2); one chunk carries nothing.
-    states = torch.empty((b, h, nc, n, p) if nc > 1 else (0,), dtype=torch.float32,
-                         device=x.device)
-    decay = torch.empty((b, h, nc) if nc > 1 else (0,), dtype=torch.float32, device=x.device)
     lib = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.adnm_ssd_chunked_scan(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
-            D.data_ptr(), y.data_ptr(), states.data_ptr(), decay.data_ptr(),
-            *strides, b, h, p, n, l, q, int(reverse), stream)
+    # Scratch of the carry across tiles, sized by the kernel's sub-chunks;
+    # none where the tiles fit one thread cluster.
+    n_states, n_decay = ctypes.c_int64(), ctypes.c_int64()
+    rc = lib.adnm_ssd_scratch_floats(b, h, l, ctypes.byref(n_states), ctypes.byref(n_decay))
+    if rc == 0:
+        y = torch.empty((b, h, p, l), dtype=x.dtype, device=x.device)
+        states = torch.empty(n_states.value, dtype=torch.float32, device=x.device)
+        decay = torch.empty(n_decay.value, dtype=torch.float32, device=x.device)
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            rc = lib.adnm_ssd_chunked_scan(
+                x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
+                D.data_ptr(), y.data_ptr(), states.data_ptr(), decay.data_ptr(),
+                *strides, b, h, p, n, l, q, int(reverse), stream)
     if rc != 0:
         msg = lib.adnm_ssd_cuda_error_string(rc).decode()
         raise RuntimeError(f"ssd_chunked_scan kernel launch failed: CUDA error {rc} ({msg})")

@@ -18,9 +18,10 @@
    forward and backward (dx and dw, two launches bit-equal in dw) at every
    Block norm's shape, and K3 (gated_rms_norm), in fp32 and bf16; K2
    (ssd_chunked_scan) in fp32 at every Block shape of both bimamba
-   configurations, at batch 1 and 4, plus cases with a small |dA|, in
-   which the state carried between chunks dominates the output, and
-   reversed scans.
+   configurations, at batch 1 and 4, each with its kernel / bound and the
+   time PERF.md records for the quadratic kernel it replaced, plus cases with
+   a small |dA|, in which the state carried between chunks dominates the
+   output, and reversed scans.
 4. Serves three paths at full width, 256x256, seeded weights, with the
    kernels' launch counts set to 0 just before each request and read just
    after:
@@ -51,7 +52,9 @@
    frames/s, the peak memory of a step with and without the refiner's
    remat, and a trace of 3 steps at each batch.
 7. Prints the kernels' JSON line (each K1 entry with its largest kernel /
-   library time over the fp32 main-path shapes, ``worst_vs_library``), the
+   library time over the fp32 main-path shapes, ``worst_vs_library``; K2's
+   with its largest kernel / bound time over its timed shapes,
+   ``worst_vs_bound``, and its walkers' sub-chunk T at each L), the
    card line, then the result line last.
 
 Any failure raises: the exit code is then non-zero and no result line is
@@ -102,9 +105,17 @@ K3_CASES = [((65536, 32), -1), ((262144, 32), -1), ((262144, 64), -1), ((4096, 3
 # 8^2, refiner1-4 at 256^2; P = 4, N = 16, chunks of 256 (64 at 8^2).
 K2_SHAPES = [(32, 1024), (128, 1024), (64, 256), (256, 256), (128, 64), (256, 64), (8, 65536)]
 K2_P, K2_N, K2_CHUNK = 4, 16, 256
-# fp32 both; the kernel sums the causal pairs, the chunk states and the
-# cumsums in other orders than the plain version and takes its own exps,
-# on outputs of order 1-10.
+# The quadratic chunked K2 that this kernel replaced, device us per call at
+# (batch, heads, L), fp32, as PERF.md section 6 records them (NVIDIA H100
+# 80GB HBM3, 700.00 W).
+K2_QUADRATIC_US = {(1, 32, 1024): 27.93, (1, 128, 1024): 48.31, (1, 64, 256): 18.93,
+                   (1, 256, 256): 24.02, (1, 128, 64): 8.49, (1, 256, 64): 8.31,
+                   (1, 8, 65536): 137.71, (4, 32, 1024): 48.72, (4, 128, 1024): 140.29,
+                   (4, 64, 256): 24.41, (4, 256, 256): 65.00, (4, 128, 64): 8.49,
+                   (4, 256, 64): 10.86, (4, 8, 65536): 504.77}
+# fp32 both; the kernel walks the state token by token, the plain version
+# sums causal pairs within chunks and carries chunk states: sums in other
+# orders and exps of their own, on outputs of order 1-20.
 K2_TOL = (1e-4, 1e-4)  # rtol, atol
 # Whole 256^2 forward, card against CPU (and a chained request's first
 # forward against the batch-1 request), both fp32 with TF32 off, outputs of
@@ -246,6 +257,12 @@ def worst_vs_library(timing: dict) -> dict:
     if any(r is None for r, _ in ratios):
         return {"ratio": None, "shape": None}
     ratio, shape = max(ratios)
+    return {"ratio": ratio, "shape": list(shape)}
+
+
+def worst_vs_bound(timing: dict) -> dict:
+    """The largest kernel / bound time over the timed shapes."""
+    ratio, shape = max((t[0] / t[2], key) for key, t in timing.items())
     return {"ratio": ratio, "shape": list(shape)}
 
 
@@ -425,7 +442,8 @@ def check_k2(ssd) -> dict:
         bnd, by = bound_ms(k2_bytes(b, h, K2_P, K2_N, l), k2_flops(b, h, K2_P, K2_N, l))
         print(f"{label}: max_abs_err={max_err:.3e} (tol {atol:g} + {rtol:g}*|ref|) device time: "
               f"kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, bound {bnd * 1e3:.2f} us "
-              f"({by}, {bnd / ms:.0%} of it)")
+              f"({by}, {bnd / ms:.0%} of it; kernel / bound {ms / bnd:.1f}), quadratic kernel "
+              f"{K2_QUADRATIC_US[(b, h, l)]:.2f} us")
         timing[(b, h, l)] = (ms, plain_ms, bnd, by)
     return {"max_abs_err": worst, "timing": timing}
 
@@ -537,7 +555,7 @@ def serve_model(predict, label, kwargs, inputs, counts, requests) -> dict:
 KERNEL_GROUPS = {
     "K1 backward (rms_norm_bwd, dw reduce)": ("rms_norm_bwd", "rms_norm_dw_reduce"),
     "K1 rms_norm": ("rms_norm",),
-    "K2 ssd_chunked_scan": ("ssd_chunk", "ssd_carry"),
+    "K2 ssd_chunked_scan": ("ssd_scan_", "ssd_carry"),
     "depthwise conv": ("depthwise",),
     "conv (cuDNN implicit gemm, transposes)": ("xmma_fprop", "implicit_convolve", "cudnn",
                                               "convolve", "fft", "winograd", "wgrad", "dgrad",
@@ -876,7 +894,8 @@ def main() -> None:
         "replaces": "adnm_tpu/ops/pallas/ssd_scan.py:132",
         "launches": launches["ssd_chunked_scan"], "max_abs_err": k2["max_abs_err"],
         "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound, "bound_by": k2_by,
-        "library_ms": None,
+        "library_ms": None, "worst_vs_bound": worst_vs_bound(k2["timing"]),
+        "sub_chunk": {str(l): ssd.sub_chunk(l) for l in sorted({l for _, l in K2_SHAPES})},
     }, {
         "name": "gated_rms_norm", "route": "cuda", "source": "adnm_tpu_torch/csrc/rms_norm.cu",
         "replaces": "adnm_tpu/ops/pallas/fused_norm.py:63",

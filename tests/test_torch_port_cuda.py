@@ -204,11 +204,35 @@ def scan_inputs(b, h, p, l, gen, carry=False, n=16, device="cuda"):
     return x, dt, A, B, C, 0.5 + u(h)
 
 
-# (batch, heads, P, L, chunk): the main path's (at batch 1) and ragged
-# ones: Q below 32 and not a multiple of 32, head counts that do not fill
-# the block's group of 4 heads.
-K2_CASES = [(1, 32, 4, 1024, 256), (1, 64, 4, 256, 256), (1, 128, 4, 64, 256),
-            (1, 8, 4, 65536, 256), (2, 3, 4, 96, 48), (3, 5, 4, 40, 8), (1, 6, 4, 512, 128)]
+# (batch, heads, P, L, chunk, channel slices): the main path's (at batch
+# 1) and ragged ones: Q below 32 and not a multiple of 32, head counts that
+# do not fill a block's group of 8 heads (H = 5, at L = 1,024 over the
+# tiles of one cluster, and at L = 2,600 over more tiles than a cluster
+# takes, the last one ragged), L not a multiple of the sub-chunk (96) or
+# below it (48, 40; 24 is a single sub-chunk), L not a multiple of 4 (50:
+# 4-byte copies), more tiles than the carry stages at once (L = 65,792:
+# 257 tiles), and batch 3 read from channel slices of wider tensors.
+K2_CASES = [(1, 32, 4, 1024, 256, False), (1, 64, 4, 256, 256, False),
+            (1, 128, 4, 64, 256, False), (1, 8, 4, 65536, 256, False), (2, 3, 4, 96, 48, False),
+            (3, 5, 4, 40, 8, False), (1, 6, 4, 512, 128, False), (2, 8, 4, 96, 96, False),
+            (1, 8, 4, 48, 48, False), (1, 5, 4, 1024, 256, False), (2, 3, 4, 50, 50, False),
+            (1, 4, 4, 24, 8, False), (2, 5, 4, 2600, 40, False), (1, 3, 4, 65792, 256, False),
+            (3, 8, 4, 4096, 256, True)]
+
+
+def as_channel_slices(x, dt, B, C):
+    """Copies of x, dt, B and C that are channel slices of one wider
+    (batch, channels, L) tensor: each sample contiguous, a larger batch
+    stride, as the mixers hand them over."""
+    b, h, p, l = x.shape
+    n = B.shape[1]
+    big = torch.zeros(b, h * p + h + 2 * n + 3, l, device=x.device)
+    parts, c0 = [], 1
+    for t in (x.reshape(b, h * p, l), dt, B, C):
+        big[:, c0:c0 + t.shape[1]] = t
+        parts.append(big[:, c0:c0 + t.shape[1]])
+        c0 += t.shape[1]
+    return parts[0].view(b, h, p, l), parts[1], parts[2], parts[3]
 
 
 @pytest.mark.cuda
@@ -216,8 +240,13 @@ K2_CASES = [(1, 32, 4, 1024, 256), (1, 64, 4, 256, 256), (1, 128, 4, 64, 256),
 @pytest.mark.parametrize("carry", [False, True])
 def test_ssd_kernel_matches_plain_version_on_the_card(card, reverse, carry):
     gen = torch.Generator(device=card).manual_seed(1)
-    for b, h, p, l, q in K2_CASES:
+    for b, h, p, l, q, sliced in K2_CASES:
         args = scan_inputs(b, h, p, l, gen, carry)
+        if sliced:
+            x, dt, A, B, C, D = args
+            x, dt, B, C = as_channel_slices(x, dt, B, C)
+            assert x.stride(0) > h * p * l and B.stride(0) > 16 * l
+            args = x, dt, A, B, C, D
         before = ssd.ssd_chunked_scan.launches
         got = ssd.ssd_chunked_scan(*args, chunk_size=q, reverse=reverse)
         torch.cuda.synchronize()
@@ -231,8 +260,18 @@ def test_ssd_kernel_matches_plain_version_on_the_card(card, reverse, carry):
 
 @pytest.mark.cuda
 def test_ssd_kernel_matches_the_naive_oracle_across_many_chunks(card):
-    """16 chunks of 32 with a small |dA|: a broken carry cannot hide."""
+    """16 chunks of 32 with a small |dA|, and L = 4,096 (64 or 128
+    sub-chunks of the kernel over several tiles), forward and reversed: a
+    broken carry cannot hide."""
     gen = torch.Generator(device=card).manual_seed(2)
+    args = scan_inputs(1, 4, 4, 4096, gen, carry=True)
+    want = ssd.ssd_naive_scan(*args)
+    torch.testing.assert_close(ssd.ssd_chunked_scan(*args), want, rtol=1e-4, atol=1e-4)
+    x, dt, A, B, C, D = args
+    flip = [t.flip(-1) for t in (x, dt, B, C)]
+    want = ssd.ssd_naive_scan(flip[0], flip[1], A, flip[2], flip[3], D).flip(-1)
+    torch.testing.assert_close(ssd.ssd_chunked_scan(*args, reverse=True), want, rtol=1e-4,
+                               atol=1e-4)
     args = scan_inputs(2, 8, 4, 512, gen, carry=True)
     got = ssd.ssd_chunked_scan(*args, chunk_size=32)
     one_chunk = ssd.ssd_chunked_scan(*args, chunk_size=256)

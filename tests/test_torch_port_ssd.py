@@ -130,3 +130,29 @@ def test_wrapper_raises_on_a_gradient_a_ragged_chunk_and_other_devices():
     meta = [t.detach().to("meta") for t in (x, dt, A, B, C, D)]
     with pytest.raises(ValueError, match="CPU or CUDA"):
         ssd.ssd_chunked_scan(*meta)
+
+
+def test_chip_smoke_times_k2_at_every_shape_the_model_gives_it(one_torch_thread, monkeypatch):
+    """The bimamba model (create_adnm_unet(5, 20, 6,
+    linear_attn_duality=False), seeded) at 64^2 on the CPU: the (heads, L)
+    that reach K2, with L scaled to 256^2, are the ones chip_smoke.py checks
+    and times, each scanned forward and reversed, 20 calls a forward."""
+    import chip_smoke
+    from adnm_tpu_torch.cli import predict
+    from adnm_tpu_torch.mixers import ssd_mixer
+
+    seen = []
+
+    def recording(x, dt, A, B, C, D, chunk_size=256, reverse=False):
+        seen.append((x.shape[1], x.shape[-1], reverse))
+        return ssd.ssd_chunked_scan(x, dt, A, B, C, D, chunk_size, reverse)
+
+    monkeypatch.setattr(ssd_mixer, "ssd_chunked_scan", recording)
+    model = predict.load_model(None, torch.device("cpu"), linear_attn_duality=False)
+    x = torch.from_numpy(np.random.RandomState(0).rand(1, 5, 1, 64, 64).astype(np.float32))
+    with torch.inference_mode():
+        model(x)
+    assert len(seen) == chip_smoke.K2_PER_FORWARD == 20
+    assert {(h, 16 * l) for h, l, _ in seen} == set(chip_smoke.K2_SHAPES)
+    for h, l, _ in seen:
+        assert {r for hh, ll, r in seen if (hh, ll) == (h, l)} == {False, True}

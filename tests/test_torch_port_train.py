@@ -256,19 +256,26 @@ def test_synthetic_clips_and_loader_order_equal_jax():
                 np.testing.assert_array_equal(a, b)
 
 
-def test_resize_matches_jax_image_resize():
+@pytest.mark.parametrize("size, levels, atol", [(64, None, 2e-3), (256, 70, 1e-5)])
+def test_resize_matches_jax_image_resize(size, levels, atol):
     """F.interpolate(bilinear, antialias) against jax.image.resize at the
-    Shanghai downscale (565 x 784 -> 64) and an upscale. Both filter with
-    a triangle kernel widened by the scale; they differ in fp32 rounding of
-    the weights and sums, and by up to 2e-3 where torch's kernel support
-    stops a fraction of a pixel sooner at the downscaled edges."""
+    Shanghai downscale (565 x 784 -> 64, and -> 256, the loader's wire size,
+    on radar-like frames of integers 0-70 over 255) and an upscale. Both
+    filter with a triangle kernel widened by the scale; they differ in fp32
+    rounding of the weights and sums, and at 64 by up to 2e-3 where torch's
+    kernel support stops a fraction of a pixel sooner at the downscaled
+    edges. At 256 they agree to 6e-8 on these frames (2.4e-7 on uniform
+    random ones), far under one uint8 level (3.9e-3)."""
     rng = np.random.RandomState(0)
-    frames = rng.rand(2, 565, 784).astype(np.float32)
-    want = np.asarray(jax.image.resize(jnp.asarray(frames), (2, 64, 64), "bilinear",
+    if levels is None:
+        frames = rng.rand(2, 565, 784).astype(np.float32)
+    else:
+        frames = (rng.randint(0, levels + 1, (2, 565, 784)) / 255).astype(np.float32)
+    want = np.asarray(jax.image.resize(jnp.asarray(frames), (2, size, size), "bilinear",
                                        antialias=True))
-    got = shanghai._resize_bilinear_antialias(frames, 64)
-    assert got.shape == (2, 64, 64) and got.dtype == np.float32
-    np.testing.assert_allclose(got, want, atol=2e-3)
+    got = shanghai._resize_bilinear_antialias(frames, size)
+    assert got.shape == (2, size, size) and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, atol=atol)
     small = rng.rand(1, 20, 20).astype(np.float32)
     np.testing.assert_allclose(
         shanghai._resize_bilinear_antialias(small, 32),
