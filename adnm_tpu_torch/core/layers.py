@@ -83,7 +83,9 @@ class GatedRMSNorm(nn.Module):
     """``RMSNorm(x * silu(z)) * weight`` over ``axis``, the norm after the
     gate, as the JAX module's code and the Pallas kernel compute it (its
     docstring, ``RMSNorm(x) * silu(z)``, says otherwise): kernel K3 on CUDA
-    tensors, its plain version on CPU tensors; forward only."""
+    tensors, its plain version on CPU tensors. Differentiable over the last
+    axis, the JAX module's, through K3's backward kernel (its plain version
+    on the CPU); the backward raises on any other axis."""
 
     def __init__(self, dim: int, eps: float = 1e-6, axis: int = -1):
         super().__init__()

@@ -10,21 +10,56 @@
 //                                                   adnm_gated_rms_norm
 //
 // with the statistics in fp32 and y in x's dtype. The Pallas kernels have
-// no VJP; K1's backward here is new (the port trains through the Block
-// norms), adnm_rms_norm_backward:
+// no VJP; both backwards here are new. K1's (the port trains through the
+// Block norms), adnm_rms_norm_backward:
 //
 //   r = rsqrt(mean_c(x^2) + eps),  gw = dy * w
 //   dx = r * gw - x * r^3 * mean_c(gw * x)      (in x's dtype)
 //   dw_c = sum over every position of dy * x * r (fp32)
 //
+// and K3's, on the last axis only (the JAX GatedRMSNorm's, whose gradient
+// is XLA's), adnm_gated_rms_norm_backward: K1's formula applied to
+// g = x * silu(z), with r from g, then
+//
+//   dg = r * gw - g * r^3 * mean_c(gw * g)
+//   dx = dg * silu(z),  dz = dg * x * s * (1 + z * (1 - s)),  s = sigmoid(z)
+//   dw_c = sum over every row of dy * g * r (fp32)
+//
 // The wrappers (adnm_tpu_torch/ops/rms_norm.py) view a contiguous tensor
 // as (outer, C, inner) and normalise over C:
 //
-//   * inner == 1, the Pallas contract (rows of the last axis): one warp per
-//     row, lanes stride over C, fp32 sums reduced by warp shuffles.
+//   * inner == 1, the Pallas contract (rows of the last axis; K3's rows
+//     at the refiner are (B*L, d), d = 32 or 64). See "The row path".
 //   * inner > 1, NCHW with C at stride inner: the port's 20 Block norms of
 //     a forward, at (1, 32, 256^2) in the refiner and (1, 128..1024,
 //     32^2..8^2) in the encoder and decoder.
+//
+// The row path. A row of d = 32 fp32 is 128 bytes, so a norm of 262,144
+// rows moves 96-192 MiB forward and 160-320 MiB backward: bytes bound it,
+// 30-100 us at 3.35 TB/s. One warp per row (the first version) issued
+// 4-byte loads, waited through a 5-step shuffle chain with nothing else in
+// flight, and read x and z twice; it reached 10-55 % of the bound. Now,
+// where a row is at most 32 packs of 16 bytes (V = 4 fp32 or 8 bf16
+// values; V = 1 where d % V != 0 or a pointer is not 16-byte aligned):
+//
+//   * tpr = d / V threads (rounded up to a power of 2) take a row, one
+//     pack each; a block's 256 threads take 256 / tpr rows in each of
+//     kRowSlots slots, so a warp reads 512 neighbouring bytes per slot and
+//     input. A thread issues the loads of all its slots before its first
+//     sum, and its sums are xor shuffles over its row's tpr lanes only
+//     (log2(tpr) steps, the slots interleaved).
+//   * The values stay in registers from the load to the store: x, z (and
+//     dy) are read once and the gate is computed once per element.
+//   * A persistent grid (kRowBlocksPerSM, kRowBwdBlocksPerSM blocks per SM,
+//     chosen by timing on the H100) walks the tiles, so each thread keeps
+//     its pack's columns, and loads its weights once. Chosen from 2 or 4
+//     slots and 2-8 (forward) and 1-4 (backward) blocks per SM; 4 slots,
+//     or 4 backward blocks per SM, make the bf16 backward spill.
+//   * The backward keeps each thread's dw terms in registers over its
+//     tiles, adds them across the block in a fixed order and writes one
+//     row of `partial` per block (below).
+//   * Rows of more than 32 packs (d > 128 fp32 or 256 bf16 aligned) keep
+//     one warp per row.
 //
 // What bounds the strided path on this card. At 8^2..32^2 a norm moves
 // 0.25-4 MiB in the forward and 0.4-6 MiB in the backward (0.08-1.25 us
@@ -68,8 +103,8 @@
 //   * Channels too many for registers (C > 16,384, forward only) are read
 //     again for the output in chunks of 8 per thread.
 //
-// dw without atomics on values: the backward runs a grid fixed by the
-// shape and the SM count (at most 2 blocks per SM, each cluster walking
+// dw without atomics on values: the strided backward runs a grid fixed by
+// the shape and the SM count (at most 2 blocks per SM, each cluster walking
 // its units in a fixed order and loading the next unit's x and dy under
 // the current one's sums), keeps each channel's sum in a register of the
 // thread that owns it, and writes one fp32 row of C per cluster into a
@@ -112,8 +147,11 @@ constexpr int kBlocksPerSM = 1;           // the split's target of blocks
 constexpr int64_t kMinBlocks = 64;       // ... but at least this, where the shape has them
 constexpr int kBwdBlocksPerSM = 2;        // the strided backward's largest grid
 constexpr int kReduceRows = 32;           // threadIdx.y extent of the dw reduction
-constexpr int64_t kMaxRowBwdBlocks = 1024;  // the row backward's largest grid
+constexpr int64_t kMaxRowBwdBlocks = 1024;  // the warp-per-row backward's largest grid
 constexpr int64_t kMaxRowsD = 1536;       // backward rows: 8 warps x d fp32 in 48 KB
+constexpr int kRowSlots = 2;              // packed row kernels: rows a thread takes per tile
+constexpr int kRowBlocksPerSM = 4;        // ... the forward's persistent grid
+constexpr int kRowBwdBlocksPerSM = 2;     // ... the backward's
 constexpr int64_t kMaxStridedC = int64_t{kMaxCluster} * kMaxNC * kThreads;  // 16,384
 
 template <typename T, int V>
@@ -136,7 +174,17 @@ __device__ __forceinline__ void store_pack(T* p, const float (&in)[V]) {
     *reinterpret_cast<Pack<T, V>*>(p) = pk;
 }
 
-__device__ __forceinline__ float silu_gate(float v, float g) { return v * (g / (1.f + expf(-g))); }
+// The fast exp and reciprocal: a few ulp of the gate, far inside the
+// tolerance of the kernels' comparisons with their plain versions.
+__device__ __forceinline__ float sigmoid(float v) { return __fdividef(1.f, 1.f + __expf(-v)); }
+__device__ __forceinline__ float silu_gate(float v, float g) { return v * (g * sigmoid(g)); }
+
+// dx and dz of g = x * silu(z), for dg, the gradient of g; s = sigmoid(z).
+__device__ __forceinline__ void gate_backward(float xv, float zv, float s, float dg, float& dx,
+                                              float& dz) {
+    dx = dg * (zv * s);
+    dz = dg * xv * s * (1.f + zv * (1.f - s));
+}
 
 // The normalised input at x[at]: x itself (K1) or x * silu(z) (K3).
 template <typename T, bool kGated>
@@ -234,6 +282,28 @@ Split choose_split(int64_t outer, int64_t C, int64_t inner, int V, int sms) {
     const int chunks = static_cast<int>(ceil_div(ceil_div(slice, kThreads), kMaxNC));
     return Split{C, inner, ceil_div(inner, V), outer * ceil_div(inner, V), slice, 1,
                  kMaxCluster, kMaxNC, chunks};
+}
+
+// ---- the row path's split ---------------------------------------------------
+
+// How the packed row kernels cut (rows, d), V dividing d: tile t holds rows
+// t * groups * kRowSlots on; its slot s, rows s * groups on, one per group
+// of tpr threads. tpr == 0: a row is wider than a warp's packs.
+struct RowSplit {
+    int64_t rows, d;
+    int64_t tiles;
+    int tpr;     // threads of a row, a power of 2 <= 32
+    int npk;     // packs of a row, d / V; lanes npk..tpr-1 of a row idle
+    int groups;  // rows of a slot, 256 / tpr
+};
+
+RowSplit row_split(int64_t rows, int64_t d, int V) {
+    const int64_t npk = d / V;
+    if (npk > kWarp) return RowSplit{rows, d, 0, 0, 0, 0};
+    const int tpr = pow2_at_least(npk);
+    const int groups = kThreads / tpr;
+    return RowSplit{rows, d, ceil_div(rows, int64_t{groups} * kRowSlots), tpr,
+                    static_cast<int>(npk), groups};
 }
 
 // Shared memory of the unit sums of S statistics over tiles of 32 * V
@@ -336,7 +406,7 @@ __global__ void rms_norm_dw_reduce(const float* __restrict__ partial, float* __r
 
 // ---- forward -----------------------------------------------------------
 
-// inner == 1: x is (rows, d), one warp per row.
+// inner == 1, rows of more than 32 packs: x is (rows, d), one warp per row.
 template <typename T, bool kGated>
 __global__ void rms_norm_rows(const T* __restrict__ x, const T* __restrict__ z,
                               const float* __restrict__ w, T* __restrict__ y, int64_t rows,
@@ -354,6 +424,80 @@ __global__ void rms_norm_rows(const T* __restrict__ x, const T* __restrict__ z,
     const float r = rsqrtf(ss / static_cast<float>(d) + eps);
     for (int64_t c = lane; c < d; c += kWarp)
         store_f32(y + base + c, load_in<T, kGated>(x, z, base + c) * r * w[c]);
+}
+
+// Each of S sums over the tpr lanes of its row (tpr a power of 2 <= 32, a
+// row on an aligned group of lanes), the S chains interleaved; every lane
+// of the row gets the same bits.
+template <int S>
+__device__ __forceinline__ void row_sums(float (&a)[S], int tpr) {
+    for (int off = tpr / 2; off > 0; off /= 2) {
+#pragma unroll
+        for (int s = 0; s < S; ++s) a[s] += __shfl_xor_sync(0xffffffffu, a[s], off);
+    }
+}
+
+// Where a thread's kRowSlots packs of tile t lie, and whether each is in
+// the tensor.
+struct RowPacks {
+    int64_t at[kRowSlots];
+    bool ok[kRowSlots];
+};
+
+__device__ __forceinline__ RowPacks row_packs(const RowSplit& sp, int64_t t, int grp,
+                                              int64_t col, bool col_ok) {
+    RowPacks p;
+#pragma unroll
+    for (int s = 0; s < kRowSlots; ++s) {
+        const int64_t row = (t * kRowSlots + s) * sp.groups + grp;
+        p.at[s] = row * sp.d + col;
+        p.ok[s] = col_ok && row < sp.rows;
+    }
+    return p;
+}
+
+// inner == 1, rows of at most 32 packs (RowSplit): thread (grp, q) =
+// (tid / tpr, tid % tpr) keeps pack q's weights and walks tiles
+// blockIdx.x, + gridDim.x, ...
+template <typename T, int V, bool kGated>
+__global__ void __launch_bounds__(kThreads, kRowBlocksPerSM)
+    rms_norm_rows_packed(const T* __restrict__ x, const T* __restrict__ z,
+                         const float* __restrict__ w, T* __restrict__ y, RowSplit sp, float eps) {
+    const int q = threadIdx.x % sp.tpr, grp = threadIdx.x / sp.tpr;
+    const bool col_ok = q < sp.npk;
+    const int64_t col = int64_t{q} * V;
+    float wv[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) wv[v] = col_ok ? w[col + v] : 0.f;
+    const float inv_d = 1.f / static_cast<float>(sp.d);
+    for (int64_t t = blockIdx.x; t < sp.tiles; t += gridDim.x) {
+        const RowPacks p = row_packs(sp, t, grp, col, col_ok);
+        float xv[kRowSlots][V], zv[kRowSlots][V];
+#pragma unroll
+        for (int s = 0; s < kRowSlots; ++s) {
+            load_in_pack<T, V, false>(x, nullptr, p.at[s], p.ok[s], xv[s]);
+            if constexpr (kGated) load_in_pack<T, V, false>(z, nullptr, p.at[s], p.ok[s], zv[s]);
+        }
+        float ss[kRowSlots];
+#pragma unroll
+        for (int s = 0; s < kRowSlots; ++s) {
+            ss[s] = 0.f;
+#pragma unroll
+            for (int v = 0; v < V; ++v) {
+                if constexpr (kGated) xv[s][v] = silu_gate(xv[s][v], zv[s][v]);
+                ss[s] += xv[s][v] * xv[s][v];
+            }
+        }
+        row_sums<kRowSlots>(ss, sp.tpr);
+#pragma unroll
+        for (int s = 0; s < kRowSlots; ++s) {
+            const float r = rsqrtf(ss[s] * inv_d + eps);
+            float out[V];
+#pragma unroll
+            for (int v = 0; v < V; ++v) out[v] = xv[s][v] * r * wv[v];
+            if (p.ok[s]) store_pack<T, V>(y + p.at[s], out);
+        }
+    }
 }
 
 // inner > 1: x is (outer, C, inner), cut as `sp` says; blockIdx.x =
@@ -416,14 +560,16 @@ __global__ void __launch_bounds__(kThreads)
     if (!started) cluster_wait();  // a block with no unit still meets the entry barrier
 }
 
-// ---- K1 backward ---------------------------------------------------------
+// ---- backward (K1, and K3 on the last axis) ---------------------------------
 
-// inner == 1: warp `warp` of block b walks rows b*8 + warp, then + grid*8,
-// ...; lane l owns channels l, l + 32, ... of its warp's dw sums in shared
-// memory (acc[warp][c]); the block adds its 8 warps' sums in order.
-template <typename T>
-__global__ void rms_norm_bwd_rows(const T* __restrict__ x, const float* __restrict__ w,
-                                  const T* __restrict__ dy, T* __restrict__ dx,
+// inner == 1, rows of more than 32 packs: warp `warp` of block b walks rows
+// b*8 + warp, then + grid*8, ...; lane l owns channels l, l + 32, ... of
+// its warp's dw sums in shared memory (acc[warp][c]); the block adds its 8
+// warps' sums in order.
+template <typename T, bool kGated>
+__global__ void rms_norm_bwd_rows(const T* __restrict__ x, const T* __restrict__ z,
+                                  const float* __restrict__ w, const T* __restrict__ dy,
+                                  T* __restrict__ dx, T* __restrict__ dz,
                                   float* __restrict__ partial, int64_t rows, int64_t d,
                                   float eps) {
     extern __shared__ float acc[];  // kRowsPerBlock x d
@@ -437,9 +583,9 @@ __global__ void rms_norm_bwd_rows(const T* __restrict__ x, const float* __restri
         const int64_t base = row * d;
         float ss = 0.f, gx = 0.f;
         for (int64_t c = lane; c < d; c += kWarp) {
-            const float xv = load_f32(x + base + c);
-            ss += xv * xv;
-            gx += load_f32(dy + base + c) * w[c] * xv;
+            const float nv = load_in<T, kGated>(x, z, base + c);
+            ss += nv * nv;
+            gx += load_f32(dy + base + c) * w[c] * nv;
         }
         ss = warp_sum(ss);
         gx = warp_sum(gx);
@@ -448,8 +594,17 @@ __global__ void rms_norm_bwd_rows(const T* __restrict__ x, const float* __restri
         for (int64_t c = lane; c < d; c += kWarp) {
             const float xv = load_f32(x + base + c);
             const float g = load_f32(dy + base + c);
-            store_f32(dx + base + c, r * g * w[c] - xv * coef);
-            mine[c] += g * xv * r;
+            if constexpr (kGated) {
+                const float zv = load_f32(z + base + c), s = sigmoid(zv), nv = xv * (zv * s);
+                float dxv, dzv;
+                gate_backward(xv, zv, s, r * g * w[c] - nv * coef, dxv, dzv);
+                store_f32(dx + base + c, dxv);
+                store_f32(dz + base + c, dzv);
+                mine[c] += g * nv * r;
+            } else {
+                store_f32(dx + base + c, r * g * w[c] - xv * coef);
+                mine[c] += g * xv * r;
+            }
         }
     }
     __syncthreads();
@@ -458,6 +613,93 @@ __global__ void rms_norm_bwd_rows(const T* __restrict__ x, const float* __restri
 #pragma unroll
         for (int k = 0; k < kRowsPerBlock; ++k) s += acc[k * d + c];
         partial[static_cast<int64_t>(blockIdx.x) * d + c] = s;
+    }
+}
+
+// inner == 1, rows of at most 32 packs, laid out as rms_norm_rows_packed;
+// each thread sums its pack's dw terms over its tiles in registers, then
+// the block adds them in a fixed order (xor shuffles across the warp's
+// rows, the 8 warps in order) into row blockIdx.x of `partial`.
+template <typename T, int V, bool kGated>
+__global__ void __launch_bounds__(kThreads, kRowBwdBlocksPerSM)
+    rms_norm_bwd_rows_packed(const T* __restrict__ x, const T* __restrict__ z,
+                             const float* __restrict__ w, const T* __restrict__ dy,
+                             T* __restrict__ dx, T* __restrict__ dz,
+                             float* __restrict__ partial, RowSplit sp, float eps) {
+    __shared__ float part[kWarps][kWarp * V];
+    const int q = threadIdx.x % sp.tpr, grp = threadIdx.x / sp.tpr;
+    const bool col_ok = q < sp.npk;
+    const int64_t col = int64_t{q} * V;
+    float wv[V], dw_acc[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+        wv[v] = col_ok ? w[col + v] : 0.f;
+        dw_acc[v] = 0.f;
+    }
+    const float inv_d = 1.f / static_cast<float>(sp.d);
+    for (int64_t t = blockIdx.x; t < sp.tiles; t += gridDim.x) {
+        const RowPacks p = row_packs(sp, t, grp, col, col_ok);
+        float xv[kRowSlots][V], zv[kRowSlots][V], gv[kRowSlots][V];
+#pragma unroll
+        for (int s = 0; s < kRowSlots; ++s) {
+            load_in_pack<T, V, false>(x, nullptr, p.at[s], p.ok[s], xv[s]);
+            load_in_pack<T, V, false>(dy, nullptr, p.at[s], p.ok[s], gv[s]);
+            if constexpr (kGated) load_in_pack<T, V, false>(z, nullptr, p.at[s], p.ok[s], zv[s]);
+        }
+        // per slot: the sum of n^2, then of dy * w * n, n the normalised
+        // input (x, or x * silu(z), recomputed below from x, z and sigmoid(z))
+        float sums[2 * kRowSlots], sv[kRowSlots][V];
+#pragma unroll
+        for (int s = 0; s < kRowSlots; ++s) {
+            sums[s] = sums[kRowSlots + s] = 0.f;
+#pragma unroll
+            for (int v = 0; v < V; ++v) {
+                float nv = xv[s][v];
+                if constexpr (kGated) {
+                    sv[s][v] = sigmoid(zv[s][v]);
+                    nv = xv[s][v] * (zv[s][v] * sv[s][v]);
+                }
+                sums[s] += nv * nv;
+                sums[kRowSlots + s] += gv[s][v] * wv[v] * nv;
+            }
+        }
+        row_sums<2 * kRowSlots>(sums, sp.tpr);
+#pragma unroll
+        for (int s = 0; s < kRowSlots; ++s) {
+            const float r = rsqrtf(sums[s] * inv_d + eps);
+            const float coef = r * r * r * sums[kRowSlots + s] * inv_d;
+            float ox[V], oz[V];
+#pragma unroll
+            for (int v = 0; v < V; ++v) {
+                float nv = xv[s][v];
+                if constexpr (kGated) nv = xv[s][v] * (zv[s][v] * sv[s][v]);
+                const float dg = r * gv[s][v] * wv[v] - nv * coef;
+                dw_acc[v] += gv[s][v] * nv * r;
+                if constexpr (kGated) {
+                    gate_backward(xv[s][v], zv[s][v], sv[s][v], dg, ox[v], oz[v]);
+                } else {
+                    ox[v] = dg;
+                }
+            }
+            if (p.ok[s]) {
+                store_pack<T, V>(dx + p.at[s], ox);
+                if constexpr (kGated) store_pack<T, V>(dz + p.at[s], oz);
+            }
+        }
+    }
+    const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+        float a = dw_acc[v];
+        for (int off = kWarp / 2; off >= sp.tpr; off /= 2) a += __shfl_xor_sync(0xffffffffu, a, off);
+        if (lane < sp.tpr && col_ok) part[warp][col + v] = a;  // lane == q
+    }
+    __syncthreads();
+    for (int64_t c = threadIdx.x; c < sp.d; c += kThreads) {
+        float s = 0.f;
+#pragma unroll
+        for (int k = 0; k < kWarps; ++k) s += part[k][c];
+        partial[static_cast<int64_t>(blockIdx.x) * sp.d + c] = s;
     }
 }
 
@@ -573,13 +815,14 @@ int sm_count() {
     return counts[dev];
 }
 
-// 16 bytes of T where inner is a multiple of it and every pointer is
-// 16-byte aligned, else 1.
+// 16 bytes of T where `extent` (the contiguous run a pack lies in: inner,
+// or d on the row path) is a multiple of it and every pointer is 16-byte
+// aligned (null ones, absent tensors, are), else 1.
 template <typename T>
-int vector_width(int64_t inner, const void* a, const void* b, const void* c) {
+int vector_width(int64_t extent, std::initializer_list<const void*> ptrs) {
     constexpr int kVec = 16 / sizeof(T);
-    if (inner % kVec != 0) return 1;
-    for (const void* p : {a, b, c})
+    if (extent % kVec != 0) return 1;
+    for (const void* p : ptrs)
         if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return 1;
     return kVec;
 }
@@ -603,6 +846,13 @@ int launch(void (*kernel)(Params...), int64_t grid, int k, size_t smem, cudaStre
     return static_cast<int>(rc != cudaSuccess ? rc : cudaGetLastError());
 }
 
+// The packed row kernels' persistent grid: every tile, or `per_sm` blocks
+// on each SM.
+int64_t row_grid(const RowSplit& rs, int per_sm) {
+    const int64_t cap = int64_t{per_sm} * sm_count();
+    return rs.tiles < cap ? rs.tiles : cap;
+}
+
 template <typename T, int V, bool kGated>
 int forward_tiles(const T* x, const T* z, const float* w, T* y, const Split& sp, float eps,
                   cudaStream_t s) {
@@ -622,13 +872,21 @@ int launch_forward(const void* x, const void* z, const float* w, void* y, int64_
     const T* zt = static_cast<const T*>(z);
     T* yt = static_cast<T*>(y);
     if (inner == 1) {
+        const int V = vector_width<T>(C, {x, z, y});
+        const RowSplit rs = row_split(outer, C, V);
+        if (rs.tpr > 0) {
+            const int64_t grid = row_grid(rs, kRowBlocksPerSM);
+            if (V == 1) return launch(rms_norm_rows_packed<T, 1, kGated>, grid, 1, 0, s, xt, zt, w, yt, rs, eps);
+            return launch(rms_norm_rows_packed<T, 16 / sizeof(T), kGated>, grid, 1, 0, s, xt, zt, w,
+                          yt, rs, eps);
+        }
         const int64_t blocks = ceil_div(outer, kRowsPerBlock);
         if (blocks > 2147483647LL) return cudaErrorInvalidValue;
         rms_norm_rows<T, kGated><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
             xt, zt, w, yt, outer, C, eps);
         return static_cast<int>(cudaGetLastError());
     }
-    const int V = vector_width<T>(inner, x, z, y);
+    const int V = vector_width<T>(inner, {x, z, y});
     const Split sp = choose_split(outer, C, inner, V, sm_count());
     if (sp.units * sp.k > 2147483647LL) return cudaErrorInvalidValue;
     if (V == 1) return forward_tiles<T, 1, kGated>(xt, zt, w, yt, sp, eps, s);
@@ -658,17 +916,24 @@ int64_t backward_clusters(int64_t units, int k) {
     return ceil_div(units, ceil_div(units, cap));
 }
 
-// The row path's grid, or the strided path's split and grid; -1 where the
-// kernel does not take C.
+// The row path's split (rs->tpr == 0: a warp per row) and grid, or the
+// strided path's split and grid: the rows of `partial`, one per block or
+// cluster; -1 where the kernel does not take C, or for the gated backward
+// (z given) off the last axis.
 template <typename T>
-int64_t plan_backward(const void* x, const void* dy, const void* dx, int64_t outer, int64_t C,
-                      int64_t inner, Split* sp, int* V) {
+int64_t plan_backward(const void* x, const void* z, const void* dy, const void* dx,
+                      const void* dz, int64_t outer, int64_t C, int64_t inner, Split* sp,
+                      RowSplit* rs, int* V) {
     if (inner == 1) {
+        if (C > kMaxRowsD) return -1;
+        *V = vector_width<T>(C, {x, z, dy, dx, dz});
+        *rs = row_split(outer, C, *V);
+        if (rs->tpr > 0) return row_grid(*rs, kRowBwdBlocksPerSM);
         const int64_t units = ceil_div(outer, kRowsPerBlock);
-        return C > kMaxRowsD ? -1 : (units < kMaxRowBwdBlocks ? units : kMaxRowBwdBlocks);
+        return units < kMaxRowBwdBlocks ? units : kMaxRowBwdBlocks;
     }
-    if (C > kMaxStridedC) return -1;
-    *V = vector_width<T>(inner, x, dy, dx);
+    if (z != nullptr || C > kMaxStridedC) return -1;
+    *V = vector_width<T>(inner, {x, dy, dx});
     *sp = choose_split(outer, C, inner, *V, sm_count());
     if (sp->units > 2147483647LL) return -1;
     return backward_clusters(sp->units, sp->k);
@@ -686,28 +951,62 @@ int backward_tiles(const T* x, const float* w, const T* dy, T* dx, float* partia
     }
 }
 
-template <typename T>
-int launch_backward(const void* x, const float* w, const void* dy, void* dx, float* partial,
-                    float* dw, int64_t outer, int64_t C, int64_t inner, float eps, int64_t rows,
-                    cudaStream_t s) {
+template <typename T, bool kGated>
+int launch_backward(const void* x, const void* z, const float* w, const void* dy, void* dx,
+                    void* dz, float* partial, float* dw, int64_t outer, int64_t C, int64_t inner,
+                    float eps, int64_t rows, cudaStream_t s) {
     Split sp{};
+    RowSplit rs{};
     int V = 1;
-    if (rows != plan_backward<T>(x, dy, dx, outer, C, inner, &sp, &V)) return cudaErrorInvalidValue;
+    if (rows != plan_backward<T>(x, z, dy, dx, dz, outer, C, inner, &sp, &rs, &V))
+        return cudaErrorInvalidValue;
     const T* xt = static_cast<const T*>(x);
+    const T* zt = static_cast<const T*>(z);
     const T* dyt = static_cast<const T*>(dy);
     T* dxt = static_cast<T*>(dx);
-    if (inner == 1) {
-        rms_norm_bwd_rows<T><<<static_cast<unsigned>(rows), kThreads, sizeof(float) * kRowsPerBlock * C,
-                               s>>>(xt, w, dyt, dxt, partial, outer, C, eps);
-    } else {
-        const int rc = V == 1 ? backward_tiles<T, 1>(xt, w, dyt, dxt, partial, sp, rows, eps, s)
-                              : backward_tiles<T, 16 / sizeof(T)>(xt, w, dyt, dxt, partial, sp,
-                                                                  rows, eps, s);
-        if (rc != 0) return rc;
+    T* dzt = static_cast<T*>(dz);
+    int rc = 0;
+    if (inner == 1 && rs.tpr > 0) {
+        rc = V == 1 ? launch(rms_norm_bwd_rows_packed<T, 1, kGated>, rows, 1, 0, s, xt, zt, w, dyt,
+                             dxt, dzt, partial, rs, eps)
+                    : launch(rms_norm_bwd_rows_packed<T, 16 / sizeof(T), kGated>, rows, 1, 0, s,
+                             xt, zt, w, dyt, dxt, dzt, partial, rs, eps);
+    } else if (inner == 1) {
+        rc = launch(rms_norm_bwd_rows<T, kGated>, rows, 1, sizeof(float) * kRowsPerBlock * C, s, xt,
+                    zt, w, dyt, dxt, dzt, partial, outer, C, eps);
+    } else if constexpr (!kGated) {
+        rc = V == 1 ? backward_tiles<T, 1>(xt, w, dyt, dxt, partial, sp, rows, eps, s)
+                    : backward_tiles<T, 16 / sizeof(T)>(xt, w, dyt, dxt, partial, sp, rows, eps, s);
     }
+    if (rc != 0) return rc;
     rms_norm_dw_reduce<<<static_cast<unsigned>(ceil_div(C, kWarp)), dim3(kWarp, kReduceRows), 0,
                          s>>>(partial, dw, rows, C);
     return static_cast<int>(cudaGetLastError());
+}
+
+int backward(const void* x, const void* z, const void* w, const void* dy, void* dx, void* dz,
+             void* partial, void* dw, int64_t outer, int64_t C, int64_t inner, float eps,
+             int dtype, int64_t rows, void* stream, bool gated) {
+    if (outer <= 0 || C <= 0 || inner <= 0 || rows <= 0) return cudaErrorInvalidValue;
+    const float* wf = static_cast<const float*>(w);
+    float* pf = static_cast<float*>(partial);
+    float* dwf = static_cast<float*>(dw);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    switch (dtype * 2 + (gated ? 1 : 0)) {
+        case 0:
+            return launch_backward<float, false>(x, z, wf, dy, dx, dz, pf, dwf, outer, C, inner,
+                                                 eps, rows, s);
+        case 1:
+            return launch_backward<float, true>(x, z, wf, dy, dx, dz, pf, dwf, outer, C, inner,
+                                                eps, rows, s);
+        case 2:
+            return launch_backward<__nv_bfloat16, false>(x, z, wf, dy, dx, dz, pf, dwf, outer, C,
+                                                         inner, eps, rows, s);
+        case 3:
+            return launch_backward<__nv_bfloat16, true>(x, z, wf, dy, dx, dz, pf, dwf, outer, C,
+                                                        inner, eps, rows, s);
+        default: return cudaErrorInvalidValue;
+    }
 }
 
 }  // namespace
@@ -727,16 +1026,19 @@ int adnm_gated_rms_norm(const void* x, const void* z, const void* w, void* y, in
     return forward(x, z, w, y, outer, C, inner, eps, dtype, stream, true);
 }
 
-// The rows of the fp32 (rows, C) scratch `partial` that adnm_rms_norm_backward
-// takes for these tensors (the split depends on their addresses), or -1
-// where the kernel does not take C.
-int64_t adnm_rms_norm_backward_rows(const void* x, const void* dy, const void* dx, int64_t outer,
-                                    int64_t C, int64_t inner, int dtype) {
+// The rows of the fp32 (rows, C) scratch `partial` that the backward takes
+// for these tensors (the split depends on their addresses), or -1 where the
+// kernel does not take C. K1: z and dz null; K3: inner == 1.
+int64_t adnm_rms_norm_backward_rows(const void* x, const void* z, const void* dy, const void* dx,
+                                    const void* dz, int64_t outer, int64_t C, int64_t inner,
+                                    int dtype) {
     if (outer <= 0 || C <= 0 || inner <= 0) return -1;
     Split sp{};
+    RowSplit rs{};
     int V = 1;
-    if (dtype == 0) return plan_backward<float>(x, dy, dx, outer, C, inner, &sp, &V);
-    if (dtype == 1) return plan_backward<__nv_bfloat16>(x, dy, dx, outer, C, inner, &sp, &V);
+    if (dtype == 0) return plan_backward<float>(x, z, dy, dx, dz, outer, C, inner, &sp, &rs, &V);
+    if (dtype == 1)
+        return plan_backward<__nv_bfloat16>(x, z, dy, dx, dz, outer, C, inner, &sp, &rs, &V);
     return -1;
 }
 
@@ -746,18 +1048,19 @@ int64_t adnm_rms_norm_backward_rows(const void* x, const void* dy, const void* d
 int adnm_rms_norm_backward(const void* x, const void* w, const void* dy, void* dx,
                            void* partial, void* dw, int64_t outer, int64_t C, int64_t inner,
                            float eps, int dtype, int64_t rows, void* stream) {
-    if (outer <= 0 || C <= 0 || inner <= 0 || rows <= 0) return cudaErrorInvalidValue;
-    const float* wf = static_cast<const float*>(w);
-    float* pf = static_cast<float*>(partial);
-    float* dwf = static_cast<float*>(dw);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    switch (dtype) {
-        case 0: return launch_backward<float>(x, wf, dy, dx, pf, dwf, outer, C, inner, eps, rows, s);
-        case 1:
-            return launch_backward<__nv_bfloat16>(x, wf, dy, dx, pf, dwf, outer, C, inner, eps,
-                                                  rows, s);
-        default: return cudaErrorInvalidValue;
-    }
+    return backward(x, nullptr, w, dy, dx, nullptr, partial, dw, outer, C, inner, eps, dtype,
+                    rows, stream, false);
+}
+
+// K3 backward over the last axis: x, z, dy, dx, dz contiguous (outer, C) in
+// `dtype`; otherwise as adnm_rms_norm_backward. The dx and dz kernel, then
+// the dw reduction.
+int adnm_gated_rms_norm_backward(const void* x, const void* z, const void* w, const void* dy,
+                                 void* dx, void* dz, void* partial, void* dw, int64_t outer,
+                                 int64_t C, float eps, int dtype, int64_t rows, void* stream) {
+    if (z == nullptr || dz == nullptr) return cudaErrorInvalidValue;
+    return backward(x, z, w, dy, dx, dz, partial, dw, outer, C, 1, eps, dtype, rows, stream,
+                    true);
 }
 
 const char* adnm_cuda_error_string(int code) {

@@ -7,13 +7,16 @@ the Pallas kernel ``adnm_tpu/ops/pallas/fused_norm.py::rms_norm_pallas``
 ``torch.autograd.Function`` whose backward is ``rms_norm_backward``.
 
 ``gated_rms_norm`` computes ``RMSNorm(x * silu(z)) * weight``, the function
-of ``gated_rms_norm_pallas`` (K3), forward only, as the Pallas kernel has
-no VJP.
+of ``gated_rms_norm_pallas`` (K3). It is differentiable over the last axis,
+the JAX ``GatedRMSNorm``'s: a ``torch.autograd.Function`` whose backward is
+``gated_rms_norm_backward`` (the Pallas kernel has no VJP; the JAX
+module's gradient is XLA's).
 
 A CPU tensor goes to the plain PyTorch versions (``rms_norm_reference``,
-``rms_norm_backward_reference``, ``gated_rms_norm_reference``); a CUDA
-tensor goes to the hand-written Hopper kernels in ``csrc/rms_norm.cu`` or
-the call raises. Each wrapper counts its kernel launches in ``launches``.
+``rms_norm_backward_reference``, ``gated_rms_norm_reference``,
+``gated_rms_norm_backward_reference``); a CUDA tensor goes to the
+hand-written Hopper kernels in ``csrc/rms_norm.cu`` or the call raises.
+Each wrapper counts its kernel launches in ``launches``.
 """
 
 from __future__ import annotations
@@ -79,6 +82,21 @@ def gated_rms_norm_reference(x: torch.Tensor, z: torch.Tensor, weight: torch.Ten
     return (g * torch.rsqrt(ms + eps) * weight.float().view(_axis_shape(x, axis))).to(x.dtype)
 
 
+def gated_rms_norm_backward_reference(
+        x: torch.Tensor, z: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor,
+        eps: float = 1e-6, axis: int = -1) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K3's backward: with ``g = x * silu(z)``,
+    ``dg`` and ``dw`` are ``rms_norm_backward_reference`` of g, then
+    ``dx = dg * silu(z)`` and ``dz = dg * x * s * (1 + z * (1 - s))``,
+    ``s = sigmoid(z)``; dx and dz in x's dtype, dw fp32."""
+    xf, zf = x.float(), z.float()
+    s = torch.sigmoid(zf)
+    dg, dw = rms_norm_backward_reference(xf * F.silu(zf), weight, dy, eps, axis)
+    dx = dg * F.silu(zf)
+    dz = dg * xf * s * (1 + zf * (1 - s))
+    return dx.to(x.dtype), dz.to(x.dtype), dw
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = load_library("rms_norm", SOURCES)
@@ -88,9 +106,12 @@ def _library() -> ctypes.CDLL:
                                         ctypes.c_int, p]
     lib.adnm_rms_norm_backward.argtypes = [p, p, p, p, p, p, i64, i64, i64, ctypes.c_float,
                                            ctypes.c_int, i64, p]
-    lib.adnm_rms_norm_backward_rows.argtypes = [p, p, p, i64, i64, i64, ctypes.c_int]
+    lib.adnm_gated_rms_norm_backward.argtypes = [p, p, p, p, p, p, p, p, i64, i64,
+                                                 ctypes.c_float, ctypes.c_int, i64, p]
+    lib.adnm_rms_norm_backward_rows.argtypes = [p, p, p, p, p, i64, i64, i64, ctypes.c_int]
     lib.adnm_rms_norm_backward_rows.restype = i64
-    for fn in (lib.adnm_rms_norm, lib.adnm_gated_rms_norm, lib.adnm_rms_norm_backward):
+    for fn in (lib.adnm_rms_norm, lib.adnm_gated_rms_norm, lib.adnm_rms_norm_backward,
+               lib.adnm_gated_rms_norm_backward):
         fn.restype = ctypes.c_int
     lib.adnm_cuda_error_string.argtypes = [ctypes.c_int]
     lib.adnm_cuda_error_string.restype = ctypes.c_char_p
@@ -156,36 +177,75 @@ def _forward(x: torch.Tensor, weight: torch.Tensor, eps: float, axis: int) -> to
     return y
 
 
+def _backward(name: str, x: torch.Tensor, z, weight: torch.Tensor, dy: torch.Tensor,
+              eps: float, axis: int):
+    """The backward kernel on CUDA tensors: K1's (dx, dw) for ``z`` None,
+    K3's (dx, dz, dw) on the last axis otherwise. The caller has checked the
+    tensors (``_check``)."""
+    outer, inner = _outer_inner(x, axis)
+    c = x.shape[axis]
+    limit = MAX_BACKWARD_ROW_D if inner == 1 else MAX_BACKWARD_C
+    if c > limit:
+        raise ValueError(f"{name} kernel takes at most {limit} channels on this axis, got {c}")
+    lib = _library()
+    dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    dz = None if z is None else torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    dw = torch.empty((c,), dtype=torch.float32, device=x.device)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    dtype = _DTYPE_CODES[x.dtype]
+    with torch.cuda.device(x.device):
+        # the kernel's split, and so its scratch, depends on the tensors' alignment
+        rows = lib.adnm_rms_norm_backward_rows(x.data_ptr(), ptr(z), dy.data_ptr(), dx.data_ptr(),
+                                               ptr(dz), outer, c, inner, dtype)
+        partial = torch.empty((rows, c), dtype=torch.float32, device=x.device)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if z is None:
+            rc = lib.adnm_rms_norm_backward(x.data_ptr(), weight.data_ptr(), dy.data_ptr(),
+                                            dx.data_ptr(), partial.data_ptr(), dw.data_ptr(),
+                                            outer, c, inner, float(eps), dtype, rows, stream)
+        else:
+            rc = lib.adnm_gated_rms_norm_backward(x.data_ptr(), z.data_ptr(), weight.data_ptr(),
+                                                  dy.data_ptr(), dx.data_ptr(), dz.data_ptr(),
+                                                  partial.data_ptr(), dw.data_ptr(), outer, c,
+                                                  float(eps), dtype, rows, stream)
+    _raise_on(lib, rc, name)
+    return (dx, dw) if z is None else (dx, dz, dw)
+
+
 def rms_norm_backward(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor,
                       eps: float = 1e-6, axis: int = -1) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dx, dw) of ``rms_norm(x, weight, eps, axis)`` for the output
     gradient ``dy``: the K1 backward kernel on CUDA tensors (dx in x's
     dtype, dw fp32, bit-equal from run to run), the plain version on CPU
     tensors."""
-    axis, c = _check("rms_norm_backward", x, weight, axis, dy)
+    axis, _ = _check("rms_norm_backward", x, weight, axis, dy)
     if x.device.type == "cpu":
         return rms_norm_backward_reference(x, weight, dy, eps, axis)
-    outer, inner = _outer_inner(x, axis)
-    limit = MAX_BACKWARD_ROW_D if inner == 1 else MAX_BACKWARD_C
-    if c > limit:
-        raise ValueError(f"rms_norm_backward kernel takes at most {limit} channels on this "
-                         f"axis, got {c}")
-    lib = _library()
-    dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-    dw = torch.empty((c,), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        # the kernel's split, and so its scratch, depends on the tensors' alignment
-        rows = lib.adnm_rms_norm_backward_rows(x.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-                                               outer, c, inner, _DTYPE_CODES[x.dtype])
-        partial = torch.empty((rows, c), dtype=torch.float32, device=x.device)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.adnm_rms_norm_backward(x.data_ptr(), weight.data_ptr(), dy.data_ptr(),
-                                        dx.data_ptr(), partial.data_ptr(), dw.data_ptr(),
-                                        outer, c, inner, float(eps), _DTYPE_CODES[x.dtype],
-                                        rows, stream)
-    _raise_on(lib, rc, "rms_norm_backward")
+    out = _backward("rms_norm_backward", x, None, weight, dy, eps, axis)
     rms_norm_backward.launches += 1
-    return dx, dw
+    return out
+
+
+def gated_rms_norm_backward(
+        x: torch.Tensor, z: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor,
+        eps: float = 1e-6, axis: int = -1) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dx, dz, dw) of ``gated_rms_norm(x, z, weight, eps, axis)`` for the
+    output gradient ``dy``, over the last axis only, as the JAX
+    ``GatedRMSNorm`` normalises (another axis raises on every device): the
+    K3 backward kernel on CUDA tensors (dx and dz in x's dtype, dw fp32,
+    bit-equal from run to run), the plain version on CPU tensors."""
+    axis, _ = _check("gated_rms_norm_backward", x, weight, axis, z, dy)
+    if axis != x.dim() - 1:
+        raise ValueError(f"gated_rms_norm_backward takes the last axis only (the JAX "
+                         f"GatedRMSNorm's), got axis {axis} of a {x.dim()}-d tensor")
+    if x.device.type == "cpu":
+        return gated_rms_norm_backward_reference(x, z, weight, dy, eps, axis)
+    out = _backward("gated_rms_norm_backward", x, z, weight, dy, eps, axis)
+    gated_rms_norm_backward.launches += 1
+    return out
 
 
 class _RMSNorm(torch.autograd.Function):
@@ -215,15 +275,10 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
     return _forward(x, weight, eps, axis)
 
 
-def gated_rms_norm(x: torch.Tensor, z: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
-                   axis: int = -1) -> torch.Tensor:
-    """K3: RMS norm of ``x * silu(z)`` over ``axis`` scaled by ``weight``,
-    in x's dtype. Forward only on every device, so that nothing trains
-    through the plain version on the CPU what the kernel cannot train on
-    the card."""
+def _gated_forward(x: torch.Tensor, z: torch.Tensor, weight: torch.Tensor, eps: float,
+                   axis: int) -> torch.Tensor:
+    """K3 forward on CUDA tensors, the plain version on CPU tensors."""
     axis, c = _check("gated_rms_norm", x, weight, axis, z)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, z, weight)):
-        raise RuntimeError("gated_rms_norm is forward only (K3 has no backward yet)")
     if x.device.type == "cpu":
         return gated_rms_norm_reference(x, z, weight, eps, axis)
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
@@ -238,8 +293,35 @@ def gated_rms_norm(x: torch.Tensor, z: torch.Tensor, weight: torch.Tensor, eps: 
     return y
 
 
+class _GatedRMSNorm(torch.autograd.Function):
+    """K3 forward, and ``gated_rms_norm_backward`` for the gradients, which
+    recomputes the statistics from the saved x and z (as ``_RMSNorm``)."""
+
+    @staticmethod
+    def forward(ctx, x, z, weight, eps, axis):
+        ctx.save_for_backward(x, z, weight)
+        ctx.eps, ctx.axis = eps, axis
+        return _gated_forward(x, z, weight, eps, axis)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, z, weight = ctx.saved_tensors
+        dx, dz, dw = gated_rms_norm_backward(x, z, weight, dy.contiguous(), ctx.eps, ctx.axis)
+        return dx, dz, dw, None, None
+
+
+def gated_rms_norm(x: torch.Tensor, z: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
+                   axis: int = -1) -> torch.Tensor:
+    """K3: RMS norm of ``x * silu(z)`` over ``axis`` scaled by ``weight``,
+    in x's dtype; differentiable in x, z and weight over the last axis."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, z, weight)):
+        return _GatedRMSNorm.apply(x, z, weight, eps, axis)
+    return _gated_forward(x, z, weight, eps, axis)
+
+
 # Kernel launches since the last reset (set to 0 to reset); one backward
-# launch is the dx kernel and the dw reduction after it.
+# launch is the dx (and dz) kernel and the dw reduction after it.
 rms_norm.launches = 0
 rms_norm_backward.launches = 0
 gated_rms_norm.launches = 0
+gated_rms_norm_backward.launches = 0

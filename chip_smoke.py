@@ -6,7 +6,7 @@
 1. Needs CUDA. Prints the card's name and power limit (nvidia-smi) and the
    torch/CUDA versions, and turns TF32 off for every fp32 comparison.
 2. Builds every kernel from ``adnm_tpu_torch/csrc``, one nvcc per source,
-   all started together (``rms_norm.cu``: K1 forward, K1 backward and K3;
+   all started together (``rms_norm.cu``: K1 and K3, forward and backward;
    ``ssd_scan.cu``: K2), and prints each build time and ptxas report.
 3. Holds each kernel against its plain PyTorch version on the card at the
    main paths' shapes and times the kernel, the plain version and, where
@@ -16,8 +16,10 @@
    the card could take (bytes over 3.35 TB/s, operations over 67 TFLOP/s
    fp32), and the kernel's time over the library call's. K1 (rms_norm)
    forward and backward (dx and dw, two launches bit-equal in dw) at every
-   Block norm's shape, and K3 (gated_rms_norm), in fp32 and bf16; K2
-   (ssd_chunked_scan) in fp32 at every Block shape of both bimamba
+   Block norm's shape, and K3 (gated_rms_norm) forward and backward (dx,
+   dz and dw, bit-equal in dw) at its rows beside the unfused
+   ``F.rms_norm(x * F.silu(z))`` and its autograd backward, in fp32 and
+   bf16; K2 (ssd_chunked_scan) in fp32 at every Block shape of both bimamba
    configurations, at batch 1 and 4, each with its kernel / bound and the
    time PERF.md records for the quadratic kernel it replaced, plus cases with
    a small |dA|, in which the state carried between chunks dominates the
@@ -139,7 +141,7 @@ TRAIN_ARGS = ["--synthetic", "--synthetic-len", "24", "--batch-size", "4", "--ep
 TRAIN_STEPS = 4  # int(24 * 0.7) = 16 training clips in batches of 4
 LR, CLIP = 1e-3, 0.025  # the preset's first-epoch clip threshold
 NO_LAUNCHES = dict.fromkeys(["rms_norm", "rms_norm_backward", "ssd_chunked_scan",
-                             "gated_rms_norm"], 0)
+                             "gated_rms_norm", "gated_rms_norm_backward"], 0)
 BIMAMBA = {"linear_attn_duality": False}
 VSSD_BIMAMBA = {"linear_attn_duality": False, "mixer_type": "vssd"}
 
@@ -338,18 +340,39 @@ def check_k1_backward(k1_module) -> dict:
     return {"max_abs_err": worst, "timing": timing}
 
 
+def unfused_gated(x, z, w, dy):
+    """The unfused composition ``F.rms_norm(x * F.silu(z), (d,), w, eps)``
+    (several PyTorch calls; no one call computes K3): a forward, and a
+    forward with its autograd backward, each to be captured in a CUDA graph."""
+    d, w_lib = x.shape[-1], w.to(x.dtype)
+
+    def forward():
+        return F.rms_norm(x * F.silu(z), (d,), w_lib, 1e-6)
+
+    def forward_backward():
+        xg, zg, wg = (t.detach().requires_grad_() for t in (x, z, w_lib))
+        y = F.rms_norm(xg * F.silu(zg), (d,), wg, 1e-6)
+        return torch.autograd.grad(y, (xg, zg, wg), dy)
+
+    return forward, forward_backward
+
+
 def check_k3(k1_module) -> dict:
+    """K3 forward and backward against their plain versions at K3_CASES,
+    timed in turns, beside their bounds and the unfused composition."""
     k3, ref = k1_module.gated_rms_norm, k1_module.gated_rms_norm_reference
+    bwd, bwd_ref = k1_module.gated_rms_norm_backward, k1_module.gated_rms_norm_backward_reference
     gen = torch.Generator(device="cuda").manual_seed(4)
-    worst, timing = 0.0, {}
+    worst, worst_bwd, timing, timing_bwd = 0.0, 0.0, {}, {}
     for dtype in (torch.float32, torch.bfloat16):
-        rtol, atol = K1_TOL[dtype]  # K1's argument, with the kernel's own expf
+        rtol, atol = K1_TOL[dtype]  # K1's argument, with the kernel's own exp
         name = str(dtype).replace("torch.", "")
         for shape, axis in K3_CASES:
             c = shape[axis]
             x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
             z = (2 * torch.randn(shape, generator=gen, device="cuda")).to(dtype)
             w = torch.rand(c, generator=gen, device="cuda") + 0.5
+            dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
             got = k3(x, z, w, 1e-6, axis)
             torch.cuda.synchronize()
             want = ref(x, z, w, 1e-6, axis)
@@ -357,20 +380,60 @@ def check_k3(k1_module) -> dict:
             max_err = err.max().item()
             if not bool((err <= atol + rtol * want.float().abs()).all()):
                 raise AssertionError(f"K3 disagrees with its plain version at {name} {shape}")
+            dx, dz, dw = bwd(x, z, w, dy, 1e-6, axis)
+            dw_again = bwd(x, z, w, dy, 1e-6, axis)[2]
+            torch.cuda.synchronize()
+            if not torch.equal(dw, dw_again):
+                raise AssertionError(f"K3 backward: two launches differ in dw at {name} {shape}")
+            dx_want, dz_want, dw_want = bwd_ref(x, z, w, dy, 1e-6, axis)
+            dxz_err = 0.0
+            for a, b, what in ((dx, dx_want, "dx"), (dz, dz_want, "dz")):
+                e = (a.float() - b.float()).abs()
+                dxz_err = max(dxz_err, e.max().item())
+                if not bool((e <= atol + rtol * b.float().abs()).all()):
+                    raise AssertionError(f"K3 backward {what} disagrees with its plain version "
+                                         f"at {name} {shape}: {e.max().item():.3e}")
+            g = x.float() * F.silu(z.float())
+            r = torch.rsqrt(g.square().mean(dim=axis, keepdim=True) + 1e-6)
+            terms = (dy.float() * g * r).abs().sum(dim=0)
+            dw_err = (dw - dw_want).abs()
+            if not bool((dw_err <= K1B_DW_RTOL * terms + 1e-6).all()):
+                raise AssertionError(f"K3 backward dw disagrees with its plain version at "
+                                     f"{name} {shape}: {dw_err.max().item():.3e}")
             ms, plain_ms, _ = in_turns(lambda: k3(x, z, w, 1e-6, axis),
                                        lambda: ref(x, z, w, 1e-6, axis))
-            n = x.numel()
+            b_ms, b_plain_ms, _ = in_turns(lambda: bwd(x, z, w, dy, 1e-6, axis),
+                                           lambda: bwd_ref(x, z, w, dy, 1e-6, axis))
+            fwd_u, fwd_bwd_u = unfused_gated(x, z, w, dy)
+            u_fwd_ms = device_ms(fwd_u)
+            u_bwd_ms = device_ms(fwd_bwd_u) - u_fwd_ms
+            n, elt = x.numel(), x.element_size()
             # x, z read and y written once, and w; per element about 10 fp32
-            # operations (the gate's exp, divide and products, the sum, the scale)
-            bnd, by = bound_ms(3 * n * x.element_size() + 4 * c, 10 * n)
+            # operations (the gate's exp, reciprocal and products, the sum, the scale)
+            bnd, by = bound_ms(3 * n * elt + 4 * c, 10 * n)
+            # x, z, dy read and dx, dz written once, w read and dw written;
+            # per element about 20 (the gate and its derivative, two sums,
+            # dg, dx, dz and the dw term)
+            b_bnd, b_by = bound_ms(5 * n * elt + 8 * c, 20 * n)
             print(f"K3 {name} {shape} axis={axis}: max_abs_err={max_err:.3e} (tol {atol:g} + "
                   f"{rtol:g}*|ref|) device time: kernel {ms * 1e3:.2f} us, plain "
                   f"{plain_ms * 1e3:.2f} us, library none, bound {bnd * 1e3:.2f} us ({by}, "
-                  f"{bnd / ms:.0%} of it)")
+                  f"{bnd / ms:.0%} of it); unfused F.rms_norm(x * F.silu(z)) "
+                  f"{u_fwd_ms * 1e3:.2f} us (several calls)")
+            print(f"K3 backward {name} {shape} axis={axis}: max_abs_err dx, dz {dxz_err:.3e} "
+                  f"(tol {atol:g} + {rtol:g}*|ref|), dw {dw_err.max().item():.3e} (tol "
+                  f"{K1B_DW_RTOL:g}*sum|terms|, max |dw| {dw_want.abs().max().item():.3e}), dw "
+                  f"bit-equal across launches; device time: kernel {b_ms * 1e3:.2f} us, plain "
+                  f"{b_plain_ms * 1e3:.2f} us, library none, bound {b_bnd * 1e3:.2f} us ({b_by}, "
+                  f"{b_bnd / b_ms:.0%} of it); unfused autograd backward {u_bwd_ms * 1e3:.2f} us "
+                  f"(several calls: its forward and backward less its forward)")
             if dtype == torch.float32:
                 worst = max(worst, max_err)
+                worst_bwd = max(worst_bwd, dxz_err, dw_err.max().item())
             timing[(name, shape)] = (ms, plain_ms, bnd, by)
-    return {"max_abs_err": worst, "timing": timing}
+            timing_bwd[(name, shape)] = (b_ms, b_plain_ms, b_bnd, b_by)
+    return {"max_abs_err": worst, "timing": timing, "backward_max_abs_err": worst_bwd,
+            "backward_timing": timing_bwd}
 
 
 def k2_flops(b: int, h: int, p: int, n: int, l: int) -> int:
@@ -851,7 +914,8 @@ def main() -> None:
     # -- the main paths -------------------------------------------------
     counts = Counts(rms_norm=rms_norm, rms_norm_backward=k1_module.rms_norm_backward,
                     ssd_chunked_scan=ssd.ssd_chunked_scan,
-                    gated_rms_norm=k1_module.gated_rms_norm)
+                    gated_rms_norm=k1_module.gated_rms_norm,
+                    gated_rms_norm_backward=k1_module.gated_rms_norm_backward)
     rng = np.random.RandomState(0)
     inputs = {"batch1": rng.rand(1, 5, 1, IMG, IMG).astype(np.float32),
               "batch4": rng.rand(4, 5, 1, IMG, IMG).astype(np.float32)}
@@ -876,6 +940,7 @@ def main() -> None:
     k1_ms, k1_plain, k1_lib, k1_bound, k1_by = k1["timing"][("float32", (1, 32, 256, 256))]
     k1b_ms, k1b_plain, k1b_lib, k1b_bound, k1b_by = k1b["timing"][("float32", (4, 32, 256, 256))]
     k3_ms, k3_plain, k3_bound, k3_by = k3["timing"][("float32", (262144, 64))]
+    k3b_ms, k3b_plain, k3b_bound, k3b_by = k3["backward_timing"][("float32", (262144, 64))]
     k2_ms, k2_plain, k2_bound, k2_by = k2["timing"][(1, 8, 65536)]
     print(json.dumps({"kernels": [{
         "name": "rms_norm", "route": "cuda", "source": "adnm_tpu_torch/csrc/rms_norm.cu",
@@ -902,6 +967,13 @@ def main() -> None:
         "launches": launches["gated_rms_norm"], "max_abs_err": k3["max_abs_err"],
         "ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound, "bound_by": k3_by,
         "library_ms": None,
+    }, {
+        "name": "gated_rms_norm_backward", "route": "cuda",
+        "source": "adnm_tpu_torch/csrc/rms_norm.cu",
+        "replaces": "adnm_tpu/ops/pallas/fused_norm.py:63",
+        "launches": launches["gated_rms_norm_backward"],
+        "max_abs_err": k3["backward_max_abs_err"], "ms": k3b_ms, "plain_ms": k3b_plain,
+        "bound_ms": k3b_bound, "bound_by": k3b_by, "library_ms": None,
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,5 +1,5 @@
-"""Kernels K1 (RMS norm, forward and backward), K2 (chunked SSD scan) and
-K3 (gated RMS norm) of the PyTorch port on an NVIDIA card.
+"""Kernels K1 (RMS norm) and K3 (gated RMS norm), forward and backward, and
+K2 (chunked SSD scan) of the PyTorch port on an NVIDIA card.
 
 Every test here is marked ``cuda`` and skips where there is no card. The
 file imports no JAX; ``tests/conftest.py`` does, so on a machine with the
@@ -16,6 +16,8 @@ import torch
 from adnm_tpu_torch.ops import ssd
 from adnm_tpu_torch.ops.rms_norm import (
     gated_rms_norm,
+    gated_rms_norm_backward,
+    gated_rms_norm_backward_reference,
     gated_rms_norm_reference,
     rms_norm,
     rms_norm_backward,
@@ -28,12 +30,14 @@ from adnm_tpu_torch.ops.rms_norm import (
 # ones that reach each branch of the kernels' split: C not a multiple of
 # the cluster size, H*W below the narrowest 16-byte tile, H*W not a
 # multiple of 4 (the scalar variant), batch 4 at 8^2, a channel axis too
-# wide for registers (the forward's chunks), and d not a multiple of 32.
+# wide for registers (the forward's chunks), d not a multiple of 32 (a
+# warp per row), and rows of packs that leave lanes of a row idle (d = 20:
+# 5 fp32 packs, or 20 bf16 values, one a thread) or of single values (d = 30).
 CARD_CASES = [((1, 32, 256, 256), 1), ((4, 32, 256, 256), 1), ((1, 128, 32, 32), 1),
               ((1, 256, 16, 16), 1), ((1, 512, 8, 8), 1), ((1, 1024, 8, 8), 1),
               ((1, 1024, 16, 16), 1), ((1, 512, 32, 32), 1), ((4096, 32), -1),
               ((1, 1000, 8, 8), 1), ((2, 64, 3, 3), 1), ((3, 33, 7, 5), 1), ((4, 1024, 8, 8), 1),
-              ((5, 1000), -1)]
+              ((5, 1000), -1), ((300, 20), -1), ((7, 30), -1)]
 # Forward only: beyond the backward's MAX_BACKWARD_C.
 FORWARD_CASES = [((1, 20000, 2, 2), 1)]
 
@@ -102,8 +106,17 @@ def test_kernel_wrapper_raises_on_what_the_kernel_does_not_take(card):
     with pytest.raises(ValueError, match="at most 16384"):
         wide = torch.ones(1, 16385, 2, 2, device=card)
         rms_norm_backward(wide, torch.ones(16385, device=card), wide, 1e-6, 1)
-    with pytest.raises(RuntimeError, match="forward only"):
-        gated_rms_norm(x.requires_grad_(), x, w, 1e-6, 1)
+    # K3 trains over the last axis, as the JAX GatedRMSNorm; another axis
+    # raises in the backward
+    with pytest.raises(ValueError, match="axis 1 of a 4-d tensor"):
+        gated_rms_norm(x.clone().requires_grad_(), x, w, 1e-6, 1).sum().backward()
+    rows = x.view(32, 8).clone().requires_grad_()
+    gated_rms_norm(rows, rows.detach(), w).sum().backward()
+    torch.testing.assert_close(rows.grad, gated_rms_norm_backward_reference(
+        rows.detach(), rows.detach(), w, torch.ones_like(rows))[0], rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="at most 1536"):
+        wide = torch.ones(2, 2048, device=card)
+        gated_rms_norm_backward(wide, wide, torch.ones(2048, device=card), wide)
 
 
 @pytest.mark.cuda
@@ -161,20 +174,31 @@ def test_rms_norm_trains_through_both_kernels(card):
 
 # K3's shapes: the refiner's (B*L, d) rows at d = 32 and 64 and a small
 # one (the JAX package's kernel benchmark), NCHW channels (one split across
-# a cluster), ragged ones.
+# a cluster), ragged ones: a warp per row (d = 1000), rows of 5 or 10 packs
+# (d = 40: lanes of a row idle) and d not a multiple of a pack (30: one
+# value a thread). The backward takes the last axis ones.
 K3_CASES = [((65536, 32), -1), ((262144, 32), -1), ((262144, 64), -1), ((4096, 32), -1),
-            ((2, 32, 64, 64), 1), ((1, 1024, 8, 8), 1), ((3, 33, 7, 5), 1), ((5, 1000), -1)]
+            ((2, 32, 64, 64), 1), ((1, 1024, 8, 8), 1), ((3, 33, 7, 5), 1), ((5, 1000), -1),
+            ((300, 40), -1), ((300, 30), -1)]
+K3_BACKWARD_CASES = [shape for shape, axis in K3_CASES if axis == -1]
+
+
+def gated_inputs(shape, c, dtype, gen, device, offset=False):
+    """x and z (z at twice x's scale, so the gate spans its curve), and w of
+    ``c`` channels; with ``offset``, x and z start one element past a
+    16-byte boundary."""
+    make = (lambda: misaligned(shape, dtype, gen, device)) if offset else (
+        lambda: torch.randn(shape, generator=gen, device=device).to(dtype))
+    x, z = make(), 2 * make()
+    return x, z, torch.rand(c, generator=gen, device=device) + 0.5
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gated_kernel_matches_plain_version_on_the_card(card, dtype):
     gen = torch.Generator(device=card).manual_seed(7)
-    for shape, axis in K3_CASES:
-        c = shape[axis]
-        x = torch.randn(shape, generator=gen, device=card).to(dtype)
-        z = (2 * torch.randn(shape, generator=gen, device=card)).to(dtype)
-        w = torch.rand(c, generator=gen, device=card) + 0.5
+    for shape, axis, offset in [(s, a, False) for s, a in K3_CASES] + [((4096, 32), -1, True)]:
+        x, z, w = gated_inputs(shape, shape[axis], dtype, gen, card, offset)
         before = gated_rms_norm.launches
         got = gated_rms_norm(x, z, w, 1e-6, axis)
         torch.cuda.synchronize()
@@ -185,6 +209,64 @@ def test_gated_kernel_matches_plain_version_on_the_card(card, dtype):
         # rounding step of the output.
         rtol, atol = (1e-5, 1e-5) if dtype == torch.float32 else (8e-3, 1e-5)
         torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gated_backward_kernel_matches_plain_version_on_the_card(card, dtype):
+    """dx and dz in x's dtype and dw in fp32 against the plain version,
+    with K1's backward tolerances (dx, dz: a few ulp in fp32, one rounding
+    step in bf16; dw: 1e-4 of the channel's sum of |terms|), at K3's last
+    axis shapes and with x, z and dy one element off a 16-byte boundary;
+    two launches give bit-equal dw."""
+    gen = torch.Generator(device=card).manual_seed(8)
+    for shape, offset in [(s, False) for s in K3_BACKWARD_CASES] + [((4096, 32), True)]:
+        x, z, w = gated_inputs(shape, shape[-1], dtype, gen, card, offset)
+        dy = (misaligned(shape, dtype, gen, card) if offset
+              else torch.randn(shape, generator=gen, device=card).to(dtype))
+        before = gated_rms_norm_backward.launches
+        dx, dz, dw = gated_rms_norm_backward(x, z, w, dy)
+        dw2 = gated_rms_norm_backward(x, z, w, dy)[2]
+        torch.cuda.synchronize()
+        assert gated_rms_norm_backward.launches == before + 2
+        assert dx.dtype == dz.dtype == dtype and dx.shape == dz.shape == x.shape
+        assert dw.dtype == torch.float32 and torch.equal(dw, dw2), shape
+        dx_want, dz_want, dw_want = gated_rms_norm_backward_reference(x, z, w, dy)
+        rtol, atol = (1e-5, 1e-5) if dtype == torch.float32 else (8e-3, 1e-5)
+        for got, want in ((dx, dx_want), (dz, dz_want)):
+            torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol,
+                                       msg=lambda m: f"{shape} offset={offset}: {m}")
+        g = x.float() * torch.nn.functional.silu(z.float())
+        r = torch.rsqrt(g.square().mean(dim=-1, keepdim=True) + 1e-6)
+        scale = (dy.float() * g * r).abs().sum(dim=0)
+        assert bool(((dw - dw_want).abs() <= 1e-4 * scale + 1e-6).all()), shape
+
+
+@pytest.mark.cuda
+def test_gated_rms_norm_trains_through_both_kernels(card):
+    """Autograd through GatedRMSNorm on CUDA tensors runs K3 forward and its
+    backward kernel, and the gradients match autograd through the plain
+    forward."""
+    from adnm_tpu_torch.core.layers import GatedRMSNorm
+
+    gen = torch.Generator(device=card).manual_seed(9)
+    x, z, w = gated_inputs((2, 64, 64), 64, torch.float32, gen, card)
+    x.requires_grad_()
+    z.requires_grad_()
+    dy = torch.randn(x.shape, generator=gen, device=card)
+    m = GatedRMSNorm(64).to(card)
+    with torch.no_grad():
+        m.weight.copy_(w)
+    fwd, bwd = gated_rms_norm.launches, gated_rms_norm_backward.launches
+    (m(x, z) * dy).sum().backward()
+    torch.cuda.synchronize()
+    assert (gated_rms_norm.launches - fwd, gated_rms_norm_backward.launches - bwd) == (1, 1)
+    got = (x.grad.clone(), z.grad.clone(), m.weight.grad.clone())
+    x.grad = z.grad = None
+    wr = w.clone().requires_grad_()
+    (gated_rms_norm_reference(x, z, wr) * dy).sum().backward()
+    for a, b in zip(got, (x.grad, z.grad, wr.grad)):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
 
 
 def scan_inputs(b, h, p, l, gen, carry=False, n=16, device="cuda"):

@@ -1,4 +1,4 @@
-"""Kernels K1 (RMS norm, forward and backward) and K3 (gated RMS norm) of
+"""Kernels K1 (RMS norm) and K3 (gated RMS norm), forward and backward, of
 the PyTorch port: their plain versions against the JAX package, the
 wrappers' dispatch and checks, and the build helper.
 
@@ -23,6 +23,7 @@ from adnm_tpu_torch.core.layers import GatedRMSNorm, RMSNorm
 from adnm_tpu_torch.ops import _build
 from adnm_tpu_torch.ops.rms_norm import (
     gated_rms_norm,
+    gated_rms_norm_backward,
     gated_rms_norm_reference,
     rms_norm,
     rms_norm_backward,
@@ -185,16 +186,49 @@ def test_gated_module_on_nchw_channels_matches_the_last_axis():
     torch.testing.assert_close(nchw, last.movedim(-1, 1), rtol=1e-6, atol=1e-6)
 
 
-def test_gated_rms_norm_is_forward_only_and_counts_no_launch_on_the_cpu():
+@pytest.mark.parametrize("shape", [(4, 8, 32), (300, 16), (3, 5, 7, 40)])
+def test_gated_module_gradients_match_jax_vjp(shape):
+    """dx, dz and dw through the port's GatedRMSNorm (autograd, the plain
+    backward on the CPU) against ``jax.vjp`` of the JAX module with
+    respect to weight, x and z; fp32 both, sums in another order."""
+    x, w = _inputs(shape, shape[-1], seed=11)
+    z = np.random.RandomState(12).randn(*shape).astype(np.float32) * 2
+    dy = np.random.RandomState(13).randn(*shape).astype(np.float32)
+    jm = JGatedRMSNorm(shape[-1], 1e-6)
+    _, vjp = jax.vjp(lambda p, a, b: jm.apply({"params": {"weight": p}}, a, b), jnp.asarray(w),
+                     jnp.asarray(x), jnp.asarray(z))
+    dw_want, dx_want, dz_want = vjp(jnp.asarray(dy))
+    m = GatedRMSNorm(shape[-1], 1e-6)
+    convert.from_jax_params(m, {"weight": w})
+    xt, zt = torch.from_numpy(x).requires_grad_(), torch.from_numpy(z).requires_grad_()
+    (m(xt, zt) * torch.from_numpy(dy)).sum().backward()
+    for got, want in ((xt.grad, dx_want), (zt.grad, dz_want), (m.weight.grad, dw_want)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+def test_gated_rms_norm_is_differentiable_and_counts_no_launch_on_the_cpu():
+    """On CPU tensors the forward and the backward take their plain
+    versions and count no launch; autograd through ``gated_rms_norm``
+    agrees with autograd of the plain forward; the backward takes the last
+    axis only, on every device."""
     x, w = _inputs((4, 8), 8)
-    z = torch.ones(4, 8)
-    before = gated_rms_norm.launches
-    y = gated_rms_norm(torch.from_numpy(x), z, torch.from_numpy(w))
-    assert gated_rms_norm.launches == before and y.dtype == torch.float32
-    with pytest.raises(RuntimeError, match="forward only"):
-        gated_rms_norm(torch.from_numpy(x).requires_grad_(), z, torch.from_numpy(w))
+    z = np.random.RandomState(14).randn(4, 8).astype(np.float32)
+    dy = torch.from_numpy(np.random.RandomState(15).randn(4, 8).astype(np.float32))
+    before = gated_rms_norm.launches, gated_rms_norm_backward.launches
+    got = [torch.from_numpy(t).requires_grad_() for t in (x, z, w)]
+    y = gated_rms_norm(*got)
+    assert y.dtype == torch.float32
+    (y * dy).sum().backward()
+    assert (gated_rms_norm.launches, gated_rms_norm_backward.launches) == before
+    want = [torch.from_numpy(t).requires_grad_() for t in (x, z, w)]
+    (gated_rms_norm_reference(*want) * dy).sum().backward()
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.grad, b.grad, rtol=1e-5, atol=1e-6)
     with pytest.raises(ValueError, match="shape"):
         gated_rms_norm(torch.from_numpy(x), torch.ones(4, 7), torch.from_numpy(w))
+    nchw = torch.from_numpy(x).view(1, 4, 8, 1)[..., 0].requires_grad_()
+    with pytest.raises(ValueError, match="axis 1 of a 3-d tensor"):
+        gated_rms_norm(nchw, nchw.detach(), torch.ones(4), 1e-6, 1).sum().backward()
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
