@@ -3,8 +3,9 @@
 //
 // Replaces the Pallas TPU kernel adnm_tpu/ops/pallas/ssd_scan.py
 // ssd_chunked_scan_pallas (_forward with the body _kernel), the function of
-// adnm_tpu/ops/ssd.py::ssd_chunked_scan. Forward only, fp32 throughout
-// (no TF32, no tensor cores). In the port's sequence-minor layout, per
+// adnm_tpu/ops/ssd.py::ssd_chunked_scan, and its custom_vjp backward (_bwd,
+// jax.vjp of that function; see "Backward" below). fp32 throughout (no
+// TF32, no tensor cores). In the port's sequence-minor layout, per
 // batch b and head h, with dA_t = dt_t * A (A < 0, not negated), the scan
 // is the recurrence
 //
@@ -88,11 +89,54 @@
 // B are read once, no carry launch is needed, and a tile's loads overlap
 // the previous tile's walk.
 //
+// Backward. With G_t the adjoint of S_t, G_t = C_t dy_t^T + a_{t+1} G_{t+1}
+// (a_t = exp(dA_t)), u_t = G_t^T B_t and g_t = a_t <G_t, S_{t-1}>:
+//
+//     dx_t = dt_t u_t + D dy_t        ddt_t = x_t . u_t + A g_t
+//     dA = sum_{b,t} dt_t g_t         dD = sum_{b,t} x_t . dy_t
+//     dB_t = sum_h G_t x_t dt_t       dC_t = sum_h S_t dy_t
+//
+// in scan order (with reverse, token i is position L - 1 - i as above).
+// A block is one sub-chunk of kBT = 32 tokens of one batch sample and 8
+// heads, a warp per head: lane (p, nq) keeps the states and adjoints n = nq
+// and nq + 8 of column p. u_t is a sum over the 8 nq lanes, g_t and ddt_t
+// over the warp, dB_t and dC_t over p in the warp, then over the block's
+// heads in shared memory in head order. Phases:
+//
+//   1. ssd_bwd_chunks: each sub-chunk walked from zero forward to its end
+//      state and backward to the adjoint it hands to the token before it,
+//      with the decay across it (the adjoint's records in reversed
+//      sub-chunk order). Skipped where L is one sub-chunk.
+//   2. ssd_bwd_carry, the forward's carry (ssd_carry's body), one block
+//      per (batch, head) and direction: the state entering each sub-chunk
+//      from the left and the adjoint entering it from the right.
+//   3. ssd_bwd_grads: a walk forward from the entering state keeps every
+//      S_{t-1} of the sub-chunk in registers (32 tokens x 2 values) and
+//      gives dC; a walk back from the entering adjoint gives G_t, and with
+//      the kept states dx, ddt, dB and the block's sums of dA and dD.
+//   4. ssd_bwd_sum_groups (more than 8 heads: decoder2 has 256) sums dB and
+//      dC over the head groups, ssd_bwd_sum_heads sums dA and dD over the
+//      blocks, each in a fixed order.
+//
+// No atomics: every sum runs in a fixed order, so two launches are
+// bit-equal. S_{t-1} is never rebuilt from S_t by dividing by a_t: at the
+// model's decays dA reaches -0.3 a token, so dividing back across a
+// sub-chunk would scale the rounding by up to e^10 (e^19 over 64 tokens);
+// the kept states cost registers and nothing else. What bounds it: the
+// function's bytes are x, dt, B, C, dy read and dx, ddt, dB, dC written
+// (46 MB at the refiner, batch 1: 13.8 us at 3.35 TB/s). The backward
+// also reads x, dt, B, C and dy twice, moves the carried records (two of
+// 64 floats per 32 tokens and head, through device memory, and twice
+// through the carry kernel) and reduces across lanes with shuffles every
+// token. It is a first,
+// simple form, not tuned (PERF.md has its times).
+//
 // Built by adnm_tpu_torch/ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
-// and called through ctypes: adnm_ssd_chunked_scan returns
-// cudaGetLastError() after the launches, and the wrapper
-// (adnm_tpu_torch/ops/ssd.py) raises if it is not 0.
+// and called through ctypes: adnm_ssd_chunked_scan and
+// adnm_ssd_chunked_scan_backward return cudaGetLastError() after the
+// launches, and the wrappers (adnm_tpu_torch/ops/ssd.py) raise if it is
+// not 0.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -482,15 +526,14 @@ __device__ __forceinline__ void walk_tiles(const float* ss, const float* sd, int
     }
 }
 
-__global__ void __launch_bounds__(kCarryThreads) ssd_carry(float* states, const float* decay,
-                                                           int nc) {
+__device__ __forceinline__ void carry(float* states, const float* decay, int nc) {
     constexpr int np = kN * kP;
     extern __shared__ float4 smem4[];
     float* ss = reinterpret_cast<float*>(smem4);
     float* sd = ss + kWindow * np;
     float* segE = sd + kWindow;  // [kSeg][np]
     float* segD = segE + kSeg * np;
-    float* st = states + int64_t(blockIdx.x) * nc * np;
+    float* st = states + int64_t(blockIdx.x) * nc * np;  // blockIdx.x: a (batch, head)
     const float* dec = decay + int64_t(blockIdx.x) * nc;
     const int tid = threadIdx.x, v = tid % np, seg = tid / np;
     float carry = 0.f;  // the state entering the window
@@ -521,6 +564,295 @@ __global__ void __launch_bounds__(kCarryThreads) ssd_carry(float* states, const 
         for (int e = tid; e < n * np / 4; e += kCarryThreads)
             reinterpret_cast<float4*>(st + int64_t(w0) * np)[e] = smem4[e];
         __syncthreads();  // stored, and the segments read, before the next window
+    }
+}
+
+__global__ void __launch_bounds__(kCarryThreads) ssd_carry(float* states, const float* decay,
+                                                           int nc) {
+    carry(states, decay, nc);
+}
+
+// ---- K2's backward ---------------------------------------------------------
+//
+// A block is one sub-chunk of kBT tokens for one batch sample and kHeads
+// heads: a warp per head, lane = p * kBNQ + nq, the thread keeping the
+// states and adjoints n = nq and nq + kBNQ of column p. Shared rows are
+// staged in scan order (token j of sub-chunk w is scan index w * kBT + j,
+// position L - 1 - that with REV), zero past L and for heads past H.
+constexpr int kBT = 32;                 // tokens per sub-chunk
+constexpr int kBNQ = 8;                 // threads that share a (head, p)
+constexpr int kBS = kN / kBNQ;          // states a thread keeps
+constexpr int kRS = kBT + 1;            // shared row stride: p rows in distinct banks
+constexpr int kBRows = 2 * kHeads * kP + kHeads + 2 * kN;  // x, dy, dt, B, C
+static_assert(kP * kBNQ == kWarp && kHeads * kWarp == kThreads, "a warp per head");
+
+struct BArgs {
+    const float* x;
+    const float* dt;
+    const float* A;
+    const float* B;
+    const float* C;
+    const float* D;
+    const float* dy;  // (batch, H, P, L), contiguous
+    float* dx;        // (batch, H, P, L)
+    float* ddt;       // (batch, H, L)
+    float* dB;        // (batch, N, L), or per head group (batch, ngrp, N, L) when ngrp > 1
+    float* dC;
+    float* carry;      // (2, batch * H, nsub, P * N): states from the left, then adjoints
+                       // from the right in reversed sub-chunk order; entering ones after the carry
+    float* carry_dec;  // (2, batch * H, nsub): the decays across each sub-chunk, in the same order
+    float* part_dA;    // (H, batch * nsub): per-block sums, reduced in a fixed order
+    float* part_dD;
+    int64_t sx, sdt, sb, sc;
+    int batch, H, L, nsub, ngrp;
+};
+
+// rows of g (row r at g + r * L) for the block's sub-chunk, in scan order;
+// rows from `valid` on and tokens past L are zero
+template <bool REV>
+__device__ __forceinline__ void stage_bwd(float* s, const float* g, int rows, int valid,
+                                          const BArgs& a) {
+    const int i0 = blockIdx.x * kBT, L = a.L;
+    for_each(rows, kBT, [&](int r, int j) {
+        const int i = i0 + j;
+        s[r * kRS + j] = (r < valid && i < L) ? g[int64_t(r) * L + (REV ? L - 1 - i : i)] : 0.f;
+    });
+}
+
+struct BTile {
+    float *xs, *dys, *dts, *Bs, *Cs;
+    int b, h0, hn, w, hh, p, nq, h;
+};
+
+template <bool REV>
+__device__ __forceinline__ BTile stage_tile(float* smem, const BArgs& a) {
+    BTile t;
+    t.w = blockIdx.x;
+    t.h0 = blockIdx.y * kHeads;
+    t.b = blockIdx.z;
+    t.hn = min(kHeads, a.H - t.h0);
+    t.hh = threadIdx.x / kWarp;
+    const int lane = threadIdx.x % kWarp;
+    t.p = lane / kBNQ;
+    t.nq = lane % kBNQ;
+    t.h = t.h0 + min(t.hh, t.hn - 1);
+    t.xs = smem;
+    t.dys = t.xs + kHeads * kP * kRS;
+    t.dts = t.dys + kHeads * kP * kRS;
+    t.Bs = t.dts + kHeads * kRS;
+    t.Cs = t.Bs + kN * kRS;
+    const int64_t hl = int64_t(t.h0) * a.L;
+    stage_bwd<REV>(t.xs, a.x + t.b * a.sx + hl * kP, kHeads * kP, t.hn * kP, a);
+    stage_bwd<REV>(t.dys, a.dy + (int64_t(t.b) * a.H * kP) * a.L + hl * kP, kHeads * kP,
+                   t.hn * kP, a);
+    stage_bwd<REV>(t.dts, a.dt + t.b * a.sdt + hl, kHeads, t.hn, a);
+    stage_bwd<REV>(t.Bs, a.B + t.b * a.sb, kN, kN, a);
+    stage_bwd<REV>(t.Cs, a.C + t.b * a.sc, kN, kN, a);
+    __syncthreads();
+    return t;
+}
+
+// Phase 1: each sub-chunk walked from zero, forward to its end state E_w
+// and backward to the adjoint F_w it passes to the token before it, with
+// the decay across it; written as the carry's (state, decay) records.
+template <bool REV>
+__global__ void __launch_bounds__(kThreads) ssd_bwd_chunks(BArgs a) {
+    extern __shared__ float4 smem4[];
+    const BTile t = stage_tile<REV>(reinterpret_cast<float*>(smem4), a);
+    const float A2 = a.A[t.h] * kLog2e;
+    const float* xrow = t.xs + (t.hh * kP + t.p) * kRS;
+    const float* dyrow = t.dys + (t.hh * kP + t.p) * kRS;
+    const float* dtrow = t.dts + t.hh * kRS;
+    float S[kBS], F[kBS], ld = 0.f;
+#pragma unroll
+    for (int m = 0; m < kBS; ++m) S[m] = F[m] = 0.f;
+#pragma unroll 4
+    for (int j = 0; j < kBT; ++j) {
+        const float e = dtrow[j] * A2, a_ = exp2f(e), u = xrow[j] * dtrow[j];
+        ld += e;
+#pragma unroll
+        for (int m = 0; m < kBS; ++m) S[m] = fmaf(S[m], a_, t.Bs[(m * kBNQ + t.nq) * kRS + j] * u);
+    }
+#pragma unroll 4
+    for (int j = kBT - 1; j >= 0; --j) {
+        const float a_ = exp2f(dtrow[j] * A2), g = dyrow[j];
+#pragma unroll
+        for (int m = 0; m < kBS; ++m) F[m] = a_ * fmaf(t.Cs[(m * kBNQ + t.nq) * kRS + j], g, F[m]);
+    }
+    if (t.hh >= t.hn) return;
+    const int64_t bh = int64_t(t.b) * a.H + t.h, nbh = int64_t(a.batch) * a.H;
+    const int64_t left = bh * a.nsub + t.w, right = (nbh + bh) * a.nsub + (a.nsub - 1 - t.w);
+#pragma unroll
+    for (int m = 0; m < kBS; ++m) {
+        const int v = t.p * kN + m * kBNQ + t.nq;
+        a.carry[left * (kP * kN) + v] = S[m];
+        a.carry[right * (kP * kN) + v] = F[m];
+    }
+    if (t.p == 0 && t.nq == 0) a.carry_dec[left] = a.carry_dec[right] = exp2f(ld);
+}
+
+__device__ __forceinline__ float warp_sum(float v, int from, int to) {
+#pragma unroll
+    for (int off = from; off < to; off *= 2) v += __shfl_xor_sync(0xffffffffu, v, off);
+    return v;
+}
+
+// The backward's phase 2: the forward's carry, a block per sequence of records.
+__global__ void __launch_bounds__(kCarryThreads) ssd_bwd_carry(float* states, const float* decay,
+                                                               int nc) {
+    carry(states, decay, nc);
+}
+
+// Phase 3: a sub-chunk's gradients. The walk forward from the state
+// entering the sub-chunk keeps every S_{t-1} in registers (kBT x kBS) and
+// gives dC; the walk back from the adjoint entering from the right gives
+// G_t, and with the kept S_{t-1} dx, ddt, dB and the sums of dA and dD.
+// dB and dC of the block's heads meet in shared memory and are summed in
+// head order.
+template <bool REV>
+__global__ void __launch_bounds__(kThreads) ssd_bwd_grads(BArgs a) {
+    extern __shared__ float4 smem4[];
+    float* smem = reinterpret_cast<float*>(smem4);
+    const BTile t = stage_tile<REV>(smem, a);
+    float* dxs = smem + kBRows * kRS;               // [heads * P][kRS]
+    float* ddts = dxs + kHeads * kP * kRS;          // [heads][kRS]
+    float* dBs = ddts + kHeads * kRS;               // [heads][kBT][N]
+    float* dCs = dBs + kHeads * kBT * kN;           // [heads][kBT][N]
+    const float Ah = a.A[t.h], A2 = Ah * kLog2e, Dh = a.D[t.h];
+    const float* xrow = t.xs + (t.hh * kP + t.p) * kRS;
+    const float* dyrow = t.dys + (t.hh * kP + t.p) * kRS;
+    const float* dtrow = t.dts + t.hh * kRS;
+    const int64_t bh = int64_t(t.b) * a.H + t.h, nbh = int64_t(a.batch) * a.H;
+    float S[kBS], H[kBS];
+#pragma unroll
+    for (int m = 0; m < kBS; ++m) S[m] = H[m] = 0.f;
+    if (a.nsub > 1) {
+        const float* left = a.carry + (bh * a.nsub + t.w) * (kP * kN) + t.p * kN + t.nq;
+        const float* right =
+            a.carry + ((nbh + bh) * a.nsub + (a.nsub - 1 - t.w)) * (kP * kN) + t.p * kN + t.nq;
+#pragma unroll
+        for (int m = 0; m < kBS; ++m) {
+            S[m] = left[m * kBNQ];
+            H[m] = right[m * kBNQ];
+        }
+    }
+    const bool lead = t.p == 0;  // lanes 0..kBNQ-1 hold the sums over p
+    float Sp[kBT][kBS];  // S_{t-1} of each token
+#pragma unroll
+    for (int j = 0; j < kBT; ++j) {
+        const float a_ = exp2f(dtrow[j] * A2), u = xrow[j] * dtrow[j], g = dyrow[j];
+#pragma unroll
+        for (int m = 0; m < kBS; ++m) {
+            Sp[j][m] = S[m];
+            S[m] = fmaf(S[m], a_, t.Bs[(m * kBNQ + t.nq) * kRS + j] * u);
+            const float c = warp_sum(S[m] * g, kBNQ, kWarp);  // sum over p of S_t dy_t
+            if (lead) dCs[(t.hh * kBT + j) * kN + m * kBNQ + t.nq] = c;
+        }
+    }
+    float dA = 0.f, dD = 0.f;
+#pragma unroll
+    for (int j = kBT - 1; j >= 0; --j) {
+        const float dtj = dtrow[j], a_ = exp2f(dtj * A2), xj = xrow[j], g = dyrow[j];
+        float G[kBS], up = 0.f, gs = 0.f;
+#pragma unroll
+        for (int m = 0; m < kBS; ++m) {
+            const int n = m * kBNQ + t.nq;
+            G[m] = fmaf(t.Cs[n * kRS + j], g, H[m]);
+            up = fmaf(G[m], t.Bs[n * kRS + j], up);
+            gs = fmaf(G[m], Sp[j][m], gs);
+        }
+        const float u = warp_sum(up, 1, kBNQ);  // G_t^T B_t, column p
+        const float ag = a_ * gs;               // a_t <G_t, S_{t-1}>, this thread's part
+        const float ddt = warp_sum((t.nq == 0 ? xj * u : 0.f) + Ah * ag, 1, kWarp);
+        dA = fmaf(dtj, ag, dA);
+        if (t.nq == 0) {
+            dD = fmaf(xj, g, dD);
+            dxs[(t.hh * kP + t.p) * kRS + j] = fmaf(dtj, u, Dh * g);
+        }
+        if (threadIdx.x % kWarp == 0) ddts[t.hh * kRS + j] = ddt;
+        const float xd = xj * dtj;
+#pragma unroll
+        for (int m = 0; m < kBS; ++m) {
+            const float v = warp_sum(G[m] * xd, kBNQ, kWarp);  // sum over p of G_t x_t dt_t
+            if (lead) dBs[(t.hh * kBT + j) * kN + m * kBNQ + t.nq] = v;
+            H[m] = a_ * G[m];
+        }
+    }
+    dA = warp_sum(dA, 1, kWarp);
+    dD = warp_sum(dD, 1, kWarp);
+    if (t.hh < t.hn && threadIdx.x % kWarp == 0) {
+        const int64_t o = int64_t(t.h) * a.batch * a.nsub + int64_t(t.b) * a.nsub + t.w;
+        a.part_dA[o] = dA;
+        a.part_dD[o] = dD;
+    }
+    __syncthreads();
+
+    const int i0 = t.w * kBT, nt = min(kBT, a.L - i0), L = a.L;
+    auto pos = [&](int j) { return REV ? L - 1 - (i0 + j) : i0 + j; };
+    float* dx = a.dx + (int64_t(t.b) * a.H + t.h0) * kP * L;
+    float* ddt = a.ddt + (int64_t(t.b) * a.H + t.h0) * L;
+    for_each(t.hn * kP, nt, [&](int r, int j) { dx[int64_t(r) * L + pos(j)] = dxs[r * kRS + j]; });
+    for_each(t.hn, nt, [&](int r, int j) { ddt[int64_t(r) * L + pos(j)] = ddts[r * kRS + j]; });
+    const int64_t g0 = (int64_t(t.b) * a.ngrp + blockIdx.y) * kN * L;
+    for_each(kN, nt, [&](int n, int j) {
+        float vb = 0.f, vc = 0.f;
+        for (int k = 0; k < t.hn; ++k) {
+            vb += dBs[(k * kBT + j) * kN + n];
+            vc += dCs[(k * kBT + j) * kN + n];
+        }
+        a.dB[g0 + int64_t(n) * L + pos(j)] = vb;
+        a.dC[g0 + int64_t(n) * L + pos(j)] = vc;
+    });
+}
+
+// Phase 4: dB and dC summed over the head groups in order (ngrp > 1), from
+// the partials (batch, ngrp, N, L) into (batch, N, L).
+__global__ void __launch_bounds__(kThreads) ssd_bwd_sum_groups(const float* pb, const float* pc,
+                                                              float* dB, float* dC, int batch,
+                                                              int ngrp, int64_t nl) {
+    const int64_t total = int64_t(batch) * nl;
+    for (int64_t e = blockIdx.x * int64_t(blockDim.x) + threadIdx.x; e < total;
+         e += int64_t(gridDim.x) * blockDim.x) {
+        const int64_t b = e / nl, i = e % nl;
+        const float* qb = pb + b * ngrp * nl + i;
+        const float* qc = pc + b * ngrp * nl + i;
+        float vb = 0.f, vc = 0.f;
+        for (int g = 0; g < ngrp; ++g) {
+            vb += qb[g * nl];
+            vc += qc[g * nl];
+        }
+        dB[e] = vb;
+        dC[e] = vc;
+    }
+}
+
+// dA and dD of head blockIdx.x: its m per-block sums, each thread a strided
+// share in order, then a tree over the threads.
+__global__ void __launch_bounds__(kThreads) ssd_bwd_sum_heads(const float* part_dA,
+                                                             const float* part_dD, float* dA,
+                                                             float* dD, int64_t m) {
+    __shared__ float sa[kThreads], sd[kThreads];
+    const float* pa = part_dA + blockIdx.x * m;
+    const float* pd = part_dD + blockIdx.x * m;
+    float va = 0.f, vd = 0.f;
+    for (int64_t i = threadIdx.x; i < m; i += kThreads) {
+        va += pa[i];
+        vd += pd[i];
+    }
+    const int tid = threadIdx.x;
+    sa[tid] = va;
+    sd[tid] = vd;
+    __syncthreads();
+    for (int s = kThreads / 2; s > 0; s /= 2) {
+        if (tid < s) {
+            sa[tid] += sa[tid + s];
+            sd[tid] += sd[tid + s];
+        }
+        __syncthreads();
+    }
+    if (tid == 0) {
+        dA[blockIdx.x] = sa[0];
+        dD[blockIdx.x] = sd[0];
     }
 }
 
@@ -577,6 +909,50 @@ cudaError_t launch(const Args& a, int batch, int threads, cudaStream_t stream) {
     err = launch_tiles(ssd_scan_outputs<T, REV>, a, batch, threads,
                        smem_bytes<OUTPUTS>(a.tl), 1, stream);
     return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+struct BLayout {
+    int nsub, ngrp;
+    int64_t carry, carry_dec, part, groups;  // floats of each scratch region
+};
+
+BLayout bwd_layout(int batch, int H, int L) {
+    BLayout s;
+    s.nsub = (L + kBT - 1) / kBT;
+    s.ngrp = (H + kHeads - 1) / kHeads;
+    const int64_t nbh = int64_t(batch) * H;
+    s.carry = s.nsub > 1 ? 2 * nbh * s.nsub * kP * kN : 0;
+    s.carry_dec = s.nsub > 1 ? 2 * nbh * s.nsub : 0;
+    s.part = nbh * s.nsub;
+    s.groups = s.ngrp > 1 ? int64_t(batch) * s.ngrp * kN * L : 0;
+    return s;
+}
+
+constexpr size_t kBwdChunksSmem = sizeof(float) * kBRows * kRS;
+constexpr size_t kBwdGradsSmem =
+    sizeof(float) * ((kBRows + kHeads * kP + kHeads) * kRS + 2 * kHeads * kBT * kN);
+
+template <bool REV>
+cudaError_t launch_bwd(const BArgs& a, const BLayout& s, float* dB, float* dC, float* dA,
+                       float* dD, cudaStream_t stream) {
+    const dim3 grid(s.nsub, s.ngrp, a.batch);
+    cudaError_t err;
+    if (s.nsub > 1) {
+        ssd_bwd_chunks<REV><<<grid, kThreads, kBwdChunksSmem, stream>>>(a);
+        if ((err = allow_smem(ssd_bwd_carry, kCarrySmem)) != cudaSuccess) return err;
+        ssd_bwd_carry<<<static_cast<unsigned>(2 * int64_t(a.batch) * a.H), kCarryThreads,
+                        kCarrySmem, stream>>>(a.carry, a.carry_dec, s.nsub);
+    }
+    if ((err = allow_smem(ssd_bwd_grads<REV>, kBwdGradsSmem)) != cudaSuccess) return err;
+    ssd_bwd_grads<REV><<<grid, kThreads, kBwdGradsSmem, stream>>>(a);
+    if (s.ngrp > 1) {
+        const int64_t nl = int64_t(kN) * a.L, total = a.batch * nl;
+        const int blocks = static_cast<int>(std::min<int64_t>((total + kThreads - 1) / kThreads, 1056));
+        ssd_bwd_sum_groups<<<blocks, kThreads, 0, stream>>>(a.dB, a.dC, dB, dC, a.batch, s.ngrp, nl);
+    }
+    ssd_bwd_sum_heads<<<a.H, kThreads, 0, stream>>>(a.part_dA, a.part_dD, dA, dD,
+                                                    int64_t(a.batch) * s.nsub);
+    return cudaGetLastError();
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
@@ -642,6 +1018,57 @@ int adnm_ssd_chunked_scan(const void* x, const void* dt, const void* A, const vo
         err = reverse ? launch<64, true>(a, batch, s.threads, strm)
                       : launch<64, false>(a, batch, s.threads, strm);
     return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// Floats of scratch K2's backward needs: the carried states and adjoints
+// with their decays (none where L is one sub-chunk), the per-block sums of
+// dA and dD, and per head group dB and dC (none up to kHeads heads).
+int adnm_ssd_backward_scratch_floats(int batch, int H, int L, int64_t* floats) {
+    if (batch <= 0 || H <= 0 || L <= 0) return cudaErrorInvalidValue;
+    const BLayout s = bwd_layout(batch, H, L);
+    *floats = s.carry + s.carry_dec + 2 * s.part + 2 * s.groups;
+    return cudaSuccess;
+}
+
+// K2's backward: dx, ddt (contiguous, x's and dt's shapes), dA, dD (H),
+// dB, dC (contiguous (batch, N, L)) of the scan for dy (contiguous, x's
+// shape); x, dt, B, C at the batch strides given, as in the forward; the
+// scratch sized by adnm_ssd_backward_scratch_floats. Every output is
+// written, none accumulated into; no atomics, so two launches are
+// bit-equal. Returns cudaGetLastError() after the launches.
+int adnm_ssd_chunked_scan_backward(const void* x, const void* dt, const void* A, const void* B,
+                                   const void* C, const void* D, const void* dy, void* dx,
+                                   void* ddt, void* dA, void* dB, void* dC, void* dD,
+                                   void* scratch, int64_t sx, int64_t sdt, int64_t sb, int64_t sc,
+                                   int batch, int H, int P, int N, int L, int Q, int reverse,
+                                   void* stream) {
+    if (P != kP || N != kN || batch <= 0 || H <= 0 || L <= 0 || Q <= 0 || L % Q != 0 ||
+        batch > 65535 || (H + kHeads - 1) / kHeads > 65535)
+        return cudaErrorInvalidValue;
+    const BLayout s = bwd_layout(batch, H, L);
+    float* f = static_cast<float*>(scratch);
+    float* carry = f;
+    float* carry_dec = carry + s.carry;
+    float* part_dA = carry_dec + s.carry_dec;
+    float* part_dD = part_dA + s.part;
+    float* group_dB = part_dD + s.part;
+    float* group_dC = group_dB + s.groups;
+    const bool grouped = s.ngrp > 1;
+    const BArgs a{static_cast<const float*>(x), static_cast<const float*>(dt),
+                  static_cast<const float*>(A), static_cast<const float*>(B),
+                  static_cast<const float*>(C), static_cast<const float*>(D),
+                  static_cast<const float*>(dy), static_cast<float*>(dx),
+                  static_cast<float*>(ddt),
+                  grouped ? group_dB : static_cast<float*>(dB),
+                  grouped ? group_dC : static_cast<float*>(dC),
+                  carry, carry_dec, part_dA, part_dD, sx, sdt, sb, sc, batch, H, L, s.nsub,
+                  s.ngrp};
+    float *oB = static_cast<float*>(dB), *oC = static_cast<float*>(dC);
+    float *oA = static_cast<float*>(dA), *oD = static_cast<float*>(dD);
+    const cudaStream_t strm = static_cast<cudaStream_t>(stream);
+    const cudaError_t err = reverse ? launch_bwd<true>(a, s, oB, oC, oA, oD, strm)
+                                    : launch_bwd<false>(a, s, oB, oC, oA, oD, strm);
+    return static_cast<int>(err);
 }
 
 const char* adnm_ssd_cuda_error_string(int code) {

@@ -171,6 +171,8 @@ class ADNSSDMixer(nn.Module):
             y1 = linear_attn_dual_seqminor(x1, dt[:, :hh], A[:hh], B1, C1, D[:hh])
             y2 = linear_attn_dual_seqminor(x2, dt[:, hh:], A[hh:], B2, C2, D[hh:])
         else:
+            # K2 reads these channel slices in place; its backward's dx, ddt,
+            # dB and dC flow back through the slices and cats by autograd.
             y1 = ssd_chunked_scan(x1, dt[:, :hh], A[:hh], B1, C1, D[:hh], SCAN_CHUNK)
             y2 = ssd_chunked_scan(x2, dt[:, hh:], A[hh:], B2, C2, D[hh:], SCAN_CHUNK,
                                   reverse=True)

@@ -79,6 +79,7 @@ class VSSDMixer(nn.Module):
                                             Cm[:, gi], self.D[gi::g]) for gi in range(g)]
             y = torch.stack(ys, dim=2)  # (B, H/2, 2, P, L)
         else:
+            # channel slices of xBC, read in place by K2 and its backward
             y1 = ssd_chunked_scan(x[:, :hh], dt[:, :hh], A[:hh], Bm[:, 0], Cm[:, 0],
                                   self.D[:hh], SCAN_CHUNK)
             y2 = ssd_chunked_scan(x[:, hh:], dt[:, hh:], A[hh:], Bm[:, 1], Cm[:, 1],

@@ -11,8 +11,8 @@ with the last-input-frame residual). Contract:
 The ADN-SSD and VSSD mixers (``mixer_type``), each with the duality or
 the bimamba chunked scan (``linear_attn_duality``), and softmax attention;
 the decoder computes only the features it consumes (the JAX default,
-``compute_dead_features=False``). Trained through the duality only: the
-chunked scan (K2) is forward only. ``refiner_remat`` recomputes each
+``compute_dead_features=False``). Every configuration trains: the chunked
+scan (K2) has its backward kernel. ``refiner_remat`` recomputes each
 refiner Block's forward in the backward, as the JAX model does;
 ``apply_reference_init`` is the reference's init scheme.
 """
@@ -249,7 +249,8 @@ class Refiner(nn.Module):
     ``remat``, while gradients are enabled, each Block runs under
     ``torch.utils.checkpoint``: the backward recomputes its forward instead
     of keeping its activations (the 65,536-token mixers), as the JAX model's
-    ``nn.remat`` does."""
+    ``nn.remat`` does: K1 and, in the bimamba configurations, K2 run again
+    there."""
 
     def __init__(self, refine_dim: Sequence[int], refine_depth: Sequence[int],
                  refine_headdim: Sequence[int], out_channels: int, out_expand: int = 2,

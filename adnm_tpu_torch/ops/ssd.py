@@ -10,8 +10,11 @@ softplus'd; A, D (H,); B, C (B, N, L) shared by the heads.
   to kernel K2, the hand-written Hopper kernel in ``csrc/ssd_scan.cu``
   (the Pallas ``adnm_tpu/ops/pallas/ssd_scan.py::ssd_chunked_scan_pallas``
   rewritten as a state scan over sub-chunks of ``sub_chunk(L)`` tokens),
-  or the call raises. Forward only: a call that would need a gradient raises
-  on either device.
+  or the call raises. Differentiable through ``torch.autograd``: its
+  backward, ``ssd_chunked_scan_backward``, takes
+  ``ssd_chunked_scan_backward_reference`` for CPU tensors and K2's backward
+  kernel (the same source; the Pallas function's ``custom_vjp``
+  backward) for CUDA tensors, or raises.
 * ``ssd_naive_scan``: the O(L^2) causal oracle for the tests.
 
 The scan takes ``dA = dt * A`` with A < 0 as it is; only the duality
@@ -113,6 +116,91 @@ def ssd_chunked_scan_reference(x, dt, A, B, C, D, chunk_size: int = 256) -> torc
     return y.reshape(b, h, p, l) + x * D[None, :, None, None]
 
 
+def ssd_chunked_scan_backward_reference(x, dt, A, B, C, D, dy, chunk_size: int = 256,
+                                        reverse: bool = False):
+    """Plain PyTorch version of K2's backward: (dx, ddt, dA, dB, dC, dD) of
+    ``ssd_chunked_scan`` for the output gradient ``dy``, without autograd
+    (which would keep every chunk group's (B, H, chunks, Q, Q) tensors).
+
+    With ``G_t`` the adjoint of the state S_t (N x P), G_t = C_t dy_t^T +
+    a_{t+1} G_{t+1}, a_t = exp(dt_t A), and u_t = G_t^T B_t:
+    dx_t = dt_t u_t + D dy_t, ddt_t = x_t . u_t + A a_t <G_t, S_{t-1}>,
+    dA = sum dt_t a_t <G_t, S_{t-1}>, dD = sum x_t . dy_t, dB_t = sum_h
+    G_t x_t dt_t, dC_t = sum_h S_t dy_t. Per chunk, as the forward: the
+    intra-chunk pairs as masked (Q, Q) products, the state entering each
+    chunk from the left and the adjoint entering it from the right carried
+    sequentially over chunks. ``a_t <G_t, S_{t-1}>`` sums the pairs (r, s)
+    of output and source tokens with s < t <= r, which per chunk is a
+    reverse cumulative sum of each token's row minus column sums over the
+    intra-chunk pairs, plus the carried states' terms; every sum stays
+    within one chunk."""
+    if reverse:
+        x, dt, B, C, dy = (t.flip(-1) for t in (x, dt, B, C, dy))
+        grads = ssd_chunked_scan_backward_reference(x, dt, A, B, C, D, dy, chunk_size)
+        dx, ddt, dA, dB, dC, dD = grads
+        return dx.flip(-1), ddt.flip(-1), dA, dB.flip(-1), dC.flip(-1), dD
+    b, h, p, l = x.shape
+    n = B.shape[1]
+    q = _chunk(l, chunk_size)
+    nc = l // q
+    cum = (dt * A[None, :, None]).reshape(b, h, nc, q).cumsum(-1)  # (B, H, C, Q)
+    xd = (x * dt[:, :, None]).reshape(b, h, p, nc, q)
+    dyc = dy.reshape(b, h, p, nc, q)
+    Bc, Cc = B.reshape(b, n, nc, q), C.reshape(b, n, nc, q)
+    end = cum[..., -1:]
+    decay = torch.exp(end[..., 0])  # (B, H, C): the decay across a chunk
+
+    # chunk end states from zero, E_c = sum_s exp(cum_end - cum_s) B_s xd_s^T,
+    # and adjoints at the chunk start from zero, F_c = sum_r exp(cum_r) C_r dy_r^T
+    E = torch.einsum("bncs,bhpcs->bhcnp", Bc, xd * torch.exp(end - cum)[:, :, None])
+    F = torch.einsum("bncr,bhpcr->bhcnp", Cc, dyc * torch.exp(cum)[:, :, None])
+    s_in, r_in = torch.empty_like(E), torch.empty_like(F)
+    s = torch.zeros_like(E[:, :, 0])
+    r = torch.zeros_like(F[:, :, 0])
+    for c in range(nc):
+        s_in[:, :, c] = s
+        s = s * decay[:, :, c, None, None] + E[:, :, c]
+        k = nc - 1 - c
+        r_in[:, :, k] = r  # the adjoint reaching chunk k's last token from later chunks
+        r = r * decay[:, :, k, None, None] + F[:, :, k]
+
+    # the carried terms per token
+    tail = torch.exp(end - cum)  # (B, H, C, Q): decay from after t to the chunk's end
+    u = torch.einsum("bncs,bhcnp->bhpcs", Bc, r_in) * tail[:, :, None]  # R^T B_s
+    dB = torch.einsum("bhcnp,bhpcs->bncs", r_in, xd * tail[:, :, None])
+    dC = torch.einsum("bhcnp,bhpct->bnct", s_in, dyc * torch.exp(cum)[:, :, None])
+    y_in = torch.einsum("bnct,bhcnp->bhpct", Cc, s_in) * torch.exp(cum)[:, :, None]
+    after = (y_in * dyc).sum(2)  # pairs (r in the chunk, s before it), per r
+    before = (u * xd).sum(2)  # pairs (r after the chunk, s in it), per s
+    across = decay * (r_in * s_in).sum((-2, -1))  # pairs (r after, s before)
+    # pairs within a chunk, a group of chunks at a time
+    causal = torch.ones(q, q, dtype=torch.bool, device=x.device).tril()
+    group = max(1, _INTRA_BYTES // (b * h * q * q * x.element_size()))
+    dcum = torch.empty_like(cum)
+    for c0 in range(0, nc, group):
+        sl = slice(c0, min(c0 + group, nc))
+        cs = cum[:, :, sl]
+        L = torch.exp((cs[..., :, None] - cs[..., None, :]).masked_fill(~causal, float("-inf")))
+        qk = torch.einsum("bnct,bncs->bcts", Cc[:, :, sl], Bc[:, :, sl])
+        u[:, :, :, sl] += torch.einsum("bhcts,bhpct->bhpcs", L * qk[:, None], dyc[:, :, :, sl])
+        # M_ts = L_ts (dy_t . xd_s), W_ts = M_ts (C_t . B_s)
+        M = L * torch.einsum("bhpct,bhpcs->bhcts", dyc[:, :, :, sl], xd[:, :, :, sl])
+        dB[:, :, sl] += torch.einsum("bhcts,bnct->bncs", M, Cc[:, :, sl])
+        dC[:, :, sl] += torch.einsum("bhcts,bncs->bnct", M, Bc[:, :, sl])
+        W = M * qk[:, None]
+        dcum[:, :, sl] = W.sum(-1) - W.sum(-2)  # as output token minus as source token
+    # a_k <G_k, S_{k-1}>: pairs (r, s) with s < k <= r
+    rev = torch.flip(torch.cumsum(torch.flip(dcum + after, (-1,)), -1), (-1,))
+    ddA = rev + torch.cumsum(before, -1) - before + across[..., None]
+    ddA = ddA.reshape(b, h, l)
+    u = u.reshape(b, h, p, l)
+    dx = u * dt[:, :, None] + dy * D[None, :, None, None]
+    ddt = (x * u).sum(2) + ddA * A[None, :, None]
+    dA = (ddA * dt).sum((0, 2))
+    dD = (x * dy).sum((0, 2, 3))
+    return dx, ddt, dA, dB.reshape(b, n, l), dC.reshape(b, n, l), dD
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = load_library("ssd_scan", SOURCES)
@@ -129,6 +217,19 @@ def _library() -> ctypes.CDLL:
         *(ctypes.POINTER(ctypes.c_int64),) * 2,  # states, decays (out)
     ]
     lib.adnm_ssd_scratch_floats.restype = ctypes.c_int
+    lib.adnm_ssd_chunked_scan_backward.argtypes = [
+        *(ctypes.c_void_p,) * 14,  # x, dt, A, B, C, D, dy, dx, ddt, dA, dB, dC, dD, scratch
+        *(ctypes.c_int64,) * 4,  # batch strides of x, dt, B, C (elements)
+        *(ctypes.c_int,) * 6,  # batch, heads, P, N, L, Q
+        ctypes.c_int,  # reverse
+        ctypes.c_void_p,  # stream
+    ]
+    lib.adnm_ssd_chunked_scan_backward.restype = ctypes.c_int
+    lib.adnm_ssd_backward_scratch_floats.argtypes = [
+        *(ctypes.c_int,) * 3,  # batch, heads, L
+        ctypes.POINTER(ctypes.c_int64),  # floats (out)
+    ]
+    lib.adnm_ssd_backward_scratch_floats.restype = ctypes.c_int
     lib.adnm_ssd_sub_chunk.argtypes = [ctypes.c_int]
     lib.adnm_ssd_sub_chunk.restype = ctypes.c_int
     lib.adnm_ssd_cuda_error_string.argtypes = [ctypes.c_int]
@@ -151,11 +252,8 @@ def _batch_stride(name: str, t: torch.Tensor) -> int:
     return t.stride(0)
 
 
-def ssd_chunked_scan(x, dt, A, B, C, D, chunk_size: int = 256,
-                     reverse: bool = False) -> torch.Tensor:
-    """Causal chunked SSD scan over L; with ``reverse`` the scan runs from
-    the last token to the first, ``flip(scan(flip(x, dt, B, C)))`` along L
-    (the bimamba mixers' second path)."""
+def _check(x, dt, A, B, C, D, chunk_size: int) -> int:
+    """Validate the shapes; the chunk."""
     if x.dim() != 4:
         raise ValueError(f"x must be (B, H, P, L), got {tuple(x.shape)}")
     b, h, p, l = x.shape
@@ -165,32 +263,47 @@ def ssd_chunked_scan(x, dt, A, B, C, D, chunk_size: int = 256,
         raise ValueError(f"shapes do not fit x {tuple(x.shape)}: dt {tuple(dt.shape)}, "
                          f"A {tuple(A.shape)}, B {tuple(B.shape)}, C {tuple(C.shape)}, "
                          f"D {tuple(D.shape)}")
-    q = _chunk(l, chunk_size)
-    args = {"x": x, "dt": dt, "A": A, "B": B, "C": C, "D": D}
-    # Forward only on every device, so that no caller trains through the
-    # plain version on the CPU what the kernel cannot train on the card.
-    if torch.is_grad_enabled() and any(t.requires_grad for t in args.values()):
-        raise RuntimeError("ssd_chunked_scan is forward only (K2 has no backward yet)")
-    if x.device.type == "cpu":
-        if not reverse:
-            return ssd_chunked_scan_reference(x, dt, A, B, C, D, chunk_size)
-        x, dt, B, C = (t.flip(-1) for t in (x, dt, B, C))
-        return ssd_chunked_scan_reference(x, dt, A, B, C, D, chunk_size).flip(-1)
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd_chunked_scan runs on CPU or CUDA tensors, got {x.device}")
+    return _chunk(l, chunk_size)
+
+
+def _kernel_args(what: str, args: dict, q: int) -> list:
+    """Check what K2's kernels take; the batch strides of x, dt, B and C."""
+    x, B = args["x"], args["B"]
     for name, t in args.items():
         if t.device != x.device:
             raise ValueError(f"{name} on {t.device}, x on {x.device}")
         if t.dtype != torch.float32:
-            raise TypeError(f"ssd_chunked_scan kernel takes float32 tensors, {name} is {t.dtype}")
-    if n != KERNEL_N or p != KERNEL_P:
-        raise ValueError(f"ssd_chunked_scan kernel takes N = {KERNEL_N} and P = {KERNEL_P}, "
-                         f"got N = {n}, P = {p}")
+            raise TypeError(f"{what} kernel takes float32 tensors, {name} is {t.dtype}")
+    if B.shape[1] != KERNEL_N or x.shape[2] != KERNEL_P:
+        raise ValueError(f"{what} kernel takes N = {KERNEL_N} and P = {KERNEL_P}, "
+                         f"got N = {B.shape[1]}, P = {x.shape[2]}")
     if q > MAX_CHUNK:
-        raise ValueError(f"ssd_chunked_scan kernel takes chunks of at most {MAX_CHUNK}, got {q}")
-    if not (A.is_contiguous() and D.is_contiguous()):
-        raise ValueError("ssd_chunked_scan kernel needs contiguous A and D")
-    strides = [_batch_stride(name, args[name]) for name in ("x", "dt", "B", "C")]
+        raise ValueError(f"{what} kernel takes chunks of at most {MAX_CHUNK}, got {q}")
+    if not (args["A"].is_contiguous() and args["D"].is_contiguous()):
+        raise ValueError(f"{what} kernel needs contiguous A and D")
+    return [_batch_stride(name, args[name]) for name in ("x", "dt", "B", "C")]
+
+
+def _raise_on(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        msg = lib.adnm_ssd_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc} ({msg})")
+
+
+def _scan(x, dt, A, B, C, D, q: int, reverse: bool) -> torch.Tensor:
+    """The forward on validated inputs: the plain version for CPU tensors,
+    else kernel K2."""
+    if x.device.type == "cpu":
+        if not reverse:
+            return ssd_chunked_scan_reference(x, dt, A, B, C, D, q)
+        x, dt, B, C = (t.flip(-1) for t in (x, dt, B, C))
+        return ssd_chunked_scan_reference(x, dt, A, B, C, D, q).flip(-1)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_chunked_scan runs on CPU or CUDA tensors, got {x.device}")
+    b, h, p, l = x.shape
+    n = B.shape[1]
+    strides = _kernel_args("ssd_chunked_scan", {"x": x, "dt": dt, "A": A, "B": B, "C": C,
+                                                 "D": D}, q)
     lib = _library()
     # Scratch of the carry across tiles, sized by the kernel's sub-chunks;
     # none where the tiles fit one thread cluster.
@@ -206,12 +319,81 @@ def ssd_chunked_scan(x, dt, A, B, C, D, chunk_size: int = 256,
                 x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
                 D.data_ptr(), y.data_ptr(), states.data_ptr(), decay.data_ptr(),
                 *strides, b, h, p, n, l, q, int(reverse), stream)
-    if rc != 0:
-        msg = lib.adnm_ssd_cuda_error_string(rc).decode()
-        raise RuntimeError(f"ssd_chunked_scan kernel launch failed: CUDA error {rc} ({msg})")
+    _raise_on(lib, rc, "ssd_chunked_scan")
     ssd_chunked_scan.launches += 1
     return y
 
 
+class _Scan(torch.autograd.Function):
+    """The scan with its gradient: K2 and K2's backward kernel on the card,
+    their plain versions on the CPU. Saves the inputs; the backward
+    recomputes the states it needs."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, D, q, reverse):
+        ctx.save_for_backward(x, dt, A, B, C, D)
+        ctx.q, ctx.reverse = q, reverse
+        return _scan(x, dt, A, B, C, D, q, reverse)
+
+    @staticmethod
+    def backward(ctx, dy):
+        grads = ssd_chunked_scan_backward(*ctx.saved_tensors, dy, ctx.q, ctx.reverse)
+        return (*grads, None, None)
+
+
+def ssd_chunked_scan(x, dt, A, B, C, D, chunk_size: int = 256,
+                     reverse: bool = False) -> torch.Tensor:
+    """Causal chunked SSD scan over L; with ``reverse`` the scan runs from
+    the last token to the first, ``flip(scan(flip(x, dt, B, C)))`` along L
+    (the bimamba mixers' second path). Differentiable in all six inputs."""
+    q = _check(x, dt, A, B, C, D, chunk_size)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, A, B, C, D)):
+        return _Scan.apply(x, dt, A, B, C, D, q, reverse)
+    return _scan(x, dt, A, B, C, D, q, reverse)
+
+
 ssd_chunked_scan.launches = 0  # kernel launches since the last reset (set to 0 to reset)
 
+
+def ssd_chunked_scan_backward(x, dt, A, B, C, D, dy, chunk_size: int = 256,
+                              reverse: bool = False):
+    """(dx, ddt, dA, dB, dC, dD) of ``ssd_chunked_scan`` for the output
+    gradient ``dy``: the plain version for CPU tensors, else K2's backward
+    kernel (csrc/ssd_scan.cu), which raises on what it does not take."""
+    q = _check(x, dt, A, B, C, D, chunk_size)
+    if dy.shape != x.shape:
+        raise ValueError(f"dy {tuple(dy.shape)} does not fit x {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return ssd_chunked_scan_backward_reference(x, dt, A, B, C, D, dy, q, reverse)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_chunked_scan_backward runs on CPU or CUDA tensors, "
+                         f"got {x.device}")
+    b, h, p, l = x.shape
+    n = B.shape[1]
+    dy = dy.contiguous()
+    strides = _kernel_args("ssd_chunked_scan_backward",
+                           {"x": x, "dt": dt, "A": A, "B": B, "C": C, "D": D, "dy": dy}, q)
+    lib = _library()
+    n_scratch = ctypes.c_int64()
+    rc = lib.adnm_ssd_backward_scratch_floats(b, h, l, ctypes.byref(n_scratch))
+    if rc == 0:
+        dev, f32 = x.device, torch.float32
+        dx = torch.empty((b, h, p, l), dtype=f32, device=dev)
+        ddt = torch.empty((b, h, l), dtype=f32, device=dev)
+        dB = torch.empty((b, n, l), dtype=f32, device=dev)
+        dC = torch.empty((b, n, l), dtype=f32, device=dev)
+        dA = torch.empty(h, dtype=f32, device=dev)
+        dD = torch.empty(h, dtype=f32, device=dev)
+        scratch = torch.empty(n_scratch.value, dtype=f32, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.adnm_ssd_chunked_scan_backward(
+                *(t.data_ptr() for t in (x, dt, A, B, C, D, dy, dx, ddt, dA, dB, dC, dD,
+                                         scratch)),
+                *strides, b, h, p, n, l, q, int(reverse), stream)
+    _raise_on(lib, rc, "ssd_chunked_scan_backward")
+    ssd_chunked_scan_backward.launches += 1
+    return dx, ddt, dA, dB, dC, dD
+
+
+ssd_chunked_scan_backward.launches = 0  # kernel launches since the last reset

@@ -7,7 +7,8 @@
    torch/CUDA versions, and turns TF32 off for every fp32 comparison.
 2. Builds every kernel from ``adnm_tpu_torch/csrc``, one nvcc per source,
    all started together (``rms_norm.cu``: K1 and K3, forward and backward;
-   ``ssd_scan.cu``: K2), and prints each build time and ptxas report.
+   ``ssd_scan.cu``: K2, forward and backward), and prints each build time
+   and ptxas report.
 3. Holds each kernel against its plain PyTorch version on the card at the
    main paths' shapes and times the kernel, the plain version and, where
    one PyTorch call computes the same function, that call, with CUDA
@@ -23,7 +24,9 @@
    configurations, at batch 1 and 4, each with its kernel / bound and the
    time PERF.md records for the quadratic kernel it replaced, plus cases with
    a small |dA|, in which the state carried between chunks dominates the
-   output, and reversed scans.
+   output, and reversed scans; K2's backward (dx, ddt, dA, dB, dC, dD,
+   bit-equal across two launches) at the same shapes and cases and on
+   channel slices, each timed with its kernel / bound.
 4. Serves three paths at full width, 256x256, seeded weights, with the
    kernels' launch counts set to 0 just before each request and read just
    after:
@@ -45,19 +48,26 @@
    and the refiner's 8 recomputed under remat), 20 K1 backward, no K2 or
    K3. Then one step's loss, global gradient norm and every gradient
    tensor on the card against the CPU, from the same seeded weights and
-   batch, within tolerances set from the spread of two card runs.
+   batch, within tolerances set from the spread of two card runs; the same
+   for the bimamba model, whose step runs K2's backward on the card and
+   its plain version on the CPU.
 6. For the duality and the bimamba models: times the batch-1 forward
    latency and the batch-4 frames/s, reads the peak device memory, and
    traces 5 forwards at batch 1 and 4 with ``torch.profiler`` (device busy
    time and share, kernels per forward, device time by kernel group and
-   by kernel). For training: the median step time at batch 1 and 4,
-   frames/s, the peak memory of a step with and without the refiner's
-   remat, and a trace of 3 steps at each batch.
+   by kernel). For training, through the ``Trainer`` (the bimamba
+   configurations have no CLI flag, in JAX either): the median, min and
+   mean step time at batch 1 and 4, frames/s, the peak memory of a step
+   with and without the refiner's remat, each with its launches counted
+   from 0 and asserted (bimamba: 28 K2 with remat, 20 without, and 20 K2
+   backward), traces of 3 steps (duality at batch 1 and 4, bimamba at
+   batch 1), and one VSSD bimamba measurement at batch 1.
 7. Prints the kernels' JSON line (each K1 entry with its largest kernel /
    library time over the fp32 main-path shapes, ``worst_vs_library``; K2's
    with its largest kernel / bound time over its timed shapes,
-   ``worst_vs_bound``, and its walkers' sub-chunk T at each L), the
-   card line, then the result line last.
+   ``worst_vs_bound``, and its walkers' sub-chunk T at each L; K2
+   backward's likewise), the script's total seconds, the card line, then
+   the result line last.
 
 Any failure raises: the exit code is then non-zero and no result line is
 printed.
@@ -69,6 +79,7 @@ import concurrent.futures
 import functools
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -119,6 +130,13 @@ K2_QUADRATIC_US = {(1, 32, 1024): 27.93, (1, 128, 1024): 48.31, (1, 64, 256): 18
 # sums causal pairs within chunks and carries chunk states: sums in other
 # orders and exps of their own, on outputs of order 1-20.
 K2_TOL = (1e-4, 1e-4)  # rtol, atol
+# K2 backward, the same argument: dx, ddt, dB and dC within rtol 1e-4 and
+# an atol of 1e-4 of the largest entry (sums of up to 256 heads for dB and
+# dC); dA and dD, sums over batch and L, within 1e-4 of the sum of their
+# terms' magnitudes, as K1's dw.
+K2B_TOL = (1e-4, 1e-4)  # rtol, atol relative to max |ref|
+K2B_SUM_RTOL = 1e-4
+K2B_NAMES = ("dx", "ddt", "dA", "dB", "dC", "dD")
 # Whole 256^2 forward, card against CPU (and a chained request's first
 # forward against the batch-1 request), both fp32 with TF32 off, outputs of
 # order 1, per path. The sums run in other orders. Duality: the refiner's
@@ -136,12 +154,16 @@ K2_PER_FORWARD = 20  # 10 Blocks x (path 1, path 2), on the bimamba paths
 # refiner Blocks, whose forward the backward recomputes (refiner remat);
 # one K1 backward launch per norm.
 K1_PER_STEP, K1B_PER_STEP = 28, 20
+# Per bimamba training step: K2's 20 forward launches and the 8 of the
+# refiner Blocks' recompute; one K2 backward launch per scan.
+K2_PER_STEP, K2B_PER_STEP = 28, 20
 TRAIN_ARGS = ["--synthetic", "--synthetic-len", "24", "--batch-size", "4", "--epochs", "1",
               "--save-every", "1"]
 TRAIN_STEPS = 4  # int(24 * 0.7) = 16 training clips in batches of 4
 LR, CLIP = 1e-3, 0.025  # the preset's first-epoch clip threshold
 NO_LAUNCHES = dict.fromkeys(["rms_norm", "rms_norm_backward", "ssd_chunked_scan",
-                             "gated_rms_norm", "gated_rms_norm_backward"], 0)
+                             "ssd_chunked_scan_backward", "gated_rms_norm",
+                             "gated_rms_norm_backward"], 0)
 BIMAMBA = {"linear_attn_duality": False}
 VSSD_BIMAMBA = {"linear_attn_duality": False, "mixer_type": "vssd"}
 
@@ -450,6 +472,45 @@ def k2_bytes(b: int, h: int, p: int, n: int, l: int) -> int:
     return 4 * (2 * b * h * p * l + b * h * l + 2 * b * n * l + 2 * h)
 
 
+def k2_bwd_flops(b: int, h: int, p: int, n: int, l: int) -> int:
+    """The least operations of the scan's backward per token and head: the
+    forward's state recomputed (with S_t . dy_t for dC in place of y) and
+    the adjoint walk, G = C dy^T + a G (3 N P), and its contractions u = G^T B,
+    <G, S_{t-1}> and G (x dt) for dB (2 N P each); dx, x . u, the dD term
+    (7 P) and ddt, dA (5)."""
+    return b * h * l * (14 * n * p + 10 * p + 7)
+
+
+def k2_bwd_bytes(b: int, h: int, p: int, n: int, l: int) -> int:
+    """x, dt, B, C, dy, A, D read once; dx, ddt, dB, dC, dA, dD written once, fp32."""
+    return 4 * (b * l * (3 * h * p + 2 * h + 4 * n) + 4 * h)
+
+
+def k2_grad_terms(x, dt, A, B, C, D, dy, grads) -> dict:
+    """Per head, the sums of the magnitudes of the terms that dA and dD add
+    up: |dt_t a_t <G_t, S_{t-1}>| = |dt_t ddt_t - x_t . (dx_t - D dy_t)| / |A|
+    (from the plain backward's dx and ddt), and |x_t dy_t|; fp64."""
+    dx, ddt = grads[0].double(), grads[1].double()
+    x, dt, A, D, dy = x.double(), dt.double(), A.double(), D.double(), dy.double()
+    g = dt * ddt - (x * (dx - D[None, :, None, None] * dy)).sum(2)
+    return {"dA": g.abs().sum((0, 2)) / A.abs(), "dD": (x * dy).abs().sum((0, 2, 3))}
+
+
+def channel_slices(x, dt, B, C):
+    """Copies of x, dt, B and C that are channel slices of one wider
+    (batch, channels, L) tensor, each sample contiguous, as the mixers hand
+    them to K2."""
+    b, h, p, l = x.shape
+    n = B.shape[1]
+    big = torch.zeros(b, h * p + h + 2 * n + 3, l, device=x.device)
+    parts, c0 = [], 1
+    for t in (x.reshape(b, h * p, l), dt, B, C):
+        big[:, c0:c0 + t.shape[1]] = t
+        parts.append(big[:, c0:c0 + t.shape[1]])
+        c0 += t.shape[1]
+    return parts[0].view(b, h, p, l), parts[1], parts[2], parts[3]
+
+
 def scan_inputs(b, h, l, gen, carry=False):
     """The model's scales (A = -exp(U(0, ln 16)), dt = softplus(N(0,1) - 4)
     ~ 0.02) or, with ``carry``, dt ~ 0.01 and A in [-0.05, -0.01], where the
@@ -508,6 +569,65 @@ def check_k2(ssd) -> dict:
               f"({by}, {bnd / ms:.0%} of it; kernel / bound {ms / bnd:.1f}), quadratic kernel "
               f"{K2_QUADRATIC_US[(b, h, l)]:.2f} us")
         timing[(b, h, l)] = (ms, plain_ms, bnd, by)
+    return {"max_abs_err": worst, "timing": timing}
+
+
+def check_k2_backward(ssd) -> dict:
+    """K2's backward against its plain version at every K2_SHAPES shape at
+    batch 1 and 4, the small-|dA| and reversed cases of check_k2, and a
+    case read from channel slices; two launches bit-equal in every
+    gradient; kernel and plain timed in turns beside the bound."""
+    bwd, ref = ssd.ssd_chunked_scan_backward, ssd.ssd_chunked_scan_backward_reference
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rtol, atol = K2B_TOL
+    cases = [(b, h, l, False, False, False) for b in (1, 4) for h, l in K2_SHAPES]
+    cases += [(1, 8, 65536, True, False, False), (1, 8, 65536, True, True, False),
+              (4, 32, 1024, True, False, False), (1, 128, 1024, False, True, False),
+              (2, 64, 1024, False, True, True)]
+    worst, timing = 0.0, {}
+    for b, h, l, carry, reverse, sliced in cases:
+        x, dt, A, B, C, D = scan_inputs(b, h, l, gen, carry)
+        if sliced:
+            x, dt, B, C = channel_slices(x, dt, B, C)
+        dy = torch.randn(b, h, K2_P, l, generator=gen, device="cuda")
+        q = min(K2_CHUNK, l)
+        args = (x, dt, A, B, C, D, dy, q, reverse)
+        got, again = bwd(*args), bwd(*args)
+        torch.cuda.synchronize()
+        label = (f"K2 backward b={b} heads={h} L={l} chunks={l // q}"
+                 + (" small|dA|" if carry else "") + (" reverse" if reverse else "")
+                 + (" channel slices" if sliced else ""))
+        if not all(torch.equal(g, a) for g, a in zip(got, again)):
+            raise AssertionError(f"{label}: two launches differ")
+        want = ref(*args)
+        terms = k2_grad_terms(x, dt, A, B, C, D, dy, want)
+        errs = []
+        for name, g, w in zip(K2B_NAMES, got, want):
+            e = (g - w).abs()
+            if name in terms:
+                tol = f"{K2B_SUM_RTOL:g}*sum|terms|"
+                ok = bool((e <= K2B_SUM_RTOL * terms[name] + 1e-6).all())
+            else:
+                tol = f"{rtol:g}*|ref| + {atol:g}*max|ref|"
+                ok = bool((e <= rtol * w.abs() + atol * w.abs().max()).all())
+            if not ok:
+                raise AssertionError(f"{label}: {name} disagrees with the plain version, "
+                                     f"max_abs_err {e.max().item():.3e} (tol {tol})")
+            errs.append(f"{name} {e.max().item():.2e} (max |ref| {w.abs().max().item():.2e})")
+            worst = max(worst, e.max().item())
+        text = f"{label}: max_abs_err " + ", ".join(errs) + "; bit-equal across launches"
+        if carry or reverse or sliced:
+            print(text)
+            continue
+        ms, plain_ms, _ = in_turns(lambda: bwd(*args), lambda: ref(*args), iters=20,
+                                   plain_iters=3)
+        bnd, by = bound_ms(k2_bwd_bytes(b, h, K2_P, K2_N, l), k2_bwd_flops(b, h, K2_P, K2_N, l))
+        print(f"{text}; device time: kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
+              f"bound {bnd * 1e3:.2f} us ({by}, {bnd / ms:.0%} of it; kernel / bound "
+              f"{ms / bnd:.1f})")
+        timing[(b, h, l)] = (ms, plain_ms, bnd, by)
+        if (h, l) in ((8, 65536), (128, 64)):
+            kernel_breakdown(lambda: bwd(*args), label)
     return {"max_abs_err": worst, "timing": timing}
 
 
@@ -616,6 +736,7 @@ def serve_model(predict, label, kwargs, inputs, counts, requests) -> dict:
 # Kernel groups of the device time, matched on the kernel's name in this
 # order; what matches none is elementwise or other.
 KERNEL_GROUPS = {
+    "K2 backward (ssd_bwd_*)": ("ssd_bwd_",),
     "K1 backward (rms_norm_bwd, dw reduce)": ("rms_norm_bwd", "rms_norm_dw_reduce"),
     "K1 rms_norm": ("rms_norm",),
     "K2 ssd_chunked_scan": ("ssd_scan_", "ssd_carry"),
@@ -674,6 +795,30 @@ def profile_device(run, card: str, label: str, unit: str, n: int) -> None:
         print(f"  {group:40s} {t:8.3f} ms/{unit}")
     for name, (t, k) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
         print(f"  {t:8.3f} ms/{unit} {k / n:5.0f}x  {name[:100]}")
+
+
+def kernel_breakdown(run, label: str, n: int = 10) -> None:
+    """Device us per call of each kernel that ``run`` launches, from a
+    trace of ``n`` calls after 3 untraced ones."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            run()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / n
+    def short(name):  # the kernel's own name, without namespace, template or arguments
+        m = re.search(r"(\w+)(<[^()]*>)?\(", name)
+        return m.group(1) if m else name[:40]
+
+    print(f"{label}, device us per call by kernel: " + ", ".join(
+        f"{short(name)} {t:.2f}" for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])))
 
 
 def host_times(run, n: int, warm: int = 3) -> list:
@@ -798,11 +943,11 @@ STEP_SPREAD_FACTOR = 10
 STEP_FLOOR = {"loss": 1e-4, "grad_norm": 1e-3, "tensor": 2e-2, "tensor_of_global": 1e-7}
 
 
-def compare_step_with_cpu() -> None:
+def compare_step_with_cpu(label: str, kwargs: dict) -> None:
     """Loss, global gradient norm and every gradient tensor of one batch-1
     step, card against CPU, from the same seeded weights and batch."""
     batch = train_batch(1)
-    card = make_trainer(torch.device("cuda"))
+    card = make_trainer(torch.device("cuda"), **kwargs)
     runs = []
     for _ in range(2):
         loss, grads = card.grads(batch)
@@ -810,8 +955,8 @@ def compare_step_with_cpu() -> None:
                                    for k, g in grads.items()}))
     del card, grads
     t0 = time.perf_counter()
-    loss_cpu, grads_cpu = make_trainer(torch.device("cpu")).grads(batch)
-    print(f"train step on the CPU (full width, {IMG}^2, batch 1): "
+    loss_cpu, grads_cpu = make_trainer(torch.device("cpu"), **kwargs).grads(batch)
+    print(f"{label} train step on the CPU (full width, {IMG}^2, batch 1): "
           f"{time.perf_counter() - t0:.1f} s")
     grads_cpu = {k: g.to(torch.float64) for k, g in grads_cpu.items()}
     loss_cpu = float(loss_cpu)
@@ -826,7 +971,7 @@ def compare_step_with_cpu() -> None:
                             STEP_FLOOR["grad_norm"])}
     err = {"loss": abs(loss_a - loss_cpu) / abs(loss_cpu),
            "grad_norm": abs(gnorm(ga) - gnorm(grads_cpu)) / gnorm(grads_cpu)}
-    print(f"train step card vs CPU: loss {loss_a:.8f} vs {loss_cpu:.8f} (rel {err['loss']:.3e}, "
+    print(f"{label} train step card vs CPU: loss {loss_a:.8f} vs {loss_cpu:.8f} (rel {err['loss']:.3e}, "
           f"card spread {abs(loss_a - loss_b):.3e}, tol {tol['loss']:.3e}); grad norm "
           f"{gnorm(ga):.6f} vs {gnorm(grads_cpu):.6f} (rel {err['grad_norm']:.3e}, card spread "
           f"{abs(gnorm(ga) - gnorm(gb)):.3e}, tol {tol['grad_norm']:.3e})")
@@ -841,7 +986,7 @@ def compare_step_with_cpu() -> None:
     rows.sort(reverse=True)
     spreads = sorted(r[2] for r in rows)
     errs = sorted(r[1] for r in rows if np.isfinite(r[1]))
-    print(f"train step card vs CPU, {len(rows)} gradient tensors: rel err median "
+    print(f"{label} train step card vs CPU, {len(rows)} gradient tensors: rel err median "
           f"{errs[len(errs) // 2]:.3e}, max {errs[-1]:.3e}; card spread median "
           f"{spreads[len(spreads) // 2]:.3e}, max {spreads[-1]:.3e}; worst against its tolerance:")
     for ratio, e, spread, t, norm, k in rows[:8]:
@@ -851,46 +996,66 @@ def compare_step_with_cpu() -> None:
           f"{max(r[1] for r in big):.3e}, card spread max {max(r[2] for r in big):.3e}")
     bad = [r[-1] for r in rows if not r[0] <= 1.0]
     if not (err["loss"] <= tol["loss"] and err["grad_norm"] <= tol["grad_norm"]) or bad:
-        raise AssertionError(f"train step: card disagrees with CPU (loss, grad norm or {bad[:5]})")
+        raise AssertionError(f"{label} train step: card disagrees with CPU (loss, grad norm or "
+                             f"{bad[:5]})")
 
 
-def time_train(card) -> None:
-    """Median step time, frames/s and the peak memory of a step at batch 1
-    and 4, a profile of 3 steps at each, and the peak memory and step time
-    at batch 4 without the refiner's remat."""
+def step_launches(remat: bool, scan: bool) -> dict:
+    """Each kernel's launches in one training step."""
+    k1 = K1_PER_STEP if remat else K1_PER_FORWARD
+    want = {**NO_LAUNCHES, "rms_norm": k1, "rms_norm_backward": K1B_PER_STEP}
+    if scan:
+        want["ssd_chunked_scan"] = K2_PER_STEP if remat else K2_PER_FORWARD
+        want["ssd_chunked_scan_backward"] = K2B_PER_STEP
+    return want
+
+
+def time_train(card, label: str, kwargs: dict, counts, runs) -> list:
+    """For each (batch, refiner remat, profile) of ``runs``: the median,
+    min and mean step time, frames/s and the peak memory of a step, that
+    step's launches (asserted), and with ``profile`` a trace of 3 steps.
+    Returns the launches of the counted steps."""
     device = torch.device("cuda")
-    batches = {b: torch.from_numpy(train_batch(b)).to(device) for b in (1, 4)}
+    scan = kwargs.get("linear_attn_duality") is False
+    trainer, launches = None, []
+    for b, remat, profile in runs:
+        if trainer is None or trainer.model.refiner.remat != remat:
+            trainer = None  # freed before the next one is built
+            torch.cuda.empty_cache()
+            trainer = make_trainer(device, refiner_remat=remat, **kwargs)
+        batch = torch.from_numpy(train_batch(b)).to(device)
 
-    def measure(trainer, b, label, profile):
         def run():
-            trainer.train_step(batches[b], LR, CLIP)
+            trainer.train_step(batch, LR, CLIP)
 
         times = host_times(run, 10)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        before = torch.cuda.memory_allocated()  # weights, optimizer state, batches
+        before = torch.cuda.memory_allocated()  # weights, optimizer state, batch
+        counts.reset()
         run()
         torch.cuda.synchronize()
+        launches.append(counts.read())
         peak = torch.cuda.max_memory_allocated()
         med = statistics.median(times)
-        print(f"[{card}] train {label} batch {b}: step median {med:.2f} ms, min "
+        what = f"{label} {'refiner remat' if remat else 'no refiner remat'}"
+        print(f"[{card}] train {what} batch {b}: step median {med:.2f} ms, min "
               f"{min(times):.2f} ms, mean {statistics.mean(times):.2f} ms (10 steps after 3) -> "
               f"{b * 20 / (med / 1e3):.1f} frames/s; peak device memory of a step "
-              f"{peak / 2**20:.1f} MiB, of which {before / 2**20:.1f} MiB allocated before it")
+              f"{peak / 2**20:.1f} MiB, of which {before / 2**20:.1f} MiB allocated before it; "
+              f"launches {launches[-1]}")
+        if launches[-1] != step_launches(remat, scan):
+            raise AssertionError(f"train {what} batch {b}: launches {launches[-1]}, want "
+                                 f"{step_launches(remat, scan)}")
         if profile:
-            profile_device(run, card, f"train {label} profile batch {b}", "step", 3)
-
-    trainer = make_trainer(device)
-    for b in (1, 4):
-        measure(trainer, b, "refiner remat", True)
-    del trainer
-    torch.cuda.empty_cache()
-    measure(make_trainer(device, refiner_remat=False), 4, "no refiner remat", False)
+            profile_device(run, card, f"train {what} profile batch {b}", "step", 3)
+    return launches
 
 
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
+    t_start = time.perf_counter()
     from adnm_tpu_torch.cli import predict
     from adnm_tpu_torch.ops import _build, ssd
     from adnm_tpu_torch.ops import rms_norm as k1_module
@@ -910,10 +1075,12 @@ def main() -> None:
     k1b = check_k1_backward(k1_module)
     k3 = check_k3(k1_module)
     k2 = check_k2(ssd)
+    k2b = check_k2_backward(ssd)
 
     # -- the main paths -------------------------------------------------
     counts = Counts(rms_norm=rms_norm, rms_norm_backward=k1_module.rms_norm_backward,
                     ssd_chunked_scan=ssd.ssd_chunked_scan,
+                    ssd_chunked_scan_backward=ssd.ssd_chunked_scan_backward,
                     gated_rms_norm=k1_module.gated_rms_norm,
                     gated_rms_norm_backward=k1_module.gated_rms_norm_backward)
     rng = np.random.RandomState(0)
@@ -928,20 +1095,30 @@ def main() -> None:
     # -- timing -----------------------------------------------------------
     time_forward(predict, "duality", {}, inputs, card)
     time_forward(predict, "bimamba", BIMAMBA, inputs, card)
-    time_train(card)
+    # (batch, refiner remat, profile) of each training measurement
+    time_train(card, "duality", {}, counts, [(1, True, True), (4, True, True), (4, False, False)])
+    scan_steps = time_train(card, "bimamba", BIMAMBA, counts,
+                            [(1, True, True), (4, True, False), (4, False, False)])
+    time_train(card, "vssd-bimamba", VSSD_BIMAMBA, counts, [(1, True, False)])
 
     # -- one training step, card against CPU ------------------------------
-    compare_step_with_cpu()
+    compare_step_with_cpu("duality", {})
+    compare_step_with_cpu("bimamba", BIMAMBA)
 
-    # Launches: serving kernels from the bimamba requests, training
-    # kernels from the training run; K3 is on no path.
+    # Launches: serving kernels from the bimamba requests, K1's backward
+    # from the train CLI's run, K2's from the bimamba training steps; K3
+    # is on no path.
     launches = {k: sum(r[k] for r in bimamba.values()) for k in counts.wrappers}
     launches["rms_norm_backward"] = trained["rms_norm_backward"]
+    launches["ssd_chunked_scan_backward"] = sum(c["ssd_chunked_scan_backward"]
+                                                for c in scan_steps)
     k1_ms, k1_plain, k1_lib, k1_bound, k1_by = k1["timing"][("float32", (1, 32, 256, 256))]
     k1b_ms, k1b_plain, k1b_lib, k1b_bound, k1b_by = k1b["timing"][("float32", (4, 32, 256, 256))]
     k3_ms, k3_plain, k3_bound, k3_by = k3["timing"][("float32", (262144, 64))]
     k3b_ms, k3b_plain, k3b_bound, k3b_by = k3["backward_timing"][("float32", (262144, 64))]
     k2_ms, k2_plain, k2_bound, k2_by = k2["timing"][(1, 8, 65536)]
+    k2b_ms, k2b_plain, k2b_bound, k2b_by = k2b["timing"][(1, 8, 65536)]
+    print(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "rms_norm", "route": "cuda", "source": "adnm_tpu_torch/csrc/rms_norm.cu",
         "replaces": "adnm_tpu/ops/pallas/fused_norm.py:57", "launches": launches["rms_norm"],
@@ -961,6 +1138,13 @@ def main() -> None:
         "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound, "bound_by": k2_by,
         "library_ms": None, "worst_vs_bound": worst_vs_bound(k2["timing"]),
         "sub_chunk": {str(l): ssd.sub_chunk(l) for l in sorted({l for _, l in K2_SHAPES})},
+    }, {
+        "name": "ssd_chunked_scan_backward", "route": "cuda",
+        "source": "adnm_tpu_torch/csrc/ssd_scan.cu",
+        "replaces": "adnm_tpu/ops/pallas/ssd_scan.py:142",
+        "launches": launches["ssd_chunked_scan_backward"], "max_abs_err": k2b["max_abs_err"],
+        "ms": k2b_ms, "plain_ms": k2b_plain, "bound_ms": k2b_bound, "bound_by": k2b_by,
+        "library_ms": None, "worst_vs_bound": worst_vs_bound(k2b["timing"]),
     }, {
         "name": "gated_rms_norm", "route": "cuda", "source": "adnm_tpu_torch/csrc/rms_norm.cu",
         "replaces": "adnm_tpu/ops/pallas/fused_norm.py:63",

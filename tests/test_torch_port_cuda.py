@@ -1,5 +1,6 @@
-"""Kernels K1 (RMS norm) and K3 (gated RMS norm), forward and backward, and
-K2 (chunked SSD scan) of the PyTorch port on an NVIDIA card.
+"""Kernels K1 (RMS norm), K3 (gated RMS norm) and K2 (chunked SSD scan),
+forward and backward, of the PyTorch port on an NVIDIA card, and a bimamba
+training step through K2's two kernels.
 
 Every test here is marked ``cuda`` and skips where there is no card. The
 file imports no JAX; ``tests/conftest.py`` does, so on a machine with the
@@ -24,6 +25,7 @@ from adnm_tpu_torch.ops.rms_norm import (
     rms_norm_backward_reference,
     rms_norm_reference,
 )
+from chip_smoke import channel_slices, k2_grad_terms
 
 # The main path's shapes: refiner (B, 32, 256, 256), every Block norm at
 # 32^2 ... 8^2, and the Pallas contract's (rows, d) on the last axis; then
@@ -302,21 +304,6 @@ K2_CASES = [(1, 32, 4, 1024, 256, False), (1, 64, 4, 256, 256, False),
             (3, 8, 4, 4096, 256, True)]
 
 
-def as_channel_slices(x, dt, B, C):
-    """Copies of x, dt, B and C that are channel slices of one wider
-    (batch, channels, L) tensor: each sample contiguous, a larger batch
-    stride, as the mixers hand them over."""
-    b, h, p, l = x.shape
-    n = B.shape[1]
-    big = torch.zeros(b, h * p + h + 2 * n + 3, l, device=x.device)
-    parts, c0 = [], 1
-    for t in (x.reshape(b, h * p, l), dt, B, C):
-        big[:, c0:c0 + t.shape[1]] = t
-        parts.append(big[:, c0:c0 + t.shape[1]])
-        c0 += t.shape[1]
-    return parts[0].view(b, h, p, l), parts[1], parts[2], parts[3]
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("carry", [False, True])
@@ -326,7 +313,7 @@ def test_ssd_kernel_matches_plain_version_on_the_card(card, reverse, carry):
         args = scan_inputs(b, h, p, l, gen, carry)
         if sliced:
             x, dt, A, B, C, D = args
-            x, dt, B, C = as_channel_slices(x, dt, B, C)
+            x, dt, B, C = channel_slices(x, dt, B, C)
             assert x.stride(0) > h * p * l and B.stride(0) > 16 * l
             args = x, dt, A, B, C, D
         before = ssd.ssd_chunked_scan.launches
@@ -402,3 +389,90 @@ def test_ssd_kernel_wrapper_raises_on_what_the_kernel_does_not_take(card):
         ssd.ssd_chunked_scan(x.transpose(1, 2), dt, A, B, C, D)
     with pytest.raises(ValueError, match="on cpu"):
         ssd.ssd_chunked_scan(x, dt, A.cpu(), B, C, D)
+
+
+def scan_grad_inputs(b, h, p, l, gen, carry=False, sliced=False):
+    x, dt, A, B, C, D = scan_inputs(b, h, p, l, gen, carry)
+    if sliced:
+        x, dt, B, C = channel_slices(x, dt, B, C)
+    return x, dt, A, B, C, D, torch.randn(b, h, p, l, generator=gen, device=x.device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("carry", [False, True])
+def test_ssd_backward_kernel_matches_plain_version_on_the_card(card, reverse, carry):
+    """K2's backward against its plain version at K2_CASES (channel slices
+    in the last), and two launches bit-equal in every gradient: no atomics."""
+    gen = torch.Generator(device=card).manual_seed(5)
+    for b, h, p, l, q, sliced in K2_CASES:
+        *args, dy = scan_grad_inputs(b, h, p, l, gen, carry, sliced)
+        before = ssd.ssd_chunked_scan_backward.launches
+        got = ssd.ssd_chunked_scan_backward(*args, dy, q, reverse)
+        again = ssd.ssd_chunked_scan_backward(*args, dy, q, reverse)
+        torch.cuda.synchronize()
+        assert ssd.ssd_chunked_scan_backward.launches == before + 2
+        want = ssd.ssd_chunked_scan_backward_reference(*args, dy, q, reverse)
+        terms = k2_grad_terms(*args, dy, want)
+        for name, g, g2, w in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), got, again, want):
+            assert torch.equal(g, g2), (name, b, h, l)
+            if name in ("dA", "dD"):
+                # sums over batch and L: 1e-4 of the sum of the terms' magnitudes
+                assert bool(((g - w).abs() <= 1e-4 * terms[name] + 1e-6).all()), (name, b, h, l)
+            else:
+                # fp32 both, sums in another order, as the forward
+                torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4 * w.abs().max().item(),
+                                           msg=lambda m: f"{name} {b} {h} {l}: {m}")
+
+
+@pytest.mark.cuda
+def test_ssd_backward_kernel_wrapper_raises_on_what_the_kernel_does_not_take(card):
+    gen = torch.Generator(device=card).manual_seed(6)
+    *args, dy = scan_grad_inputs(1, 4, 4, 64, gen)
+    x, dt, A, B, C, D = args
+    with pytest.raises(TypeError, match="float32"):
+        ssd.ssd_chunked_scan_backward(*args, dy.double())
+    with pytest.raises(ValueError, match="N = 16"):
+        ssd.ssd_chunked_scan_backward(x, dt, A, B[:, :8], C[:, :8], D, dy)
+    with pytest.raises(ValueError, match="at most 256"):
+        ssd.ssd_chunked_scan_backward(*scan_grad_inputs(1, 2, 4, 1024, gen), chunk_size=512)
+    with pytest.raises(ValueError, match="on cpu"):
+        ssd.ssd_chunked_scan_backward(x, dt, A, B, C, D, dy.cpu())
+    # a non-contiguous dy is made contiguous
+    got = ssd.ssd_chunked_scan_backward(*args, dy.transpose(2, 3).contiguous().transpose(2, 3))
+    want = ssd.ssd_chunked_scan_backward(*args, dy)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mixer_type", ["adnssd", "vssd"])
+def test_bimamba_model_trains_through_both_k2_kernels(card, mixer_type):
+    """One training step of create_adnm_unet(5, 20, 6,
+    linear_attn_duality=False) at 64^2: 28 K2 launches (20 and the
+    refiner's 8 recomputed under remat), 20 K2 backward launches, and the
+    loss and gradients of the CPU's plain versions."""
+    import numpy as np
+
+    from adnm_tpu_torch.models.adnm_unet import apply_reference_init, create_adnm_unet
+    from adnm_tpu_torch.train.loop import Trainer
+    from adnm_tpu_torch.train.presets import get_preset
+
+    def trainer(device):
+        model = create_adnm_unet(5, 20, 6, linear_attn_duality=False, mixer_type=mixer_type)
+        return Trainer(model, get_preset("ADNMUnet", 5, 20, 6, "Shanghai"), 5, device, seed=0,
+                       param_transform=apply_reference_init)
+
+    batch = np.random.RandomState(0).rand(1, 25, 1, 64, 64).astype(np.float32)
+    t = trainer(card)
+    ssd.ssd_chunked_scan.launches = ssd.ssd_chunked_scan_backward.launches = 0
+    loss, grads = t.grads(batch)
+    torch.cuda.synchronize()
+    assert (ssd.ssd_chunked_scan.launches, ssd.ssd_chunked_scan_backward.launches) == (28, 20)
+    loss_cpu, grads_cpu = trainer(torch.device("cpu")).grads(batch)
+    torch.testing.assert_close(float(loss), float(loss_cpu), rtol=1e-4, atol=0)
+    total = float(torch.sqrt(sum(g.square().sum() for g in grads_cpu.values())))
+    for k, w in grads_cpu.items():
+        # fp32 on both sides through some 60 layers, sums in other orders
+        err = float((grads[k].cpu() - w).norm())
+        assert err <= 2e-2 * float(w.norm()) + 1e-6 * total, (k, err, float(w.norm()))

@@ -1,17 +1,22 @@
 """The chunked SSD scan of the PyTorch port (kernel K2's plain version, its
-wrapper and the naive oracle) against the JAX package, on the CPU.
+wrapper and the naive oracle) and its backward (the plain backward and the
+autograd function) against the JAX package (``jax.vjp``), on the CPU.
 
 The port's layout is sequence-minor, x (B, H, P, L), dt (B, H, L), B and C
 (B, N, L); JAX's is token-minor, x (B, L, H, P), dt (B, L, H), B and C
 (B, L, N): the same numpy inputs go to both, transposed. Tolerance rtol
 1e-4 / atol 1e-5 on outputs of order 1-30: both sides compute in fp32 and
 differ in the order of their sums (JAX's dots run at full fp32 precision
-in the tests). The CUDA kernel itself is held against the plain version
-on the card by ``tests/test_torch_port_cuda.py``.
+in the tests). Gradients: dx, ddt, dB and dC as outputs (rtol 1e-4, atol
+1e-5 of the largest entry); dA and dD, sums over the batch and L, to 1e-4
+of the sum of their terms' magnitudes, as K1's dw. The CUDA kernels are
+held against the plain versions on the card by
+``tests/test_torch_port_cuda.py``.
 """
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -114,11 +119,8 @@ def test_cpu_tensor_takes_the_plain_version_without_launching():
     assert torch.equal(got, ssd.ssd_chunked_scan_reference(*args, chunk_size=32))
 
 
-def test_wrapper_raises_on_a_gradient_a_ragged_chunk_and_other_devices():
+def test_wrapper_raises_on_a_ragged_chunk_and_other_devices():
     x, dt, A, B, C, D = map(torch.from_numpy, scan_inputs(1, 2, 4, 16, 96))
-    with pytest.raises(RuntimeError, match="forward only"):
-        ssd.ssd_chunked_scan(x.requires_grad_(), dt, A, B, C, D)
-    x = x.detach()
     with torch.no_grad():
         ssd.ssd_chunked_scan(x, dt, A, B, C, D.requires_grad_())  # no gradient is needed
     with pytest.raises(ValueError, match="not a multiple of the chunk 64"):
@@ -130,6 +132,136 @@ def test_wrapper_raises_on_a_gradient_a_ragged_chunk_and_other_devices():
     meta = [t.detach().to("meta") for t in (x, dt, A, B, C, D)]
     with pytest.raises(ValueError, match="CPU or CUDA"):
         ssd.ssd_chunked_scan(*meta)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        ssd.ssd_chunked_scan_backward(*meta, meta[0])
+    with pytest.raises(ValueError, match="does not fit x"):
+        ssd.ssd_chunked_scan_backward(x, dt, A, B, C, D.detach(), x[..., :32])
+
+
+# -- the backward ---------------------------------------------------------
+
+GRAD_NAMES = ("dx", "ddt", "dA", "dB", "dC", "dD")
+
+
+def grad_inputs(b, h, p, n, l, seed=0, carry=False):
+    return [*scan_inputs(b, h, p, n, l, seed, carry),
+            np.random.RandomState(seed + 1).randn(b, h, p, l).astype(np.float32)]
+
+
+def jax_grads(args, dy, chunk, fn=None):
+    """jax.vjp of the JAX scan (or ``fn``), in the port's layout."""
+    fn = fn or (lambda *a: jssd.ssd_chunked_scan(*a, chunk_size=chunk))
+    _, vjp = jax.vjp(fn, *to_jax(*args))
+    dx, ddt, dA, dB, dC, dD = vjp(jnp.asarray(dy.transpose(0, 3, 1, 2)))
+    return [from_jax(dx), np.asarray(ddt).transpose(0, 2, 1), np.asarray(dA),
+            np.asarray(dB).transpose(0, 2, 1), np.asarray(dC).transpose(0, 2, 1),
+            np.asarray(dD)]
+
+
+def sum_terms(x, dt, A, B, C, D, dy):
+    """sum |dt_t a_t <G_t, S_{t-1}>| and sum |x_t dy_t| per head, the
+    magnitudes of the terms that dA and dD add up, from the recurrence in
+    float64."""
+    x, dt, A, B, C, dy = (a.astype(np.float64) for a in (x, dt, A, B, C, dy))
+    b, h, p, l = x.shape
+    a = np.exp(dt * A[None, :, None])
+    S = np.zeros((l + 1, b, h, B.shape[1], p))  # S[t + 1] = S_t
+    for t in range(l):
+        S[t + 1] = a[:, :, t, None, None] * S[t] + np.einsum(
+            "bn,bhp->bhnp", B[:, :, t], x[..., t] * dt[:, :, t, None])
+    g = np.zeros((b, h, l))
+    G = np.zeros_like(S[0])
+    for t in reversed(range(l)):
+        G = np.einsum("bn,bhp->bhnp", C[:, :, t], dy[..., t]) + G
+        g[:, :, t] = a[:, :, t] * np.einsum("bhnp,bhnp->bh", G, S[t])
+        G = a[:, :, t, None, None] * G
+    return np.abs(dt * g).sum((0, 2)), np.abs(x * dy).sum((0, 2, 3))
+
+
+def assert_grads_match(got, want, terms):
+    """dx, ddt, dB, dC as the forward's outputs (rtol 1e-4, atol 1e-5 of
+    the largest entry); dA and dD, sums over batch and L, to 1e-4 of the
+    sum of their terms' magnitudes."""
+    for name, g, w in zip(GRAD_NAMES, got, want):
+        g = np.asarray(g)
+        assert g.shape == w.shape, name
+        if name in ("dA", "dD"):
+            bound = 1e-4 * terms[name == "dD"] + 1e-7
+            assert (np.abs(g - w) <= bound).all(), (name, g, w, bound)
+        else:
+            np.testing.assert_allclose(g, w, rtol=RTOL, atol=ATOL * np.abs(w).max(),
+                                       err_msg=name)
+
+
+@pytest.mark.parametrize("b,h,p,n,l,chunk,carry", [
+    (2, 3, 4, 5, 64, 256, False),   # one chunk, q = L < chunk
+    (1, 4, 4, 16, 256, 64, False),  # four chunks
+    (2, 2, 2, 8, 96, 16, True),     # six chunks, the carry dominates
+    (1, 3, 8, 16, 1024, 256, True),  # the encoder4 Blocks' L and chunk
+])
+def test_plain_backward_matches_jax_vjp(b, h, p, n, l, chunk, carry):
+    *args, dy = grad_inputs(b, h, p, n, l, seed=l, carry=carry)
+    want = jax_grads(args, dy, chunk)
+    got = ssd.ssd_chunked_scan_backward(*map(torch.from_numpy, args), torch.from_numpy(dy),
+                                        chunk_size=chunk)
+    assert_grads_match(got, want, sum_terms(*args, dy))
+
+
+def test_plain_backward_of_the_reverse_scan_matches_jax_vjp_of_the_flipped_scan():
+    *args, dy = grad_inputs(2, 4, 4, 16, 256, seed=2, carry=True)
+    x, dt, A, B, C, D = args
+    flipped = [*flip_l(x, dt), A, *flip_l(B, C), D]
+    fx, fdt, _, fB, fC, _ = want = jax_grads(flipped, *flip_l(dy), 64)
+    want = [*flip_l(fx, fdt), want[2], *flip_l(fB, fC), want[5]]
+    got = ssd.ssd_chunked_scan_backward(*map(torch.from_numpy, args), torch.from_numpy(dy),
+                                        chunk_size=64, reverse=True)
+    assert_grads_match(got, want, sum_terms(*flipped, *flip_l(dy)))
+
+
+def test_plain_backward_matches_the_pallas_custom_vjp():
+    """jax.vjp of ssd_chunked_scan_pallas (interpret mode), so its
+    custom_vjp backward is what is held; two chunks of 16."""
+    *args, dy = grad_inputs(1, 2, 4, 8, 32, seed=3, carry=True)
+    want = jax_grads(args, dy, 16, lambda *a: ssd_chunked_scan_pallas(*a, 16))
+    got = ssd.ssd_chunked_scan_backward_reference(*map(torch.from_numpy, args),
+                                                  torch.from_numpy(dy), chunk_size=16)
+    assert_grads_match(got, want, sum_terms(*args, dy))
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_autograd_through_the_scan_is_the_plain_backward(reverse):
+    """On the CPU ``loss.backward()`` through the wrapper runs the plain
+    backward, and launches nothing; channel slices get their gradients."""
+    *args, dy = grad_inputs(2, 3, 4, 16, 128, seed=4, carry=True)
+    x, dt, A, B, C, D = map(torch.from_numpy, args)
+    big = torch.cat([B, C], 1).requires_grad_()
+    leaves = [t.clone().requires_grad_() for t in (x, dt, A, D)]
+    before = ssd.ssd_chunked_scan_backward.launches
+    y = ssd.ssd_chunked_scan(leaves[0], leaves[1], leaves[2], big[:, :16], big[:, 16:],
+                             leaves[3], chunk_size=32, reverse=reverse)
+    y.backward(torch.from_numpy(dy))
+    assert ssd.ssd_chunked_scan_backward.launches == before
+    want = ssd.ssd_chunked_scan_backward_reference(x, dt, A, B, C, D, torch.from_numpy(dy),
+                                                   32, reverse)
+    got = [leaves[0].grad, leaves[1].grad, leaves[2].grad, big.grad[:, :16], big.grad[:, 16:],
+           leaves[3].grad]
+    for name, g, w in zip(GRAD_NAMES, got, want):
+        assert torch.equal(g, w), name
+
+
+def test_the_carry_case_gradients_depend_on_the_carry():
+    """dy on the second half only: the first half's inputs get gradients
+    only through the adjoint carried back across chunks, far above the
+    tolerance in the small-|dA| case."""
+    *args, dy = grad_inputs(1, 4, 4, 16, 512, carry=True)
+    dy[..., :256] = 0
+    t_args = list(map(torch.from_numpy, args))
+    dx, ddt, dA, dB, dC, dD = ssd.ssd_chunked_scan_backward(*t_args, torch.from_numpy(dy),
+                                                            chunk_size=64)
+    assert dx[..., :256].abs().mean() > 0.1 and dB[..., :256].abs().mean() > 0.1
+    assert not dC[..., :256].any()  # C_t reaches only y_t
+    want = jax_grads(args, dy, 64)
+    np.testing.assert_allclose(dx.numpy(), want[0], rtol=RTOL, atol=ATOL * np.abs(want[0]).max())
 
 
 def test_chip_smoke_times_k2_at_every_shape_the_model_gives_it(one_torch_thread, monkeypatch):

@@ -190,15 +190,6 @@ def test_uint8_wire_format_matches_the_float_path_on_quantized_data(params):
     np.testing.assert_allclose(gts, q[:, 5:, 0].astype(np.float32) / 255.0, rtol=1e-6)
 
 
-def test_bimamba_training_raises_on_the_cpu(params):
-    """K2 has no backward: the chunked scan trains nowhere, not even
-    through its plain version on the CPU."""
-    (batch,) = _batches(1, 2)
-    t = port_trainer(params, linear_attn_duality=False)
-    with pytest.raises(RuntimeError, match="forward only"):
-        t.train_step(torch.from_numpy(batch), 1e-3, 0.025)
-
-
 def test_preset_matches_jax_for_forty_epochs():
     for interval in (6, 30):  # instance norm on and off
         want, got = (f("ADNMUnet", 5, 20, interval, "Shanghai") for f in (jget_preset, get_preset))
