@@ -90,46 +90,84 @@
 // the previous tile's walk.
 //
 // Backward. With G_t the adjoint of S_t, G_t = C_t dy_t^T + a_{t+1} G_{t+1}
-// (a_t = exp(dA_t)), u_t = G_t^T B_t and g_t = a_t <G_t, S_{t-1}>:
+// (a_t = exp(dA_t)), u_t = G_t^T B_t and w_t = a_t <G_t, S_{t-1}>:
 //
-//     dx_t = dt_t u_t + D dy_t        ddt_t = x_t . u_t + A g_t
-//     dA = sum_{b,t} dt_t g_t         dD = sum_{b,t} x_t . dy_t
+//     dx_t = dt_t u_t + D dy_t        ddt_t = x_t . u_t + A w_t
+//     dA = sum_{b,t} dt_t w_t         dD = sum_{b,t} x_t . dy_t
 //     dB_t = sum_h G_t x_t dt_t       dC_t = sum_h S_t dy_t
 //
 // in scan order (with reverse, token i is position L - 1 - i as above).
-// A block is one sub-chunk of kBT = 32 tokens of one batch sample and 8
-// heads, a warp per head: lane (p, nq) keeps the states and adjoints n = nq
-// and nq + 8 of column p. u_t is a sum over the 8 nq lanes, g_t and ddt_t
-// over the warp, dB_t and dC_t over p in the warp, then over the block's
-// heads in shared memory in head order. Phases:
+// w_t needs no kept state. Since a_t S_{t-1} = S_t - B_t (x_t dt_t)^T and
+// <G_t, S_t> = C_t . S_t dy_t + w_{t+1},
 //
-//   1. ssd_bwd_chunks: each sub-chunk walked from zero forward to its end
-//      state and backward to the adjoint it hands to the token before it,
-//      with the decay across it (the adjoint's records in reversed
-//      sub-chunk order). Skipped where L is one sub-chunk.
-//   2. ssd_bwd_carry, the forward's carry (ssd_carry's body), one block
-//      per (batch, head) and direction: the state entering each sub-chunk
-//      from the left and the adjoint entering it from the right.
-//   3. ssd_bwd_grads: a walk forward from the entering state keeps every
-//      S_{t-1} of the sub-chunk in registers (32 tokens x 2 values) and
-//      gives dC; a walk back from the entering adjoint gives G_t, and with
-//      the kept states dx, ddt, dB and the block's sums of dA and dD.
-//   4. ssd_bwd_sum_groups (more than 8 heads: decoder2 has 256) sums dB and
-//      dC over the head groups, ssd_bwd_sum_heads sums dA and dD over the
-//      blocks, each in a fixed order.
+//     w_t = w_{t+1} + z_t - dt_t x_t . u_t,      z_t = C_t . S_t dy_t:
 //
-// No atomics: every sum runs in a fixed order, so two launches are
-// bit-equal. S_{t-1} is never rebuilt from S_t by dividing by a_t: at the
-// model's decays dA reaches -0.3 a token, so dividing back across a
-// sub-chunk would scale the rounding by up to e^10 (e^19 over 64 tokens);
-// the kept states cost registers and nothing else. What bounds it: the
-// function's bytes are x, dt, B, C, dy read and dx, ddt, dB, dC written
-// (46 MB at the refiner, batch 1: 13.8 us at 3.35 TB/s). The backward
-// also reads x, dt, B, C and dy twice, moves the carried records (two of
-// 64 floats per 32 tokens and head, through device memory, and twice
-// through the carry kernel) and reduces across lanes with shuffles every
-// token. It is a first,
-// simple form, not tuned (PERF.md has its times).
+// the walk of the states forward gives z_t (beside dC_t), the walk of the
+// adjoints backward gives u_t (beside dB_t), each on its own, and w is a
+// suffix sum of their terms within a sub-chunk of 32 tokens, from the
+// sub-chunk's end product <R, S_end> (R the adjoint entering it from the
+// right). No S_{t-1} is rebuilt by dividing by a_t (at the model's decays,
+// dA down to -0.3 a token, that would scale the rounding by up to e^10 over
+// a sub-chunk), and no sum spans more than a sub-chunk, as the plain
+// version's sums stay within a chunk.
+//
+// A block is a tile of 128 tokens (kBSubs = 4 sub-chunks of kBT = 32) of
+// one batch sample and 8 heads: warp 2w walks sub-chunk w's states forward
+// and warp 2w + 1 its adjoints backward, each for the 8 heads; lane
+// (head, q) keeps the 16 values (n, p) of its head with n = q + 4m, every p,
+// so the sums over p of dB and dC are in-thread FMAs. The state warps stage
+// x, dt and B, the adjoint warps dy and C, with 16-byte cp.async copies
+// (4-byte where L, a stride or a pointer is unaligned), and each direction
+// starts when its own rows are in (named barriers). Phases of a tile:
+//
+//   1. each sub-chunk walked from zero: its end state, or the adjoint it
+//      hands to the token before it, and its decay;
+//   2. the combine in shared memory, in order and in reversed order: the
+//      state entering each sub-chunk from the tile's start, the adjoint
+//      entering it from the tile's end, and the tile's own end state and
+//      adjoint (its records);
+//   3. the state and adjoint entering the tile:
+//      * at most 8 tiles (L <= 1,024: every 8^2..32^2 Block): ssd_bwd_fused,
+//        one launch, a thread cluster of one block per tile, as the
+//        forward's. Each block pushes its tile's end state into the shared
+//        memory of every later block and its adjoint into every earlier
+//        one's, one cluster barrier, and composes both from its own memory.
+//      * more (the refiner: 512): ssd_bwd_summary writes the tiles' records,
+//        ssd_bwd_carry (the forward's carry with a window of 512 tiles, both
+//        directions in one launch) carries them, and ssd_bwd_grads reads
+//        them; 2 x 512 records of 64 floats per (batch, head), 2 MB at the
+//        refiner, batch 1;
+//   4. the gradient walks, a pair of tokens at a time. The recurrences
+//      advance with no cross-lane sum; after each pair, dC (state warps) and
+//      dB (adjoint warps) are summed over the warp's 8 heads by a
+//      reduce-scatter (7 shuffles leave each lane one of the 32 (n, token)
+//      sums), and z and u over the head's 4 lanes, into shared memory;
+//   5. a warp per head, a lane per token: the suffix sum of w, ddt, dx and
+//      the block's sums of dA and dD; then dx, ddt, dB and dC are stored
+//      coalesced;
+//   6. ssd_bwd_sums, one launch: dA and dD of each head over the blocks, and
+//      dB and dC over the head groups (more than 8 heads: decoder2 has 32).
+//
+// No atomics: every sum runs in one fixed order, so two launches are
+// bit-equal. What bounds it: the function's bytes are x, dt, B, C, dy read
+// and dx, ddt, dB, dC written (46 MB at the refiner, batch 1: 13.8 us at
+// 3.35 TB/s); its fp32 operations (about 0.5 G there, chip_smoke.py::
+// k2_bwd_flops) take 7.4 us at the card's fp32 rate.
+// At the refiner the summary and gradient passes each read the inputs
+// (about 1.6 times the bound's bytes). ptxas gives ssd_bwd_grads and
+// ssd_bwd_fused 128 registers and ssd_bwd_summary 78-80 (no spills); 93 KB
+// of shared memory (a tile's staged rows and gradients) leave 2 blocks of 8
+// warps an SM for the gradient pass, 72 KB 3 for the summary, and a block
+// stages its tile before it walks, so its loads overlap only the other
+// blocks' walks. Holding the gradient pass to 80 registers for 3 blocks an
+// SM spills and runs slower; summary blocks of one direction each (half
+// the rows, 5 an SM) run no faster. At the 8^2..32^2 Blocks (L = 64..1,024)
+// a call is one clustered launch of 16-512 blocks and the sums: the latency
+// of a tile's two walks bounds it. PERF.md has the times.
+//
+// Left for later: double-buffering a tile's loads against the previous
+// tile's walks in a persistent grid, and a single pass over the inputs with
+// a look-back across tiles in place of the summary.
 //
 // Built by adnm_tpu_torch/ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
@@ -189,8 +227,8 @@ struct Range {
     int base, lo, hi;
 };
 
-template <bool REV>
-__device__ __forceinline__ Range tile_range(const Args& a, int k) {
+template <bool REV, typename A>  // Args or BArgs
+__device__ __forceinline__ Range tile_range(const A& a, int k) {
     const int base = REV ? a.L - (k + 1) * a.tl : k * a.tl;
     return {base, max(base, 0), min(base + a.tl, a.L)};
 }
@@ -213,19 +251,25 @@ __device__ __forceinline__ void cluster_wait() {
     asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
-// f(r, i) for every r < rows and i < cols, spread over the block's
-// threads, with no division in the loop.
+// f(r, i) for every r < rows and i < cols, spread over the n threads of a
+// group, this one being tid, with no division in the loop.
 template <typename F>
-__device__ __forceinline__ void for_each(int rows, int cols, F f) {
+__device__ __forceinline__ void for_each_of(int tid, int n, int rows, int cols, F f) {
     if (cols <= 0) return;
-    const int dr = blockDim.x / cols, di = blockDim.x % cols;
-    int r = threadIdx.x / cols, i = threadIdx.x % cols;
+    const int dr = n / cols, di = n % cols;
+    int r = tid / cols, i = tid % cols;
     while (r < rows) {
         f(r, i);
         r += dr;
         i += di;
         if (i >= cols) i -= cols, ++r;
     }
+}
+
+// for_each_of over the block's threads.
+template <typename F>
+__device__ __forceinline__ void for_each(int rows, int cols, F f) {
+    for_each_of(threadIdx.x, blockDim.x, rows, cols, f);
 }
 
 // Stage `rows` rows of the tile (row r at g + r * L) into s (row stride
@@ -494,22 +538,26 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_fused(Args a) {
 
 // Phase 2: a block per (batch, head) carries the state across its tiles.
 // The tiles' end states E (nc, P * N) and decays G (nc) are staged in
-// shared memory kWindow tiles at a time with coalesced 16-byte copies. The
-// window is cut into kSeg segments, a thread per (segment, value): each
+// shared memory WINDOW tiles at a time with coalesced 16-byte copies. The
+// window is cut into THREADS / (P * N) segments, a thread per (segment,
+// value): each
 // composes its segment from zero, the segments' compositions meet in
 // shared memory, and each thread walks its segment again from the state
 // entering it, S_in(k+1) = S_in(k) G(k) + E(k), writing the state entering
 // each tile over the tile's end state. The window goes back to device
 // memory coalesced.
 constexpr int kCarryThreads = 256;
-constexpr int kSeg = kCarryThreads / (kN * kP);  // segments of a window
-constexpr int kWindow = 256;                      // tiles staged at a time
-constexpr int kBatch = 16;                        // loads issued ahead of their use
-constexpr size_t kCarrySmem = sizeof(float) * (kWindow * (kN * kP + 1) + kSeg * (kN * kP + 1));
+constexpr int kWindow = 256;  // tiles staged at a time
+constexpr int kBatch = 16;    // loads issued ahead of their use
+
+constexpr size_t carry_smem(int threads, int window) {
+    return sizeof(float) * (window * (kN * kP + 1) + threads / (kN * kP) * (kN * kP + 1));
+}
+constexpr size_t kCarrySmem = carry_smem(kCarryThreads, kWindow);
 
 // f(c, e, g) for the tiles c of [c0, c1) in order, with the tile's end
 // state e and decay g, kBatch tiles' shared loads at a time ahead of f.
-template <typename F>
+template <int WINDOW, typename F>
 __device__ __forceinline__ void walk_tiles(const float* ss, const float* sd, int v, int c0, int c1,
                                            F f) {
     constexpr int np = kN * kP;
@@ -517,8 +565,8 @@ __device__ __forceinline__ void walk_tiles(const float* ss, const float* sd, int
         float e[kBatch], g[kBatch];
 #pragma unroll
         for (int i = 0; i < kBatch; ++i) {
-            e[i] = ss[min(b0 + i, kWindow - 1) * np + v];
-            g[i] = sd[min(b0 + i, kWindow - 1)];
+            e[i] = ss[min(b0 + i, WINDOW - 1) * np + v];
+            g[i] = sd[min(b0 + i, WINDOW - 1)];
         }
 #pragma unroll
         for (int i = 0; i < kBatch; ++i)
@@ -526,27 +574,28 @@ __device__ __forceinline__ void walk_tiles(const float* ss, const float* sd, int
     }
 }
 
+template <int THREADS, int WINDOW>
 __device__ __forceinline__ void carry(float* states, const float* decay, int nc) {
-    constexpr int np = kN * kP;
+    constexpr int np = kN * kP, kSeg = THREADS / np;
     extern __shared__ float4 smem4[];
     float* ss = reinterpret_cast<float*>(smem4);
-    float* sd = ss + kWindow * np;
-    float* segE = sd + kWindow;  // [kSeg][np]
+    float* sd = ss + WINDOW * np;
+    float* segE = sd + WINDOW;  // [kSeg][np]
     float* segD = segE + kSeg * np;
     float* st = states + int64_t(blockIdx.x) * nc * np;  // blockIdx.x: a (batch, head)
     const float* dec = decay + int64_t(blockIdx.x) * nc;
     const int tid = threadIdx.x, v = tid % np, seg = tid / np;
     float carry = 0.f;  // the state entering the window
-    for (int w0 = 0; w0 < nc; w0 += kWindow) {
-        const int n = min(kWindow, nc - w0);
-        for (int e = tid; e < n * np / 4; e += kCarryThreads)
+    for (int w0 = 0; w0 < nc; w0 += WINDOW) {
+        const int n = min(WINDOW, nc - w0);
+        for (int e = tid; e < n * np / 4; e += THREADS)
             copy_async<16>(ss + 4 * e, st + int64_t(w0) * np + 4 * e);
-        for (int e = tid; e < n; e += kCarryThreads) copy_async<4>(sd + e, dec + w0 + e);
+        for (int e = tid; e < n; e += THREADS) copy_async<4>(sd + e, dec + w0 + e);
         copy_wait();
         __syncthreads();
         const int len = (n + kSeg - 1) / kSeg, c0 = min(n, seg * len), c1 = min(n, c0 + len);
         float E = 0.f, D = 1.f;
-        walk_tiles(ss, sd, v, c0, c1, [&](int, float e, float g) {
+        walk_tiles<WINDOW>(ss, sd, v, c0, c1, [&](int, float e, float g) {
             E = fmaf(E, g, e);
             D *= g;
         });
@@ -555,13 +604,13 @@ __device__ __forceinline__ void carry(float* states, const float* decay, int nc)
         __syncthreads();
         float S = carry;
         for (int q = 0; q < seg; ++q) S = fmaf(S, segD[q], segE[q * np + v]);
-        walk_tiles(ss, sd, v, c0, c1, [&](int c, float e, float g) {
+        walk_tiles<WINDOW>(ss, sd, v, c0, c1, [&](int c, float e, float g) {
             ss[c * np + v] = S;
             S = fmaf(S, g, e);
         });
         for (int q = 0; q < kSeg; ++q) carry = fmaf(carry, segD[q], segE[q * np + v]);
         __syncthreads();
-        for (int e = tid; e < n * np / 4; e += kCarryThreads)
+        for (int e = tid; e < n * np / 4; e += THREADS)
             reinterpret_cast<float4*>(st + int64_t(w0) * np)[e] = smem4[e];
         __syncthreads();  // stored, and the segments read, before the next window
     }
@@ -569,22 +618,31 @@ __device__ __forceinline__ void carry(float* states, const float* decay, int nc)
 
 __global__ void __launch_bounds__(kCarryThreads) ssd_carry(float* states, const float* decay,
                                                            int nc) {
-    carry(states, decay, nc);
+    carry<kCarryThreads, kWindow>(states, decay, nc);
 }
 
 // ---- K2's backward ---------------------------------------------------------
 //
-// A block is one sub-chunk of kBT tokens for one batch sample and kHeads
-// heads: a warp per head, lane = p * kBNQ + nq, the thread keeping the
-// states and adjoints n = nq and nq + kBNQ of column p. Shared rows are
-// staged in scan order (token j of sub-chunk w is scan index w * kBT + j,
-// position L - 1 - that with REV), zero past L and for heads past H.
-constexpr int kBT = 32;                 // tokens per sub-chunk
-constexpr int kBNQ = 8;                 // threads that share a (head, p)
-constexpr int kBS = kN / kBNQ;          // states a thread keeps
-constexpr int kRS = kBT + 1;            // shared row stride: p rows in distinct banks
-constexpr int kBRows = 2 * kHeads * kP + kHeads + 2 * kN;  // x, dy, dt, B, C
-static_assert(kP * kBNQ == kWarp && kHeads * kWarp == kThreads, "a warp per head");
+// A block is one tile of kBSubs sub-chunks of kBT tokens for one
+// batch sample and kHeads heads. Warp 2w walks sub-chunk w's states S
+// forward, warp 2w + 1 its adjoints backward; lane = hh * kBQ + q, the
+// thread keeping the values (n, p) of head hh with n = q + kBQ * m, m < kBM,
+// and every p. Staged rows are in position order, as the forward's (token s
+// of the tile in scan order at shared index spos(s)), zero outside L and
+// for heads past H.
+constexpr int kBT = 32;                       // tokens per sub-chunk
+constexpr int kBSubs = 4;                     // sub-chunks per tile
+constexpr int kBQ = 4;                        // lanes per head
+constexpr int kBM = kN / kBQ;                 // state rows n a thread keeps
+constexpr int kBThreads = 2 * kBSubs * kWarp;
+constexpr int kRec = kP * kN;                 // a (P, N) record, value p * kN + n
+constexpr int kRecPad = kRec + 4;             // its stride in shared memory: heads in distinct banks
+constexpr int kBRows = 2 * kHeads * kP + kHeads + 2 * kN;  // staged: x, dy, dt, B, C
+constexpr int kBOut = kHeads * kP + kHeads + 2 * kN;       // u (then dx), z (then ddt), dB, dC
+constexpr int kBComb = 2 * kBSubs * kHeads * kRecPad + kBSubs * kHeads;  // E, F, log2 decays
+constexpr int kBSlot = kHeads * kRecPad + kHeads;          // a tile's record pushed in a cluster
+constexpr int kBPush = kMaxCluster * kBSlot;
+static_assert(kHeads * kBQ == kWarp, "a warp walks one direction of a sub-chunk for the block's heads");
 
 struct BArgs {
     const float* x;
@@ -598,261 +656,612 @@ struct BArgs {
     float* ddt;       // (batch, H, L)
     float* dB;        // (batch, N, L), or per head group (batch, ngrp, N, L) when ngrp > 1
     float* dC;
-    float* carry;      // (2, batch * H, nsub, P * N): states from the left, then adjoints
-                       // from the right in reversed sub-chunk order; entering ones after the carry
-    float* carry_dec;  // (2, batch * H, nsub): the decays across each sub-chunk, in the same order
-    float* part_dA;    // (H, batch * nsub): per-block sums, reduced in a fixed order
+    float* carry;      // (2, batch * H, ntile, P * N): each tile's end state, then the one
+                       // entering it; each tile's adjoint from zero in reversed tile order, then
+                       // the one entering it from the right
+    float* carry_dec;  // (2, batch * H, ntile): the decays across each tile, in the same order
+    float* part_dA;    // (H, batch * ntile): per-block sums, reduced in a fixed order
     float* part_dD;
     int64_t sx, sdt, sb, sc;
-    int batch, H, L, nsub, ngrp;
+    int batch, H, L, ntile, nsb, tl, ngrp;
+    int vec;  // 16-byte copies and stores
 };
 
-// rows of g (row r at g + r * L) for the block's sub-chunk, in scan order;
-// rows from `valid` on and tokens past L are zero
-template <bool REV>
-__device__ __forceinline__ void stage_bwd(float* s, const float* g, int rows, int valid,
-                                          const BArgs& a) {
-    const int i0 = blockIdx.x * kBT, L = a.L;
-    for_each(rows, kBT, [&](int r, int j) {
-        const int i = i0 + j;
-        s[r * kRS + j] = (r < valid && i < L) ? g[int64_t(r) * L + (REV ? L - 1 - i : i)] : 0.f;
-    });
+enum BMode { BSUMMARY, BGRADS, BFUSED };
+
+// Floats of the region after the staged rows: the combine's records (and in
+// BFUSED the records other blocks of the cluster push), overlaid by the
+// gradients staged for the store; then, but in BSUMMARY, the adjoint
+// products at each sub-chunk's end.
+template <BMode MODE>
+__host__ __device__ __forceinline__ int bwd_region(int rs) {
+    const int comb = kBComb + (MODE == BFUSED ? kBPush : 0), out = kBOut * rs;
+    return MODE == BSUMMARY ? comb : (out > comb ? out : comb);
 }
 
-struct BTile {
-    float *xs, *dys, *dts, *Bs, *Cs;
-    int b, h0, hn, w, hh, p, nq, h;
-};
-
-template <bool REV>
-__device__ __forceinline__ BTile stage_tile(float* smem, const BArgs& a) {
-    BTile t;
-    t.w = blockIdx.x;
-    t.h0 = blockIdx.y * kHeads;
-    t.b = blockIdx.z;
-    t.hn = min(kHeads, a.H - t.h0);
-    t.hh = threadIdx.x / kWarp;
-    const int lane = threadIdx.x % kWarp;
-    t.p = lane / kBNQ;
-    t.nq = lane % kBNQ;
-    t.h = t.h0 + min(t.hh, t.hn - 1);
-    t.xs = smem;
-    t.dys = t.xs + kHeads * kP * kRS;
-    t.dts = t.dys + kHeads * kP * kRS;
-    t.Bs = t.dts + kHeads * kRS;
-    t.Cs = t.Bs + kN * kRS;
-    const int64_t hl = int64_t(t.h0) * a.L;
-    stage_bwd<REV>(t.xs, a.x + t.b * a.sx + hl * kP, kHeads * kP, t.hn * kP, a);
-    stage_bwd<REV>(t.dys, a.dy + (int64_t(t.b) * a.H * kP) * a.L + hl * kP, kHeads * kP,
-                   t.hn * kP, a);
-    stage_bwd<REV>(t.dts, a.dt + t.b * a.sdt + hl, kHeads, t.hn, a);
-    stage_bwd<REV>(t.Bs, a.B + t.b * a.sb, kN, kN, a);
-    stage_bwd<REV>(t.Cs, a.C + t.b * a.sc, kN, kN, a);
-    __syncthreads();
-    return t;
+template <BMode MODE>
+size_t bwd_smem_bytes(int tl) {
+    const int rs = tl + kPad;
+    return sizeof(float) *
+           (size_t(kBRows) * rs + bwd_region<MODE>(rs) + (MODE == BSUMMARY ? 0 : kBSubs * kHeads));
 }
 
-// Phase 1: each sub-chunk walked from zero, forward to its end state E_w
-// and backward to the adjoint F_w it passes to the token before it, with
-// the decay across it; written as the carry's (state, decay) records.
 template <bool REV>
-__global__ void __launch_bounds__(kThreads) ssd_bwd_chunks(BArgs a) {
-    extern __shared__ float4 smem4[];
-    const BTile t = stage_tile<REV>(reinterpret_cast<float*>(smem4), a);
-    const float A2 = a.A[t.h] * kLog2e;
-    const float* xrow = t.xs + (t.hh * kP + t.p) * kRS;
-    const float* dyrow = t.dys + (t.hh * kP + t.p) * kRS;
-    const float* dtrow = t.dts + t.hh * kRS;
-    float S[kBS], F[kBS], ld = 0.f;
-#pragma unroll
-    for (int m = 0; m < kBS; ++m) S[m] = F[m] = 0.f;
-#pragma unroll 4
-    for (int j = 0; j < kBT; ++j) {
-        const float e = dtrow[j] * A2, a_ = exp2f(e), u = xrow[j] * dtrow[j];
-        ld += e;
-#pragma unroll
-        for (int m = 0; m < kBS; ++m) S[m] = fmaf(S[m], a_, t.Bs[(m * kBNQ + t.nq) * kRS + j] * u);
-    }
-#pragma unroll 4
-    for (int j = kBT - 1; j >= 0; --j) {
-        const float a_ = exp2f(dtrow[j] * A2), g = dyrow[j];
-#pragma unroll
-        for (int m = 0; m < kBS; ++m) F[m] = a_ * fmaf(t.Cs[(m * kBNQ + t.nq) * kRS + j], g, F[m]);
-    }
-    if (t.hh >= t.hn) return;
-    const int64_t bh = int64_t(t.b) * a.H + t.h, nbh = int64_t(a.batch) * a.H;
-    const int64_t left = bh * a.nsub + t.w, right = (nbh + bh) * a.nsub + (a.nsub - 1 - t.w);
-#pragma unroll
-    for (int m = 0; m < kBS; ++m) {
-        const int v = t.p * kN + m * kBNQ + t.nq;
-        a.carry[left * (kP * kN) + v] = S[m];
-        a.carry[right * (kP * kN) + v] = F[m];
-    }
-    if (t.p == 0 && t.nq == 0) a.carry_dec[left] = a.carry_dec[right] = exp2f(ld);
+__device__ __forceinline__ int spos(int tl, int s) {
+    return REV ? tl - 1 - s : s;
 }
 
-__device__ __forceinline__ float warp_sum(float v, int from, int to) {
+// The scan tokens s, s + 1 (s even) of a staged row, in scan order.
+template <bool REV>
+__device__ __forceinline__ void load2(const float* row, int tl, int s, float (&v)[2]) {
+    const float2 q = *reinterpret_cast<const float2*>(row + (REV ? tl - 2 - s : s));
+    v[0] = REV ? q.y : q.x;
+    v[1] = REV ? q.x : q.y;
+}
+
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+    asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Stage `rows` rows of the tile (row r at g + r * L) into s, spread over
+// the group's n threads; tokens outside [t.lo, t.hi) and rows from `valid`
+// on are zero.
+__device__ void stage_bwd(float* s, const float* g, int rows, int valid, const BArgs& a, Range t,
+                          int tid, int n) {
+    const int rs = a.tl + kPad, z0 = t.lo - t.base, z1 = t.hi - t.base, L = a.L, lo = t.lo;
+    for_each_of(tid, n, valid, a.tl - (z1 - z0),
+                [&](int r, int i) { s[r * rs + (i < z0 ? i : i - z0 + z1)] = 0.f; });
+    for_each_of(tid, n, rows - valid, a.tl, [&](int r, int i) { s[(valid + r) * rs + i] = 0.f; });
+    if (a.vec)
+        for_each_of(tid, n, valid, (z1 - z0) / 4, [&](int r, int i) {
+            copy_async<16>(s + r * rs + z0 + 4 * i, g + int64_t(r) * L + lo + 4 * i);
+        });
+    else
+        for_each_of(tid, n, valid, z1 - z0, [&](int r, int i) {
+            copy_async<4>(s + r * rs + z0 + i, g + int64_t(r) * L + lo + i);
+        });
+}
+
+// v[0, 2K) summed with the lane l ^ mask: the lane with `upper` keeps the
+// sums of v[K, 2K) in v[0, K), the other those of v[0, K). Each sum is
+// taken by one lane, in one order.
+template <int K>
+__device__ __forceinline__ void halve(float* v, int mask, bool upper) {
 #pragma unroll
-    for (int off = from; off < to; off *= 2) v += __shfl_xor_sync(0xffffffffu, v, off);
+    for (int i = 0; i < K; ++i) {
+        const float send = upper ? v[i] : v[K + i];
+        const float keep = upper ? v[K + i] : v[i];
+        v[i] = keep + __shfl_xor_sync(0xffffffffu, send, mask);
+    }
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+    for (int off = 1; off < kWarp; off *= 2) v += __shfl_xor_sync(0xffffffffu, v, off);
     return v;
 }
 
-// The backward's phase 2: the forward's carry, a block per sequence of records.
-__global__ void __launch_bounds__(kCarryThreads) ssd_bwd_carry(float* states, const float* decay,
-                                                               int nc) {
-    carry(states, decay, nc);
+// acc = acc * dec + r, over the thread's values of the record r.
+__device__ __forceinline__ void fold(float (&acc)[kBM][kP], const float* r, float dec, int q) {
+#pragma unroll
+    for (int m = 0; m < kBM; ++m)
+#pragma unroll
+        for (int p = 0; p < kP; ++p) acc[m][p] = fmaf(acc[m][p], dec, r[p * kN + kBQ * m + q]);
 }
 
-// Phase 3: a sub-chunk's gradients. The walk forward from the state
-// entering the sub-chunk keeps every S_{t-1} in registers (kBT x kBS) and
-// gives dC; the walk back from the adjoint entering from the right gives
-// G_t, and with the kept S_{t-1} dx, ddt, dB and the sums of dA and dD.
-// dB and dC of the block's heads meet in shared memory and are summed in
-// head order.
-template <bool REV>
-__global__ void __launch_bounds__(kThreads) ssd_bwd_grads(BArgs a) {
+// One tile of K2's backward.
+//   BSUMMARY: walk each sub-chunk from zero both ways, combine, and write
+//     the tile's end state and its adjoint from zero, with its decay.
+//   BGRADS: the same walks and combine, then from the state and adjoint
+//     that the carry brought to the tile, the gradient walks.
+//   BFUSED (at most kMaxCluster tiles, one a block of a cluster): the tiles'
+//     records go through the cluster's shared memory; no scratch.
+template <bool REV, BMode MODE>
+__device__ __forceinline__ void bwd_tile(const BArgs& a) {
+    const int k = blockIdx.x, h0 = blockIdx.y * kHeads, b = blockIdx.z;
+    const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+    const int w = warp / 2, dir = warp % 2, hh = lane / kBQ, q = lane % kBQ;
+    const int nsb = a.nsb, half = nsb * kWarp;  // threads per direction
+    const int hn = min(kHeads, a.H - h0), h = h0 + min(hh, hn - 1);
+    const int tl = a.tl, rs = tl + kPad, s0 = w * kBT;
     extern __shared__ float4 smem4[];
-    float* smem = reinterpret_cast<float*>(smem4);
-    const BTile t = stage_tile<REV>(smem, a);
-    float* dxs = smem + kBRows * kRS;               // [heads * P][kRS]
-    float* ddts = dxs + kHeads * kP * kRS;          // [heads][kRS]
-    float* dBs = ddts + kHeads * kRS;               // [heads][kBT][N]
-    float* dCs = dBs + kHeads * kBT * kN;           // [heads][kBT][N]
-    const float Ah = a.A[t.h], A2 = Ah * kLog2e, Dh = a.D[t.h];
-    const float* xrow = t.xs + (t.hh * kP + t.p) * kRS;
-    const float* dyrow = t.dys + (t.hh * kP + t.p) * kRS;
-    const float* dtrow = t.dts + t.hh * kRS;
-    const int64_t bh = int64_t(t.b) * a.H + t.h, nbh = int64_t(a.batch) * a.H;
-    float S[kBS], H[kBS];
+    float* xs = reinterpret_cast<float*>(smem4);
+    float* dys = xs + kHeads * kP * rs;
+    float* dts = dys + kHeads * kP * rs;
+    float* Bs = dts + kHeads * rs;
+    float* Cs = Bs + kN * rs;
+    float* region = Cs + kN * rs;
+    float* Ec = region;                            // [sub][head][kRecPad]: end states from zero
+    float* Fc = Ec + kBSubs * kHeads * kRecPad;    // adjoints handed left, from zero
+    float* ldc = Fc + kBSubs * kHeads * kRecPad;   // [sub][head]: log2 decays
+    float* push = region + kBComb;                 // [rank][kBSlot]
+    float* Us = region;                            // [head * P][rs]: u, then dx
+    float* Zs = Us + kHeads * kP * rs;             // [head][rs]: z, then ddt
+    float* dBs = Zs + kHeads * rs;                 // [N][rs]
+    float* dCs = dBs + kN * rs;
+    float* wend = region + bwd_region<MODE>(rs);   // [sub][head]
+    const bool cluster = MODE == BFUSED && a.ntile > 1;
+    if (cluster) cluster_arrive_relaxed();  // no block pushes into one that has not started
+
+    // x, dt, B staged by the state walkers, dy and C by the adjoint walkers:
+    // each direction starts when its own rows (and dt) are in.
+    const Range t = tile_range<REV>(a, k);
+    const int td = w * kWarp + lane;
+    const int64_t hl = int64_t(h0) * a.L;
+    if (dir == 0) {
+        stage_bwd(xs, a.x + b * a.sx + hl * kP, kHeads * kP, hn * kP, a, t, td, half);
+        stage_bwd(dts, a.dt + b * a.sdt + hl, kHeads, hn, a, t, td, half);
+        stage_bwd(Bs, a.B + b * a.sb, kN, kN, a, t, td, half);
+    } else {
+        stage_bwd(dys, a.dy + int64_t(b) * a.H * kP * a.L + hl * kP, kHeads * kP, hn * kP, a, t,
+                  td, half);
+        stage_bwd(Cs, a.C + b * a.sc, kN, kN, a, t, td, half);
+    }
+    const float A2 = a.A[h] * kLog2e;
+    copy_wait();
+    if (dir == 0) {
+        bar_arrive(2, 2 * half);
+        bar_sync(1, half);
+    } else {
+        bar_sync(2, 2 * half);
+    }
+
+    const float* xr = xs + hh * kP * rs;
+    const float* dyr = dys + hh * kP * rs;
+    const float* dtr = dts + hh * rs;
+    // V: the states (dir 0) or the adjoint handed to the token before (dir 1)
+    float V[kBM][kP], ld = 0.f;
 #pragma unroll
-    for (int m = 0; m < kBS; ++m) S[m] = H[m] = 0.f;
-    if (a.nsub > 1) {
-        const float* left = a.carry + (bh * a.nsub + t.w) * (kP * kN) + t.p * kN + t.nq;
-        const float* right =
-            a.carry + ((nbh + bh) * a.nsub + (a.nsub - 1 - t.w)) * (kP * kN) + t.p * kN + t.nq;
+    for (int m = 0; m < kBM; ++m)
 #pragma unroll
-        for (int m = 0; m < kBS; ++m) {
-            S[m] = left[m * kBNQ];
-            H[m] = right[m * kBNQ];
+        for (int p = 0; p < kP; ++p) V[m][p] = 0.f;
+
+    // 1. The sub-chunk from zero: its end state E_w, or its adjoint F_w
+    //    handed to the token before it, and its log2 decay.
+    if (dir == 0) {
+#pragma unroll 2
+        for (int s = s0; s < s0 + kBT; s += 2) {
+            float d[2], xv[kP][2], av[2];
+            load2<REV>(dtr, tl, s, d);
+#pragma unroll
+            for (int p = 0; p < kP; ++p) load2<REV>(xr + p * rs, tl, s, xv[p]);
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+                const float e = d[j] * A2;
+                av[j] = exp2f(e);
+                ld += e;
+            }
+#pragma unroll
+            for (int m = 0; m < kBM; ++m) {
+                float bv[2];
+                load2<REV>(Bs + (q + kBQ * m) * rs, tl, s, bv);
+#pragma unroll
+                for (int j = 0; j < 2; ++j) {
+                    const float bd = bv[j] * d[j];
+#pragma unroll
+                    for (int p = 0; p < kP; ++p) V[m][p] = fmaf(V[m][p], av[j], bd * xv[p][j]);
+                }
+            }
+        }
+    } else {
+#pragma unroll 2
+        for (int s = s0 + kBT - 2; s >= s0; s -= 2) {
+            float d[2], gv[kP][2], av[2];
+            load2<REV>(dtr, tl, s, d);
+#pragma unroll
+            for (int p = 0; p < kP; ++p) load2<REV>(dyr + p * rs, tl, s, gv[p]);
+#pragma unroll
+            for (int j = 0; j < 2; ++j) av[j] = exp2f(d[j] * A2);
+#pragma unroll
+            for (int m = 0; m < kBM; ++m) {
+                float cv[2];
+                load2<REV>(Cs + (q + kBQ * m) * rs, tl, s, cv);
+#pragma unroll
+                for (int j = 1; j >= 0; --j)
+#pragma unroll
+                    for (int p = 0; p < kP; ++p)
+                        V[m][p] = av[j] * fmaf(cv[j], gv[p][j], V[m][p]);
+            }
         }
     }
-    const bool lead = t.p == 0;  // lanes 0..kBNQ-1 hold the sums over p
-    float Sp[kBT][kBS];  // S_{t-1} of each token
+    {
+        float* r = (dir == 0 ? Ec : Fc) + (w * kHeads + hh) * kRecPad + q;
 #pragma unroll
-    for (int j = 0; j < kBT; ++j) {
-        const float a_ = exp2f(dtrow[j] * A2), u = xrow[j] * dtrow[j], g = dyrow[j];
+        for (int m = 0; m < kBM; ++m)
 #pragma unroll
-        for (int m = 0; m < kBS; ++m) {
-            Sp[j][m] = S[m];
-            S[m] = fmaf(S[m], a_, t.Bs[(m * kBNQ + t.nq) * kRS + j] * u);
-            const float c = warp_sum(S[m] * g, kBNQ, kWarp);  // sum over p of S_t dy_t
-            if (lead) dCs[(t.hh * kBT + j) * kN + m * kBNQ + t.nq] = c;
-        }
-    }
-    float dA = 0.f, dD = 0.f;
-#pragma unroll
-    for (int j = kBT - 1; j >= 0; --j) {
-        const float dtj = dtrow[j], a_ = exp2f(dtj * A2), xj = xrow[j], g = dyrow[j];
-        float G[kBS], up = 0.f, gs = 0.f;
-#pragma unroll
-        for (int m = 0; m < kBS; ++m) {
-            const int n = m * kBNQ + t.nq;
-            G[m] = fmaf(t.Cs[n * kRS + j], g, H[m]);
-            up = fmaf(G[m], t.Bs[n * kRS + j], up);
-            gs = fmaf(G[m], Sp[j][m], gs);
-        }
-        const float u = warp_sum(up, 1, kBNQ);  // G_t^T B_t, column p
-        const float ag = a_ * gs;               // a_t <G_t, S_{t-1}>, this thread's part
-        const float ddt = warp_sum((t.nq == 0 ? xj * u : 0.f) + Ah * ag, 1, kWarp);
-        dA = fmaf(dtj, ag, dA);
-        if (t.nq == 0) {
-            dD = fmaf(xj, g, dD);
-            dxs[(t.hh * kP + t.p) * kRS + j] = fmaf(dtj, u, Dh * g);
-        }
-        if (threadIdx.x % kWarp == 0) ddts[t.hh * kRS + j] = ddt;
-        const float xd = xj * dtj;
-#pragma unroll
-        for (int m = 0; m < kBS; ++m) {
-            const float v = warp_sum(G[m] * xd, kBNQ, kWarp);  // sum over p of G_t x_t dt_t
-            if (lead) dBs[(t.hh * kBT + j) * kN + m * kBNQ + t.nq] = v;
-            H[m] = a_ * G[m];
-        }
-    }
-    dA = warp_sum(dA, 1, kWarp);
-    dD = warp_sum(dD, 1, kWarp);
-    if (t.hh < t.hn && threadIdx.x % kWarp == 0) {
-        const int64_t o = int64_t(t.h) * a.batch * a.nsub + int64_t(t.b) * a.nsub + t.w;
-        a.part_dA[o] = dA;
-        a.part_dD[o] = dD;
+            for (int p = 0; p < kP; ++p) r[p * kN + kBQ * m] = V[m][p];
+        if (dir == 0 && q == 0) ldc[w * kHeads + hh] = ld;
     }
     __syncthreads();
 
-    const int i0 = t.w * kBT, nt = min(kBT, a.L - i0), L = a.L;
-    auto pos = [&](int j) { return REV ? L - 1 - (i0 + j) : i0 + j; };
-    float* dx = a.dx + (int64_t(t.b) * a.H + t.h0) * kP * L;
-    float* ddt = a.ddt + (int64_t(t.b) * a.H + t.h0) * L;
-    for_each(t.hn * kP, nt, [&](int r, int j) { dx[int64_t(r) * L + pos(j)] = dxs[r * kRS + j]; });
-    for_each(t.hn, nt, [&](int r, int j) { ddt[int64_t(r) * L + pos(j)] = ddts[r * kRS + j]; });
-    const int64_t g0 = (int64_t(t.b) * a.ngrp + blockIdx.y) * kN * L;
-    for_each(kN, nt, [&](int n, int j) {
-        float vb = 0.f, vc = 0.f;
-        for (int k = 0; k < t.hn; ++k) {
-            vb += dBs[(k * kBT + j) * kN + n];
-            vc += dCs[(k * kBT + j) * kN + n];
+    // 2. The combine: P, the state entering sub-chunk w from the tile's
+    //    start (log2 decay Gl), and Q, the adjoint entering it from the
+    //    tile's end (Gr).
+    float P[kBM][kP], Q[kBM][kP], Gl = 0.f, Gr = 0.f;
+#pragma unroll
+    for (int m = 0; m < kBM; ++m)
+#pragma unroll
+        for (int p = 0; p < kP; ++p) P[m][p] = Q[m][p] = 0.f;
+    auto cross_state = [&](int v) {
+        const float e2 = ldc[v * kHeads + hh];
+        fold(P, Ec + (v * kHeads + hh) * kRecPad, exp2f(e2), q);
+        Gl += e2;
+    };
+    auto cross_adjoint = [&](int v) {
+        const float e2 = ldc[v * kHeads + hh];
+        fold(Q, Fc + (v * kHeads + hh) * kRecPad, exp2f(e2), q);
+        Gr += e2;
+    };
+    if constexpr (MODE == BSUMMARY) {
+        if (hh >= hn) return;
+        const int64_t bh = int64_t(b) * a.H + h, nbh = int64_t(a.batch) * a.H;
+        if (dir == 0 && w == nsb - 1) {  // the tile's end state
+            for (int v = 0; v < nsb; ++v) cross_state(v);
+            const int64_t o = bh * a.ntile + k;
+            float* r = a.carry + o * kRec + q;
+#pragma unroll
+            for (int m = 0; m < kBM; ++m)
+#pragma unroll
+                for (int p = 0; p < kP; ++p) r[p * kN + kBQ * m] = P[m][p];
+            if (q == 0) a.carry_dec[o] = exp2f(Gl);
         }
-        a.dB[g0 + int64_t(n) * L + pos(j)] = vb;
-        a.dC[g0 + int64_t(n) * L + pos(j)] = vc;
-    });
-}
+        if (dir == 1 && w == 0) {  // the tile's adjoint, in reversed tile order
+            for (int v = nsb - 1; v >= 0; --v) cross_adjoint(v);
+            const int64_t o = (nbh + bh) * a.ntile + (a.ntile - 1 - k);
+            float* r = a.carry + o * kRec + q;
+#pragma unroll
+            for (int m = 0; m < kBM; ++m)
+#pragma unroll
+                for (int p = 0; p < kP; ++p) r[p * kN + kBQ * m] = Q[m][p];
+            if (q == 0) a.carry_dec[o] = exp2f(Gr);
+        }
+        return;
+    } else {
+        if (dir == 0)
+            for (int v = 0; v < w; ++v) cross_state(v);
+        for (int v = nsb - 1; v > w; --v) cross_adjoint(v);
 
-// Phase 4: dB and dC summed over the head groups in order (ngrp > 1), from
-// the partials (batch, ngrp, N, L) into (batch, N, L).
-__global__ void __launch_bounds__(kThreads) ssd_bwd_sum_groups(const float* pb, const float* pc,
-                                                              float* dB, float* dC, int batch,
-                                                              int ngrp, int64_t nl) {
-    const int64_t total = int64_t(batch) * nl;
-    for (int64_t e = blockIdx.x * int64_t(blockDim.x) + threadIdx.x; e < total;
-         e += int64_t(gridDim.x) * blockDim.x) {
-        const int64_t b = e / nl, i = e % nl;
-        const float* qb = pb + b * ngrp * nl + i;
-        const float* qc = pc + b * ngrp * nl + i;
-        float vb = 0.f, vc = 0.f;
-        for (int g = 0; g < ngrp; ++g) {
-            vb += qb[g * nl];
-            vc += qc[g * nl];
+        // 3. The state entering the tile (Si) and the adjoint entering it
+        //    from the right (Ri).
+        float Si[kBM][kP], Ri[kBM][kP];
+#pragma unroll
+        for (int m = 0; m < kBM; ++m)
+#pragma unroll
+            for (int p = 0; p < kP; ++p) Si[m][p] = Ri[m][p] = 0.f;
+        if (MODE == BGRADS && hh < hn) {
+            const int64_t bh = int64_t(b) * a.H + h, nbh = int64_t(a.batch) * a.H;
+            fold(Si, a.carry + (bh * a.ntile + k) * kRec, 0.f, q);
+            fold(Ri, a.carry + ((nbh + bh) * a.ntile + (a.ntile - 1 - k)) * kRec, 0.f, q);
         }
-        dB[e] = vb;
-        dC[e] = vc;
+        if (cluster) {
+            // Push the tile's end state into every later block of the
+            // cluster and its adjoint into every earlier one, then take the
+            // other tiles' from this block's memory.
+            auto grp = cg::this_cluster();
+            cluster_wait();
+            if ((dir == 0 && w == nsb - 1) || (dir == 1 && w == 0)) {
+                float R[kBM][kP];
+                const float e2 = ldc[w * kHeads + hh], dv = exp2f(e2);
+                const float* own = (dir == 0 ? Ec : Fc) + (w * kHeads + hh) * kRecPad + q;
+#pragma unroll
+                for (int m = 0; m < kBM; ++m)
+#pragma unroll
+                    for (int p = 0; p < kP; ++p)
+                        R[m][p] = fmaf(dir == 0 ? P[m][p] : Q[m][p], dv, own[p * kN + kBQ * m]);
+                const float dec = exp2f((dir == 0 ? Gl : Gr) + e2);
+                const int r0 = dir == 0 ? k + 1 : 0, r1 = dir == 0 ? a.ntile : k;
+                for (int r = r0; r < r1; ++r) {
+                    float* dst = grp.map_shared_rank(push + k * kBSlot, r);
+#pragma unroll
+                    for (int m = 0; m < kBM; ++m)
+#pragma unroll
+                        for (int p = 0; p < kP; ++p)
+                            dst[hh * kRecPad + p * kN + kBQ * m + q] = R[m][p];
+                    if (q == 0) dst[kHeads * kRecPad + hh] = dec;
+                }
+            }
+            grp.sync();
+            for (int r = 0; r < k; ++r)
+                fold(Si, push + r * kBSlot + hh * kRecPad, push[r * kBSlot + kHeads * kRecPad + hh],
+                     q);
+            for (int r = a.ntile - 1; r > k; --r)
+                fold(Ri, push + r * kBSlot + hh * kRecPad, push[r * kBSlot + kHeads * kRecPad + hh],
+                     q);
+        }
+
+        // The walks' starts: Q becomes the adjoint entering sub-chunk w from
+        // the right, R_w; P the state entering it, S_in. The state walkers
+        // take w's end product <R_w, S_in dec_w + E_w>, the adjoint term at
+        // the token after the sub-chunk.
+        const float dl = exp2f(Gl), dr = exp2f(Gr);
+#pragma unroll
+        for (int m = 0; m < kBM; ++m)
+#pragma unroll
+            for (int p = 0; p < kP; ++p) {
+                Q[m][p] = fmaf(Ri[m][p], dr, Q[m][p]);
+                P[m][p] = fmaf(Si[m][p], dl, P[m][p]);
+            }
+        if (dir == 0) {
+            const float dw = exp2f(ld);
+            float e = 0.f;
+#pragma unroll
+            for (int m = 0; m < kBM; ++m)
+#pragma unroll
+                for (int p = 0; p < kP; ++p) {
+                    e = fmaf(Q[m][p], fmaf(P[m][p], dw, V[m][p]), e);
+                    V[m][p] = P[m][p];
+                }
+            e += __shfl_xor_sync(0xffffffffu, e, 1);
+            e += __shfl_xor_sync(0xffffffffu, e, 2);
+            if (q == 0) wend[w * kHeads + hh] = e;
+        } else {
+#pragma unroll
+            for (int m = 0; m < kBM; ++m)
+#pragma unroll
+                for (int p = 0; p < kP; ++p) V[m][p] = Q[m][p];
+        }
+        __syncthreads();  // the records read before the gradients overwrite them
+
+        // 4. The gradient walks. State walkers: S_t, dC_t = sum_h S_t dy_t
+        //    (over the block's heads in the warp) and z_t = C_t . S_t dy_t.
+        //    Adjoint walkers: G_t, dB_t = sum_h G_t x_t dt_t and u_t = G_t^T B_t.
+        //    Each pair of tokens' partials is summed across lanes after the
+        //    pair, off the recurrences: dC and dB over the 8 heads of the warp
+        //    (7 shuffles give each lane one of the 32 (n, token) sums), z and u
+        //    over the kBQ lanes of a head.
+        const int jm = hh & 1, nm = q + kBQ * (hh >> 1);  // the (token, n) a lane keeps
+        if (dir == 0) {
+#pragma unroll 2
+            for (int s = s0; s < s0 + kBT; s += 2) {
+                float d[2], xv[kP][2], gv[kP][2], av[2];
+                load2<REV>(dtr, tl, s, d);
+#pragma unroll
+                for (int p = 0; p < kP; ++p) {
+                    load2<REV>(xr + p * rs, tl, s, xv[p]);
+                    load2<REV>(dyr + p * rs, tl, s, gv[p]);
+                }
+#pragma unroll
+                for (int j = 0; j < 2; ++j) av[j] = exp2f(d[j] * A2);
+                float dc[2 * kBM], z[2] = {0.f, 0.f};
+#pragma unroll
+                for (int m = 0; m < kBM; ++m) {
+                    float bv[2], cv[2];
+                    load2<REV>(Bs + (q + kBQ * m) * rs, tl, s, bv);
+                    load2<REV>(Cs + (q + kBQ * m) * rs, tl, s, cv);
+#pragma unroll
+                    for (int j = 0; j < 2; ++j) {
+                        const float bd = bv[j] * d[j];
+                        float c = 0.f;
+#pragma unroll
+                        for (int p = 0; p < kP; ++p) {
+                            V[m][p] = fmaf(V[m][p], av[j], bd * xv[p][j]);
+                            c = fmaf(V[m][p], gv[p][j], c);
+                        }
+                        dc[2 * m + j] = c;
+                        z[j] = fmaf(cv[j], c, z[j]);
+                    }
+                }
+                halve<4>(dc, 16, hh & 4);
+                halve<2>(dc, 8, hh & 2);
+                halve<1>(dc, 4, hh & 1);
+                halve<1>(z, 2, q & 2);
+                z[0] += __shfl_xor_sync(0xffffffffu, z[0], 1);
+                dCs[nm * rs + spos<REV>(tl, s + jm)] = dc[0];
+                if ((q & 1) == 0) Zs[hh * rs + spos<REV>(tl, s + (q >> 1))] = z[0];
+            }
+        } else {
+#pragma unroll 2
+            for (int s = s0 + kBT - 2; s >= s0; s -= 2) {
+                float d[2], xv[kP][2], gv[kP][2], av[2];
+                load2<REV>(dtr, tl, s, d);
+#pragma unroll
+                for (int p = 0; p < kP; ++p) {
+                    load2<REV>(xr + p * rs, tl, s, xv[p]);
+                    load2<REV>(dyr + p * rs, tl, s, gv[p]);
+                }
+#pragma unroll
+                for (int j = 0; j < 2; ++j) av[j] = exp2f(d[j] * A2);
+                float db[2 * kBM], u[2 * kP];
+#pragma unroll
+                for (int i = 0; i < 2 * kP; ++i) u[i] = 0.f;
+#pragma unroll
+                for (int m = 0; m < kBM; ++m) {
+                    float bv[2], cv[2];
+                    load2<REV>(Bs + (q + kBQ * m) * rs, tl, s, bv);
+                    load2<REV>(Cs + (q + kBQ * m) * rs, tl, s, cv);
+#pragma unroll
+                    for (int j = 1; j >= 0; --j) {
+                        float c = 0.f;
+#pragma unroll
+                        for (int p = 0; p < kP; ++p) {
+                            const float g = fmaf(cv[j], gv[p][j], V[m][p]);
+                            V[m][p] = av[j] * g;
+                            c = fmaf(g, xv[p][j], c);
+                            u[2 * p + j] = fmaf(g, bv[j], u[2 * p + j]);
+                        }
+                        db[2 * m + j] = c * d[j];
+                    }
+                }
+                halve<4>(db, 16, hh & 4);
+                halve<2>(db, 8, hh & 2);
+                halve<1>(db, 4, hh & 1);
+                halve<4>(u, 2, q & 2);
+                halve<2>(u, 1, q & 1);  // u[j]: column p = q of token s + j
+                dBs[nm * rs + spos<REV>(tl, s + jm)] = db[0];
+                Us[(hh * kP + q) * rs + spos<REV>(tl, s)] = u[0];
+                Us[(hh * kP + q) * rs + spos<REV>(tl, s + 1)] = u[1];
+            }
+        }
+        __syncthreads();
+
+        // 5. Per head, a warp, a lane per token of each sub-chunk: with
+        //    w_t = a_t <G_t, S_{t-1}> = w_{t+1} + z_t - dt_t x_t . u_t, a
+        //    suffix sum within the sub-chunk from its end product,
+        //    ddt_t = x_t . u_t + A w_t, dx_t = dt_t u_t + D dy_t, and the
+        //    block's sums of dA (dt_t w_t) and dD (x_t . dy_t).
+        const int nwarps = blockDim.x / kWarp;
+        for (int hf = warp; hf < hn; hf += nwarps) {
+            const float Ah = a.A[h0 + hf], Dh = a.D[h0 + hf];
+            float dA = 0.f, dD = 0.f;
+            for (int v = 0; v < nsb; ++v) {
+                const int i = spos<REV>(tl, v * kBT + lane);
+                float uv[kP], xu = 0.f, xg = 0.f;
+                const float dtv = dts[hf * rs + i];
+#pragma unroll
+                for (int p = 0; p < kP; ++p) {
+                    const int r = (hf * kP + p) * rs + i;
+                    uv[p] = Us[r];
+                    xu = fmaf(xs[r], uv[p], xu);
+                    xg = fmaf(xs[r], dys[r], xg);
+                }
+                float e = Zs[hf * rs + i] - dtv * xu;
+#pragma unroll
+                for (int off = 1; off < kWarp; off *= 2) {
+                    const float o = __shfl_down_sync(0xffffffffu, e, off);
+                    if (lane + off < kWarp) e += o;
+                }
+                const float wv = wend[v * kHeads + hf] + e;
+                Zs[hf * rs + i] = fmaf(Ah, wv, xu);
+#pragma unroll
+                for (int p = 0; p < kP; ++p) {
+                    const int r = (hf * kP + p) * rs + i;
+                    Us[r] = fmaf(dtv, uv[p], Dh * dys[r]);
+                }
+                dA = fmaf(dtv, wv, dA);
+                dD += xg;
+            }
+            dA = warp_sum(dA);
+            dD = warp_sum(dD);
+            if (lane == 0) {
+                const int64_t o = int64_t(h0 + hf) * a.batch * a.ntile + int64_t(b) * a.ntile + k;
+                a.part_dA[o] = dA;
+                a.part_dD[o] = dD;
+            }
+        }
+        __syncthreads();
+
+        // 6. dx, ddt, dB and dC of the tile's range, coalesced.
+        const int z0 = t.lo - t.base, n = t.hi - t.lo, L = a.L;
+        float* dx = a.dx + (int64_t(b) * a.H + h0) * kP * L;
+        float* ddt = a.ddt + (int64_t(b) * a.H + h0) * L;
+        const int64_t g0 = (int64_t(b) * a.ngrp + blockIdx.y) * kN * L;
+        auto store = [&](float* g, const float* s, int rows) {
+            if (a.vec)
+                for_each(rows, n / 4, [&](int r, int i) {
+                    *reinterpret_cast<float4*>(g + int64_t(r) * L + t.lo + 4 * i) =
+                        *reinterpret_cast<const float4*>(s + r * rs + z0 + 4 * i);
+                });
+            else
+                for_each(rows, n, [&](int r, int i) { g[int64_t(r) * L + t.lo + i] = s[r * rs + z0 + i]; });
+        };
+        store(dx, Us, hn * kP);
+        store(ddt, Zs, hn);
+        store(a.dB + g0, dBs, kN);
+        store(a.dC + g0, dCs, kN);
     }
 }
 
-// dA and dD of head blockIdx.x: its m per-block sums, each thread a strided
-// share in order, then a tree over the threads.
-__global__ void __launch_bounds__(kThreads) ssd_bwd_sum_heads(const float* part_dA,
-                                                             const float* part_dD, float* dA,
-                                                             float* dD, int64_t m) {
+template <bool REV>
+__global__ void __launch_bounds__(kBThreads, 3) ssd_bwd_summary(BArgs a) {
+    bwd_tile<REV, BSUMMARY>(a);
+}
+
+template <bool REV>
+__global__ void __launch_bounds__(kBThreads, 2) ssd_bwd_grads(BArgs a) {
+    bwd_tile<REV, BGRADS>(a);
+}
+
+template <bool REV>
+__global__ void __launch_bounds__(kBThreads, 2) ssd_bwd_fused(BArgs a) {
+    bwd_tile<REV, BFUSED>(a);
+}
+
+// The carry of the tiles' records, the forward's (ssd_carry's body) with
+// twice its threads and window (the refiner's 512 tiles in one window), a
+// block per (batch, head) and direction: the state entering each tile from
+// the left and the adjoint entering it from the right.
+constexpr int kBwdCarryThreads = 2 * kCarryThreads;
+constexpr int kBwdWindow = 2 * kWindow;
+constexpr size_t kBwdCarrySmem = carry_smem(kBwdCarryThreads, kBwdWindow);
+
+__global__ void __launch_bounds__(kBwdCarryThreads) ssd_bwd_carry(float* states,
+                                                                  const float* decay, int nc) {
+    carry<kBwdCarryThreads, kBwdWindow>(states, decay, nc);
+}
+
+// The fixed-order sums, one launch: block j < H sums head j's m per-block
+// dA and dD, each thread a strided share in order, then a tree over the
+// threads; the blocks after them sum dB and dC over the head groups in
+// order (ngrp > 1), from the partials (batch, ngrp, N, L) into (batch, N, L).
+constexpr int kSumBatch = 16;
+
+struct BSums {
+    const float* part_dA;
+    const float* part_dD;
+    float* dA;
+    float* dD;
+    const float* pb;
+    const float* pc;
+    float* dB;
+    float* dC;
+    int64_t m, nl;
+    int H, batch, ngrp;
+};
+
+__global__ void __launch_bounds__(kThreads) ssd_bwd_sums(BSums s) {
+    const int tid = threadIdx.x;
+    if (blockIdx.x >= unsigned(s.H)) {
+        const int64_t total = int64_t(s.batch) * s.nl;
+        const int64_t step = int64_t(gridDim.x - s.H) * blockDim.x;
+        for (int64_t e = (blockIdx.x - s.H) * int64_t(blockDim.x) + tid; e < total; e += step) {
+            const int64_t b = e / s.nl, i = e % s.nl;
+            const float* qb = s.pb + b * s.ngrp * s.nl + i;
+            const float* qc = s.pc + b * s.ngrp * s.nl + i;
+            float vb = 0.f, vc = 0.f;
+            for (int g0 = 0; g0 < s.ngrp; g0 += kSumBatch) {  // kSumBatch groups' loads in flight
+                float lb[kSumBatch], lc[kSumBatch];
+#pragma unroll
+                for (int j = 0; j < kSumBatch; ++j) {
+                    const int64_t o = int64_t(min(g0 + j, s.ngrp - 1)) * s.nl;
+                    lb[j] = qb[o];
+                    lc[j] = qc[o];
+                }
+#pragma unroll
+                for (int j = 0; j < kSumBatch; ++j)
+                    if (g0 + j < s.ngrp) {
+                        vb += lb[j];
+                        vc += lc[j];
+                    }
+            }
+            s.dB[e] = vb;
+            s.dC[e] = vc;
+        }
+        return;
+    }
     __shared__ float sa[kThreads], sd[kThreads];
-    const float* pa = part_dA + blockIdx.x * m;
-    const float* pd = part_dD + blockIdx.x * m;
+    const float* pa = s.part_dA + blockIdx.x * s.m;
+    const float* pd = s.part_dD + blockIdx.x * s.m;
     float va = 0.f, vd = 0.f;
-    for (int64_t i = threadIdx.x; i < m; i += kThreads) {
+    for (int64_t i = tid; i < s.m; i += kThreads) {
         va += pa[i];
         vd += pd[i];
     }
-    const int tid = threadIdx.x;
     sa[tid] = va;
     sd[tid] = vd;
     __syncthreads();
-    for (int s = kThreads / 2; s > 0; s /= 2) {
-        if (tid < s) {
-            sa[tid] += sa[tid + s];
-            sd[tid] += sd[tid + s];
+    for (int r = kThreads / 2; r > 0; r /= 2) {
+        if (tid < r) {
+            sa[tid] += sa[tid + r];
+            sd[tid] += sd[tid + r];
         }
         __syncthreads();
     }
     if (tid == 0) {
-        dA[blockIdx.x] = sa[0];
-        dD[blockIdx.x] = sd[0];
+        s.dA[blockIdx.x] = sa[0];
+        s.dD[blockIdx.x] = sd[0];
     }
 }
 
@@ -864,8 +1273,10 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                : cudaSuccess;
 }
 
-template <typename Kernel>
-cudaError_t launch_tiles(Kernel kernel, const Args& a, int batch, int threads, size_t smem,
+// A block per (tile, head group, batch sample), in clusters of `cluster`
+// tiles where that is above 1.
+template <typename Kernel, typename A>  // Args or BArgs
+cudaError_t launch_tiles(Kernel kernel, const A& a, int batch, int threads, size_t smem,
                          int cluster, cudaStream_t stream) {
     cudaError_t err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return err;
@@ -911,47 +1322,60 @@ cudaError_t launch(const Args& a, int batch, int threads, cudaStream_t stream) {
     return err != cudaSuccess ? err : cudaGetLastError();
 }
 
+
 struct BLayout {
-    int nsub, ngrp;
+    int nsub, nsb, ntile, tl, threads, ngrp;
     int64_t carry, carry_dec, part, groups;  // floats of each scratch region
 };
+
+int64_t round4(int64_t n) { return (n + 3) / 4 * 4; }  // regions stay 16-byte aligned
 
 BLayout bwd_layout(int batch, int H, int L) {
     BLayout s;
     s.nsub = (L + kBT - 1) / kBT;
+    s.nsb = std::min(kBSubs, s.nsub);
+    s.ntile = (s.nsub + kBSubs - 1) / kBSubs;
+    s.tl = s.nsb * kBT;
+    s.threads = 2 * s.nsb * kWarp;
     s.ngrp = (H + kHeads - 1) / kHeads;
     const int64_t nbh = int64_t(batch) * H;
-    s.carry = s.nsub > 1 ? 2 * nbh * s.nsub * kP * kN : 0;
-    s.carry_dec = s.nsub > 1 ? 2 * nbh * s.nsub : 0;
-    s.part = nbh * s.nsub;
-    s.groups = s.ngrp > 1 ? int64_t(batch) * s.ngrp * kN * L : 0;
+    const bool carried = s.ntile > kMaxCluster;
+    s.carry = carried ? 2 * nbh * s.ntile * kRec : 0;
+    s.carry_dec = carried ? round4(2 * nbh * s.ntile) : 0;
+    s.part = round4(nbh * s.ntile);
+    s.groups = s.ngrp > 1 ? round4(int64_t(batch) * s.ngrp * kN * L) : 0;
     return s;
 }
 
-constexpr size_t kBwdChunksSmem = sizeof(float) * kBRows * kRS;
-constexpr size_t kBwdGradsSmem =
-    sizeof(float) * ((kBRows + kHeads * kP + kHeads) * kRS + 2 * kHeads * kBT * kN);
-
+// At most kMaxCluster tiles (every 8^2..32^2 Block): ssd_bwd_fused, one
+// clustered launch. More (the refiner): ssd_bwd_summary, the carry of the
+// tiles' records both ways, ssd_bwd_grads. Then the fixed-order sums.
 template <bool REV>
 cudaError_t launch_bwd(const BArgs& a, const BLayout& s, float* dB, float* dC, float* dA,
                        float* dD, cudaStream_t stream) {
-    const dim3 grid(s.nsub, s.ngrp, a.batch);
     cudaError_t err;
-    if (s.nsub > 1) {
-        ssd_bwd_chunks<REV><<<grid, kThreads, kBwdChunksSmem, stream>>>(a);
-        if ((err = allow_smem(ssd_bwd_carry, kCarrySmem)) != cudaSuccess) return err;
-        ssd_bwd_carry<<<static_cast<unsigned>(2 * int64_t(a.batch) * a.H), kCarryThreads,
-                        kCarrySmem, stream>>>(a.carry, a.carry_dec, s.nsub);
+    if (s.ntile <= kMaxCluster) {
+        err = launch_tiles(ssd_bwd_fused<REV>, a, a.batch, s.threads,
+                           bwd_smem_bytes<BFUSED>(s.tl), s.ntile, stream);
+        if (err != cudaSuccess) return err;
+    } else {
+        err = launch_tiles(ssd_bwd_summary<REV>, a, a.batch, s.threads,
+                           bwd_smem_bytes<BSUMMARY>(s.tl), 1, stream);
+        if (err != cudaSuccess) return err;
+        if ((err = allow_smem(ssd_bwd_carry, kBwdCarrySmem)) != cudaSuccess) return err;
+        ssd_bwd_carry<<<static_cast<unsigned>(2 * int64_t(a.batch) * a.H), kBwdCarryThreads,
+                        kBwdCarrySmem, stream>>>(a.carry, a.carry_dec, s.ntile);
+        err = launch_tiles(ssd_bwd_grads<REV>, a, a.batch, s.threads,
+                           bwd_smem_bytes<BGRADS>(s.tl), 1, stream);
+        if (err != cudaSuccess) return err;
     }
-    if ((err = allow_smem(ssd_bwd_grads<REV>, kBwdGradsSmem)) != cudaSuccess) return err;
-    ssd_bwd_grads<REV><<<grid, kThreads, kBwdGradsSmem, stream>>>(a);
-    if (s.ngrp > 1) {
-        const int64_t nl = int64_t(kN) * a.L, total = a.batch * nl;
-        const int blocks = static_cast<int>(std::min<int64_t>((total + kThreads - 1) / kThreads, 1056));
-        ssd_bwd_sum_groups<<<blocks, kThreads, 0, stream>>>(a.dB, a.dC, dB, dC, a.batch, s.ngrp, nl);
-    }
-    ssd_bwd_sum_heads<<<a.H, kThreads, 0, stream>>>(a.part_dA, a.part_dD, dA, dD,
-                                                    int64_t(a.batch) * s.nsub);
+    const int64_t nl = int64_t(kN) * a.L, total = a.batch * nl;
+    const int gblocks =
+        s.ngrp > 1 ? static_cast<int>(std::min<int64_t>((total + kThreads - 1) / kThreads, 1056))
+                   : 0;
+    const BSums sums{a.part_dA, a.part_dD, dA, dD, a.dB, a.dC, dB, dC,
+                     int64_t(a.batch) * s.ntile, nl, a.H, a.batch, s.ngrp};
+    ssd_bwd_sums<<<a.H + gblocks, kThreads, 0, stream>>>(sums);
     return cudaGetLastError();
 }
 
@@ -1020,9 +1444,11 @@ int adnm_ssd_chunked_scan(const void* x, const void* dt, const void* A, const vo
     return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-// Floats of scratch K2's backward needs: the carried states and adjoints
-// with their decays (none where L is one sub-chunk), the per-block sums of
-// dA and dD, and per head group dB and dC (none up to kHeads heads).
+
+// Floats of scratch K2's backward needs: the tiles' carried states and
+// adjoints with their decays (none where the tiles fit one cluster), the
+// per-block sums of dA and dD, and per head group dB and dC (none up to
+// kHeads heads); each region a multiple of 4 floats.
 int adnm_ssd_backward_scratch_floats(int batch, int H, int L, int64_t* floats) {
     if (batch <= 0 || H <= 0 || L <= 0) return cudaErrorInvalidValue;
     const BLayout s = bwd_layout(batch, H, L);
@@ -1054,15 +1480,18 @@ int adnm_ssd_chunked_scan_backward(const void* x, const void* dt, const void* A,
     float* group_dB = part_dD + s.part;
     float* group_dC = group_dB + s.groups;
     const bool grouped = s.ngrp > 1;
+    float* tB = grouped ? group_dB : static_cast<float*>(dB);
+    float* tC = grouped ? group_dC : static_cast<float*>(dC);
+    const bool vec = L % 4 == 0 && sx % 4 == 0 && sdt % 4 == 0 && sb % 4 == 0 && sc % 4 == 0 &&
+                     aligned16(x) && aligned16(dt) && aligned16(B) && aligned16(C) &&
+                     aligned16(dy) && aligned16(dx) && aligned16(ddt) && aligned16(tB) &&
+                     aligned16(tC);
     const BArgs a{static_cast<const float*>(x), static_cast<const float*>(dt),
                   static_cast<const float*>(A), static_cast<const float*>(B),
                   static_cast<const float*>(C), static_cast<const float*>(D),
                   static_cast<const float*>(dy), static_cast<float*>(dx),
-                  static_cast<float*>(ddt),
-                  grouped ? group_dB : static_cast<float*>(dB),
-                  grouped ? group_dC : static_cast<float*>(dC),
-                  carry, carry_dec, part_dA, part_dD, sx, sdt, sb, sc, batch, H, L, s.nsub,
-                  s.ngrp};
+                  static_cast<float*>(ddt), tB, tC, carry, carry_dec, part_dA, part_dD,
+                  sx, sdt, sb, sc, batch, H, L, s.ntile, s.nsb, s.tl, s.ngrp, vec};
     float *oB = static_cast<float*>(dB), *oC = static_cast<float*>(dC);
     float *oA = static_cast<float*>(dA), *oD = static_cast<float*>(dD);
     const cudaStream_t strm = static_cast<cudaStream_t>(stream);

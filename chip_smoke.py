@@ -26,7 +26,8 @@
    a small |dA|, in which the state carried between chunks dominates the
    output, and reversed scans; K2's backward (dx, ddt, dA, dB, dC, dD,
    bit-equal across two launches) at the same shapes and cases and on
-   channel slices, each timed with its kernel / bound.
+   channel slices, each timed with its kernel / bound and beside the time
+   PERF.md records for its first, simple form.
 4. Serves three paths at full width, 256x256, seeded weights, with the
    kernels' launch counts set to 0 just before each request and read just
    after:
@@ -126,6 +127,15 @@ K2_QUADRATIC_US = {(1, 32, 1024): 27.93, (1, 128, 1024): 48.31, (1, 64, 256): 18
                    (1, 8, 65536): 137.71, (4, 32, 1024): 48.72, (4, 128, 1024): 140.29,
                    (4, 64, 256): 24.41, (4, 256, 256): 65.00, (4, 128, 64): 8.49,
                    (4, 256, 64): 10.86, (4, 8, 65536): 504.77}
+# K2's backward in its first, simple form (a launch per phase over 32-token
+# sub-chunks, per-token shuffle sums), device us per call at (batch, heads,
+# L), fp32, as PERF.md section 6 records them (NVIDIA H100 80GB HBM3,
+# 700.00 W): each shape's time is printed beside the kernel's.
+K2_BWD_FIRST_US = {(1, 32, 1024): 31.42, (1, 128, 1024): 64.72, (1, 64, 256): 31.36,
+                   (1, 256, 256): 47.13, (1, 128, 64): 34.72, (1, 256, 64): 41.70,
+                   (1, 8, 65536): 256.80, (4, 32, 1024): 59.55, (4, 128, 1024): 231.03,
+                   (4, 64, 256): 39.15, (4, 256, 256): 126.05, (4, 128, 64): 39.00,
+                   (4, 256, 64): 52.57, (4, 8, 65536): 938.01}
 # fp32 both; the kernel walks the state token by token, the plain version
 # sums causal pairs within chunks and carries chunk states: sums in other
 # orders and exps of their own, on outputs of order 1-20.
@@ -622,9 +632,11 @@ def check_k2_backward(ssd) -> dict:
         ms, plain_ms, _ = in_turns(lambda: bwd(*args), lambda: ref(*args), iters=20,
                                    plain_iters=3)
         bnd, by = bound_ms(k2_bwd_bytes(b, h, K2_P, K2_N, l), k2_bwd_flops(b, h, K2_P, K2_N, l))
+        first = K2_BWD_FIRST_US[(b, h, l)]
         print(f"{text}; device time: kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
               f"bound {bnd * 1e3:.2f} us ({by}, {bnd / ms:.0%} of it; kernel / bound "
-              f"{ms / bnd:.1f})")
+              f"{ms / bnd:.1f}), first form {first:.2f} us (kernel / first form "
+              f"{ms * 1e3 / first:.2f})")
         timing[(b, h, l)] = (ms, plain_ms, bnd, by)
         if (h, l) in ((8, 65536), (128, 64)):
             kernel_breakdown(lambda: bwd(*args), label)

@@ -398,14 +398,26 @@ def scan_grad_inputs(b, h, p, l, gen, carry=False, sliced=False):
     return x, dt, A, B, C, D, torch.randn(b, h, p, l, generator=gen, device=x.device)
 
 
+# K2's backward also at the edges of its own layout, tiles of 128 tokens
+# (4 sub-chunks of 32) of which at most 8 (L = 1,024, in K2_CASES) go
+# through one thread cluster: L of exactly one tile (128), one tile and a
+# token (129), a cluster's tiles and one sub-chunk more (1,056: the first
+# shape of the multi-launch form), a carry one tile past its window of 512
+# tiles (65,664: 513 tiles; 65,792 in K2_CASES is 514), and decoder2's 256
+# heads at L = 256 (32 head groups whose dB and dC are summed).
+K2B_CASES = K2_CASES + [(1, 8, 4, 128, 128, False), (2, 8, 4, 129, 129, False),
+                        (1, 5, 4, 1056, 96, False), (1, 3, 4, 65664, 128, False),
+                        (1, 256, 4, 256, 256, False)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("carry", [False, True])
 def test_ssd_backward_kernel_matches_plain_version_on_the_card(card, reverse, carry):
-    """K2's backward against its plain version at K2_CASES (channel slices
-    in the last), and two launches bit-equal in every gradient: no atomics."""
+    """K2's backward against its plain version at K2B_CASES (channel slices
+    among them), and two launches bit-equal in every gradient: no atomics."""
     gen = torch.Generator(device=card).manual_seed(5)
-    for b, h, p, l, q, sliced in K2_CASES:
+    for b, h, p, l, q, sliced in K2B_CASES:
         *args, dy = scan_grad_inputs(b, h, p, l, gen, carry, sliced)
         before = ssd.ssd_chunked_scan_backward.launches
         got = ssd.ssd_chunked_scan_backward(*args, dy, q, reverse)

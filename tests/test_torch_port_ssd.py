@@ -264,11 +264,49 @@ def test_the_carry_case_gradients_depend_on_the_carry():
     np.testing.assert_allclose(dx.numpy(), want[0], rtol=RTOL, atol=ATOL * np.abs(want[0]).max())
 
 
+@pytest.mark.parametrize("carry", [False, True])
+def test_the_kernels_suffix_sum_form_of_the_decay_gradient_matches_jax_vjp(carry):
+    """K2's backward kernel keeps no state S_{t-1}: it takes
+    w_t = a_t <G_t, S_{t-1}> as w_{t+1} + C_t . S_t dy_t - dt_t x_t . u_t,
+    summed within each 32-token sub-chunk from the sub-chunk's end product
+    <a_{t1} G_{t1}, S_{t1-1}>. That form, in float32 as the kernel takes it,
+    against jax.vjp's ddt and dA over three sub-chunks."""
+    *args, dy = grad_inputs(2, 3, 4, 16, 96, seed=7, carry=carry)
+    x, dt, A, B, C, D = args
+    b, h, p, l = x.shape
+    a = np.exp(dt * A[None, :, None])
+    S = np.zeros((b, h, 16, p), np.float32)
+    z = np.zeros((b, h, l), np.float32)
+    ends = {}  # the state at each sub-chunk's last token
+    for t in range(l):
+        S = a[:, :, t, None, None] * S + np.einsum("bn,bhp->bhnp", B[:, :, t], x[..., t] * dt[:, :, t, None])
+        z[:, :, t] = np.einsum("bn,bhnp,bhp->bh", C[:, :, t], S, dy[..., t])
+        if t % 32 == 31:
+            ends[t] = S
+    G = np.zeros_like(S)  # a_{t+1} G_{t+1}
+    u = np.zeros_like(x)
+    w = np.zeros((b, h, l), np.float32)
+    for t in reversed(range(l)):
+        if t % 32 == 31:
+            acc = np.einsum("bhnp,bhnp->bh", G, ends[t])  # the sub-chunk's end product
+        G = np.einsum("bn,bhp->bhnp", C[:, :, t], dy[..., t]) + G
+        u[..., t] = np.einsum("bhnp,bn->bhp", G, B[:, :, t])
+        acc = acc + z[:, :, t] - dt[:, :, t] * (x[..., t] * u[..., t]).sum(2)
+        w[:, :, t] = acc
+        G = a[:, :, t, None, None] * G
+    ddt = (x * u).sum(2) + A[None, :, None] * w
+    dA = (dt * w).sum((0, 2))
+    want = jax_grads(args, dy, 32)
+    np.testing.assert_allclose(ddt, want[1], rtol=RTOL, atol=ATOL * np.abs(want[1]).max())
+    assert (np.abs(dA - want[2]) <= 1e-4 * sum_terms(*args, dy)[0] + 1e-7).all()
+
+
 def test_chip_smoke_times_k2_at_every_shape_the_model_gives_it(one_torch_thread, monkeypatch):
     """The bimamba model (create_adnm_unet(5, 20, 6,
     linear_attn_duality=False), seeded) at 64^2 on the CPU: the (heads, L)
     that reach K2, with L scaled to 256^2, are the ones chip_smoke.py checks
-    and times, each scanned forward and reversed, 20 calls a forward."""
+    and times (with the earlier kernels' recorded times at each, batch 1
+    and 4), each scanned forward and reversed, 20 calls a forward."""
     import chip_smoke
     from adnm_tpu_torch.cli import predict
     from adnm_tpu_torch.mixers import ssd_mixer
@@ -286,5 +324,7 @@ def test_chip_smoke_times_k2_at_every_shape_the_model_gives_it(one_torch_thread,
         model(x)
     assert len(seen) == chip_smoke.K2_PER_FORWARD == 20
     assert {(h, 16 * l) for h, l, _ in seen} == set(chip_smoke.K2_SHAPES)
+    timed = {(b, h, l) for b in (1, 4) for h, l in chip_smoke.K2_SHAPES}
+    assert set(chip_smoke.K2_QUADRATIC_US) == set(chip_smoke.K2_BWD_FIRST_US) == timed
     for h, l, _ in seen:
         assert {r for hh, ll, r in seen if (hh, ll) == (h, l)} == {False, True}
