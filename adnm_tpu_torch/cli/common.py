@@ -6,10 +6,11 @@ from __future__ import annotations
 import argparse
 import os
 
-from adnm_tpu_torch.cli.predict import resolve_device
 from adnm_tpu_torch.data.loader import BatchLoader
 from adnm_tpu_torch.data.shanghai import make_datasets
+from adnm_tpu_torch.device import resolve_device
 from adnm_tpu_torch.models.adnm_unet import apply_reference_init, create_adnm_unet
+from adnm_tpu_torch.train.checkpoint import best_ckpt_dir
 from adnm_tpu_torch.train.loop import Trainer
 from adnm_tpu_torch.train.presets import get_preset
 
@@ -47,26 +48,41 @@ def add_common_args(p: argparse.ArgumentParser):
 
 
 def task_shape(args):
-    """(input_frames, output_frames, frame_interval) of the Shanghai task
-    (reference: train.py:40-66)."""
+    """(input_frames, output_frames, frame_interval, thresholds) of the
+    Shanghai task (reference: train.py:40-66)."""
     if args.dataset != "Shanghai":
         raise NotImplementedError(f"dataset {args.dataset!r} is not ported (only Shanghai)")
-    return 5, 20, 6
+    return 5, 20, 6, (20, 30, 35, 40)
+
+
+def resolve_ckpt(ckpt, root: str, missing: str, dataset: str = "Shanghai",
+                 model: str = "ADNMUnet"):
+    """The checkpoint an entry point loads: ``ckpt``, else the best under
+    ``root`` (reference: config.py:8). Where that file does not exist,
+    prints ``missing`` with the path in its ``{}`` and returns None: the
+    caller keeps the fresh init."""
+    path = ckpt or best_ckpt_dir(root, dataset, model)
+    if os.path.exists(path):
+        return path
+    print(missing.format(path))
+    return None
 
 
 def build(args):
-    """(Trainer, (train, val, test) loaders)."""
+    """(Trainer, (train, val, test) loaders, (input_frames, output_frames,
+    frame_interval, thresholds))."""
     if args.model not in PORTED_MODELS:
         raise NotImplementedError(f"--model {args.model!r} is not ported (only ADNMUnet)")
     if args.attn_type != "standard":
         raise NotImplementedError(f"--attn-type {args.attn_type!r} is not ported")
-    input_frames, output_frames, frame_interval = task_shape(args)
+    shape = task_shape(args)
+    input_frames, output_frames, frame_interval, _ = shape
     device = resolve_device(args.device)
     accum = getattr(args, "accum_steps", 1) or 1
     if args.batch_size % accum:
         raise SystemExit(f"--accum-steps {accum} must divide --batch-size {args.batch_size}")
     model = create_adnm_unet(input_frames, output_frames, frame_interval,
-                             refiner_remat=not args.no_refiner_remat)
+                             img_size=args.img_size, refiner_remat=not args.no_refiner_remat)
     preset = get_preset(args.model, input_frames, output_frames, frame_interval, args.dataset)
     trainer = Trainer(model, preset, input_frames, device, seed=args.seed,
                       param_transform=apply_reference_init, remat_forward=args.remat,
@@ -78,4 +94,4 @@ def build(args):
         BatchLoader(tr, args.batch_size, shuffle=True, seed=args.seed, transfer_dtype=tdt),
         BatchLoader(va, args.batch_size, drop_last=False, transfer_dtype=tdt),
         BatchLoader(te, args.batch_size, drop_last=False, transfer_dtype=tdt),
-    )
+    ), shape

@@ -1,50 +1,57 @@
 """Serve the ADNM-UNet nowcast: input frames in, predicted frames out.
 
-    python -m adnm_tpu_torch.cli.predict --input frames.npy [--params params.npz]
+    python -m adnm_tpu_torch.cli.predict --input frames.npy [--ckpt PATH | --params params.npz]
 
 Reads (T_in, H, W) or (B, T_in, 1, H, W) frames in [0, 1] from .npy, runs
 the forward of ``create_adnm_unet(5, 20, 6)`` (the Shanghai task) in
 batches of ``--batch-size``, optionally chains it until ``--horizon``
-frames exist, and writes (B, T, 1, H, W) predictions to ``--output``.
-Weights come from ``--params`` (a JAX params tree saved by
-``adnm_tpu_torch.convert.save_params_npz``) or, without it, from the
-seeded init. ``--device`` defaults to cuda and raises when CUDA is absent.
+frames exist, writes (B, T, 1, H, W) predictions to ``--output`` and, with
+``--png DIR``, PNG strips per clip. Weights come from ``--params`` (a JAX
+params tree saved by ``adnm_tpu_torch.convert.save_params_npz``), else
+from a checkpoint of the port's train CLI (``--ckpt``, by default the best
+checkpoint under ``--root``), else, with a warning, from the seeded init.
+``--device`` defaults to cuda and raises when CUDA is absent.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 from typing import Optional
 
 import numpy as np
 import torch
 
+from adnm_tpu_torch.cli.common import resolve_ckpt
 from adnm_tpu_torch.convert import from_jax_params, load_params_npz
 from adnm_tpu_torch.core.layers import seeded_init_
+from adnm_tpu_torch.device import resolve_device
 from adnm_tpu_torch.models.adnm_unet import ADNMUNet, create_adnm_unet
+from adnm_tpu_torch.train.checkpoint import restore_state
+from adnm_tpu_torch.viz import vis_res
 
 # The Shanghai task: 5 frames in, 20 out, 6-minute interval
 # (adnm_tpu/cli/common.py::task_shape).
 INPUT_FRAMES, OUTPUT_FRAMES, FRAME_INTERVAL = 5, 20, 6
-INIT_SEED = 0  # weights without --params
+INIT_SEED = 0  # weights without --params or a checkpoint
 
 
-def resolve_device(name: str) -> torch.device:
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {name}: CUDA is not available")
-    return device
-
-
-def load_model(params: Optional[str], device: torch.device, **model_kwargs) -> ADNMUNet:
-    """The model in eval mode on ``device``, with weights from the ``params``
-    .npz or, when it is None, from the init seeded with ``INIT_SEED``.
-    ``model_kwargs`` go to ``create_adnm_unet``, as the JAX registry passes
-    them: ``linear_attn_duality=False`` builds the bimamba chunked-scan
-    configuration, ``mixer_type="vssd"`` the VSSD mixer."""
+def load_model(params: Optional[str], device, ckpt: Optional[str] = None,
+               **model_kwargs) -> ADNMUNet:
+    """The model in eval mode on ``device`` (``resolve_device``: fp32
+    without TF32), with weights from the ``params`` .npz, else from the
+    ``ckpt`` checkpoint file of the port's ``Trainer`` (its "params"), else
+    from the init seeded with ``INIT_SEED``. ``model_kwargs`` go to
+    ``create_adnm_unet``, as the JAX registry passes them:
+    ``linear_attn_duality=False`` builds the bimamba chunked-scan
+    configuration, ``mixer_type="vssd"`` the VSSD mixer; a checkpoint must
+    come from the same configuration."""
+    device = resolve_device(device)
     model = create_adnm_unet(INPUT_FRAMES, OUTPUT_FRAMES, FRAME_INTERVAL, **model_kwargs)
     if params is not None:
         from_jax_params(model, load_params_npz(params))
+    elif ckpt is not None:
+        model.load_state_dict(restore_state(ckpt, {"params": {}})["params"])
     else:
         seeded_init_(model, INIT_SEED)
     return model.to(device).eval()
@@ -90,8 +97,14 @@ def main(argv=None) -> np.ndarray:
     p.add_argument("--input", required=True, help=".npy input frames")
     p.add_argument("--output", default="prediction.npy")
     p.add_argument("--params", default=None,
-                   help=".npz of the JAX params tree (adnm_tpu_torch.convert.save_params_npz); "
-                        f"without it the weights come from the init seeded with {INIT_SEED}")
+                   help=".npz of the JAX params tree (adnm_tpu_torch.convert.save_params_npz)")
+    p.add_argument("--ckpt", default=None,
+                   help="checkpoint of the port's train CLI (default: the best under --root); "
+                        f"without it or --params the weights come from the init seeded with "
+                        f"{INIT_SEED}")
+    p.add_argument("--root", default=os.environ.get("ADNM_ROOT", "runs"),
+                   help="output root of the train CLI, where the best checkpoint is looked for")
+    p.add_argument("--png", default=None, help="optional dir for rendered strips")
     p.add_argument("--horizon", type=int, default=None,
                    help="chained rollout: keep feeding the last T_in predicted frames back "
                         "until >= horizon frames are produced")
@@ -102,10 +115,19 @@ def main(argv=None) -> np.ndarray:
 
     device = resolve_device(args.device)
     x = read_frames(args.input, args.img_size)
-    model = load_model(args.params, device)
+    ckpt = None if args.params is not None else resolve_ckpt(
+        args.ckpt, args.root, "warning: no checkpoint at {}; predicting with fresh init")
+    model = load_model(args.params, device, ckpt=ckpt)
+    if ckpt is not None:
+        print(f"loaded checkpoint: {ckpt}")
     preds = forecast(model, x, args.batch_size, device, args.horizon)
     np.save(args.output, preds)
     print(f"wrote {args.output} {preds.shape}")
+    if args.png:
+        for b in range(preds.shape[0]):
+            vis_res(preds[b, :, 0], input_seq=x[b, :, 0],
+                    save_path=os.path.join(args.png, f"sample{b}"), pic_name="pred")
+        print(f"rendered strips under {args.png}")
     return preds
 
 

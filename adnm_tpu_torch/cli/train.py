@@ -7,19 +7,22 @@ Trains ``create_adnm_unet(5, 20, 6)`` (the Shanghai task) with the
 ADNMUnet preset: en_rainfall loss, adaptive gradient clipping, AdamW.
 Checkpoints go to {root}/model_params/{dataset}/{model}/{model}_best and
 per-epoch metrics to {root}/results/{dataset}/{model}_train.jsonl. Ends
-with the reference's final protocol, reload the best checkpoint and run
-the test split, as far as the port has it: the test loss. The
-CSI/HSS/FAR table needs the evaluator, which is not ported yet.
-``--device`` defaults to cuda and raises when CUDA is absent.
+with the reference's final protocol (train.py:209-250): reload the best
+checkpoint, run the test split, and print CSI/HSS per threshold and
+FAR/RMSE/SSIM/LPIPS. ``--device`` defaults to cuda and raises when CUDA is
+absent.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 
 from adnm_tpu_torch.cli.common import add_common_args, build
+from adnm_tpu_torch.metrics import SimplifiedEvaluator, print_metrics
 from adnm_tpu_torch.train.checkpoint import best_ckpt_dir
+from adnm_tpu_torch.utils.profiling import profile_trace
 
 
 def make_parser() -> argparse.ArgumentParser:
@@ -35,14 +38,18 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--accum-steps", type=int, default=1, metavar="M",
                    help="gradient accumulation: split each batch into M equal microbatches, "
                         "one optimizer step on the averaged gradients (batch-size %% M == 0)")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="trace the training run with torch.profiler into DIR/trace.json "
+                        "(Chrome trace; utils.profiling.profile_trace)")
     return p
 
 
 def main(argv=None) -> dict:
-    """Runs the training; returns the trainer, the epoch logs and the
-    best checkpoint's test loss (None with --no-final-eval)."""
+    """Runs the training; returns the trainer, the epoch logs, the best
+    checkpoint's test loss and its evaluator results ("metrics"); the last
+    two are None with --no-final-eval."""
     args = make_parser().parse_args(argv)
-    trainer, (train_loader, val_loader, test_loader) = build(args)
+    trainer, (train_loader, val_loader, test_loader), (_, to, _, thresholds) = build(args)
     ckpt_path = best_ckpt_dir(args.root, args.dataset, args.model)
     if args.resume and os.path.exists(ckpt_path):
         trainer.load(ckpt_path)
@@ -50,18 +57,26 @@ def main(argv=None) -> dict:
     print(f"model {args.model}  params {sum(p.numel() for p in trainer.params):,}  "
           f"device {trainer.device}")
     metrics_path = os.path.join(args.root, "results", args.dataset, f"{args.model}_train.jsonl")
-    logs = trainer.fit(train_loader, val_loader, test_loader, epochs=args.epochs,
-                       ckpt_path=ckpt_path, metrics_path=metrics_path,
-                       save_every=args.save_every)
-    result = {"trainer": trainer, "logs": logs, "test_loss": None}
+    prof = profile_trace(args.profile) if args.profile else contextlib.nullcontext()
+    with prof:
+        logs = trainer.fit(train_loader, val_loader, test_loader, epochs=args.epochs,
+                           ckpt_path=ckpt_path, metrics_path=metrics_path,
+                           save_every=args.save_every)
+    if args.profile:
+        print(f"profiler trace written to {args.profile}")
+    result = {"trainer": trainer, "logs": logs, "test_loss": None, "metrics": None}
     if args.no_final_eval:
         return result
     print("-----------------test best-----------------")
     if os.path.exists(ckpt_path):
         trainer.load(ckpt_path)
-    result["test_loss"], _, _ = trainer.eval_epoch(test_loader)
+    result["test_loss"], preds, gts = trainer.eval_epoch(test_loader, collect=True)
     print(f"best-checkpoint test loss: {result['test_loss']}")
-    print("CSI/HSS/FAR/RMSE/SSIM: not reported, the evaluator is not ported yet")
+    evaluator = SimplifiedEvaluator(seq_len=to, value_scale=90, thresholds=thresholds,
+                                    device=trainer.device)
+    evaluator.evaluate(preds, gts)  # reference orientation (train.py:241)
+    result["metrics"] = evaluator.done()
+    print_metrics(result["metrics"])
     return result
 
 

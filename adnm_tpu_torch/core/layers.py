@@ -227,7 +227,17 @@ class DeConvLayer(nn.Module):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.trans_conv(x)
+        # cuDNN's default algorithm choice for a transposed conv may be
+        # nondeterministic: two forwards of one input then differ (6e-8 at
+        # decoder.up_sample2 on an H100, up to 3e-4 at the model's output).
+        # Its deterministic algorithms keep the forward bit-reproducible;
+        # the flag is restored after the call.
+        cudnn = torch.backends.cudnn
+        deterministic, cudnn.deterministic = cudnn.deterministic, True
+        try:
+            return self.trans_conv(x)
+        finally:
+            cudnn.deterministic = deterministic
 
 
 class Mlp(nn.Module):

@@ -1,0 +1,40 @@
+"""The device an entry point runs on, and the fp32 precision it runs at.
+
+The port is held against the JAX package's fp32 at full precision, so
+every entry point resolves its device here: fp32 matmuls (cuBLAS) and
+convolutions (cuDNN) then run in IEEE fp32, never in TF32, which PyTorch
+allows for cuDNN convolutions by default.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def full_fp32() -> None:
+    """Turn TF32 off for cuBLAS and cuDNN, through the ``allow_tf32`` flags
+    and, where this torch has it, the ``fp32_precision`` API. The settings
+    are process-wide and govern CUDA work only."""
+    backends = torch.backends
+    backends.cuda.matmul.allow_tf32 = False
+    backends.cudnn.allow_tf32 = False
+    for api in (backends.cuda.matmul, backends.cudnn, getattr(backends.cudnn, "conv", None),
+                getattr(backends.cudnn, "rnn", None)):
+        if api is not None and hasattr(api, "fp32_precision"):
+            api.fp32_precision = "ieee"
+
+
+def tf32_enabled() -> bool:
+    """True if cuBLAS or cuDNN may run fp32 work in TF32."""
+    return torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32
+
+
+def resolve_device(name) -> torch.device:
+    """``torch.device(name)``, with fp32 at full precision (``full_fp32``).
+    A CUDA device raises when CUDA is absent: no entry point falls back to
+    the CPU."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {name}: CUDA is not available")
+    full_fp32()
+    return device

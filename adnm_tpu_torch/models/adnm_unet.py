@@ -307,11 +307,14 @@ class ADNMUNet(nn.Module):
 
 
 def create_adnm_unet(input_frames: int, output_frames: int, frame_interval: int,
-                     **kwargs) -> ADNMUNet:
+                     img_size: int = 256, **kwargs) -> ADNMUNet:
     """Reference: models/ADNMUNet.py:906-940 (create_ADNMUNet). The model
-    takes any frame size that five halvings divide; ``kwargs`` go to
+    takes any frame size that five halvings divide, which ``img_size``
+    must be (the weights do not depend on it); ``kwargs`` go to
     ``ADNMUNet`` (``linear_attn_duality``, ``mixer_type``,
     ``refiner_remat``)."""
+    if img_size % 32:
+        raise ValueError(f"img_size {img_size}: five halvings must divide the frame size")
     refine_dim = (32, 32, 32, 32) if output_frames > 5 else (32, 32, 16, 16)
     if frame_interval < 120 / input_frames:
         instance_norm, kernel = True, (5, 5, 5)

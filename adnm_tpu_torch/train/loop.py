@@ -16,7 +16,6 @@ from __future__ import annotations
 
 import dataclasses
 import glob
-import json
 import os
 import time
 from typing import Callable, Dict, Optional, Tuple
@@ -30,6 +29,7 @@ from adnm_tpu_torch.core.layers import seeded_init_
 from adnm_tpu_torch.data.loader import device_prefetch, to_device
 from adnm_tpu_torch.train import checkpoint as ckpt
 from adnm_tpu_torch.train.presets import TrainPreset
+from adnm_tpu_torch.utils.logging import MetricsLogger
 
 
 @dataclasses.dataclass
@@ -169,14 +169,22 @@ class Trainer:
 
     def eval_epoch(self, loader, collect: bool = False):
         """(summed loss, predictions, ground truths); the last two are None
-        unless ``collect``, else (N, T_out, S, S) arrays in [0, 1]."""
+        unless ``collect``, else (N, T_out, S, S) fp32 arrays, the ground
+        truths in [0, 1]."""
         losses, preds, gts = [], [], []
         for batch in device_prefetch(loader, self.device):
             loss, out = self.eval_step(batch)
             losses.append(loss)
             if collect:
                 preds.append(out[:, :, 0].cpu().numpy())
-                gts.append(self._split_batch(batch)[1][:, :, 0].float().cpu().numpy())
+                g = batch[:, self.input_frames:, 0].cpu().numpy()
+                if np.issubdtype(g.dtype, np.integer):
+                    # uint8 wire: back to [0, 1] with the JAX package's
+                    # arithmetic (a division, not the step's product with
+                    # 1/255, which can differ in the last bit and so put
+                    # floor(x * 90) across a threshold)
+                    g = g.astype(np.float32) / 255.0
+                gts.append(g)
         total = float(torch.stack(losses).sum().cpu()) if losses else 0.0
         if not collect:
             return total, None, None
@@ -195,6 +203,7 @@ class Trainer:
         preset = self.preset
         clip = preset.clip_schedule
         epochs = epochs or preset.epochs
+        jsonl = MetricsLogger(metrics_path, echo=False) if metrics_path else None
         best = float("inf")
         prev_avg_grad_norm = 0.0
         early_stop_count = 0
@@ -233,14 +242,11 @@ class Trainer:
             dt = time.time() - t0
             logs.append(EpochLog(epoch, tr["loss"], val_loss, test_loss, lr, tr["avg_grad_norm"],
                                  clip_norm, tr["clip_ratio"], dt))
-            if metrics_path:
-                os.makedirs(os.path.dirname(os.path.abspath(metrics_path)), exist_ok=True)
-                with open(metrics_path, "a") as f:
-                    f.write(json.dumps(dict(
-                        epoch=epoch, train_loss=tr["loss"], val_loss=val_loss,
-                        test_loss=test_loss, lr=lr, grad_norm=tr["avg_grad_norm"],
-                        clip_threshold=clip_norm, clip_ratio=tr["clip_ratio"],
-                        steps=tr["steps"], seconds=dt)) + "\n")
+            if jsonl is not None:
+                jsonl.log(epoch=epoch, train_loss=tr["loss"], val_loss=val_loss,
+                          test_loss=test_loss, lr=lr, grad_norm=tr["avg_grad_norm"],
+                          clip_threshold=clip_norm, clip_ratio=tr["clip_ratio"],
+                          steps=tr["steps"], seconds=dt)
             print(f"epoch {epoch}: train_loss {tr['loss']:.6f} test_loss {test_loss:.6f} "
                    f"lr {lr:.2e} grad_norm {tr['avg_grad_norm']:.4f} "
                    f"clip_thr {clip_norm:.4f} clip_ratio {tr['clip_ratio']:.3f} ({dt:.1f}s)")

@@ -4,7 +4,10 @@
     python3 chip_smoke.py
 
 1. Needs CUDA. Prints the card's name and power limit (nvidia-smi) and the
-   torch/CUDA versions, and turns TF32 off for every fp32 comparison.
+   torch/CUDA versions. Turns TF32 off through ``resolve_device``, as the
+   entry points do, for the kernels' checks; before the first CLI call it
+   allows TF32 again, as cuDNN starts, and after each predict CLI call it
+   asserts that the entry point turned it off (fp32 comparisons).
 2. Builds every kernel from ``adnm_tpu_torch/csrc``, one nvcc per source,
    all started together (``rms_norm.cu``: K1 and K3, forward and backward;
    ``ssd_scan.cu``: K2, forward and backward), and prints each build time
@@ -51,7 +54,22 @@
    tensor on the card against the CPU, from the same seeded weights and
    batch, within tolerances set from the spread of two card runs; the same
    for the bimamba model, whose step runs K2's backward on the card and
-   its plain version on the CPU.
+   its plain version on the CPU. The train CLI ends with the evaluator's
+   CSI/HSS table of its final protocol.
+5b. Evaluates, visualises and serves the train CLI's epoch snapshot, each
+   CLI run with the launch counts set to 0 just before it and read just
+   after (20 K1 launches, one forward, and no other kernel, each):
+   ``cli.validate.main --ckpt`` on the card (the 3-clip synthetic test
+   split; CSI/POD/HSS finite, or NaN only where their denominators are 0),
+   then the same predictions and ground truths through the evaluator on
+   the card and on the CPU (equal contingency counts, MAE and MSE within
+   1e-6 relative, SSIM within 1e-5); ``cli.predict.main --ckpt --png`` on
+   the test clips in one batch against validate's predictions (1e-5) and
+   its strips; two forwards of the first clip bit-equal (else the modules
+   that compute differently from equal inputs are named);
+   ``cli.visualize.main --max-samples 2`` (PNG headers read with
+   the standard library); the evaluator's device time on a 4 x 20 x 256^2
+   batch (CUDA graph replay) beside its bound, and the validate wall.
 6. For the duality and the bimamba models: times the batch-1 forward
    latency and the batch-4 frames/s, reads the peak device memory, and
    traces 5 forwards at batch 1 and 4 with ``torch.profiler`` (device busy
@@ -82,10 +100,12 @@ import json
 import os
 import re
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -147,13 +167,11 @@ K2_TOL = (1e-4, 1e-4)  # rtol, atol
 K2B_TOL = (1e-4, 1e-4)  # rtol, atol relative to max |ref|
 K2B_SUM_RTOL = 1e-4
 K2B_NAMES = ("dx", "ddt", "dA", "dB", "dC", "dD")
-# Whole 256^2 forward, card against CPU (and a chained request's first
-# forward against the batch-1 request), both fp32 with TF32 off, outputs of
-# order 1, per path. The sums run in other orders. Duality: the refiner's
-# duality sums over L = 65,536 tokens before a LayerNorm removes their
-# common part, which amplifies fp32 rounding about a hundredfold: two
-# forwards on the card differ by ~3e-4 and card against CPU by ~7e-4 at
-# seed 0 (H100, 700 W). Bimamba: the seeded decays (A in [-16, -1], dt
+# Whole 256^2 forward, card against CPU, both fp32 with TF32 off, outputs
+# of order 1, per path. The sums run in other orders. Duality: the
+# refiner's duality sums over L = 65,536 tokens before a LayerNorm removes
+# their common part, which amplifies fp32 rounding about a hundredfold:
+# card against CPU differ by ~7e-4 at seed 0 (H100, 700 W). Bimamba: the seeded decays (A in [-16, -1], dt
 # from 1e-3) keep each scan's sums to a few tokens, nothing amplifies, and
 # card against CPU measured 8.3e-7; the bound leaves two orders of margin.
 FORWARD_ATOL = {"duality": 5e-3, "bimamba": 1e-4, "vssd-bimamba": 1e-4}
@@ -167,8 +185,9 @@ K1_PER_STEP, K1B_PER_STEP = 28, 20
 # Per bimamba training step: K2's 20 forward launches and the 8 of the
 # refiner Blocks' recompute; one K2 backward launch per scan.
 K2_PER_STEP, K2B_PER_STEP = 28, 20
-TRAIN_ARGS = ["--synthetic", "--synthetic-len", "24", "--batch-size", "4", "--epochs", "1",
-              "--save-every", "1"]
+SYNTHETIC_LEN = 24
+DATA_ARGS = ["--synthetic", "--synthetic-len", str(SYNTHETIC_LEN), "--batch-size", "4"]
+TRAIN_ARGS = [*DATA_ARGS, "--epochs", "1", "--save-every", "1"]
 TRAIN_STEPS = 4  # int(24 * 0.7) = 16 training clips in batches of 4
 LR, CLIP = 1e-3, 0.025  # the preset's first-epoch clip threshold
 NO_LAUNCHES = dict.fromkeys(["rms_norm", "rms_norm_backward", "ssd_chunked_scan",
@@ -670,12 +689,12 @@ def check_requests(label, inputs, outs, per_request, per_forward) -> None:
             if per_request[name][kernel] != k * n_fwd:
                 raise AssertionError(f"{label} {name}: {per_request[name][kernel]} {kernel} "
                                      f"launches, want {k * n_fwd}")
-    if "horizon40" in outs:
+    if "horizon40" in outs:  # its first forward is the batch-1 request's: the same bits
         chain_err = np.abs(outs["horizon40"][:, :20] - outs["batch1"]).max()
         print(f"{label} horizon40 first 20 frames vs batch1: max_abs_err={chain_err:.3e} "
-              f"(tol {FORWARD_ATOL[label]:g})")
-        if not chain_err <= FORWARD_ATOL[label]:
-            raise AssertionError(f"{label}: the chained request's first forward disagrees")
+              f"(tol 0)")
+        if chain_err:
+            raise AssertionError(f"{label}: the chained request's first forward differs")
 
 
 def compare_with_cpu(label, cpu_out, card_out) -> float:
@@ -688,7 +707,10 @@ def compare_with_cpu(label, cpu_out, card_out) -> float:
 
 
 def serve_duality(predict, inputs, counts) -> dict:
-    """The duality model's three requests through the predict CLI."""
+    """The duality model's three requests through the predict CLI, each
+    followed by a check that TF32 is off."""
+    from adnm_tpu_torch.device import tf32_enabled
+
     outs, per_request = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         paths = {}
@@ -696,9 +718,9 @@ def serve_duality(predict, inputs, counts) -> dict:
             paths[name] = os.path.join(tmp, f"{name}.npy")
             np.save(paths[name], x)
 
-        def serve(name, *extra):
+        def serve(name, *extra):  # --root: no checkpoint there, the seeded init
             return predict.main(["--input", paths[name], "--output",
-                                 os.path.join(tmp, f"{name}_out.npy"),
+                                 os.path.join(tmp, f"{name}_out.npy"), "--root", tmp,
                                  "--img-size", str(IMG), "--batch-size", "4", *extra])
 
         for name in FORWARDS_PER_REQUEST:
@@ -708,6 +730,8 @@ def serve_duality(predict, inputs, counts) -> dict:
                                *(["--horizon", "40"] if name == "horizon40" else []))
             torch.cuda.synchronize()
             per_request[name] = counts.read()
+            if tf32_enabled():
+                raise AssertionError("the predict CLI left TF32 on for cuBLAS or cuDNN")
             print(f"duality request {name}: {outs[name].shape} in "
                   f"{time.perf_counter() - t0:.2f} s, launches {per_request[name]}")
         check_requests("duality", inputs, outs, per_request,
@@ -875,9 +899,11 @@ def time_forward(predict, label, kwargs, inputs, card) -> None:
 
 # -- training -------------------------------------------------------------
 
-def train_through_cli(counts) -> dict:
-    """One epoch through ``cli.train.main`` on the card, with each step's
-    launches counted from 0 (``Trainer.train_step`` wrapped for the run)."""
+def train_through_cli(counts, root: str) -> tuple:
+    """One epoch through ``cli.train.main`` on the card under ``root``, with
+    each step's launches counted from 0 (``Trainer.train_step`` wrapped for
+    the run). Returns the launches summed over the steps, the epoch
+    snapshot's path and the final protocol's evaluator results."""
     from adnm_tpu_torch.cli import train as train_cli
     from adnm_tpu_torch.train.checkpoint import best_ckpt_dir
     from adnm_tpu_torch.train.loop import Trainer
@@ -894,13 +920,12 @@ def train_through_cli(counts) -> dict:
 
     Trainer.train_step = counted
     try:
-        with tempfile.TemporaryDirectory() as root:
-            t0 = time.perf_counter()
-            out = train_cli.main([*TRAIN_ARGS, "--img-size", str(IMG), "--root", root])
-            secs = time.perf_counter() - t0
-            snapshot = os.path.exists(best_ckpt_dir(root, "Shanghai", "ADNMUnet") + "_epoch1")
+        t0 = time.perf_counter()
+        out = train_cli.main([*TRAIN_ARGS, "--img-size", str(IMG), "--root", root])
+        secs = time.perf_counter() - t0
     finally:
         Trainer.train_step = step
+    snapshot = best_ckpt_dir(root, "Shanghai", "ADNMUnet") + "_epoch1"
     trainer, (log,) = out["trainer"], out["logs"]
     print(f"train CLI: {trainer.step} steps at batch 4 on {trainer.device} in {secs:.1f} s; "
           f"train loss {log.train_loss:.6f}, val loss {log.val_loss:.6f}, best-checkpoint "
@@ -911,12 +936,235 @@ def train_through_cli(counts) -> dict:
                              f"{TRAIN_STEPS} on cuda")
     if not all(np.isfinite([log.train_loss, log.val_loss, out["test_loss"], log.grad_norm_avg])):
         raise AssertionError("train CLI: a loss or the gradient norm is not finite")
-    if not snapshot:
+    if not os.path.exists(snapshot):
         raise AssertionError("train CLI: no epoch snapshot was written")
     want = {**NO_LAUNCHES, "rms_norm": K1_PER_STEP, "rms_norm_backward": K1B_PER_STEP}
     if any(c != want for c in per_step):
         raise AssertionError(f"train CLI: launches per step {per_step}, want {want}")
-    return {k: sum(c[k] for c in per_step) for k in want}
+    check_metrics("train CLI", out["metrics"])
+    return {k: sum(c[k] for c in per_step) for k in want}, snapshot, out["metrics"]
+
+
+# -- evaluation -------------------------------------------------------------
+
+# The test split of TRAIN_ARGS' 24 synthetic clips: int(24 * 0.15) = 3 clips,
+# one batch of 4, so one forward per CLI run.
+TEST_CLIPS, EVAL_FORWARDS = 3, 1
+THRESHOLDS = (20, 30, 35, 40)
+# The same (preds, gts) evaluated on the card and on the CPU: floor and
+# compare are exact in fp32 on both, so the counts are equal; MAE and MSE
+# are fp32 means over 65,536 pixels in another order (1e-6 relative); SSIM
+# sums 121 taps on values up to 90^2 in another order, then takes ratios of
+# order 1 (1e-5 absolute, as the port's CPU tests hold it against JAX).
+EVAL_MEAN_RTOL, EVAL_SSIM_ATOL = 1e-6, 1e-5
+# predict --ckpt on the test clips, in one batch as validate ran them,
+# against validate's predictions from the same checkpoint, on the same card
+# and code: 1e-5. Two forwards of one input on the card are bit-equal (the
+# phase checks it on the first clip, and names the modules that compute
+# differently from equal inputs if they are not).
+SERVE_ATOL = 1e-5
+# A batch of the evaluator's device timing: 4 clips of 20 frames at 256^2.
+EVAL_TIMING_SHAPE = (4, 20, IMG, IMG)
+
+
+def spread_sources(model, x, top: int = 8) -> tuple:
+    """Two forwards of ``x``, every module's inputs and outputs recorded by
+    forward hooks: (the largest difference of the two outputs, the first
+    ``top`` calls, in call order, whose inputs were equal in both forwards
+    and whose outputs were not, as (module name, class, max abs diff)).
+    Such a call computes differently from the same data: a source of the
+    spread, not a carrier of it."""
+    records = [[], []]
+
+    def hook(name):
+        def record(module, args, out):
+            tensors = [a for a in args if isinstance(a, torch.Tensor)]
+            if isinstance(out, torch.Tensor):
+                records[run].append((name, type(module).__name__,
+                                     [t.detach().clone() for t in tensors], out.detach().clone()))
+        return record
+
+    handles = [m.register_forward_hook(hook(n)) for n, m in model.named_modules() if n]
+    try:
+        outs = []
+        with torch.inference_mode():
+            for run in range(2):
+                outs.append(model(x))
+    finally:
+        for h in handles:
+            h.remove()
+    sources = []
+    for (name, cls, ins_a, out_a), (_, _, ins_b, out_b) in zip(*records):
+        if all(torch.equal(a, b) for a, b in zip(ins_a, ins_b)) and not torch.equal(out_a, out_b):
+            sources.append((name, cls, float((out_a - out_b).abs().max())))
+    return float((outs[0] - outs[1]).abs().max()), sources[:top]
+
+
+def check_metrics(label: str, results: dict) -> None:
+    """Every count finite, and CSI, POD and HSS finite or NaN only where
+    their denominators are 0."""
+    for thr, m in results["threshold_metrics"].items():
+        tp, tn, fp, fn = (m[k] for k in ("TP", "TN", "FP", "FN"))
+        if not np.isfinite([tp, tn, fp, fn]).all():
+            raise AssertionError(f"{label} {thr}: a count is not finite")
+        denominators = {"CSI": tp + fp + fn, "POD": tp + fn,
+                        "HSS": fp**2 + fn**2 + 2 * tp * tn + (fp + fn) * (tp + tn)}
+        for k, den in denominators.items():
+            if not (np.isfinite(m[k]) or (np.isnan(m[k]) and den == 0)):
+                raise AssertionError(f"{label} {thr}: {k} = {m[k]} with denominator {den}")
+
+
+def png_header(path: str) -> tuple:
+    """(width, height, colour type) of a PNG, from its signature and its
+    IHDR chunk, whose CRC is checked."""
+    with open(path, "rb") as f:
+        head = f.read(33)
+    if head[:8] != b"\x89PNG\r\n\x1a\n" or head[12:16] != b"IHDR":
+        raise AssertionError(f"{path}: not a PNG")
+    if struct.unpack(">I", head[29:33])[0] != zlib.crc32(head[12:29]) & 0xFFFFFFFF:
+        raise AssertionError(f"{path}: IHDR CRC mismatch")
+    width, height, depth, colour = struct.unpack(">IIBB", head[16:26])
+    if depth != 8:
+        raise AssertionError(f"{path}: bit depth {depth}")
+    return width, height, colour
+
+
+def strip_width(frames: int) -> int:
+    return frames * IMG + (frames - 1) * 10  # 10-pixel gaps
+
+
+def evaluate_through_clis(counts, root: str, snapshot: str, trained_metrics: dict,
+                          card: str) -> dict:
+    """validate, predict --ckpt --png and visualize on the train CLI's
+    epoch snapshot, each with the launch counts set to 0 just before it
+    and read just after; the validate run's predictions evaluated on the
+    card and on the CPU; two forwards of one clip bit-equal; the
+    evaluator's device time."""
+    from adnm_tpu_torch.cli import predict
+    from adnm_tpu_torch.cli import validate as validate_cli
+    from adnm_tpu_torch.cli import visualize as visualize_cli
+    from adnm_tpu_torch.data.shanghai import ShanghaiDataset
+    from adnm_tpu_torch.metrics.evaluator import SimplifiedEvaluator, _batch_stats
+
+    t_phase = time.perf_counter()
+    cli_args = [*DATA_ARGS, "--img-size", str(IMG), "--root", root, "--ckpt", snapshot]
+    want = {**NO_LAUNCHES, "rms_norm": K1_PER_FORWARD * EVAL_FORWARDS}
+    launches = {}
+
+    def counted(name, run):
+        counts.reset()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches[name] = counts.read()
+        print(f"{name} CLI on {snapshot.rsplit(os.sep, 1)[-1]}: {secs:.2f} s wall, "
+              f"launches {launches[name]}")
+        if launches[name] != want:
+            raise AssertionError(f"{name} CLI: launches {launches[name]}, want {want}")
+        return out, secs
+
+    val, val_secs = counted("validate", lambda: validate_cli.main(cli_args))
+    trainer, preds, gts, metrics = val["trainer"], val["preds"], val["gts"], val["metrics"]
+    if trainer.device.type != "cuda":
+        raise AssertionError(f"validate CLI ran on {trainer.device}")
+    if preds.shape != (TEST_CLIPS, 20, IMG, IMG) or not np.isfinite(preds).all():
+        raise AssertionError(f"validate CLI: predictions {preds.shape}")
+    check_metrics("validate CLI", metrics)
+    cells, trained_cells = metrics["threshold_metrics"], trained_metrics["threshold_metrics"]
+    differ = max(abs(cells[t][k] - trained_cells[t][k])
+                 for t in THRESHOLDS for k in ("TP", "TN", "FP", "FN"))
+    print(f"validate vs the train CLI's final protocol, same weights: largest count difference "
+          f"{differ:.0f}; " + "; ".join(
+              f"{t}mm CSI {cells[t]['CSI']:.4f} / {trained_cells[t]['CSI']:.4f}"
+              for t in THRESHOLDS))
+    if differ:
+        raise AssertionError("validate's counts differ from the train CLI's on the same weights")
+
+    # the same arrays on the card and on the CPU
+    evs = []
+    for dev in ("cuda", "cpu"):
+        ev = SimplifiedEvaluator(20, 90, THRESHOLDS, device=dev)
+        ev.evaluate(preds, gts)  # the reference orientation
+        evs.append(ev)
+    on_card, on_cpu = evs
+    if on_card.metrics != on_cpu.metrics:
+        raise AssertionError("evaluator: the card's contingency counts differ from the CPU's")
+    errs = {}
+    for k in ("mae", "mse", "ssim"):
+        a, b = np.asarray(on_card.losses[k]), np.asarray(on_cpu.losses[k])
+        errs[k] = float(np.max(np.abs(a - b) / (np.abs(b) if k != "ssim" else 1.0)))
+    print(f"evaluator card vs CPU on validate's {preds.shape}: counts equal; MAE rel err "
+          f"{errs['mae']:.3e}, MSE rel err {errs['mse']:.3e} (tol {EVAL_MEAN_RTOL:g}), SSIM abs "
+          f"err {errs['ssim']:.3e} (tol {EVAL_SSIM_ATOL:g})")
+    if not (errs["mae"] <= EVAL_MEAN_RTOL and errs["mse"] <= EVAL_MEAN_RTOL
+            and errs["ssim"] <= EVAL_SSIM_ATOL):
+        raise AssertionError("evaluator: the card's MAE, MSE or SSIM disagree with the CPU's")
+    if on_card.done()["threshold_metrics"].keys() != metrics["threshold_metrics"].keys():
+        raise AssertionError("evaluator: thresholds differ from validate's")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        test = ShanghaiDataset(None, IMG, "test", synthetic_len=SYNTHETIC_LEN)
+        clips = np.stack([test[i][:5] for i in range(len(test))])[:, :, None]
+        np.save(os.path.join(tmp, "x.npy"), clips)
+        png = os.path.join(tmp, "png")
+        served, _ = counted("predict", lambda: predict.main(
+            ["--input", os.path.join(tmp, "x.npy"), "--output", os.path.join(tmp, "y.npy"),
+             "--img-size", str(IMG), "--ckpt", snapshot, "--png", png, "--root", root]))
+        serve_err = float(np.abs(served[:, :, 0] - preds).max())
+        print(f"predict --ckpt vs validate's predictions of the {len(clips)} test clips: "
+              f"max_abs_err {serve_err:.3e} (tol {SERVE_ATOL:g})")
+        if not serve_err <= SERVE_ATOL:
+            raise AssertionError("predict --ckpt does not reproduce validate's predictions")
+        model = predict.load_model(None, "cuda", ckpt=snapshot)
+        spread, sources = spread_sources(model, torch.from_numpy(clips[:1]).to("cuda"))
+        del model
+        print(f"two batch-1 forwards of the first test clip on the card: max_abs_diff "
+              f"{spread:.3e}; modules computing differently from equal inputs: {sources}")
+        if spread:
+            raise AssertionError("two forwards of one clip differ on the card")
+        headers = {name: png_header(os.path.join(png, "sample0", name))
+                   for name in ("pred.png", "input.png")}
+        if headers != {"pred.png": (strip_width(20), IMG, 6),
+                       "input.png": (strip_width(5), IMG, 6)}:
+            raise AssertionError(f"predict --png: {headers}")
+
+        vis_out = os.path.join(tmp, "vis")
+        written, _ = counted("visualize", lambda: visualize_cli.main(
+            cli_args + ["--out", vis_out, "--max-samples", "2"]))
+        if len(written) != 2:
+            raise AssertionError(f"visualize CLI wrote {written}")
+        for d in written:
+            headers = {name: png_header(os.path.join(d, name))
+                       for name in ("ADNMUnet.png", "gt.png", "input.png")}
+            if headers != {"ADNMUnet.png": (strip_width(10), IMG, 6),
+                           "gt.png": (strip_width(10), IMG, 6),
+                           "input.png": (strip_width(5), IMG, 6)}:
+                raise AssertionError(f"visualize CLI: {d}: {headers}")
+        print(f"predict --png and visualize wrote {len(clips) + len(written)} sample "
+              f"directories; "
+              f"PNG headers {headers}")
+
+    # the evaluator's device time on a 4 x 20 x 256^2 batch
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t_b = torch.rand(EVAL_TIMING_SHAPE, generator=gen, device="cuda")
+    p_b = torch.rand(EVAL_TIMING_SHAPE, generator=gen, device="cuda")
+    ev_ms = device_ms(lambda: _batch_stats(t_b, p_b, THRESHOLDS, 90.0), iters=20)
+    kernel_breakdown(lambda: _batch_stats(t_b, p_b, THRESHOLDS, 90.0),
+                     f"evaluator _batch_stats on {EVAL_TIMING_SHAPE}")
+    n_frames = EVAL_TIMING_SHAPE[0] * EVAL_TIMING_SHAPE[1]
+    nbytes = 2 * t_b.numel() * 4
+    flops = 2 * 121 * 5 * n_frames * (IMG - 10) ** 2  # the SSIM filter's taps
+    bnd, by = bound_ms(nbytes, flops)
+    ev = SimplifiedEvaluator(20, 90, THRESHOLDS, device="cuda")
+    host = host_times(lambda: ev.evaluate(p_b, t_b), 5, warm=1)
+    print(f"[{card}] evaluator on {EVAL_TIMING_SHAPE}: device {ev_ms:.3f} ms per batch "
+          f"(_batch_stats, CUDA graph replay), bound {bnd:.3f} ms ({by}); evaluate() wall "
+          f"median {statistics.median(host):.2f} ms (5 calls, from device tensors); validate "
+          f"CLI wall {val_secs:.2f} s; K1 launches per CLI run "
+          f"{ {k: v['rms_norm'] for k, v in launches.items()} }; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def train_batch(b: int) -> np.ndarray:
@@ -1069,6 +1317,7 @@ def main() -> None:
         raise SystemExit("chip_smoke: CUDA is not available")
     t_start = time.perf_counter()
     from adnm_tpu_torch.cli import predict
+    from adnm_tpu_torch.device import resolve_device
     from adnm_tpu_torch.ops import _build, ssd
     from adnm_tpu_torch.ops import rms_norm as k1_module
     from adnm_tpu_torch.ops.rms_norm import rms_norm, rms_norm_reference
@@ -1076,8 +1325,7 @@ def main() -> None:
     card = card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    resolve_device("cuda")  # fp32 without TF32 for the kernels' checks
 
     # -- build ---------------------------------------------------------
     build_all(_build, {"rms_norm": k1_module.SOURCES, "ssd_scan": ssd.SOURCES})
@@ -1099,10 +1347,15 @@ def main() -> None:
     inputs = {"batch1": rng.rand(1, 5, 1, IMG, IMG).astype(np.float32),
               "batch4": rng.rand(4, 5, 1, IMG, IMG).astype(np.float32)}
     inputs["horizon40"] = inputs["batch1"]
+    # TF32 allowed again, as cuDNN starts: the entry points must turn it off
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
     serve_duality(predict, inputs, counts)
+    print("TF32 after the first predict CLI call: off")
     bimamba = serve_model(predict, "bimamba", BIMAMBA, inputs, counts, FORWARDS_PER_REQUEST)
     serve_model(predict, "vssd-bimamba", VSSD_BIMAMBA, inputs, counts, ["batch1"])
-    trained = train_through_cli(counts)
+    with tempfile.TemporaryDirectory() as root:
+        trained, snapshot, trained_metrics = train_through_cli(counts, root)
+        evaluate_through_clis(counts, root, snapshot, trained_metrics, card)
 
     # -- timing -----------------------------------------------------------
     time_forward(predict, "duality", {}, inputs, card)

@@ -1,6 +1,7 @@
 """Kernels K1 (RMS norm), K3 (gated RMS norm) and K2 (chunked SSD scan),
-forward and backward, of the PyTorch port on an NVIDIA card, and a bimamba
-training step through K2's two kernels.
+forward and backward, of the PyTorch port on an NVIDIA card, a bimamba
+training step through K2's two kernels, the evaluator on the card against
+the CPU, and the entry points' fp32 without TF32.
 
 Every test here is marked ``cuda`` and skips where there is no card. The
 file imports no JAX; ``tests/conftest.py`` does, so on a machine with the
@@ -11,9 +12,13 @@ card and without JAX it runs as
 
 from __future__ import annotations
 
+import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
+from adnm_tpu_torch.device import resolve_device, tf32_enabled
+from adnm_tpu_torch.metrics.evaluator import SimplifiedEvaluator
 from adnm_tpu_torch.ops import ssd
 from adnm_tpu_torch.ops.rms_norm import (
     gated_rms_norm,
@@ -58,9 +63,7 @@ def misaligned(shape, dtype, gen, device):
 def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card and nvcc")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    return torch.device("cuda")
+    return resolve_device("cuda")  # fp32 without TF32, as the entry points run
 
 
 @pytest.mark.cuda
@@ -464,8 +467,6 @@ def test_bimamba_model_trains_through_both_k2_kernels(card, mixer_type):
     linear_attn_duality=False) at 64^2: 28 K2 launches (20 and the
     refiner's 8 recomputed under remat), 20 K2 backward launches, and the
     loss and gradients of the CPU's plain versions."""
-    import numpy as np
-
     from adnm_tpu_torch.models.adnm_unet import apply_reference_init, create_adnm_unet
     from adnm_tpu_torch.train.loop import Trainer
     from adnm_tpu_torch.train.presets import get_preset
@@ -488,3 +489,62 @@ def test_bimamba_model_trains_through_both_k2_kernels(card, mixer_type):
         # fp32 on both sides through some 60 layers, sums in other orders
         err = float((grads[k].cpu() - w).norm())
         assert err <= 2e-2 * float(w.norm()) + 1e-6 * total, (k, err, float(w.norm()))
+
+
+@pytest.mark.cuda
+def test_resolve_device_runs_fp32_convolutions_without_tf32():
+    """TF32 allowed (cuDNN's default), then resolve_device("cuda"): the
+    flags are off and a 256-channel convolution keeps fp32's precision
+    against float64 (TF32's 10-bit mantissa would miss by ~1e-3)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    dev = resolve_device("cuda")
+    assert not tf32_enabled()
+    gen = torch.Generator().manual_seed(0)
+    x, w = torch.randn(2, 256, 32, 32, generator=gen), torch.randn(64, 256, 3, 3, generator=gen)
+    want = F.conv2d(x.double(), w.double(), padding=1)
+    got = F.conv2d(x.to(dev), w.to(dev), padding=1).cpu().double()
+    assert float((got - want).norm() / want.norm()) < 1e-5
+
+
+@pytest.mark.cuda
+def test_evaluator_on_the_card_counts_as_on_the_cpu(card):
+    """A 4 x 20 x 256^2 batch, half of it on the thresholds' k/90: equal
+    contingency counts (floor and compare are exact in fp32 on both), MAE
+    and MSE within 1e-6 relative, SSIM within 1e-5."""
+    rng = np.random.default_rng(0)
+    shape = (4, 20, 256, 256)
+    gt = rng.uniform(-0.05, 1.05, shape).astype(np.float32)
+    pred = np.clip(gt + rng.normal(0, 0.1, shape), 0, 1).astype(np.float32)
+    on = (np.array([19, 20, 21, 29, 30, 31, 34, 35, 36, 39, 40, 41], np.float32)
+          / np.float32(90))
+    gt[:, :10] = rng.choice(on, size=(4, 10, 256, 256))
+    evs = []
+    for dev in (card, torch.device("cpu")):
+        ev = SimplifiedEvaluator(20, 90, lpips_fn=False, device=dev)
+        ev.lpips_fn = None
+        ev.evaluate(pred, gt)
+        evs.append(ev)
+    got, want = evs
+    assert got.metrics == want.metrics
+    for k, rtol, atol in (("mae", 1e-6, 0), ("mse", 1e-6, 0), ("ssim", 0, 1e-5)):
+        np.testing.assert_allclose(got.losses[k], want.losses[k], rtol=rtol, atol=atol,
+                                   err_msg=k)
+
+
+@pytest.mark.cuda
+def test_two_forwards_of_one_input_are_bit_equal_on_the_card(card):
+    """The full-width duality model at 256^2, batch 1: two forwards of one
+    input give the same bits, and the transposed conv leaves cuDNN's
+    deterministic flag as it found it (it holds the flag only for its own
+    call: cuDNN's default algorithm for decoder.up_sample2 sums through
+    atomics)."""
+    from adnm_tpu_torch.cli import predict
+
+    model = predict.load_model(None, card)
+    x = torch.rand(1, 5, 1, 256, 256, generator=torch.Generator().manual_seed(0)).to(card)
+    with torch.inference_mode():
+        a, b = model(x), model(x)
+    assert torch.equal(a, b)
+    assert torch.backends.cudnn.deterministic is False

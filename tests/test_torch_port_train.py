@@ -346,7 +346,7 @@ def test_to_jax_params_round_trips_and_is_strict(params):
 def test_train_cli_end_to_end_and_resume(tmp_path, capsys):
     """The full-width create_adnm_unet(5, 20, 6) at 32^2 through the CLI:
     one epoch of 2 steps, validation, an epoch snapshot (--save-every), the
-    final test loss; then --resume from a best checkpoint. The preset saves
+    final test loss and CSI table; then --resume from a best checkpoint. The preset saves
     the best checkpoint only after epoch 34 (the reference's save gate), so
     one epoch writes none and the final protocol keeps the trained weights."""
     args = ["--synthetic", "--synthetic-len", "8", "--img-size", "32", "--batch-size", "2",
@@ -359,7 +359,10 @@ def test_train_cli_end_to_end_and_resume(tmp_path, capsys):
     path = ckpt.best_ckpt_dir(str(tmp_path), "Shanghai", "ADNMUnet")
     assert not os.path.exists(path) and os.path.exists(path + "_epoch1")
     assert (tmp_path / "results" / "Shanghai" / "ADNMUnet_train.jsonl").exists()
-    assert "evaluator is not ported" in capsys.readouterr().out
+    text = capsys.readouterr().out
+    assert "20mm CSI:" in text and "40mm CSI:" in text and "HSS:" in text and "FAR:" in text
+    assert "LPIPS: UNAVAILABLE" in text and set(out["metrics"]["threshold_metrics"]) == \
+        {20, 30, 35, 40}
     ckpt.save_state(path, trainer.state_dict())
     again = train_cli.main(args + ["--resume", "--no-final-eval"])
     assert again["trainer"].step == 4 and again["test_loss"] is None
