@@ -6,6 +6,8 @@ from __future__ import annotations
 import argparse
 import os
 
+import torch
+
 from adnm_tpu_torch.data.loader import BatchLoader
 from adnm_tpu_torch.data.shanghai import make_datasets
 from adnm_tpu_torch.device import resolve_device
@@ -37,6 +39,9 @@ def add_common_args(p: argparse.ArgumentParser):
     p.add_argument("--no-refiner-remat", action="store_true",
                    help="keep the refiner Blocks' activations instead of recomputing "
                         "their forward in the backward: faster step, more memory")
+    p.add_argument("--bf16", action="store_true",
+                   help="bfloat16 compute (fp32 params/optimizer - mixed precision; the loss "
+                        "is computed in fp32)")
     p.add_argument("--attn-type", default="standard", choices=["standard", "mla"],
                    help="mixer at the AttentionBlock sites; mla is not ported and raises")
     p.add_argument("--transfer-dtype", default="float32", choices=["float32", "uint8"],
@@ -68,6 +73,11 @@ def resolve_ckpt(ckpt, root: str, missing: str, dataset: str = "Shanghai",
     return None
 
 
+def compute_dtype(args) -> torch.dtype:
+    """The activations' dtype of ``--bf16``."""
+    return torch.bfloat16 if getattr(args, "bf16", False) else torch.float32
+
+
 def build(args):
     """(Trainer, (train, val, test) loaders, (input_frames, output_frames,
     frame_interval, thresholds))."""
@@ -86,7 +96,7 @@ def build(args):
     preset = get_preset(args.model, input_frames, output_frames, frame_interval, args.dataset)
     trainer = Trainer(model, preset, input_frames, device, seed=args.seed,
                       param_transform=apply_reference_init, remat_forward=args.remat,
-                      accum_steps=accum)
+                      accum_steps=accum, compute_dtype=compute_dtype(args))
     data_path = None if args.synthetic else args.data_path
     tr, va, te = make_datasets(data_path, args.img_size, synthetic_len=args.synthetic_len)
     tdt = args.transfer_dtype

@@ -1,6 +1,6 @@
 """Serve the ADNM-UNet nowcast: input frames in, predicted frames out.
 
-    python -m adnm_tpu_torch.cli.predict --input frames.npy [--ckpt PATH | --params params.npz]
+    python -m adnm_tpu_torch.cli.predict --input frames.npy [--ckpt PATH | --params params.npz] [--bf16]
 
 Reads (T_in, H, W) or (B, T_in, 1, H, W) frames in [0, 1] from .npy, runs
 the forward of ``create_adnm_unet(5, 20, 6)`` (the Shanghai task) in
@@ -22,7 +22,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from adnm_tpu_torch.cli.common import resolve_ckpt
+from adnm_tpu_torch.cli.common import compute_dtype, resolve_ckpt
 from adnm_tpu_torch.convert import from_jax_params, load_params_npz
 from adnm_tpu_torch.core.layers import seeded_init_
 from adnm_tpu_torch.device import resolve_device
@@ -37,7 +37,7 @@ INIT_SEED = 0  # weights without --params or a checkpoint
 
 
 def load_model(params: Optional[str], device, ckpt: Optional[str] = None,
-               **model_kwargs) -> ADNMUNet:
+               compute_dtype: torch.dtype = torch.float32, **model_kwargs) -> ADNMUNet:
     """The model in eval mode on ``device`` (``resolve_device``: fp32
     without TF32), with weights from the ``params`` .npz, else from the
     ``ckpt`` checkpoint file of the port's ``Trainer`` (its "params"), else
@@ -45,9 +45,12 @@ def load_model(params: Optional[str], device, ckpt: Optional[str] = None,
     ``create_adnm_unet``, as the JAX registry passes them:
     ``linear_attn_duality=False`` builds the bimamba chunked-scan
     configuration, ``mixer_type="vssd"`` the VSSD mixer; a checkpoint must
-    come from the same configuration."""
+    come from the same configuration. The parameters are fp32 whatever
+    ``compute_dtype`` ``forecast`` runs in; a configuration that cannot
+    compute in ``compute_dtype`` raises here."""
     device = resolve_device(device)
     model = create_adnm_unet(INPUT_FRAMES, OUTPUT_FRAMES, FRAME_INTERVAL, **model_kwargs)
+    model.check_compute_dtype(compute_dtype)
     if params is not None:
         from_jax_params(model, load_params_npz(params))
     elif ckpt is not None:
@@ -68,17 +71,19 @@ def read_frames(path: str, img_size: int) -> np.ndarray:
 
 
 def forecast(model: ADNMUNet, x: np.ndarray, batch_size: int, device: torch.device,
-             horizon: Optional[int] = None) -> np.ndarray:
-    """Predictions for ``x`` (B, T_in, 1, H, W); with ``horizon`` beyond the
-    model's T_out, the last T_in predicted frames (clipped to [0, 1]) are
-    fed back until ``horizon`` frames exist."""
+             horizon: Optional[int] = None,
+             compute_dtype: torch.dtype = torch.float32) -> np.ndarray:
+    """Fp32 predictions for ``x`` (B, T_in, 1, H, W), the model run on frames
+    cast to ``compute_dtype``; with ``horizon`` beyond the model's T_out,
+    the last T_in predicted frames (clipped to [0, 1] in fp32) are fed back
+    until ``horizon`` frames exist."""
 
     def forward(inp: np.ndarray) -> np.ndarray:
         outs = []
         with torch.inference_mode():
             for i in range(0, inp.shape[0], batch_size):
-                xb = torch.from_numpy(np.ascontiguousarray(inp[i:i + batch_size])).to(device)
-                outs.append(model(xb).float().cpu().numpy())
+                xb = torch.from_numpy(np.ascontiguousarray(inp[i:i + batch_size]))
+                outs.append(model(xb.to(device, compute_dtype)).float().cpu().numpy())
         return np.concatenate(outs)
 
     preds = forward(x)
@@ -111,16 +116,19 @@ def main(argv=None) -> np.ndarray:
     p.add_argument("--img-size", type=int, default=256)
     p.add_argument("--batch-size", type=int, default=4)
     p.add_argument("--device", default="cuda")
+    p.add_argument("--bf16", action="store_true",
+                   help="bfloat16 compute (fp32 params; the predictions are written in fp32)")
     args = p.parse_args(argv)
+    cdt = compute_dtype(args)
 
     device = resolve_device(args.device)
     x = read_frames(args.input, args.img_size)
     ckpt = None if args.params is not None else resolve_ckpt(
         args.ckpt, args.root, "warning: no checkpoint at {}; predicting with fresh init")
-    model = load_model(args.params, device, ckpt=ckpt)
+    model = load_model(args.params, device, ckpt=ckpt, compute_dtype=cdt)
     if ckpt is not None:
         print(f"loaded checkpoint: {ckpt}")
-    preds = forecast(model, x, args.batch_size, device, args.horizon)
+    preds = forecast(model, x, args.batch_size, device, args.horizon, cdt)
     np.save(args.output, preds)
     print(f"wrote {args.output} {preds.shape}")
     if args.png:

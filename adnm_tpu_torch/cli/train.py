@@ -1,7 +1,7 @@
 """Train the ADNM-UNet (counterpart of adnm_tpu/cli/train.py; reference:
 train.py).
 
-    python -m adnm_tpu_torch.cli.train --synthetic --epochs 1 [--device cpu]
+    python -m adnm_tpu_torch.cli.train --synthetic --epochs 1 [--device cpu] [--bf16]
 
 Trains ``create_adnm_unet(5, 20, 6)`` (the Shanghai task) with the
 ADNMUnet preset: en_rainfall loss, adaptive gradient clipping, AdamW.
@@ -10,7 +10,8 @@ per-epoch metrics to {root}/results/{dataset}/{model}_train.jsonl. Ends
 with the reference's final protocol (train.py:209-250): reload the best
 checkpoint, run the test split, and print CSI/HSS per threshold and
 FAR/RMSE/SSIM/LPIPS. ``--device`` defaults to cuda and raises when CUDA is
-absent.
+absent. ``--bf16`` trains with bf16 activations and fp32 parameters and
+AdamW state; its checkpoints are the same fp32 files.
 """
 
 from __future__ import annotations

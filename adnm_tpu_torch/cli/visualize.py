@@ -2,7 +2,7 @@
 adnm_tpu/cli/visualize.py; reference: pic_results.py main loop
 :236-275).
 
-    python -m adnm_tpu_torch.cli.visualize --synthetic --ckpt PATH [--device cpu]
+    python -m adnm_tpu_torch.cli.visualize --synthetic --ckpt PATH [--device cpu] [--bf16]
 
 Loads a checkpoint (``--ckpt``, else the best under ``--root``), runs the
 test split and writes pred/gt/input PNG strips for up to

@@ -1,5 +1,7 @@
 """Composite blocks of the ADNM-UNet on NCHW tensors
-(counterpart of adnm_tpu/core/blocks.py)."""
+(counterpart of adnm_tpu/core/blocks.py). Each computes in its input's
+dtype, its gates cast to it where the JAX module casts them
+(``gate_cast``); ``ChannelAttBridge`` returns fp32 maps, as in JAX."""
 
 from __future__ import annotations
 
@@ -16,8 +18,10 @@ from adnm_tpu_torch.core.layers import (
     DeConvLayer,
     FeedForward,
     IntensityGate,
+    Linear,
     Mlp,
     channel_scale,
+    gate_cast,
     make_norm,
     scalar_param,
 )
@@ -47,9 +51,11 @@ class PatchEmbed(nn.Module):
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         res = x[:, -1]
-        x = self.alpha1 * self.conv1(x) + self.beta1 * x
+        alpha1, beta1, alpha2, beta2 = gate_cast(x, self.alpha1, self.beta1, self.alpha2,
+                                                 self.beta2)
+        x = alpha1 * self.conv1(x) + beta1 * x
         shortcut = self.conv2(x)
-        x = self.alpha2 * self.conv3(shortcut) + self.beta2 * shortcut
+        x = alpha2 * self.conv3(shortcut) + beta2 * shortcut
         return channel_scale(x, self.gamma), res
 
 
@@ -74,8 +80,10 @@ class WTLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, residual: Optional[torch.Tensor] = None) -> torch.Tensor:
         if residual is not None:
-            x = torch.cat([self.gama1 * x, self.gama2 * residual.to(x.dtype)], dim=1)
-        x = self.mlp(self.alpha * self.wtconv(x) + self.beta * x)
+            gama1, gama2 = gate_cast(x, self.gama1, self.gama2)
+            x = torch.cat([gama1 * x, gama2 * residual.to(x.dtype)], dim=1)
+        alpha, beta = gate_cast(x, self.alpha, self.beta)
+        x = self.mlp(alpha * self.wtconv(x) + beta * x)
         return self.conv(channel_scale(x, self.gamma))
 
 
@@ -114,7 +122,7 @@ class ChannelAttBridge(nn.Module):
         self.sigmoid1 = IntensityGate()
         total = sum(c_list)
         for i, c in enumerate(c_list):
-            self.add_module(f"att{i + 1}", nn.Linear(total, c))
+            self.add_module(f"att{i + 1}", Linear(total, c))
         self.n = len(c_list)
 
     def reset_random_(self, gen: torch.Generator):
@@ -125,7 +133,9 @@ class ChannelAttBridge(nn.Module):
     def forward(self, skips: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
         att = torch.cat([s.mean(dim=(2, 3)) for s in skips], dim=1)  # (B, sum C)
         w = self.get_all_att_kernel
-        p = F.pad(att, (1, 1))
+        # JAX multiplies the pooled skips by the fp32 taps w[i] uncast, which
+        # promotes them to fp32 there; the maps stay fp32 from here on.
+        p = F.pad(att.float(), (1, 1))
         att = p[:, :-2] * w[0] + p[:, 1:-1] * w[1] + p[:, 2:] * w[2] + self.get_all_att_bias
         return tuple(
             self.sigmoid1(getattr(self, f"att{i + 1}")(att))[:, :, None, None]
@@ -172,12 +182,14 @@ class EncoderToDecoder(nn.Module):
         self.mlp = ConvFFD(d)
 
     def forward(self, x: torch.Tensor, att: torch.Tensor) -> torch.Tensor:
-        x = self.act(x + self.gama * att.to(x.dtype))
-        x = self.scale * getattr(self, self.norm_name)(x) + self.shift
+        gama, scale, shift = gate_cast(x, self.gama, self.scale, self.shift)
+        x = self.act(x + gama * att.to(x.dtype))
+        x = scale * getattr(self, self.norm_name)(x) + shift
         x1 = self.act_func13(self.ffd13(x * self.conv13pool(_pool_pair(x, 3, 1))))
         x2 = self.act_func13(self.ffd13(x * self.conv31pool(_pool_pair(x, 1, 3))))
         x3 = self.act_func33(self.ffd33(x * self.conv33pool(_pool_pair(x, 3, 3))))
-        x = self.alpha1 * x1 + self.alpha2 * x2 + self.alpha3 * x3
+        alpha1, alpha2, alpha3 = gate_cast(x1, self.alpha1, self.alpha2, self.alpha3)
+        x = alpha1 * x1 + alpha2 * x2 + alpha3 * x3
         x = channel_scale(x, self.gamma)
         return self.mlp(self.ffd(x))
 
@@ -204,8 +216,10 @@ class OutProj(nn.Module):
         self.conv2 = ConvLayer(num_frames, num_frames, 3, 1, 1, use_bias=False, swish=True)
 
     def forward(self, x: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
-        x = self.alpha * self.wtconv(x) + self.beta * x
+        alpha, beta = gate_cast(x, self.alpha, self.beta)
+        x = alpha * self.wtconv(x) + beta * x
         x = channel_scale(x, self.gamma)
         x = self.conv_frames(self.conv_expand(x))
-        x = self.alpha1 * x + self.alpha2 * residual.to(x.dtype)[:, None]
+        alpha1, alpha2 = gate_cast(x, self.alpha1, self.alpha2)
+        x = alpha1 * x + alpha2 * residual.to(x.dtype)[:, None]
         return self.conv2(x)

@@ -2,10 +2,19 @@
 
 Parameter names mirror the JAX module's, so ``adnm_tpu_torch.convert``
 maps a JAX parameter path onto the port's module path one to one. JAX's
-Dense is ``nn.Linear``; its conv kernels become ``nn.Conv2d`` /
-``nn.ConvTranspose2d`` weights. Scalar gates are 0-d fp32 parameters, as
-in the JAX package. Channels are axis 1 everywhere: ``channel_linear``
-applies an ``nn.Linear`` over that axis.
+Dense is ``Linear``; its conv kernels become ``Conv2d`` /
+``ConvTranspose2d`` weights. Scalar gates are 0-d fp32 parameters, as in
+the JAX package. Channels are axis 1 everywhere: ``channel_linear``
+applies a ``Linear`` over that axis.
+
+Compute dtype (the JAX package's ``--bf16``): parameters stay fp32 and a
+layer computes in its input's dtype. ``Conv2d``, ``ConvTranspose2d``,
+``Linear`` and ``channel_linear`` cast their weight and bias to it at use,
+and every learnable gate is cast to it before its multiply or add
+(``gate_cast``), where JAX casts them; the norms take fp32 statistics and
+return the input's dtype. The port follows JAX's dtype at each module
+boundary by these explicit casts, never by torch's promotion rules, which
+keep a bf16 tensor bf16 against a 0-d fp32 tensor where JAX promotes.
 """
 
 from __future__ import annotations
@@ -18,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from adnm_tpu_torch.device import deterministic_cudnn
 from adnm_tpu_torch.ops.rms_norm import gated_rms_norm, rms_norm
 
 IntPair = Union[int, Tuple[int, int]]
@@ -33,17 +43,54 @@ def channel_view(p: torch.Tensor, ndim: int) -> torch.Tensor:
     return p.view(1, -1, *([1] * (ndim - 2)))
 
 
+def gate_cast(x: torch.Tensor, *ps: torch.Tensor):
+    """The fp32 gate parameters ``ps`` cast to ``x``'s dtype for their
+    multiply or add sites (JAX: ``gate_cast``): under bf16 compute a gate is
+    rounded to bf16 first, as in JAX; under fp32 the cast returns the
+    parameter itself. One tensor for one gate, else a tuple."""
+    out = tuple(p.to(x.dtype) for p in ps)
+    return out if len(out) > 1 else out[0]
+
+
 def channel_scale(x: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
     """``x`` times a (C,) fp32 gate over axis 1, cast to ``x``'s dtype so a
-    bf16 activation is not promoted to fp32 (JAX: ``gate_cast``; a 0-d gate
-    needs no cast in torch, which does not promote by 0-d tensors)."""
+    bf16 activation is not promoted to fp32 (JAX: ``gate_cast``)."""
     return x * channel_view(gate.to(x.dtype), x.dim())
 
 
+def _cast(p: Optional[torch.Tensor], x: torch.Tensor) -> Optional[torch.Tensor]:
+    return None if p is None else p.to(x.dtype)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` in its input's dtype: the fp32 weight and bias are cast
+    at use (JAX: ``Conv2d``'s ``astype``); their gradients reach the fp32
+    parameters as fp32."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, self.weight.to(x.dtype), _cast(self.bias, x))
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` in its input's dtype, as ``Conv2d`` (no
+    ``output_size``: the padding is fixed at construction)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv_transpose2d(x, self.weight.to(x.dtype), _cast(self.bias, x), self.stride,
+                                  self.padding, self.output_padding, self.groups, self.dilation)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` in its input's dtype, as ``Conv2d`` (JAX: ``Dense``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(x.dtype), _cast(self.bias, x))
+
+
 def channel_linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    """``lin`` over the channel axis 1 of a (B, C, H, W) tensor (a 1x1 conv)."""
-    bias = lin.bias.to(x.dtype) if lin.bias is not None else None
-    return F.conv2d(x, lin.weight.to(x.dtype)[:, :, None, None], bias)
+    """``lin`` over the channel axis 1 of a (B, C, H, W) tensor (a 1x1 conv),
+    in ``x``'s dtype."""
+    return F.conv2d(x, lin.weight.to(x.dtype)[:, :, None, None], _cast(lin.bias, x))
 
 
 def _stats(x: torch.Tensor, dims) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -149,7 +196,7 @@ class Swish(nn.Module):
         self.beta = scalar_param(beta_init)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x * torch.sigmoid(self.beta * x)
+        return x * torch.sigmoid(gate_cast(x, self.beta) * x)
 
 
 class IntensityGate(nn.Module):
@@ -161,7 +208,8 @@ class IntensityGate(nn.Module):
         self.enhance = scalar_param(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.silu(self.enhance * (x - self.threshold))
+        threshold, enhance = gate_cast(x, self.threshold, self.enhance)
+        return F.silu(enhance * (x - threshold))
 
 
 class _NormalizedLayer(nn.Module):
@@ -182,7 +230,8 @@ class _NormalizedLayer(nn.Module):
 
     def _tail(self, x: torch.Tensor) -> torch.Tensor:
         if self.norm_name is not None:
-            x = self.scale * getattr(self, self.norm_name)(x) + self.shift
+            scale, shift = gate_cast(x, self.scale, self.shift)
+            x = scale * getattr(self, self.norm_name)(x) + shift
         return self.act(x) if self.act is not None else x
 
 
@@ -196,8 +245,8 @@ class ConvLayer(_NormalizedLayer):
                  use_bias: bool = True, norm: Optional[str] = None,
                  act: Optional[str] = None, swish: bool = False):
         super().__init__()
-        self.conv = nn.Conv2d(in_channels, features, kernel_size, stride, padding,
-                              groups=groups, bias=use_bias)
+        self.conv = Conv2d(in_channels, features, kernel_size, stride, padding,
+                           groups=groups, bias=use_bias)
         self._init_tail(features, norm, None if swish else act)
         if swish:
             self.swish_act = Swish()
@@ -221,7 +270,7 @@ class DeConvLayer(nn.Module):
         k = kernel_size[1]
         padding = max(0, (k - ratio + 1) // 2)
         output_padding = ratio - k + 2 * padding
-        self.trans_conv = nn.ConvTranspose2d(
+        self.trans_conv = ConvTranspose2d(
             in_channels, features, kernel_size, stride=ratio, padding=padding,
             output_padding=output_padding, bias=use_bias,
         )
@@ -230,14 +279,9 @@ class DeConvLayer(nn.Module):
         # cuDNN's default algorithm choice for a transposed conv may be
         # nondeterministic: two forwards of one input then differ (6e-8 at
         # decoder.up_sample2 on an H100, up to 3e-4 at the model's output).
-        # Its deterministic algorithms keep the forward bit-reproducible;
-        # the flag is restored after the call.
-        cudnn = torch.backends.cudnn
-        deterministic, cudnn.deterministic = cudnn.deterministic, True
-        try:
+        # Its deterministic algorithms keep the forward bit-reproducible.
+        with deterministic_cudnn():
             return self.trans_conv(x)
-        finally:
-            cudnn.deterministic = deterministic
 
 
 class Mlp(nn.Module):
@@ -246,8 +290,8 @@ class Mlp(nn.Module):
     def __init__(self, dim: int, hidden: Optional[int] = None, out: Optional[int] = None):
         super().__init__()
         hidden = hidden or dim * 2
-        self.fc1 = nn.Linear(dim, hidden)
-        self.fc2 = nn.Linear(hidden, out or dim)
+        self.fc1 = Linear(dim, hidden)
+        self.fc2 = Linear(hidden, out or dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return channel_linear(self.fc2, ACTS["gelu"](channel_linear(self.fc1, x)))
@@ -273,9 +317,9 @@ class ConvFFD(nn.Module):
 
     def __init__(self, dim: int):
         super().__init__()
-        self.in_proj = nn.Linear(dim, dim * 2)
+        self.in_proj = Linear(dim, dim * 2)
         self.dw_conv = ConvLayer(dim * 2, dim * 2, 3, 1, 1, groups=dim * 2)
-        self.out_proj = nn.Linear(dim * 2, dim)
+        self.out_proj = Linear(dim * 2, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = ACTS["gelu"](self.dw_conv(channel_linear(self.in_proj, x)))

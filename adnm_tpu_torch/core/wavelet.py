@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from adnm_tpu_torch.core.layers import _NormalizedLayer, channel_scale
+from adnm_tpu_torch.core.layers import Conv2d, _NormalizedLayer, channel_scale
 
 
 def haar_dwt(x: torch.Tensor) -> torch.Tensor:
@@ -53,17 +53,20 @@ class WTConv2d(nn.Module):
     0.1), the LL band recursing; reconstruction by IDWT level by level,
     plus a parallel depthwise ``base_conv`` with ``base_scale``. Odd sizes
     are padded at the bottom/right before a DWT and cropped after the
-    IDWT. (The JAX module's ``stride`` is always 1 and is not ported.)"""
+    IDWT. Runs in the input's dtype: the Haar steps are adds in it, the
+    depthwise kernels and the scales are cast to it (JAX: ``astype`` and
+    ``gate_cast``). (The JAX module's ``stride`` is always 1 and is not
+    ported.)"""
 
     def __init__(self, channels: int, kernel_size: int = 5, use_bias: bool = True,
                  wt_levels: int = 2):
         super().__init__()
         c = channels
         self.wt_levels = wt_levels
-        self.base_conv = nn.Conv2d(c, c, kernel_size, padding="same", groups=c, bias=use_bias)
+        self.base_conv = Conv2d(c, c, kernel_size, padding="same", groups=c, bias=use_bias)
         self.base_scale = nn.Parameter(torch.ones(c))
         for lvl in range(wt_levels):
-            self.add_module(f"wavelet_conv{lvl}", nn.Conv2d(
+            self.add_module(f"wavelet_conv{lvl}", Conv2d(
                 4 * c, 4 * c, kernel_size, padding="same", groups=4 * c, bias=False))
             self.register_parameter(f"wavelet_scale{lvl}", nn.Parameter(torch.full((4 * c,), 0.1)))
 

@@ -4,8 +4,14 @@
 // Replaces the Pallas TPU kernel adnm_tpu/ops/pallas/ssd_scan.py
 // ssd_chunked_scan_pallas (_forward with the body _kernel), the function of
 // adnm_tpu/ops/ssd.py::ssd_chunked_scan, and its custom_vjp backward (_bwd,
-// jax.vjp of that function; see "Backward" below). fp32 throughout (no
-// TF32, no tensor cores). In the port's sequence-minor layout, per
+// jax.vjp of that function; see "Backward" below). The tensors of a call
+// are all float32 or all bfloat16 (the port's bf16 compute); as in the
+// Pallas kernel, which reads any dtype and writes y in x's, every value is
+// widened to fp32 as it is staged, all arithmetic, carried state and sum is
+// fp32 (no TF32, no tensor cores), and each output is rounded once, as it
+// is stored. bf16 rows are staged by 8-byte loads widened in registers
+// (cp.async cannot convert), fp32 rows by cp.async. In the port's
+// sequence-minor layout, per
 // batch b and head h, with dA_t = dt_t * A (A < 0, not negated), the scan
 // is the recurrence
 //
@@ -74,7 +80,7 @@
 // is one sub-chunk, which walks once from zero.
 //
 // What bounds it. The function's bytes: x, dt, B, C read and y written
-// once, 26 MiB at the refiner (8.1 us at 3.35 TB/s). The three-launch form
+// once, 26 MiB at the refiner in fp32 (8.1 us at 3.35 TB/s; half in bf16). The three-launch form
 // moves about 1.6 times that (x, dt and B are read twice; the states pass
 // through the L2), and each of its tile kernels stages its tile, then
 // walks, then stores, with no overlap inside a block: at the refiner it
@@ -150,9 +156,10 @@
 //
 // No atomics: every sum runs in one fixed order, so two launches are
 // bit-equal. What bounds it: the function's bytes are x, dt, B, C, dy read
-// and dx, ddt, dB, dC written (46 MB at the refiner, batch 1: 13.8 us at
-// 3.35 TB/s); its fp32 operations (about 0.5 G there, chip_smoke.py::
-// k2_bwd_flops) take 7.4 us at the card's fp32 rate.
+// and dx, ddt, dB, dC written (46 MB at the refiner, batch 1, in fp32:
+// 13.8 us at 3.35 TB/s; 6.9 us in bf16); its fp32 operations (about 0.5 G
+// there, chip_smoke.py::k2_bwd_flops) take 7.4 us at the card's fp32 rate,
+// so in bf16 the operations bound it.
 // At the refiner the summary and gradient passes each read the inputs
 // (about 1.6 times the bound's bytes). ptxas gives ssd_bwd_grads and
 // ssd_bwd_fused 128 registers and ssd_bwd_summary 78-80 (no spills); 93 KB
@@ -177,10 +184,12 @@
 // not 0.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 namespace {
 
@@ -204,14 +213,44 @@ constexpr int kCols = kHeads * kP * kNQ;    // threads per sub-chunk
 constexpr int kSubs = kThreads / kCols;     // sub-chunks per tile
 static_assert(kCols % kWarp == 0 && kThreads % kCols == 0, "whole warps per sub-chunk");
 
+// The tensors a call reads and writes hold IO, float or __nv_bfloat16, all of
+// one type; everything staged, carried and computed is fp32.
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+
+// v rounded to the type of *p (to nearest even) and stored there.
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+// 4 consecutive values at p (aligned to 4 of them) as fp32, and back.
+__device__ __forceinline__ float4 load4g(const float* p) {
+    return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4g(const bf16* p) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);  // the first value in the low half
+    return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                       __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+__device__ __forceinline__ void store4g(float* p, float4 v) {
+    *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4g(bf16* p, float4 v) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
+    *reinterpret_cast<uint2*>(p) =
+        make_uint2(*reinterpret_cast<const unsigned*>(&lo), *reinterpret_cast<const unsigned*>(&hi));
+}
+
+template <typename IO>
 struct Args {
-    const float* x;
-    const float* dt;
-    const float* A;
-    const float* B;
-    const float* C;
-    const float* D;
-    float* y;
+    const IO* x;
+    const IO* dt;
+    const IO* A;
+    const IO* B;
+    const IO* C;
+    const IO* D;
+    IO* y;
     float* sub_state;   // (batch, H, nsub, P, N): state entering a sub-chunk from its tile's start
     float* sub_decay;   // (batch, H, nsub): decay from the tile's start to the sub-chunk
     float* tile_state;  // (batch, H, ntile, P, N): each tile's end state, then the entering one
@@ -219,7 +258,7 @@ struct Args {
     int64_t sx, sdt, sb, sc;  // batch strides in elements
     int H, L, nsub, ntile;
     int tl;   // tokens per tile: kSubs * T, or nsub * T when there is one tile
-    int vec;  // 16-byte copies
+    int vec;  // copies of 4 values (16 bytes in fp32, 8 in bf16)
 };
 
 // The positions [lo, hi) of tile k, held at shared index l - base.
@@ -272,20 +311,54 @@ __device__ __forceinline__ void for_each(int rows, int cols, F f) {
     for_each_of(threadIdx.x, blockDim.x, rows, cols, f);
 }
 
-// Stage `rows` rows of the tile (row r at g + r * L) into s (row stride
-// tl + kPad); shared indices outside the tile's range are zero.
-__device__ void stage(float* s, const float* g, int rows, const Args& a, Range t) {
-    const int rs = a.tl + kPad, z0 = t.lo - t.base, z1 = t.hi - t.base, L = a.L, lo = t.lo;
-    for_each(rows, a.tl - (z1 - z0),
-             [&](int r, int i) { s[r * rs + (i < z0 ? i : i - z0 + z1)] = 0.f; });
-    if (a.vec)
-        for_each(rows, (z1 - z0) / 4, [&](int r, int i) {
-            copy_async<16>(s + r * rs + z0 + 4 * i, g + int64_t(r) * L + lo + 4 * i);
+// Copy `rows` rows of length n (row r at g + r * L) into s (row stride rs)
+// at columns [z0, z0 + n), over the n threads of a group: fp32 rows by
+// cp.async (16 bytes, or 4 where the copy is not vector), bf16 rows by
+// loads widened to fp32 and stored (their wait is the caller's barrier).
+template <typename IO>
+__device__ __forceinline__ void copy_rows(float* s, const IO* g, int rows, int n, int rs, int z0,
+                                          int64_t L, bool vec, int tid, int nthreads) {
+    if constexpr (std::is_same_v<IO, float>) {
+        if (vec)
+            for_each_of(tid, nthreads, rows, n / 4, [&](int r, int i) {
+                copy_async<16>(s + r * rs + z0 + 4 * i, g + r * L + 4 * i);
+            });
+        else
+            for_each_of(tid, nthreads, rows, n, [&](int r, int i) {
+                copy_async<4>(s + r * rs + z0 + i, g + r * L + i);
+            });
+    } else {
+        if (vec)
+            for_each_of(tid, nthreads, rows, n / 4, [&](int r, int i) {
+                *reinterpret_cast<float4*>(s + r * rs + z0 + 4 * i) = load4g(g + r * L + 4 * i);
+            });
+        else
+            for_each_of(tid, nthreads, rows, n,
+                        [&](int r, int i) { s[r * rs + z0 + i] = to_f(g[r * L + i]); });
+    }
+}
+
+// Store `rows` rows of length n from s (row stride rs, columns [z0, z0 + n))
+// to g (row r at g + r * L), rounded to g's type, over the block.
+template <typename OUT>
+__device__ __forceinline__ void store_rows(OUT* g, const float* s, int rows, int n, int rs, int z0,
+                                           int64_t L, bool vec) {
+    if (vec)
+        for_each(rows, n / 4, [&](int r, int i) {
+            store4g(g + r * L + 4 * i, *reinterpret_cast<const float4*>(s + r * rs + z0 + 4 * i));
         });
     else
-        for_each(rows, z1 - z0, [&](int r, int i) {
-            copy_async<4>(s + r * rs + z0 + i, g + int64_t(r) * L + lo + i);
-        });
+        for_each(rows, n, [&](int r, int i) { put(g + r * L + i, s[r * rs + z0 + i]); });
+}
+
+// Stage `rows` rows of the tile (row r at g + r * L) into s (row stride
+// tl + kPad); shared indices outside the tile's range are zero.
+template <typename IO>
+__device__ void stage(float* s, const IO* g, int rows, const Args<IO>& a, Range t) {
+    const int rs = a.tl + kPad, z0 = t.lo - t.base, z1 = t.hi - t.base;
+    for_each(rows, a.tl - (z1 - z0),
+             [&](int r, int i) { s[r * rs + (i < z0 ? i : i - z0 + z1)] = 0.f; });
+    copy_rows(s, g + t.lo, rows, z1 - z0, rs, z0, a.L, a.vec, threadIdx.x, blockDim.x);
 }
 
 // 4 floats from 16-byte aligned shared memory, in scan order.
@@ -379,8 +452,8 @@ size_t smem_bytes(int tl) {
 //   FUSED (at most kMaxCluster tiles, one a block of a cluster): walk from
 //     zero, combine, take the earlier tiles' end states from the cluster,
 //     walk again writing y. No scratch in device memory.
-template <int T, bool REV, Mode MODE>
-__device__ __forceinline__ void scan_tile(const Args& a) {
+template <typename IO, int T, bool REV, Mode MODE>
+__device__ __forceinline__ void scan_tile(const Args<IO>& a) {
     const int k = blockIdx.x, h0 = blockIdx.y * kHeads, b = blockIdx.z;
     const int c = threadIdx.x % kCols, w = threadIdx.x / kCols;
     const int hn = min(kHeads, a.H - h0), hh = c / (kP * kNQ), p = c / kNQ % kP, nq = c % kNQ;
@@ -417,7 +490,7 @@ __device__ __forceinline__ void scan_tile(const Args& a) {
         for (int m = 0; m < kS; ++m)
             S[m] = a.ntile > 1 ? fmaf(Sin[m * kNQ], G, Pw[m * kNQ]) : Pw[m * kNQ];
     }
-    const float A2 = a.A[h] * kLog2e, d = a.D[h];
+    const float A2 = to_f(a.A[h]) * kLog2e, d = to_f(a.D[h]);
     copy_wait();
     __syncthreads();
 
@@ -507,33 +580,24 @@ __device__ __forceinline__ void scan_tile(const Args& a) {
         __syncthreads();
 
         // y of the tile's range, rows (head, p) of the block's heads.
-        const int z0 = t.lo - t.base, n = t.hi - t.lo, rows = hn * kP;
-        float* y = a.y + (int64_t(b) * a.H + h0) * kP * a.L;
-        if (a.vec)
-            for_each(rows, n / 4, [&](int r, int i) {
-                *reinterpret_cast<float4*>(y + int64_t(r) * a.L + t.lo + 4 * i) =
-                    *reinterpret_cast<const float4*>(xs + r * rs + z0 + 4 * i);
-            });
-        else
-            for_each(rows, n, [&](int r, int i) {
-                y[int64_t(r) * a.L + t.lo + i] = xs[r * rs + z0 + i];
-            });
+        IO* y = a.y + (int64_t(b) * a.H + h0) * kP * a.L + t.lo;
+        store_rows(y, xs, hn * kP, t.hi - t.lo, rs, t.lo - t.base, a.L, a.vec);
     }
 }
 
-template <int T, bool REV>
-__global__ void __launch_bounds__(kThreads) ssd_scan_states(Args a) {
-    scan_tile<T, REV, STATES>(a);
+template <typename IO, int T, bool REV>
+__global__ void __launch_bounds__(kThreads) ssd_scan_states(Args<IO> a) {
+    scan_tile<IO, T, REV, STATES>(a);
 }
 
-template <int T, bool REV>
-__global__ void __launch_bounds__(kThreads) ssd_scan_outputs(Args a) {
-    scan_tile<T, REV, OUTPUTS>(a);
+template <typename IO, int T, bool REV>
+__global__ void __launch_bounds__(kThreads) ssd_scan_outputs(Args<IO> a) {
+    scan_tile<IO, T, REV, OUTPUTS>(a);
 }
 
-template <int T, bool REV>
-__global__ void __launch_bounds__(kThreads) ssd_scan_fused(Args a) {
-    scan_tile<T, REV, FUSED>(a);
+template <typename IO, int T, bool REV>
+__global__ void __launch_bounds__(kThreads) ssd_scan_fused(Args<IO> a) {
+    scan_tile<IO, T, REV, FUSED>(a);
 }
 
 // Phase 2: a block per (batch, head) carries the state across its tiles.
@@ -644,18 +708,21 @@ constexpr int kBSlot = kHeads * kRecPad + kHeads;          // a tile's record pu
 constexpr int kBPush = kMaxCluster * kBSlot;
 static_assert(kHeads * kBQ == kWarp, "a warp walks one direction of a sub-chunk for the block's heads");
 
+template <typename IO>
 struct BArgs {
-    const float* x;
-    const float* dt;
-    const float* A;
-    const float* B;
-    const float* C;
-    const float* D;
-    const float* dy;  // (batch, H, P, L), contiguous
-    float* dx;        // (batch, H, P, L)
-    float* ddt;       // (batch, H, L)
-    float* dB;        // (batch, N, L), or per head group (batch, ngrp, N, L) when ngrp > 1
-    float* dC;
+    const IO* x;
+    const IO* dt;
+    const IO* A;
+    const IO* B;
+    const IO* C;
+    const IO* D;
+    const IO* dy;  // (batch, H, P, L), contiguous
+    IO* dx;        // (batch, H, P, L)
+    IO* ddt;       // (batch, H, L)
+    IO* dB;        // (batch, N, L), where ngrp == 1
+    IO* dC;
+    float* gB;     // per head group (batch, ngrp, N, L), fp32, where ngrp > 1
+    float* gC;
     float* carry;      // (2, batch * H, ntile, P * N): each tile's end state, then the one
                        // entering it; each tile's adjoint from zero in reversed tile order, then
                        // the one entering it from the right
@@ -664,7 +731,7 @@ struct BArgs {
     float* part_dD;
     int64_t sx, sdt, sb, sc;
     int batch, H, L, ntile, nsb, tl, ngrp;
-    int vec;  // 16-byte copies and stores
+    int vec;  // copies and stores of 4 values
 };
 
 enum BMode { BSUMMARY, BGRADS, BFUSED };
@@ -709,20 +776,14 @@ __device__ __forceinline__ void bar_arrive(int id, int threads) {
 // Stage `rows` rows of the tile (row r at g + r * L) into s, spread over
 // the group's n threads; tokens outside [t.lo, t.hi) and rows from `valid`
 // on are zero.
-__device__ void stage_bwd(float* s, const float* g, int rows, int valid, const BArgs& a, Range t,
+template <typename IO>
+__device__ void stage_bwd(float* s, const IO* g, int rows, int valid, const BArgs<IO>& a, Range t,
                           int tid, int n) {
-    const int rs = a.tl + kPad, z0 = t.lo - t.base, z1 = t.hi - t.base, L = a.L, lo = t.lo;
+    const int rs = a.tl + kPad, z0 = t.lo - t.base, z1 = t.hi - t.base;
     for_each_of(tid, n, valid, a.tl - (z1 - z0),
                 [&](int r, int i) { s[r * rs + (i < z0 ? i : i - z0 + z1)] = 0.f; });
     for_each_of(tid, n, rows - valid, a.tl, [&](int r, int i) { s[(valid + r) * rs + i] = 0.f; });
-    if (a.vec)
-        for_each_of(tid, n, valid, (z1 - z0) / 4, [&](int r, int i) {
-            copy_async<16>(s + r * rs + z0 + 4 * i, g + int64_t(r) * L + lo + 4 * i);
-        });
-    else
-        for_each_of(tid, n, valid, z1 - z0, [&](int r, int i) {
-            copy_async<4>(s + r * rs + z0 + i, g + int64_t(r) * L + lo + i);
-        });
+    copy_rows(s, g + t.lo, valid, z1 - z0, rs, z0, a.L, a.vec, tid, n);
 }
 
 // v[0, 2K) summed with the lane l ^ mask: the lane with `upper` keeps the
@@ -759,8 +820,8 @@ __device__ __forceinline__ void fold(float (&acc)[kBM][kP], const float* r, floa
 //     that the carry brought to the tile, the gradient walks.
 //   BFUSED (at most kMaxCluster tiles, one a block of a cluster): the tiles'
 //     records go through the cluster's shared memory; no scratch.
-template <bool REV, BMode MODE>
-__device__ __forceinline__ void bwd_tile(const BArgs& a) {
+template <typename IO, bool REV, BMode MODE>
+__device__ __forceinline__ void bwd_tile(const BArgs<IO>& a) {
     const int k = blockIdx.x, h0 = blockIdx.y * kHeads, b = blockIdx.z;
     const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
     const int w = warp / 2, dir = warp % 2, hh = lane / kBQ, q = lane % kBQ;
@@ -800,7 +861,7 @@ __device__ __forceinline__ void bwd_tile(const BArgs& a) {
                   td, half);
         stage_bwd(Cs, a.C + b * a.sc, kN, kN, a, t, td, half);
     }
-    const float A2 = a.A[h] * kLog2e;
+    const float A2 = to_f(a.A[h]) * kLog2e;
     copy_wait();
     if (dir == 0) {
         bar_arrive(2, 2 * half);
@@ -1104,7 +1165,7 @@ __device__ __forceinline__ void bwd_tile(const BArgs& a) {
         //    block's sums of dA (dt_t w_t) and dD (x_t . dy_t).
         const int nwarps = blockDim.x / kWarp;
         for (int hf = warp; hf < hn; hf += nwarps) {
-            const float Ah = a.A[h0 + hf], Dh = a.D[h0 + hf];
+            const float Ah = to_f(a.A[h0 + hf]), Dh = to_f(a.D[h0 + hf]);
             float dA = 0.f, dD = 0.f;
             for (int v = 0; v < nsb; ++v) {
                 const int i = spos<REV>(tl, v * kBT + lane);
@@ -1143,40 +1204,36 @@ __device__ __forceinline__ void bwd_tile(const BArgs& a) {
         }
         __syncthreads();
 
-        // 6. dx, ddt, dB and dC of the tile's range, coalesced.
-        const int z0 = t.lo - t.base, n = t.hi - t.lo, L = a.L;
-        float* dx = a.dx + (int64_t(b) * a.H + h0) * kP * L;
-        float* ddt = a.ddt + (int64_t(b) * a.H + h0) * L;
-        const int64_t g0 = (int64_t(b) * a.ngrp + blockIdx.y) * kN * L;
-        auto store = [&](float* g, const float* s, int rows) {
-            if (a.vec)
-                for_each(rows, n / 4, [&](int r, int i) {
-                    *reinterpret_cast<float4*>(g + int64_t(r) * L + t.lo + 4 * i) =
-                        *reinterpret_cast<const float4*>(s + r * rs + z0 + 4 * i);
-                });
-            else
-                for_each(rows, n, [&](int r, int i) { g[int64_t(r) * L + t.lo + i] = s[r * rs + z0 + i]; });
-        };
-        store(dx, Us, hn * kP);
-        store(ddt, Zs, hn);
-        store(a.dB + g0, dBs, kN);
-        store(a.dC + g0, dCs, kN);
+        // 6. dx, ddt, dB and dC of the tile's range, coalesced; dB and dC
+        //    of a head group in fp32 where the groups are summed after.
+        const int z0 = t.lo - t.base, n = t.hi - t.lo;
+        const int64_t L = a.L, o = t.lo;
+        store_rows(a.dx + (int64_t(b) * a.H + h0) * kP * L + o, Us, hn * kP, n, rs, z0, L, a.vec);
+        store_rows(a.ddt + (int64_t(b) * a.H + h0) * L + o, Zs, hn, n, rs, z0, L, a.vec);
+        if (a.ngrp > 1) {
+            const int64_t g0 = (int64_t(b) * a.ngrp + blockIdx.y) * kN * L + o;
+            store_rows(a.gB + g0, dBs, kN, n, rs, z0, L, a.vec);
+            store_rows(a.gC + g0, dCs, kN, n, rs, z0, L, a.vec);
+        } else {
+            store_rows(a.dB + int64_t(b) * kN * L + o, dBs, kN, n, rs, z0, L, a.vec);
+            store_rows(a.dC + int64_t(b) * kN * L + o, dCs, kN, n, rs, z0, L, a.vec);
+        }
     }
 }
 
-template <bool REV>
-__global__ void __launch_bounds__(kBThreads, 3) ssd_bwd_summary(BArgs a) {
-    bwd_tile<REV, BSUMMARY>(a);
+template <typename IO, bool REV>
+__global__ void __launch_bounds__(kBThreads, 3) ssd_bwd_summary(BArgs<IO> a) {
+    bwd_tile<IO, REV, BSUMMARY>(a);
 }
 
-template <bool REV>
-__global__ void __launch_bounds__(kBThreads, 2) ssd_bwd_grads(BArgs a) {
-    bwd_tile<REV, BGRADS>(a);
+template <typename IO, bool REV>
+__global__ void __launch_bounds__(kBThreads, 2) ssd_bwd_grads(BArgs<IO> a) {
+    bwd_tile<IO, REV, BGRADS>(a);
 }
 
-template <bool REV>
-__global__ void __launch_bounds__(kBThreads, 2) ssd_bwd_fused(BArgs a) {
-    bwd_tile<REV, BFUSED>(a);
+template <typename IO, bool REV>
+__global__ void __launch_bounds__(kBThreads, 2) ssd_bwd_fused(BArgs<IO> a) {
+    bwd_tile<IO, REV, BFUSED>(a);
 }
 
 // The carry of the tiles' records, the forward's (ssd_carry's body) with
@@ -1196,22 +1253,25 @@ __global__ void __launch_bounds__(kBwdCarryThreads) ssd_bwd_carry(float* states,
 // dA and dD, each thread a strided share in order, then a tree over the
 // threads; the blocks after them sum dB and dC over the head groups in
 // order (ngrp > 1), from the partials (batch, ngrp, N, L) into (batch, N, L).
+// Every sum is fp32, rounded to IO once, when it is stored.
 constexpr int kSumBatch = 16;
 
+template <typename IO>
 struct BSums {
     const float* part_dA;
     const float* part_dD;
-    float* dA;
-    float* dD;
+    IO* dA;
+    IO* dD;
     const float* pb;
     const float* pc;
-    float* dB;
-    float* dC;
+    IO* dB;
+    IO* dC;
     int64_t m, nl;
     int H, batch, ngrp;
 };
 
-__global__ void __launch_bounds__(kThreads) ssd_bwd_sums(BSums s) {
+template <typename IO>
+__global__ void __launch_bounds__(kThreads) ssd_bwd_sums(BSums<IO> s) {
     const int tid = threadIdx.x;
     if (blockIdx.x >= unsigned(s.H)) {
         const int64_t total = int64_t(s.batch) * s.nl;
@@ -1236,8 +1296,8 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_sums(BSums s) {
                         vc += lc[j];
                     }
             }
-            s.dB[e] = vb;
-            s.dC[e] = vc;
+            put(s.dB + e, vb);
+            put(s.dC + e, vc);
         }
         return;
     }
@@ -1260,8 +1320,8 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_sums(BSums s) {
         __syncthreads();
     }
     if (tid == 0) {
-        s.dA[blockIdx.x] = sa[0];
-        s.dD[blockIdx.x] = sd[0];
+        put(s.dA + blockIdx.x, sa[0]);
+        put(s.dD + blockIdx.x, sd[0]);
     }
 }
 
@@ -1305,19 +1365,19 @@ Layout layout(int L, int T) {
     return {nsub, ntile, per_tile * T, per_tile * kCols};
 }
 
-template <int T, bool REV>
-cudaError_t launch(const Args& a, int batch, int threads, cudaStream_t stream) {
+template <typename IO, int T, bool REV>
+cudaError_t launch(const Args<IO>& a, int batch, int threads, cudaStream_t stream) {
     if (a.ntile <= kMaxCluster)
-        return launch_tiles(ssd_scan_fused<T, REV>, a, batch, threads,
+        return launch_tiles(ssd_scan_fused<IO, T, REV>, a, batch, threads,
                             smem_bytes<FUSED>(a.tl), a.ntile, stream);
-    cudaError_t err = launch_tiles(ssd_scan_states<T, REV>, a, batch, threads,
+    cudaError_t err = launch_tiles(ssd_scan_states<IO, T, REV>, a, batch, threads,
                                    smem_bytes<STATES>(a.tl), 1, stream);
     if (err != cudaSuccess) return err;
     err = allow_smem(ssd_carry, kCarrySmem);
     if (err != cudaSuccess) return err;
     ssd_carry<<<static_cast<unsigned>(int64_t(batch) * a.H), kCarryThreads, kCarrySmem, stream>>>(
         a.tile_state, a.tile_decay, a.ntile);
-    err = launch_tiles(ssd_scan_outputs<T, REV>, a, batch, threads,
+    err = launch_tiles(ssd_scan_outputs<IO, T, REV>, a, batch, threads,
                        smem_bytes<OUTPUTS>(a.tl), 1, stream);
     return err != cudaSuccess ? err : cudaGetLastError();
 }
@@ -1350,22 +1410,22 @@ BLayout bwd_layout(int batch, int H, int L) {
 // At most kMaxCluster tiles (every 8^2..32^2 Block): ssd_bwd_fused, one
 // clustered launch. More (the refiner): ssd_bwd_summary, the carry of the
 // tiles' records both ways, ssd_bwd_grads. Then the fixed-order sums.
-template <bool REV>
-cudaError_t launch_bwd(const BArgs& a, const BLayout& s, float* dB, float* dC, float* dA,
-                       float* dD, cudaStream_t stream) {
+template <typename IO, bool REV>
+cudaError_t launch_bwd(const BArgs<IO>& a, const BLayout& s, IO* dA, IO* dD,
+                       cudaStream_t stream) {
     cudaError_t err;
     if (s.ntile <= kMaxCluster) {
-        err = launch_tiles(ssd_bwd_fused<REV>, a, a.batch, s.threads,
+        err = launch_tiles(ssd_bwd_fused<IO, REV>, a, a.batch, s.threads,
                            bwd_smem_bytes<BFUSED>(s.tl), s.ntile, stream);
         if (err != cudaSuccess) return err;
     } else {
-        err = launch_tiles(ssd_bwd_summary<REV>, a, a.batch, s.threads,
+        err = launch_tiles(ssd_bwd_summary<IO, REV>, a, a.batch, s.threads,
                            bwd_smem_bytes<BSUMMARY>(s.tl), 1, stream);
         if (err != cudaSuccess) return err;
         if ((err = allow_smem(ssd_bwd_carry, kBwdCarrySmem)) != cudaSuccess) return err;
         ssd_bwd_carry<<<static_cast<unsigned>(2 * int64_t(a.batch) * a.H), kBwdCarryThreads,
                         kBwdCarrySmem, stream>>>(a.carry, a.carry_dec, s.ntile);
-        err = launch_tiles(ssd_bwd_grads<REV>, a, a.batch, s.threads,
+        err = launch_tiles(ssd_bwd_grads<IO, REV>, a, a.batch, s.threads,
                            bwd_smem_bytes<BGRADS>(s.tl), 1, stream);
         if (err != cudaSuccess) return err;
     }
@@ -1373,17 +1433,88 @@ cudaError_t launch_bwd(const BArgs& a, const BLayout& s, float* dB, float* dC, f
     const int gblocks =
         s.ngrp > 1 ? static_cast<int>(std::min<int64_t>((total + kThreads - 1) / kThreads, 1056))
                    : 0;
-    const BSums sums{a.part_dA, a.part_dD, dA, dD, a.dB, a.dC, dB, dC,
-                     int64_t(a.batch) * s.ntile, nl, a.H, a.batch, s.ngrp};
-    ssd_bwd_sums<<<a.H + gblocks, kThreads, 0, stream>>>(sums);
+    const BSums<IO> sums{a.part_dA, a.part_dD, dA, dD, a.gB, a.gC, a.dB, a.dC,
+                         int64_t(a.batch) * s.ntile, nl, a.H, a.batch, s.ngrp};
+    ssd_bwd_sums<IO><<<a.H + gblocks, kThreads, 0, stream>>>(sums);
     return cudaGetLastError();
 }
 
-bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+// p aligned for copies of 4 values of `size` bytes each.
+bool aligned4(const void* p, size_t size) {
+    return reinterpret_cast<uintptr_t>(p) % (4 * size) == 0;
+}
 
 // The walkers' sub-chunk: 32 tokens up to L = 256 (the 8^2 and 16^2
 // Blocks: more walkers, shorter walks), else 64 (fewer tiles to carry).
 int sub_chunk(int L) { return L <= 256 ? 32 : 64; }
+
+bool bad_shape(int batch, int H, int P, int N, int L, int Q) {
+    return P != kP || N != kN || batch <= 0 || H <= 0 || L <= 0 || Q <= 0 || L % Q != 0 ||
+           batch > 65535 || (H + kHeads - 1) / kHeads > 65535;
+}
+
+template <typename IO>
+cudaError_t scan_call(const void* x, const void* dt, const void* A, const void* B, const void* C,
+                      const void* D, void* y, float* st, float* dec, int64_t sx, int64_t sdt,
+                      int64_t sb, int64_t sc, int batch, int H, int L, int reverse,
+                      cudaStream_t strm) {
+    const int T = sub_chunk(L);
+    const Layout s = layout(L, T);
+    const int64_t n = int64_t(batch) * H;
+    const bool scratch = s.ntile > kMaxCluster;
+    const size_t e = sizeof(IO);
+    const bool vec = L % 4 == 0 && sx % 4 == 0 && sdt % 4 == 0 && sb % 4 == 0 && sc % 4 == 0 &&
+                     aligned4(x, e) && aligned4(dt, e) && aligned4(B, e) && aligned4(C, e) &&
+                     aligned4(y, e);
+    const Args<IO> a{static_cast<const IO*>(x), static_cast<const IO*>(dt),
+                     static_cast<const IO*>(A), static_cast<const IO*>(B),
+                     static_cast<const IO*>(C), static_cast<const IO*>(D),
+                     static_cast<IO*>(y),
+                     scratch ? st : nullptr,
+                     scratch ? dec : nullptr,
+                     scratch ? st + n * s.nsub * kN * kP : nullptr,
+                     scratch ? dec + n * s.nsub : nullptr,
+                     sx, sdt, sb, sc, H, L, s.nsub, s.ntile, s.tl, vec};
+    cudaError_t err;
+    if (T == 32)
+        err = reverse ? launch<IO, 32, true>(a, batch, s.threads, strm)
+                      : launch<IO, 32, false>(a, batch, s.threads, strm);
+    else
+        err = reverse ? launch<IO, 64, true>(a, batch, s.threads, strm)
+                      : launch<IO, 64, false>(a, batch, s.threads, strm);
+    return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <typename IO>
+cudaError_t bwd_call(const void* x, const void* dt, const void* A, const void* B, const void* C,
+                     const void* D, const void* dy, void* dx, void* ddt, void* dA, void* dB,
+                     void* dC, void* dD, float* f, int64_t sx, int64_t sdt, int64_t sb,
+                     int64_t sc, int batch, int H, int L, int reverse, cudaStream_t strm) {
+    const BLayout s = bwd_layout(batch, H, L);
+    float* carry = f;
+    float* carry_dec = carry + s.carry;
+    float* part_dA = carry_dec + s.carry_dec;
+    float* part_dD = part_dA + s.part;
+    float* group_dB = part_dD + s.part;
+    float* group_dC = group_dB + s.groups;
+    const size_t e = sizeof(IO);
+    const bool grads_aligned =
+        s.ngrp > 1 ? aligned4(group_dB, 4) && aligned4(group_dC, 4)
+                   : aligned4(dB, e) && aligned4(dC, e);
+    const bool vec = L % 4 == 0 && sx % 4 == 0 && sdt % 4 == 0 && sb % 4 == 0 && sc % 4 == 0 &&
+                     aligned4(x, e) && aligned4(dt, e) && aligned4(B, e) && aligned4(C, e) &&
+                     aligned4(dy, e) && aligned4(dx, e) && aligned4(ddt, e) && grads_aligned;
+    const BArgs<IO> a{static_cast<const IO*>(x), static_cast<const IO*>(dt),
+                      static_cast<const IO*>(A), static_cast<const IO*>(B),
+                      static_cast<const IO*>(C), static_cast<const IO*>(D),
+                      static_cast<const IO*>(dy), static_cast<IO*>(dx), static_cast<IO*>(ddt),
+                      static_cast<IO*>(dB), static_cast<IO*>(dC), group_dB, group_dC, carry,
+                      carry_dec, part_dA, part_dD, sx, sdt, sb, sc, batch, H, L, s.ntile, s.nsb,
+                      s.tl, s.ngrp, vec};
+    IO *oA = static_cast<IO*>(dA), *oD = static_cast<IO*>(dD);
+    return reverse ? launch_bwd<IO, true>(a, s, oA, oD, strm)
+                   : launch_bwd<IO, false>(a, s, oA, oD, strm);
+}
 
 }  // namespace
 
@@ -1404,44 +1535,25 @@ int adnm_ssd_scratch_floats(int batch, int H, int L, int64_t* states, int64_t* d
     return cudaSuccess;
 }
 
-// All tensors float32 on the current device; y and the scratch (sizes from
+// x, dt, A, B, C, D and y of one type, float32 (dtype 0) or bfloat16
+// (dtype 1), on the current device; y and the fp32 scratch (sizes from
 // adnm_ssd_scratch_floats) contiguous. Q is the caller's chunk: the
 // result does not depend on it, but L must be a multiple of it. Returns
 // cudaGetLastError() after the launches.
 int adnm_ssd_chunked_scan(const void* x, const void* dt, const void* A, const void* B,
                           const void* C, const void* D, void* y, void* states, void* decay,
                           int64_t sx, int64_t sdt, int64_t sb, int64_t sc, int batch, int H,
-                          int P, int N, int L, int Q, int reverse, void* stream) {
-    if (P != kP || N != kN || batch <= 0 || H <= 0 || Q <= 0 || L % Q != 0 || batch > 65535 ||
-        (H + kHeads - 1) / kHeads > 65535)
+                          int P, int N, int L, int Q, int reverse, int dtype, void* stream) {
+    if (bad_shape(batch, H, P, N, L, Q) || (dtype != 0 && dtype != 1))
         return cudaErrorInvalidValue;
-    const int T = sub_chunk(L);
-    const Layout s = layout(L, T);
-    const int64_t n = int64_t(batch) * H;
-    const bool scratch = s.ntile > kMaxCluster;
-    float* st = static_cast<float*>(states);
-    float* dec = static_cast<float*>(decay);
-    const bool vec = L % 4 == 0 && sx % 4 == 0 && sdt % 4 == 0 && sb % 4 == 0 && sc % 4 == 0 &&
-                     aligned16(x) && aligned16(dt) && aligned16(B) && aligned16(C) &&
-                     aligned16(y);
-    const Args a{static_cast<const float*>(x), static_cast<const float*>(dt),
-                 static_cast<const float*>(A), static_cast<const float*>(B),
-                 static_cast<const float*>(C), static_cast<const float*>(D),
-                 static_cast<float*>(y),
-                 scratch ? st : nullptr,
-                 scratch ? dec : nullptr,
-                 scratch ? st + n * s.nsub * kN * kP : nullptr,
-                 scratch ? dec + n * s.nsub : nullptr,
-                 sx, sdt, sb, sc, H, L, s.nsub, s.ntile, s.tl, vec};
+    float *st = static_cast<float*>(states), *dec = static_cast<float*>(decay);
     const cudaStream_t strm = static_cast<cudaStream_t>(stream);
-    cudaError_t err;
-    if (T == 32)
-        err = reverse ? launch<32, true>(a, batch, s.threads, strm)
-                      : launch<32, false>(a, batch, s.threads, strm);
-    else
-        err = reverse ? launch<64, true>(a, batch, s.threads, strm)
-                      : launch<64, false>(a, batch, s.threads, strm);
-    return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+    const cudaError_t err =
+        dtype == 0 ? scan_call<float>(x, dt, A, B, C, D, y, st, dec, sx, sdt, sb, sc, batch, H, L,
+                                      reverse, strm)
+                   : scan_call<bf16>(x, dt, A, B, C, D, y, st, dec, sx, sdt, sb, sc, batch, H, L,
+                                     reverse, strm);
+    return static_cast<int>(err);
 }
 
 
@@ -1458,45 +1570,26 @@ int adnm_ssd_backward_scratch_floats(int batch, int H, int L, int64_t* floats) {
 
 // K2's backward: dx, ddt (contiguous, x's and dt's shapes), dA, dD (H),
 // dB, dC (contiguous (batch, N, L)) of the scan for dy (contiguous, x's
-// shape); x, dt, B, C at the batch strides given, as in the forward; the
-// scratch sized by adnm_ssd_backward_scratch_floats. Every output is
-// written, none accumulated into; no atomics, so two launches are
+// shape); x, dt, B, C at the batch strides given, as in the forward; every
+// input and output of one type, float32 (dtype 0) or bfloat16 (dtype 1);
+// the fp32 scratch sized by adnm_ssd_backward_scratch_floats. Every output
+// is written, none accumulated into; no atomics, so two launches are
 // bit-equal. Returns cudaGetLastError() after the launches.
 int adnm_ssd_chunked_scan_backward(const void* x, const void* dt, const void* A, const void* B,
                                    const void* C, const void* D, const void* dy, void* dx,
                                    void* ddt, void* dA, void* dB, void* dC, void* dD,
                                    void* scratch, int64_t sx, int64_t sdt, int64_t sb, int64_t sc,
                                    int batch, int H, int P, int N, int L, int Q, int reverse,
-                                   void* stream) {
-    if (P != kP || N != kN || batch <= 0 || H <= 0 || L <= 0 || Q <= 0 || L % Q != 0 ||
-        batch > 65535 || (H + kHeads - 1) / kHeads > 65535)
+                                   int dtype, void* stream) {
+    if (bad_shape(batch, H, P, N, L, Q) || (dtype != 0 && dtype != 1))
         return cudaErrorInvalidValue;
-    const BLayout s = bwd_layout(batch, H, L);
     float* f = static_cast<float*>(scratch);
-    float* carry = f;
-    float* carry_dec = carry + s.carry;
-    float* part_dA = carry_dec + s.carry_dec;
-    float* part_dD = part_dA + s.part;
-    float* group_dB = part_dD + s.part;
-    float* group_dC = group_dB + s.groups;
-    const bool grouped = s.ngrp > 1;
-    float* tB = grouped ? group_dB : static_cast<float*>(dB);
-    float* tC = grouped ? group_dC : static_cast<float*>(dC);
-    const bool vec = L % 4 == 0 && sx % 4 == 0 && sdt % 4 == 0 && sb % 4 == 0 && sc % 4 == 0 &&
-                     aligned16(x) && aligned16(dt) && aligned16(B) && aligned16(C) &&
-                     aligned16(dy) && aligned16(dx) && aligned16(ddt) && aligned16(tB) &&
-                     aligned16(tC);
-    const BArgs a{static_cast<const float*>(x), static_cast<const float*>(dt),
-                  static_cast<const float*>(A), static_cast<const float*>(B),
-                  static_cast<const float*>(C), static_cast<const float*>(D),
-                  static_cast<const float*>(dy), static_cast<float*>(dx),
-                  static_cast<float*>(ddt), tB, tC, carry, carry_dec, part_dA, part_dD,
-                  sx, sdt, sb, sc, batch, H, L, s.ntile, s.nsb, s.tl, s.ngrp, vec};
-    float *oB = static_cast<float*>(dB), *oC = static_cast<float*>(dC);
-    float *oA = static_cast<float*>(dA), *oD = static_cast<float*>(dD);
     const cudaStream_t strm = static_cast<cudaStream_t>(stream);
-    const cudaError_t err = reverse ? launch_bwd<true>(a, s, oB, oC, oA, oD, strm)
-                                    : launch_bwd<false>(a, s, oB, oC, oA, oD, strm);
+    const cudaError_t err =
+        dtype == 0 ? bwd_call<float>(x, dt, A, B, C, D, dy, dx, ddt, dA, dB, dC, dD, f, sx, sdt,
+                                     sb, sc, batch, H, L, reverse, strm)
+                   : bwd_call<bf16>(x, dt, A, B, C, D, dy, dx, ddt, dA, dB, dC, dD, f, sx, sdt,
+                                    sb, sc, batch, H, L, reverse, strm);
     return static_cast<int>(err);
 }
 

@@ -8,6 +8,8 @@ allows for cuDNN convolutions by default.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -27,6 +29,23 @@ def full_fp32() -> None:
 def tf32_enabled() -> bool:
     """True if cuBLAS or cuDNN may run fp32 work in TF32."""
     return torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN held to its deterministic algorithms inside the block; its flag
+    is restored after. On an H100, cuDNN's default choice for a transposed
+    convolution's forward and for the backward of every convolution (the
+    dgrad and wgrad of ``Conv2d`` and ``ConvTranspose2d``) sums in an order
+    that changes from run to run, so two forwards or two training steps of
+    one input differ in their last bits (``scripts/torch_forward_spread.py``
+    and ``scripts/torch_backward_spread.py`` name the calls)."""
+    cudnn = torch.backends.cudnn
+    saved, cudnn.deterministic = cudnn.deterministic, True
+    try:
+        yield
+    finally:
+        cudnn.deterministic = saved
 
 
 def resolve_device(name) -> torch.device:

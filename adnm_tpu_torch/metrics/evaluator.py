@@ -92,6 +92,7 @@ class SimplifiedEvaluator:
         self.TP, self.TN, self.FP, self.FN = [], [], [], []
 
     def _on_device(self, batch) -> torch.Tensor:
+        # fp32 whatever the model computed in (bf16 predictions included)
         return torch.as_tensor(batch).to(self.device, torch.float32).clamp(0.0, 1.0)
 
     @torch.no_grad()

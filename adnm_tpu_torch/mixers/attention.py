@@ -6,21 +6,22 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from adnm_tpu_torch.core.layers import channel_linear
+from adnm_tpu_torch.core.layers import Linear, channel_linear
 
 
 class StandardAttention(nn.Module):
     """Softmax MHA over the H*W tokens of a (B, dim, H, W) tensor, in plain
     matrix products. The qkv channels are [q | k | v], each head-major
-    (head * dim_head + i), as in the JAX module."""
+    (head * dim_head + i), as in the JAX module. In the input's dtype: the
+    logits and the softmax too, as JAX gives them."""
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 64):
         super().__init__()
         self.heads = heads
         self.dim_head = dim_head
         inner = heads * dim_head
-        self.to_qkv = nn.Linear(dim, inner * 3, bias=False)
-        self.to_out = nn.Linear(inner, dim)
+        self.to_qkv = Linear(dim, inner * 3, bias=False)
+        self.to_out = Linear(inner, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, _, h, w = x.shape

@@ -18,6 +18,12 @@ which is the port's only layout. Per (B, d_model, H, W) grid:
      gather, then a LayerNorm over the channels, then
      ``[alpha1 * y | alpha1 * z]`` (alpha1 used twice; alpha2 exists in
      the JAX tree and is never read) and out_proj.
+
+Under bf16 compute everything runs in bf16 as in JAX: the projections and
+depthwise convs cast their weights, ``softplus(dt + dt_bias)`` is computed
+in fp32 and then cast, A, D and alpha1 are cast, the LayerNorm takes fp32
+statistics, the duality's products are bf16 ``bmm``, and K2 takes its six
+inputs in bf16.
 """
 
 from __future__ import annotations
@@ -28,14 +34,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from adnm_tpu_torch.core.layers import channel_linear, channel_view, scalar_param
+from adnm_tpu_torch.core.layers import (Conv2d, Linear, channel_linear, channel_view,
+                                        gate_cast, scalar_param)
 from adnm_tpu_torch.ops.ssd import linear_attn_dual_seqminor, ssd_chunked_scan
 
 SCAN_CHUNK = 256  # the chunked scan's chunk, as every model of the reference sets it
 
 
-def _depthwise(c: int, kernel) -> nn.Conv2d:
-    return nn.Conv2d(c, c, kernel, padding="same", groups=c, bias=False)
+def _depthwise(c: int, kernel) -> Conv2d:
+    return Conv2d(c, c, kernel, padding="same", groups=c, bias=False)
 
 
 def merge_index(d_inner: int, headdim: int) -> list:
@@ -103,7 +110,7 @@ class ADNSSDMixer(nn.Module):
         self.d_inner, self.gN, self.nheads, self.conv_dim = d_inner, gN, nheads, conv_dim
         qx, qbc = d_inner // 4, gN // 2
 
-        self.in_proj = nn.Linear(d_model, 2 * d_inner + 2 * gN + nheads, bias=False)
+        self.in_proj = Linear(d_model, 2 * d_inner + 2 * gN + nheads, bias=False)
         self.dt_bias = nn.Parameter(torch.zeros(nheads))
         self.A_log = nn.Parameter(torch.zeros(nheads))
         self.D = nn.Parameter(torch.ones(nheads))
@@ -119,7 +126,7 @@ class ADNSSDMixer(nn.Module):
         self.conv2d_z = _depthwise(d_inner, self.D_CONV)
         self.norm = ChannelLayerNorm(d_inner)
         self.alpha1 = scalar_param(1.0)
-        self.out_proj = nn.Linear(2 * d_inner, d_model, bias=False)
+        self.out_proj = Linear(2 * d_inner, d_model, bias=False)
         self.register_buffer("merge_index", torch.tensor(merge_index(d_inner, headdim)),
                              persistent=False)
 
@@ -179,6 +186,6 @@ class ADNSSDMixer(nn.Module):
         y = torch.cat([y1.reshape(b, d_inner // 2, l), y2.reshape(b, d_inner // 2, l)], dim=1)
         y = self.norm(y.index_select(1, self.merge_index))
 
-        a1 = self.alpha1
+        a1 = gate_cast(y, self.alpha1)
         y = torch.cat([a1 * y, a1 * z.reshape(b, d_inner, l).to(y.dtype)], dim=1)
         return channel_linear(self.out_proj, y.reshape(b, 2 * d_inner, h, w))

@@ -12,6 +12,14 @@ with ``mixer_type="vssd"``). Per (B, d_model, H, W) grid:
      last token back with group 1 (kernel K2).
   5. LayerNorm over the channels (eps 1e-5), ``y * z`` (z gets no SiLU
      here, unlike ADN-SSD), out_proj.
+
+Under bf16 compute it follows the JAX module's dtypes: the projection and
+the depthwise conv run in bf16, but dt, A and D stay fp32 (JAX casts none
+of them), so the duality's products, the LayerNorm and out_proj run in
+fp32 and the mixer's output is fp32. The bimamba halves cannot run so in
+the JAX package (its chunked scan starts its carry in x's dtype and
+``lax.scan`` refuses the fp32 state, ``adnm_tpu/ops/ssd.py:195-197``), and
+the port raises there too.
 """
 
 from __future__ import annotations
@@ -20,10 +28,22 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from adnm_tpu_torch.core.layers import channel_linear, channel_view
+from adnm_tpu_torch.core.layers import Conv2d, Linear, channel_linear, channel_view
 from adnm_tpu_torch.mixers.ssd_mixer import (SCAN_CHUNK, ChannelLayerNorm,
                                              reset_dt_bias_and_a_log_)
 from adnm_tpu_torch.ops.ssd import linear_attn_dual_seqminor, ssd_chunked_scan
+
+
+def check_compute_dtype(linear_attn_duality: bool, dtype: torch.dtype) -> None:
+    """Raise for the VSSD bimamba halves in any compute dtype but fp32: the
+    JAX package cannot run them so (its chunked scan's carry starts in the
+    activations' dtype, and ``lax.scan`` refuses the fp32 state that VSSD's
+    fp32 dt, A and D give, ``adnm_tpu/ops/ssd.py:195-197``), and the port
+    adds no configuration that the JAX package lacks."""
+    if not linear_attn_duality and dtype != torch.float32:
+        raise TypeError(f"the VSSD mixer's bimamba scan (linear_attn_duality=False) runs in "
+                        f"float32 only, as in the JAX package, whose chunked scan refuses "
+                        f"its fp32 state under {dtype} compute; got {dtype}")
 
 
 class VSSDMixer(nn.Module):
@@ -45,19 +65,20 @@ class VSSDMixer(nn.Module):
         self.linear_attn_duality = linear_attn_duality
         self.headdim, self.d_inner, self.nheads = headdim, d_inner, nheads
         self.conv_dim = d_inner + 2 * self.NGROUPS * self.D_STATE
-        self.in_proj = nn.Linear(d_model, d_inner + self.conv_dim + nheads, bias=False)
+        self.in_proj = Linear(d_model, d_inner + self.conv_dim + nheads, bias=False)
         self.dt_bias = nn.Parameter(torch.zeros(nheads))
         self.A_log = nn.Parameter(torch.zeros(nheads))
         self.D = nn.Parameter(torch.ones(nheads))
-        self.conv2d = nn.Conv2d(self.conv_dim, self.conv_dim, self.D_CONV, padding="same",
-                                groups=self.conv_dim, bias=False)
+        self.conv2d = Conv2d(self.conv_dim, self.conv_dim, self.D_CONV, padding="same",
+                             groups=self.conv_dim, bias=False)
         self.norm = ChannelLayerNorm(d_inner)
-        self.out_proj = nn.Linear(d_inner, d_model, bias=False)
+        self.out_proj = Linear(d_inner, d_model, bias=False)
 
     def reset_random_(self, gen: torch.Generator):
         reset_dt_bias_and_a_log_(self, gen)
 
     def forward(self, u: torch.Tensor) -> torch.Tensor:
+        check_compute_dtype(self.linear_attn_duality, u.dtype)
         b, _, h, w = u.shape
         l = h * w
         d_inner, hh, P = self.d_inner, self.nheads // 2, self.headdim

@@ -15,6 +15,14 @@ the decoder computes only the features it consumes (the JAX default,
 scan (K2) has its backward kernel. ``refiner_remat`` recomputes each
 refiner Block's forward in the backward, as the JAX model does;
 ``apply_reference_init`` is the reference's init scheme.
+
+The model computes in its input's dtype (the JAX package's ``--bf16``
+feeds bf16 frames): parameters stay fp32, every layer casts its weights
+and gates where the JAX model does, and the output comes in the dtype the
+layers give it (bf16 for the ADN-SSD mixer's configurations; fp32 from the
+first Block on for the VSSD duality, whose mixers return fp32 as in JAX).
+The VSSD bimamba configuration runs in fp32 only
+(``mixers.vssd.check_compute_dtype``).
 """
 
 from __future__ import annotations
@@ -41,12 +49,15 @@ from adnm_tpu_torch.core.layers import (
     BiasFreeLayerNorm,
     ConvLayer,
     FeedForward,
+    Linear,
     Mlp,
     RMSNorm,
     channel_linear,
     channel_scale,
+    gate_cast,
     scalar_param,
 )
+from adnm_tpu_torch.mixers import vssd
 from adnm_tpu_torch.mixers.attention import StandardAttention
 from adnm_tpu_torch.mixers.ssd_mixer import ADNSSDMixer
 from adnm_tpu_torch.mixers.vssd import VSSDMixer
@@ -100,22 +111,27 @@ class Block(nn.Module):
             self.add_module(f"norm2_{i}", RMSNorm(dim, norm_epsilon, axis=1))
             self.add_module(f"ffn_{i}", FeedForward(dim, expansion=2))
         self.gamma = nn.Parameter(torch.ones(dim))
-        self.out_proj = nn.Linear(dim, out_dim) if dim != out_dim else None
+        self.out_proj = Linear(dim, out_dim) if dim != out_dim else None
 
     def forward(self, x: torch.Tensor, residual: Optional[torch.Tensor] = None,
                 features: Optional[torch.Tensor] = None) -> torch.Tensor:
+        # the gates in the input's dtype, the layers' in x's at their start
+        alpha1, alpha2, alpha3, alpha4, beta1, beta2 = gate_cast(
+            x, self.alpha1, self.alpha2, self.alpha3, self.alpha4, self.beta1, self.beta2)
         if residual is not None:
-            x = torch.cat([self.alpha1 * x, self.alpha2 * residual.to(x.dtype)], dim=1)
+            x = torch.cat([alpha1 * x, alpha2 * residual.to(x.dtype)], dim=1)
             if features is not None:
                 f = features.to(x.dtype)
-                x = x + torch.cat([self.alpha3 * f, self.alpha4 * f], dim=1)
+                x = x + torch.cat([alpha3 * f, alpha4 * f], dim=1)
         elif features is not None:
-            x = x + self.alpha3 * features.to(x.dtype)
+            x = x + alpha3 * features.to(x.dtype)
         for i in range(self.num_layers):
-            scale1, shift1, norm1, mixer, scale2, shift2, norm2, ffn = (
-                getattr(self, f"{name}_{i}") for name in
-                ("scale1", "shift1", "norm1", "mixer", "scale2", "shift2", "norm2", "ffn"))
-            b1, b2 = self.beta1[i], self.beta2[i]
+            scale1, shift1, scale2, shift2 = gate_cast(
+                x, *(getattr(self, f"{name}_{i}") for name in
+                     ("scale1", "shift1", "scale2", "shift2")))
+            norm1, mixer, norm2, ffn = (getattr(self, f"{name}_{i}") for name in
+                                        ("norm1", "mixer", "norm2", "ffn"))
+            b1, b2 = beta1[i], beta2[i]
             x = b1 * x + b2 * mixer(scale1 * norm1(x) + shift1)
             x = b1 * x + b2 * ffn(scale2 * norm2(x) + shift2)
         x = channel_scale(x, self.gamma)
@@ -144,13 +160,16 @@ class AttentionBlock(nn.Module):
         self.attn_norm2 = BiasFreeLayerNorm(dim)
         self.attn_mlp = Mlp(dim)
         self.gamma = nn.Parameter(torch.ones(dim))
-        self.out_proj = nn.Linear(dim, out_dim) if dim != out_dim else None
+        self.out_proj = Linear(dim, out_dim) if dim != out_dim else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x_norm = self.attn_scale1 * self.attn_norm1(x) + self.attn_shift1
-        x = self.beta1 * x + self.beta2 * self.attn_layer(x_norm)
-        x_norm = self.attn_scale2 * self.attn_norm2(x) + self.attn_shift2
-        x = self.beta3 * x + self.beta4 * self.attn_mlp(x_norm)
+        beta1, beta2, beta3, beta4, scale1, shift1, scale2, shift2 = gate_cast(
+            x, self.beta1, self.beta2, self.beta3, self.beta4, self.attn_scale1,
+            self.attn_shift1, self.attn_scale2, self.attn_shift2)
+        x_norm = scale1 * self.attn_norm1(x) + shift1
+        x = beta1 * x + beta2 * self.attn_layer(x_norm)
+        x_norm = scale2 * self.attn_norm2(x) + shift2
+        x = beta3 * x + beta4 * self.attn_mlp(x_norm)
         x = channel_scale(x, self.gamma)
         if self.out_proj is not None:
             x = channel_linear(self.out_proj, x)
@@ -291,6 +310,7 @@ class ADNMUNet(nn.Module):
         super().__init__()
         if attn_type != "standard":
             raise NotImplementedError(f"attn_type {attn_type!r}: only 'standard' is ported")
+        self.mixer_type, self.linear_attn_duality = mixer_type, linear_attn_duality
         mix = dict(linear_attn_duality=linear_attn_duality, mixer_type=mixer_type)
         self.encoder = Encoder(embed_dim, depth, headdim, channels, kernel, ratio, wt_levels,
                                norm_epsilon, instance_norm, **mix)
@@ -300,7 +320,14 @@ class ADNMUNet(nn.Module):
                                out_expand, norm_epsilon, instance_norm, **mix,
                                remat=refiner_remat)
 
+    def check_compute_dtype(self, dtype: torch.dtype) -> None:
+        """Raise where this configuration cannot compute in ``dtype``: the
+        VSSD bimamba one outside fp32 (``mixers.vssd.check_compute_dtype``)."""
+        if self.mixer_type == "vssd":
+            vssd.check_compute_dtype(self.linear_attn_duality, dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        self.check_compute_dtype(x.dtype)
         x, skips, res = self.encoder(x[:, :, 0])  # frames as NCHW channels
         x = self.decoder(x, skips)
         return self.refiner(x, res)[:, :, None]

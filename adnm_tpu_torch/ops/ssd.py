@@ -18,7 +18,12 @@ softplus'd; A, D (H,); B, C (B, N, L) shared by the heads.
 * ``ssd_naive_scan``: the O(L^2) causal oracle for the tests.
 
 The scan takes ``dA = dt * A`` with A < 0 as it is; only the duality
-negates it (``ssd_positive_dA``).
+negates it (``ssd_positive_dA``). Its six inputs (and the backward's
+``dy``) share one dtype, float32 or bfloat16, or the call raises a
+``TypeError``: as in the Pallas kernel, which reads any dtype and computes
+in fp32, bf16 inputs are widened to fp32 inside K2, its backward and
+their plain versions, and every output is rounded to the input dtype once,
+at the end (dA and dD too, which are fp32 sums until then).
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ SOURCES = ("ssd_scan.cu",)
 MAX_CHUNK = 256  # the Pallas kernel's contract: chunks of at most 256 tokens
 KERNEL_N = 16  # K2's state size (d_state of every mixer)
 KERNEL_P = 4  # K2's head width (headdim of every model)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # the I/O types K2 takes
 # The plain version's intra-chunk (B, H, chunks, Q, Q) decay tensor is
 # built a group of chunks at a time, about this many bytes per group.
 _INTRA_BYTES = 64 << 20
@@ -47,14 +53,16 @@ def linear_attn_dual_seqminor(
     C: torch.Tensor,
     D: torch.Tensor,
 ) -> torch.Tensor:
-    """``y = C^T (B (x * dA)^T) + x * D``. Returns (B, H, P, L)."""
+    """``y = C^T (B (x * dA)^T) + x * D``. Returns (B, H, P, L), in the
+    dtype that JAX's einsums give: bf16 where all inputs are bf16, fp32
+    where dt, A and D are fp32 and x, B and C bf16 (the VSSD mixer's)."""
     b, h, p, l = x.shape
     # A is negative and every reference mixer keeps ssd_positive_dA=True,
     # so dA = -(dt * A) >= 0.
     dA = -(dt * A[None, :, None])
     v = (x * dA[:, :, None, :]).reshape(b, h * p, l)
-    kv = torch.bmm(B, v.transpose(1, 2))  # (B, N, H*P)
-    y = torch.bmm(kv.transpose(1, 2), C).reshape(b, h, p, l)
+    kv = torch.bmm(B.to(v.dtype), v.transpose(1, 2))  # (B, N, H*P)
+    y = torch.bmm(kv.transpose(1, 2), C.to(kv.dtype)).reshape(b, h, p, l)
     return y + x * D[None, :, None, None]
 
 
@@ -71,6 +79,12 @@ def ssd_naive_scan(x, dt, A, B, C, D) -> torch.Tensor:
     return y + x * D[None, :, None, None]
 
 
+def _widened(*ts):
+    """The tensors in fp32 where they are narrower (bf16 I/O is computed in
+    fp32), else as they are."""
+    return [t.to(torch.promote_types(t.dtype, torch.float32)) for t in ts]
+
+
 def _chunk(l: int, chunk_size: int) -> int:
     q = min(chunk_size, l)
     if q <= 0 or l % q:
@@ -82,7 +96,10 @@ def ssd_chunked_scan_reference(x, dt, A, B, C, D, chunk_size: int = 256) -> torc
     """Plain PyTorch version of K2, the three phases of the JAX
     ``ssd_chunked_scan`` (``adnm_tpu/ops/ssd.py:146-208``): every chunk's
     end state, the sequential carry of the state over chunks, then every
-    chunk's output (intra-chunk masked product + carried state + D skip)."""
+    chunk's output (intra-chunk masked product + carried state + D skip).
+    Computes in fp32 from bf16 inputs, and returns y in x's dtype."""
+    io = x.dtype
+    x, dt, A, B, C, D = _widened(x, dt, A, B, C, D)
     b, h, p, l = x.shape
     n = B.shape[1]
     q = _chunk(l, chunk_size)
@@ -113,7 +130,7 @@ def ssd_chunked_scan_reference(x, dt, A, B, C, D, chunk_size: int = 256) -> torc
         qk = torch.einsum("bnct,bncs->bcts", Cc[:, :, sl], Bc[:, :, sl])
         y[:, :, :, sl] += torch.einsum("bhcts,bhpcs->bhpct", torch.exp(seg) * qk[:, None],
                                        xd[:, :, :, sl])
-    return y.reshape(b, h, p, l) + x * D[None, :, None, None]
+    return (y.reshape(b, h, p, l) + x * D[None, :, None, None]).to(io)
 
 
 def ssd_chunked_scan_backward_reference(x, dt, A, B, C, D, dy, chunk_size: int = 256,
@@ -133,11 +150,14 @@ def ssd_chunked_scan_backward_reference(x, dt, A, B, C, D, dy, chunk_size: int =
     of output and source tokens with s < t <= r, which per chunk is a
     reverse cumulative sum of each token's row minus column sums over the
     intra-chunk pairs, plus the carried states' terms; every sum stays
-    within one chunk."""
+    within one chunk. Computes in fp32 from bf16 inputs, and returns every
+    gradient in x's dtype."""
+    io = x.dtype
+    x, dt, A, B, C, D, dy = _widened(x, dt, A, B, C, D, dy)
     if reverse:
         x, dt, B, C, dy = (t.flip(-1) for t in (x, dt, B, C, dy))
         grads = ssd_chunked_scan_backward_reference(x, dt, A, B, C, D, dy, chunk_size)
-        dx, ddt, dA, dB, dC, dD = grads
+        dx, ddt, dA, dB, dC, dD = (g.to(io) for g in grads)
         return dx.flip(-1), ddt.flip(-1), dA, dB.flip(-1), dC.flip(-1), dD
     b, h, p, l = x.shape
     n = B.shape[1]
@@ -198,7 +218,7 @@ def ssd_chunked_scan_backward_reference(x, dt, A, B, C, D, dy, chunk_size: int =
     ddt = (x * u).sum(2) + ddA * A[None, :, None]
     dA = (ddA * dt).sum((0, 2))
     dD = (x * dy).sum((0, 2, 3))
-    return dx, ddt, dA, dB.reshape(b, n, l), dC.reshape(b, n, l), dD
+    return tuple(g.to(io) for g in (dx, ddt, dA, dB.reshape(b, n, l), dC.reshape(b, n, l), dD))
 
 
 @functools.lru_cache(maxsize=None)
@@ -209,6 +229,7 @@ def _library() -> ctypes.CDLL:
         *(ctypes.c_int64,) * 4,  # batch strides of x, dt, B, C (elements)
         *(ctypes.c_int,) * 6,  # batch, heads, P, N, L, Q
         ctypes.c_int,  # reverse
+        ctypes.c_int,  # dtype: 0 float32, 1 bfloat16
         ctypes.c_void_p,  # stream
     ]
     lib.adnm_ssd_chunked_scan.restype = ctypes.c_int
@@ -222,6 +243,7 @@ def _library() -> ctypes.CDLL:
         *(ctypes.c_int64,) * 4,  # batch strides of x, dt, B, C (elements)
         *(ctypes.c_int,) * 6,  # batch, heads, P, N, L, Q
         ctypes.c_int,  # reverse
+        ctypes.c_int,  # dtype
         ctypes.c_void_p,  # stream
     ]
     lib.adnm_ssd_chunked_scan_backward.restype = ctypes.c_int
@@ -252,8 +274,13 @@ def _batch_stride(name: str, t: torch.Tensor) -> int:
     return t.stride(0)
 
 
-def _check(x, dt, A, B, C, D, chunk_size: int) -> int:
-    """Validate the shapes; the chunk."""
+def _check(x, dt, A, B, C, D, chunk_size: int, *more) -> int:
+    """Validate the shapes and that the inputs (and ``more``) share one
+    dtype; the chunk."""
+    named = dict(zip(("x", "dt", "A", "B", "C", "D", "dy"), (x, dt, A, B, C, D, *more)))
+    if len({t.dtype for t in named.values()}) > 1:
+        raise TypeError("ssd_chunked_scan takes one dtype for all its inputs (float32 or "
+                        "bfloat16), got " + ", ".join(f"{k} {t.dtype}" for k, t in named.items()))
     if x.dim() != 4:
         raise ValueError(f"x must be (B, H, P, L), got {tuple(x.shape)}")
     b, h, p, l = x.shape
@@ -272,8 +299,8 @@ def _kernel_args(what: str, args: dict, q: int) -> list:
     for name, t in args.items():
         if t.device != x.device:
             raise ValueError(f"{name} on {t.device}, x on {x.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{what} kernel takes float32 tensors, {name} is {t.dtype}")
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{what} kernel takes float32 or bfloat16 tensors, got {x.dtype}")
     if B.shape[1] != KERNEL_N or x.shape[2] != KERNEL_P:
         raise ValueError(f"{what} kernel takes N = {KERNEL_N} and P = {KERNEL_P}, "
                          f"got N = {B.shape[1]}, P = {x.shape[2]}")
@@ -318,7 +345,7 @@ def _scan(x, dt, A, B, C, D, q: int, reverse: bool) -> torch.Tensor:
             rc = lib.adnm_ssd_chunked_scan(
                 x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
                 D.data_ptr(), y.data_ptr(), states.data_ptr(), decay.data_ptr(),
-                *strides, b, h, p, n, l, q, int(reverse), stream)
+                *strides, b, h, p, n, l, q, int(reverse), _DTYPE_CODES[x.dtype], stream)
     _raise_on(lib, rc, "ssd_chunked_scan")
     ssd_chunked_scan.launches += 1
     return y
@@ -360,7 +387,7 @@ def ssd_chunked_scan_backward(x, dt, A, B, C, D, dy, chunk_size: int = 256,
     """(dx, ddt, dA, dB, dC, dD) of ``ssd_chunked_scan`` for the output
     gradient ``dy``: the plain version for CPU tensors, else K2's backward
     kernel (csrc/ssd_scan.cu), which raises on what it does not take."""
-    q = _check(x, dt, A, B, C, D, chunk_size)
+    q = _check(x, dt, A, B, C, D, chunk_size, dy)
     if dy.shape != x.shape:
         raise ValueError(f"dy {tuple(dy.shape)} does not fit x {tuple(x.shape)}")
     if x.device.type == "cpu":
@@ -377,20 +404,20 @@ def ssd_chunked_scan_backward(x, dt, A, B, C, D, dy, chunk_size: int = 256,
     n_scratch = ctypes.c_int64()
     rc = lib.adnm_ssd_backward_scratch_floats(b, h, l, ctypes.byref(n_scratch))
     if rc == 0:
-        dev, f32 = x.device, torch.float32
-        dx = torch.empty((b, h, p, l), dtype=f32, device=dev)
-        ddt = torch.empty((b, h, l), dtype=f32, device=dev)
-        dB = torch.empty((b, n, l), dtype=f32, device=dev)
-        dC = torch.empty((b, n, l), dtype=f32, device=dev)
-        dA = torch.empty(h, dtype=f32, device=dev)
-        dD = torch.empty(h, dtype=f32, device=dev)
-        scratch = torch.empty(n_scratch.value, dtype=f32, device=dev)
+        dev, io = x.device, x.dtype
+        dx = torch.empty((b, h, p, l), dtype=io, device=dev)
+        ddt = torch.empty((b, h, l), dtype=io, device=dev)
+        dB = torch.empty((b, n, l), dtype=io, device=dev)
+        dC = torch.empty((b, n, l), dtype=io, device=dev)
+        dA = torch.empty(h, dtype=io, device=dev)
+        dD = torch.empty(h, dtype=io, device=dev)
+        scratch = torch.empty(n_scratch.value, dtype=torch.float32, device=dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = lib.adnm_ssd_chunked_scan_backward(
                 *(t.data_ptr() for t in (x, dt, A, B, C, D, dy, dx, ddt, dA, dB, dC, dD,
                                          scratch)),
-                *strides, b, h, p, n, l, q, int(reverse), stream)
+                *strides, b, h, p, n, l, q, int(reverse), _DTYPE_CODES[io], stream)
     _raise_on(lib, rc, "ssd_chunked_scan_backward")
     ssd_chunked_scan_backward.launches += 1
     return dx, ddt, dA, dB, dC, dD

@@ -3,7 +3,12 @@ train.py:107-250), on one device.
 
 One step per batch: forward, loss, backward (with gradient accumulation
 over ``accum_steps`` microbatches), the global fp32 gradient norm, the
-adaptive clip, the epoch's LR and an AdamW step. LR and clip threshold are
+adaptive clip, the epoch's LR and an AdamW step. With ``compute_dtype``
+bfloat16 (the JAX package's ``--bf16``) the activations run in bf16 while
+the parameters, their gradients and the AdamW state stay fp32, and the
+loss is computed in fp32. The backward runs with cuDNN held to its
+deterministic algorithms, so two steps of one batch give the same bits on
+the card. LR and clip threshold are
 host-side scalars set per epoch, as in the reference's per-epoch Python
 schedules (train.py:122-130,186-191). Losses and gradient norms stay on
 the device until the epoch ends, so the host never waits for a step.
@@ -27,6 +32,7 @@ from torch.utils.checkpoint import checkpoint
 
 from adnm_tpu_torch.core.layers import seeded_init_
 from adnm_tpu_torch.data.loader import device_prefetch, to_device
+from adnm_tpu_torch.device import deterministic_cudnn
 from adnm_tpu_torch.train import checkpoint as ckpt
 from adnm_tpu_torch.train.presets import TrainPreset
 from adnm_tpu_torch.utils.logging import MetricsLogger
@@ -49,7 +55,8 @@ class Trainer:
     def __init__(self, model: nn.Module, preset: TrainPreset, input_frames: int,
                  device: torch.device, seed: int = 0,
                  param_transform: Optional[Callable[[nn.Module, torch.Generator], nn.Module]] = None,
-                 remat_forward: bool = False, accum_steps: int = 1):
+                 remat_forward: bool = False, accum_steps: int = 1,
+                 compute_dtype: torch.dtype = torch.float32):
         """The model's weights come from the init seeded with ``seed``
         (``seeded_init_``, on the CPU), then ``param_transform(model,
         generator seeded with seed + 1)`` (``apply_reference_init`` for
@@ -63,9 +70,17 @@ class Trainer:
         microbatches, runs them one after another and averages their
         gradients before one optimizer step: activation memory drops about
         m-fold. Exact for the reference losses, which are elementwise
-        means. Needs batch % accum_steps == 0."""
+        means. Needs batch % accum_steps == 0.
+
+        ``compute_dtype`` is the activations' dtype (float32, or bfloat16
+        as the JAX ``--bf16``); a model configuration that cannot compute in
+        it (``check_compute_dtype``) raises here, before any work."""
         if accum_steps < 1:
             raise ValueError("accum_steps must be >= 1")
+        check = getattr(model, "check_compute_dtype", None)
+        if check is not None:
+            check(compute_dtype)
+        self.compute_dtype = compute_dtype
         self.model = model
         self.preset = preset
         self.input_frames = input_frames
@@ -85,10 +100,15 @@ class Trainer:
     def _split_batch(self, batch: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """(imgs, targets) from a (B, T_in+T_out, 1, S, S) batch, in one of
         two wire formats: float (already in [0, 1]) or uint8 (round(x*255),
-        brought back to [0, 1] in fp32 on the device)."""
-        if not batch.is_floating_point():
-            batch = batch.to(torch.float32) * (1.0 / 255.0)
-        return batch[:, :self.input_frames], batch[:, self.input_frames:]
+        brought back to [0, 1] on the device). The images come in the
+        compute dtype, the targets in fp32, with JAX's arithmetic: uint8
+        images are cast and then multiplied by 1/255 rounded to the compute
+        dtype."""
+        t, cdt = self.input_frames, self.compute_dtype
+        if batch.is_floating_point():
+            return batch[:, :t].to(cdt), batch[:, t:]
+        scale = float(torch.tensor(1.0 / 255.0, dtype=cdt))  # 1/255 in cdt
+        return batch[:, :t].to(cdt) * scale, batch[:, t:].to(torch.float32) * (1.0 / 255.0)
 
     def _forward(self, imgs: torch.Tensor) -> torch.Tensor:
         if self.remat_forward and torch.is_grad_enabled():
@@ -108,7 +128,8 @@ class Trainer:
         loss = torch.zeros((), device=imgs.device)
         for im, tg in zip(imgs.chunk(m), targets.chunk(m)):
             part = self.preset.loss_fn(self._forward(im).float(), tg)
-            part.backward()
+            with deterministic_cudnn():  # the convolutions' dgrad and wgrad
+                part.backward()
             loss = loss + part.detach()
         for p in self.params:
             if p.grad is None:

@@ -1,7 +1,8 @@
 """Kernels K1 (RMS norm), K3 (gated RMS norm) and K2 (chunked SSD scan),
-forward and backward, of the PyTorch port on an NVIDIA card, a bimamba
-training step through K2's two kernels, the evaluator on the card against
-the CPU, and the entry points' fp32 without TF32.
+forward and backward, in fp32 and bf16, of the PyTorch port on an NVIDIA
+card, a bimamba training step through K2's two kernels, the evaluator on
+the card against the CPU, the entry points' fp32 without TF32, and the
+bits of two forwards and of two training steps.
 
 Every test here is marked ``cuda`` and skips where there is no card. The
 file imports no JAX; ``tests/conftest.py`` does, so on a machine with the
@@ -547,4 +548,119 @@ def test_two_forwards_of_one_input_are_bit_equal_on_the_card(card):
     with torch.inference_mode():
         a, b = model(x), model(x)
     assert torch.equal(a, b)
+    assert torch.backends.cudnn.deterministic is False
+
+
+# bf16: the kernel and the plain version round fp32 results that differ by
+# K2's fp32 tolerance, so the two roundings are at most one bf16 step
+# (2^-7 relative) apart, plus that tolerance.
+BF16_STEP = 2.0 ** -7
+
+
+def bf16(*ts):
+    return tuple(t.to(torch.bfloat16) for t in ts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("carry", [False, True])
+def test_ssd_kernel_matches_plain_version_in_bf16(card, reverse, carry):
+    """K2 on bf16 inputs (K2_CASES: the vector and 4-byte paths, clusters
+    and the three-launch form, channel slices) writes bf16 y within one
+    bf16 step of its plain version, which computes in fp32 and rounds."""
+    gen = torch.Generator(device=card).manual_seed(11)
+    for b, h, p, l, q, sliced in K2_CASES:
+        x, dt, A, B, C, D = bf16(*scan_inputs(b, h, p, l, gen, carry))
+        if sliced:
+            x, dt, B, C = channel_slices(x, dt, B, C)
+        got = ssd.ssd_chunked_scan(x, dt, A, B, C, D, chunk_size=q, reverse=reverse)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bfloat16
+        flip = (lambda t: t.flip(-1)) if reverse else (lambda t: t)
+        want = flip(ssd.ssd_chunked_scan_reference(flip(x), flip(dt), A, flip(B), flip(C), D, q))
+        assert want.dtype == torch.bfloat16
+        torch.testing.assert_close(got.float(), want.float(), rtol=BF16_STEP, atol=1e-4,
+                                   msg=lambda m: f"{b} {h} {l}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("carry", [False, True])
+def test_ssd_backward_kernel_matches_plain_version_in_bf16(card, reverse, carry):
+    """K2's backward on bf16 inputs at K2B_CASES: every gradient bf16, two
+    launches bit-equal, each within one bf16 step of the plain version
+    (fp32 inside, rounded once) beside the fp32 tolerances."""
+    gen = torch.Generator(device=card).manual_seed(12)
+    for b, h, p, l, q, sliced in K2B_CASES:
+        x, dt, A, B, C, D, dy = bf16(*scan_grad_inputs(b, h, p, l, gen, carry))
+        if sliced:
+            x, dt, B, C = channel_slices(x, dt, B, C)
+        args = x, dt, A, B, C, D
+        got = ssd.ssd_chunked_scan_backward(*args, dy, q, reverse)
+        again = ssd.ssd_chunked_scan_backward(*args, dy, q, reverse)
+        torch.cuda.synchronize()
+        want = ssd.ssd_chunked_scan_backward_reference(*args, dy, q, reverse)
+        terms = k2_grad_terms(*args, dy, want)
+        for name, g, g2, w in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), got, again, want):
+            assert g.dtype == w.dtype == torch.bfloat16, name
+            assert torch.equal(g, g2), (name, b, h, l)
+            g, w = g.float(), w.float()
+            if name in ("dA", "dD"):
+                tol = 1e-4 * terms[name] + BF16_STEP * w.abs() + 1e-6
+                assert bool(((g - w).abs() <= tol).all()), (name, b, h, l)
+            else:
+                torch.testing.assert_close(g, w, rtol=BF16_STEP,
+                                           atol=1e-4 * w.abs().max().item(),
+                                           msg=lambda m: f"{name} {b} {h} {l}: {m}")
+
+
+@pytest.mark.cuda
+def test_ssd_kernels_raise_on_mixed_dtypes(card):
+    gen = torch.Generator(device=card).manual_seed(13)
+    *args, dy = scan_grad_inputs(1, 4, 4, 64, gen)
+    x, dt, A, B, C, D = args
+    with pytest.raises(TypeError, match="one dtype"):
+        ssd.ssd_chunked_scan(x.bfloat16(), dt, A, B, C, D)
+    with pytest.raises(TypeError, match="one dtype"):
+        ssd.ssd_chunked_scan_backward(*bf16(*args), dy)
+
+
+@pytest.mark.cuda
+def test_two_bf16_forwards_of_one_input_are_bit_equal_on_the_card(card):
+    """The full-width duality model at 256^2 in bf16 compute, batch 1: two
+    forwards give the same bits, in bf16, from the fp32 parameters."""
+    from adnm_tpu_torch.cli import predict
+
+    model = predict.load_model(None, card, compute_dtype=torch.bfloat16)
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    x = torch.rand(1, 5, 1, 256, 256, generator=torch.Generator().manual_seed(0)).to(card)
+    with torch.inference_mode():
+        a, b = model(x.bfloat16()), model(x.bfloat16())
+    assert a.dtype == torch.bfloat16 and torch.isfinite(a.float()).all()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("linear_attn_duality", [True, False])
+def test_two_fp32_training_steps_give_the_same_gradients_on_the_card(card, linear_attn_duality):
+    """Two gradients of one batch (the full-width model at 256^2, batch 1,
+    refiner remat, the duality and the bimamba configurations) are
+    bit-equal: the backward's convolutions run on cuDNN's deterministic
+    algorithms (``Trainer._backward``), K1's and K2's backward kernels sum
+    in one fixed order. The flag is restored after the backward."""
+    from adnm_tpu_torch.models.adnm_unet import apply_reference_init, create_adnm_unet
+    from adnm_tpu_torch.train.loop import Trainer
+    from adnm_tpu_torch.train.presets import get_preset
+
+    trainer = Trainer(create_adnm_unet(5, 20, 6, linear_attn_duality=linear_attn_duality),
+                      get_preset("ADNMUnet", 5, 20, 6, "Shanghai"), 5, card, seed=0,
+                      param_transform=apply_reference_init)
+    batch = np.random.RandomState(0).rand(1, 25, 1, 256, 256).astype(np.float32)
+    runs = []
+    for _ in range(2):
+        loss, grads = trainer.grads(batch)
+        runs.append((loss.clone(), {k: g.clone() for k, g in grads.items()}))
+    (loss_a, a), (loss_b, b) = runs
+    assert torch.equal(loss_a, loss_b)
+    assert all(torch.equal(a[k], b[k]) for k in a), [k for k in a if not torch.equal(a[k], b[k])]
     assert torch.backends.cudnn.deterministic is False

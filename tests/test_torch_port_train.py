@@ -45,6 +45,7 @@ CPU = torch.device("cpu")
 TINY_KW = dict(channels=5, out_channels=2, kernel=(3, 3, 3), **TINY)
 GRAD_RTOL = 1e-4  # relative L2 error of one leaf's gradient
 GRAD_ATOL = 1e-6  # L2 error of one leaf, relative to the global gradient norm
+SMALL_LEAF = 64  # bf16: gradient tensors of fewer values are held as one vector
 
 
 # the leaves the JAX model creates and never reads
@@ -107,6 +108,46 @@ def test_loss_and_every_gradient_match_jax(params, jax_grads):
     assert_grads_close(flat_grads(t, grads), want)
     # the leaves the JAX model never reads get no gradient on either side
     assert not any(np.any(want[k]) for k in want if unread(k))
+
+
+def test_bf16_loss_and_every_gradient_match_the_jax_trainer_in_bf16(params, jax_trainer,
+                                                                     jax_grads):
+    """The trainer in bf16 compute (fp32 parameters and gradients) against
+    this module's JAX trainer with ``compute_dtype`` bfloat16 (only
+    ``_split_batch`` reads it). Yardstick: d, JAX's own bf16-vs-fp32
+    distance (against ``jax_grads``); the port within 2 d of JAX in bf16,
+    never below one bf16 rounding (2^-8): the loss, the whole gradient,
+    each gradient tensor of at least SMALL_LEAF values, and the smaller ones
+    (gates, norm weights, biases) as one vector. A tensor of a few values
+    has no distance of its own to speak of: its d is a handful of rounding
+    errors, as likely near 0 as not (a gate's d was 9e-8 beside 6e-6 from
+    the port)."""
+    batch, loss32, want32 = jax_grads
+    jax_trainer.compute_dtype = jnp.bfloat16
+    try:
+        loss16, grads16, _ = jax.jit(jax_trainer._grads_impl)(jax_trainer.state, batch)
+    finally:
+        jax_trainer.compute_dtype = jnp.float32
+    want16 = convert.flatten_tree(jax.device_get(grads16))
+    t = port_trainer(params, compute_dtype=torch.bfloat16)
+    loss, grads = t.grads(batch)
+    assert all(g.dtype == torch.float32 for g in grads.values())
+    got = flat_grads(t, grads)
+    assert got.keys() == want16.keys()
+
+    def check(name, g, w16, w32):
+        g, w16, w32 = (np.asarray(a, np.float64).ravel() for a in (g, w16, w32))
+        d, e = np.linalg.norm(w16 - w32), np.linalg.norm(g - w16)
+        assert e <= max(2 * d, 2.0 ** -8 * np.linalg.norm(w16)), (name, e, d)
+
+    check("loss", float(loss), float(loss16), loss32)
+    leaves = [(k, got[k], want16[k], want32[k]) for k in want16]
+    for k, g, w16, w32 in leaves:
+        if np.size(w16) >= SMALL_LEAF:
+            check(k, g, w16, w32)
+    for name, keep in (("small leaves", lambda n: n < SMALL_LEAF), ("all", lambda n: True)):
+        check(name, *(np.concatenate([np.ravel(leaf[i]) for leaf in leaves if keep(np.size(leaf[2]))])
+                      for i in (1, 2, 3)))
 
 
 def test_three_step_trajectory_stays_in_the_sign_flip_band(params, jax_trainer):
