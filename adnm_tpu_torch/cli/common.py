@@ -11,17 +11,16 @@ import torch
 from adnm_tpu_torch.data.loader import BatchLoader
 from adnm_tpu_torch.data.shanghai import make_datasets
 from adnm_tpu_torch.device import resolve_device
-from adnm_tpu_torch.models.adnm_unet import apply_reference_init, create_adnm_unet
+from adnm_tpu_torch.models.adnm_unet import apply_reference_init
+from adnm_tpu_torch.models.registry import MODEL_NAMES, PORTED_MODELS, create_model
 from adnm_tpu_torch.train.checkpoint import best_ckpt_dir
 from adnm_tpu_torch.train.loop import Trainer
 from adnm_tpu_torch.train.presets import get_preset
 
-PORTED_MODELS = ("ADNMUnet",)
-
 
 def add_common_args(p: argparse.ArgumentParser):
-    p.add_argument("--model", default="ADNMUnet",
-                   help="model name; only ADNMUnet is ported, the baselines raise")
+    p.add_argument("--model", default="ADNMUnet", choices=list(MODEL_NAMES),
+                   help=f"model name; ported: {', '.join(PORTED_MODELS)} (the others raise)")
     p.add_argument("--dataset", default="Shanghai", choices=["Shanghai", "LAPS"],
                    help="LAPS is not ported and raises")
     p.add_argument("--data-path", default=os.environ.get("ADNM_DATA", "datasets/shanghai.h5"))
@@ -35,15 +34,17 @@ def add_common_args(p: argparse.ArgumentParser):
     p.add_argument("--remat", action="store_true",
                    help="recompute the whole training forward in the backward "
                         "(torch.utils.checkpoint): less activation memory, more "
-                        "step time, the same gradients")
+                        "step time, the same gradients. Ignored for BatchNorm models "
+                        "(SmaATUnet)")
     p.add_argument("--no-refiner-remat", action="store_true",
-                   help="keep the refiner Blocks' activations instead of recomputing "
-                        "their forward in the backward: faster step, more memory")
+                   help="ADNMUnet only: keep the refiner Blocks' activations instead of "
+                        "recomputing their forward in the backward: faster step, more memory")
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 compute (fp32 params/optimizer - mixed precision; the loss "
-                        "is computed in fp32)")
+                        "is computed in fp32); ADNMUnet only, the baselines raise")
     p.add_argument("--attn-type", default="standard", choices=["standard", "mla"],
-                   help="mixer at the AttentionBlock sites; mla is not ported and raises")
+                   help="ADNMUnet only: mixer at the AttentionBlock sites; mla is not ported "
+                        "and raises")
     p.add_argument("--transfer-dtype", default="float32", choices=["float32", "uint8"],
                    help="batch wire format host->device; uint8 ships round(x*255) "
                         "and normalizes on the device (4x fewer bytes)")
@@ -78,25 +79,42 @@ def compute_dtype(args) -> torch.dtype:
     return torch.bfloat16 if getattr(args, "bf16", False) else torch.float32
 
 
+def model_kwargs(args) -> dict:
+    """The ADNMUnet options of ``args`` for ``create_model``; with another
+    model they exit, as in JAX (adnm_tpu/cli/common.py:173-178)."""
+    kwargs = {}
+    if args.no_refiner_remat:
+        if args.model != "ADNMUnet":
+            raise SystemExit("--no-refiner-remat is only supported for --model ADNMUnet")
+        kwargs["refiner_remat"] = False
+    if args.attn_type != "standard":
+        if args.model != "ADNMUnet":
+            raise SystemExit("--attn-type is only supported for --model ADNMUnet")
+        raise NotImplementedError(f"--attn-type {args.attn_type!r} is not ported")
+    return kwargs
+
+
 def build(args):
     """(Trainer, (train, val, test) loaders, (input_frames, output_frames,
-    frame_interval, thresholds))."""
+    frame_interval, thresholds)): ``args.model`` from the port's registry
+    with its preset; the reference init for ADNMUnet alone."""
     if args.model not in PORTED_MODELS:
-        raise NotImplementedError(f"--model {args.model!r} is not ported (only ADNMUnet)")
-    if args.attn_type != "standard":
-        raise NotImplementedError(f"--attn-type {args.attn_type!r} is not ported")
+        raise NotImplementedError(f"--model {args.model!r} is not ported to adnm_tpu_torch "
+                                  f"(ported: {', '.join(PORTED_MODELS)})")
+    kwargs = model_kwargs(args)
     shape = task_shape(args)
     input_frames, output_frames, frame_interval, _ = shape
     device = resolve_device(args.device)
     accum = getattr(args, "accum_steps", 1) or 1
     if args.batch_size % accum:
         raise SystemExit(f"--accum-steps {accum} must divide --batch-size {args.batch_size}")
-    model = create_adnm_unet(input_frames, output_frames, frame_interval,
-                             img_size=args.img_size, refiner_remat=not args.no_refiner_remat)
+    model = create_model(args.model, input_frames, output_frames, frame_interval,
+                         img_size=args.img_size, **kwargs)
     preset = get_preset(args.model, input_frames, output_frames, frame_interval, args.dataset)
     trainer = Trainer(model, preset, input_frames, device, seed=args.seed,
-                      param_transform=apply_reference_init, remat_forward=args.remat,
-                      accum_steps=accum, compute_dtype=compute_dtype(args))
+                      param_transform=apply_reference_init if args.model == "ADNMUnet" else None,
+                      remat_forward=args.remat, accum_steps=accum,
+                      compute_dtype=compute_dtype(args))
     data_path = None if args.synthetic else args.data_path
     tr, va, te = make_datasets(data_path, args.img_size, synthetic_len=args.synthetic_len)
     tdt = args.transfer_dtype

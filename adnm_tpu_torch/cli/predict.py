@@ -1,16 +1,21 @@
-"""Serve the ADNM-UNet nowcast: input frames in, predicted frames out.
+"""Serve a nowcast: input frames in, predicted frames out.
 
-    python -m adnm_tpu_torch.cli.predict --input frames.npy [--ckpt PATH | --params params.npz] [--bf16]
+    python -m adnm_tpu_torch.cli.predict --input frames.npy [--model NAME] [--ckpt PATH | --params params.npz] [--bf16]
 
 Reads (T_in, H, W) or (B, T_in, 1, H, W) frames in [0, 1] from .npy, runs
-the forward of ``create_adnm_unet(5, 20, 6)`` (the Shanghai task) in
-batches of ``--batch-size``, optionally chains it until ``--horizon``
-frames exist, writes (B, T, 1, H, W) predictions to ``--output`` and, with
-``--png DIR``, PNG strips per clip. Weights come from ``--params`` (a JAX
-params tree saved by ``adnm_tpu_torch.convert.save_params_npz``), else
-from a checkpoint of the port's train CLI (``--ckpt``, by default the best
-checkpoint under ``--root``), else, with a warning, from the seeded init.
-``--device`` defaults to cuda and raises when CUDA is absent.
+the forward of ``--model`` (default ADNMUnet; the ported baselines
+SmaATUnet, ConvLSTM, TrajGRU and LPTQPN) for the Shanghai task (5 frames
+in, 20 out) in batches of ``--batch-size``, optionally chains it until
+``--horizon`` frames exist, writes (B, T, 1, H, W) predictions to
+``--output`` and, with ``--png DIR``, PNG strips per clip. Weights come
+from ``--params`` (a JAX params tree saved by
+``adnm_tpu_torch.convert.save_params_npz``; not for SmaATUnet, whose
+running statistics it lacks), else from a checkpoint of the port's train CLI
+(``--ckpt``, by default the model's best checkpoint under ``--root``;
+BatchNorm's running statistics come with it), else, with a warning, from
+the seeded init. A ConvLSTM serves only ``--img-size`` frames, the size
+its checkpoint was trained at. ``--device`` defaults to cuda and raises
+when CUDA is absent. ``--bf16`` is ported for ADNMUnet alone.
 """
 
 from __future__ import annotations
@@ -23,11 +28,11 @@ import numpy as np
 import torch
 
 from adnm_tpu_torch.cli.common import compute_dtype, resolve_ckpt
-from adnm_tpu_torch.convert import from_jax_params, load_params_npz
+from adnm_tpu_torch.convert import from_jax_params, load_params_npz, to_jax_batch_stats
 from adnm_tpu_torch.core.layers import seeded_init_
 from adnm_tpu_torch.device import resolve_device
-from adnm_tpu_torch.models.adnm_unet import ADNMUNet, create_adnm_unet
-from adnm_tpu_torch.train.checkpoint import restore_state
+from adnm_tpu_torch.models.registry import PORTED_MODELS, create_model
+from adnm_tpu_torch.train.checkpoint import load_model_state, restore_state
 from adnm_tpu_torch.viz import vis_res
 
 # The Shanghai task: 5 frames in, 20 out, 6-minute interval
@@ -37,24 +42,31 @@ INIT_SEED = 0  # weights without --params or a checkpoint
 
 
 def load_model(params: Optional[str], device, ckpt: Optional[str] = None,
-               compute_dtype: torch.dtype = torch.float32, **model_kwargs) -> ADNMUNet:
-    """The model in eval mode on ``device`` (``resolve_device``: fp32
-    without TF32), with weights from the ``params`` .npz, else from the
-    ``ckpt`` checkpoint file of the port's ``Trainer`` (its "params"), else
-    from the init seeded with ``INIT_SEED``. ``model_kwargs`` go to
-    ``create_adnm_unet``, as the JAX registry passes them:
-    ``linear_attn_duality=False`` builds the bimamba chunked-scan
-    configuration, ``mixer_type="vssd"`` the VSSD mixer; a checkpoint must
-    come from the same configuration. The parameters are fp32 whatever
-    ``compute_dtype`` ``forecast`` runs in; a configuration that cannot
-    compute in ``compute_dtype`` raises here."""
+               compute_dtype: torch.dtype = torch.float32, model_name: str = "ADNMUnet",
+               img_size: int = 256, **model_kwargs) -> torch.nn.Module:
+    """The model ``model_name`` in eval mode on ``device``
+    (``resolve_device``: fp32 without TF32), with weights from the
+    ``params`` .npz, else from the ``ckpt`` checkpoint file of the port's
+    ``Trainer`` (its "params", BatchNorm's running statistics included),
+    else from the init seeded with ``INIT_SEED``. ``img_size`` is the frame
+    size, which fixes ConvLSTM's peephole weights (a checkpoint of another
+    size raises). ``model_kwargs`` go to the ADNMUnet factory, as the JAX
+    registry passes them: ``linear_attn_duality=False`` builds the bimamba
+    chunked-scan configuration, ``mixer_type="vssd"`` the VSSD mixer; a
+    checkpoint must come from the same configuration. The parameters are
+    fp32 whatever ``compute_dtype`` ``forecast`` runs in; a model that
+    cannot compute in ``compute_dtype`` raises here."""
     device = resolve_device(device)
-    model = create_adnm_unet(INPUT_FRAMES, OUTPUT_FRAMES, FRAME_INTERVAL, **model_kwargs)
+    model = create_model(model_name, INPUT_FRAMES, OUTPUT_FRAMES, FRAME_INTERVAL,
+                         img_size=img_size, **model_kwargs)
     model.check_compute_dtype(compute_dtype)
     if params is not None:
+        if to_jax_batch_stats(model):
+            raise ValueError(f"{model_name} has BatchNorm running statistics, which a params "
+                             f".npz does not carry: serve it from a --ckpt")
         from_jax_params(model, load_params_npz(params))
     elif ckpt is not None:
-        model.load_state_dict(restore_state(ckpt, {"params": {}})["params"])
+        load_model_state(model, restore_state(ckpt, {"params": {}})["params"], ckpt)
     else:
         seeded_init_(model, INIT_SEED)
     return model.to(device).eval()
@@ -70,13 +82,14 @@ def read_frames(path: str, img_size: int) -> np.ndarray:
     return x
 
 
-def forecast(model: ADNMUNet, x: np.ndarray, batch_size: int, device: torch.device,
+def forecast(model: torch.nn.Module, x: np.ndarray, batch_size: int, device: torch.device,
              horizon: Optional[int] = None,
              compute_dtype: torch.dtype = torch.float32) -> np.ndarray:
-    """Fp32 predictions for ``x`` (B, T_in, 1, H, W), the model run on frames
-    cast to ``compute_dtype``; with ``horizon`` beyond the model's T_out,
-    the last T_in predicted frames (clipped to [0, 1] in fp32) are fed back
-    until ``horizon`` frames exist."""
+    """Fp32 predictions for ``x`` (B, T_in, 1, H, W), the model run in eval
+    mode on frames cast to ``compute_dtype``; with ``horizon`` beyond the
+    model's T_out, the last T_in predicted frames (clipped to [0, 1] in
+    fp32) are fed back until ``horizon`` frames exist."""
+    model.eval()
 
     def forward(inp: np.ndarray) -> np.ndarray:
         outs = []
@@ -100,11 +113,13 @@ def forecast(model: ADNMUNet, x: np.ndarray, batch_size: int, device: torch.devi
 def main(argv=None) -> np.ndarray:
     p = argparse.ArgumentParser("adnm-torch-predict")
     p.add_argument("--input", required=True, help=".npy input frames")
+    p.add_argument("--model", default="ADNMUnet", choices=list(PORTED_MODELS))
     p.add_argument("--output", default="prediction.npy")
     p.add_argument("--params", default=None,
                    help=".npz of the JAX params tree (adnm_tpu_torch.convert.save_params_npz)")
     p.add_argument("--ckpt", default=None,
-                   help="checkpoint of the port's train CLI (default: the best under --root); "
+                   help="checkpoint of the port's train CLI (default: the model's best under "
+                        "--root); "
                         f"without it or --params the weights come from the init seeded with "
                         f"{INIT_SEED}")
     p.add_argument("--root", default=os.environ.get("ADNM_ROOT", "runs"),
@@ -124,8 +139,10 @@ def main(argv=None) -> np.ndarray:
     device = resolve_device(args.device)
     x = read_frames(args.input, args.img_size)
     ckpt = None if args.params is not None else resolve_ckpt(
-        args.ckpt, args.root, "warning: no checkpoint at {}; predicting with fresh init")
-    model = load_model(args.params, device, ckpt=ckpt, compute_dtype=cdt)
+        args.ckpt, args.root, "warning: no checkpoint at {}; predicting with fresh init",
+        model=args.model)
+    model = load_model(args.params, device, ckpt=ckpt, compute_dtype=cdt, model_name=args.model,
+                       img_size=args.img_size)
     if ckpt is not None:
         print(f"loaded checkpoint: {ckpt}")
     preds = forecast(model, x, args.batch_size, device, args.horizon, cdt)

@@ -1,17 +1,22 @@
-"""Train the ADNM-UNet (counterpart of adnm_tpu/cli/train.py; reference:
-train.py).
+"""Train a nowcasting model (counterpart of adnm_tpu/cli/train.py;
+reference: train.py).
 
-    python -m adnm_tpu_torch.cli.train --synthetic --epochs 1 [--device cpu] [--bf16]
+    python -m adnm_tpu_torch.cli.train --synthetic --epochs 1 [--model NAME] [--device cpu] [--bf16]
 
-Trains ``create_adnm_unet(5, 20, 6)`` (the Shanghai task) with the
-ADNMUnet preset: en_rainfall loss, adaptive gradient clipping, AdamW.
+Trains ``--model`` (default ADNMUnet, ``create_adnm_unet(5, 20, 6)``; or
+the baselines SmaATUnet, ConvLSTM, TrajGRU and LPTQPN) on the Shanghai
+task with the model's preset: ADNMUnet with en_rainfall loss, adaptive
+gradient clipping and AdamW; ConvLSTM and TrajGRU with weighted MSE+MAE
+and Adam on a multistep LR; LPTQPN with MSE+MAE and AdamW on a cosine LR;
+SmaATUnet with MSE+MAE and SGD with momentum on a poly LR (none of the
+baselines clips; their best checkpoint is saved from epoch 1).
 Checkpoints go to {root}/model_params/{dataset}/{model}/{model}_best and
 per-epoch metrics to {root}/results/{dataset}/{model}_train.jsonl. Ends
 with the reference's final protocol (train.py:209-250): reload the best
 checkpoint, run the test split, and print CSI/HSS per threshold and
 FAR/RMSE/SSIM/LPIPS. ``--device`` defaults to cuda and raises when CUDA is
-absent. ``--bf16`` trains with bf16 activations and fp32 parameters and
-AdamW state; its checkpoints are the same fp32 files.
+absent. ``--bf16`` (ADNMUnet only) trains with bf16 activations and fp32
+parameters and AdamW state; its checkpoints are the same fp32 files.
 """
 
 from __future__ import annotations

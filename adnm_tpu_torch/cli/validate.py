@@ -1,10 +1,11 @@
-"""Validate a trained ADNM-UNet (counterpart of adnm_tpu/cli/validate.py;
+"""Validate a trained model (counterpart of adnm_tpu/cli/validate.py;
 reference: validate.py).
 
-    python -m adnm_tpu_torch.cli.validate --synthetic --ckpt PATH [--device cpu] [--bf16]
+    python -m adnm_tpu_torch.cli.validate --synthetic --ckpt PATH [--model NAME] [--device cpu] [--bf16]
 
-Loads a checkpoint of the port's train CLI (``--ckpt``, else the best
-checkpoint under ``--root``), runs the test split and prints CSI, POD and
+Loads a checkpoint of the port's train CLI for ``--model`` (``--ckpt``,
+else the model's best checkpoint under ``--root``; with BatchNorm's
+running statistics), runs the test split and prints CSI, POD and
 HSS per threshold and FAR/RMSE/SSIM/LPIPS. Without a checkpoint it
 evaluates the fresh init. ``--device`` defaults to cuda and raises when
 CUDA is absent. With ``--bf16`` the model runs in bf16 and the evaluator

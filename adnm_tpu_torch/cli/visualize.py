@@ -1,4 +1,4 @@
-"""Render prediction strips of a trained ADNM-UNet (counterpart of
+"""Render prediction strips of a trained model (``--model``) (counterpart of
 adnm_tpu/cli/visualize.py; reference: pic_results.py main loop
 :236-275).
 

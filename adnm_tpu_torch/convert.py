@@ -11,12 +11,20 @@ layout:
   equivalent forward conv, which the JAX module flips itself (torch's
   transposed conv does the same flip internally, so no flip here).
 
-Every other parameter keeps its name and shape. The conversion is strict
-both ways: every port parameter must be set and every leaf consumed,
-except the leaves in ``UNREAD_LEAVES``, which the JAX model creates and
-never reads. Uses numpy and torch only: hand over a tree of host arrays
-(``jax.device_get(params)``). ``to_jax_params`` goes the other way, for
-the port's parameters or for per-parameter tensors such as gradients.
+A module whose other parameters are laid out otherwise than in JAX names
+the permutation in ``jax_layouts`` ({parameter name: port axes of the JAX
+leaf's axes}; ConvLSTM's peepholes, (sh, sw, nf) in JAX, are (nf, sh,
+sw)). Every other parameter keeps its name and shape. A module with
+running statistics (``BatchNorm``) lists its buffers in ``batch_stats``:
+they are the leaves of the JAX ``batch_stats`` tree at the same paths.
+
+The conversion is strict both ways: every port parameter must be set and
+every leaf consumed, except the leaves in ``UNREAD_LEAVES``, which the
+JAX model creates and never reads; the same for the ``batch_stats`` tree
+when one is given. Uses numpy and torch only: hand over trees of host
+arrays (``jax.device_get(params)``). ``to_jax_params`` and
+``to_jax_batch_stats`` go the other way, ``to_jax_params`` for the port's
+parameters or for per-parameter tensors such as gradients.
 """
 
 from __future__ import annotations
@@ -69,6 +77,9 @@ def _jax_key(module: nn.Module, module_path: str, pname: str) -> str:
 
 def _to_port_layout(module: nn.Module, pname: str, arr: np.ndarray) -> torch.Tensor:
     t = torch.from_numpy(np.array(arr, dtype=np.float32))  # a copy, 0-d stays 0-d
+    perm = getattr(module, "jax_layouts", {}).get(pname)
+    if perm is not None:
+        return t.permute(*perm).contiguous()
     if pname != "weight":
         return t
     if isinstance(module, nn.Linear):
@@ -82,7 +93,10 @@ def _to_port_layout(module: nn.Module, pname: str, arr: np.ndarray) -> torch.Ten
 
 def _to_jax_layout(module: nn.Module, pname: str, t: torch.Tensor) -> np.ndarray:
     t = t.detach().to("cpu", torch.float32)
-    if pname == "weight":
+    perm = getattr(module, "jax_layouts", {}).get(pname)
+    if perm is not None:
+        t = t.permute(*np.argsort(perm).tolist())
+    elif pname == "weight":
         if isinstance(module, nn.Linear):
             t = t.T
         elif isinstance(module, nn.ConvTranspose2d):
@@ -114,10 +128,41 @@ def unread_leaves(model: nn.Module) -> Dict[str, np.ndarray]:
             for leaf, init in UNREAD_LEAVES.get(type(module).__name__, {}).items()}
 
 
-def from_jax_params(model: nn.Module, tree: Mapping) -> nn.Module:
+def _stat_buffers(model: nn.Module):
+    """(JAX ``batch_stats`` path, buffer) of every running statistic."""
+    for mod_path, module in model.named_modules():
+        for name in getattr(module, "batch_stats", ()):
+            key = f"{mod_path.replace('.', '/')}/{name}" if mod_path else name
+            yield key, getattr(module, name)
+
+
+def to_jax_batch_stats(model: nn.Module) -> dict:
+    """The JAX ``batch_stats`` tree (nested dicts of fp32 numpy arrays) of
+    ``model``'s running statistics; empty for a model without BatchNorm."""
+    return unflatten_tree({key: buf.detach().to("cpu", torch.float32).numpy().copy()
+                           for key, buf in _stat_buffers(model)})
+
+
+def from_jax_params(model: nn.Module, tree: Mapping,
+                    batch_stats: Optional[Mapping] = None) -> nn.Module:
     """Fill ``model``'s parameters from the JAX ``params`` tree (nested
-    mappings of numpy arrays). Raises, naming the path, on a missing leaf,
-    a shape mismatch or a leaf that no port parameter consumes."""
+    mappings of numpy arrays) and, given the JAX ``batch_stats`` tree, its
+    running statistics (else they keep their values). Raises, naming the
+    path, on a missing leaf, a shape mismatch or a leaf that nothing in the
+    port consumes."""
+    if batch_stats is not None:
+        stats = flatten_tree(batch_stats)
+        with torch.no_grad():
+            for key, buf in _stat_buffers(model):
+                if key not in stats:
+                    raise KeyError(f"JAX batch_stats has no leaf {key!r}")
+                if tuple(stats[key].shape) != tuple(buf.shape):
+                    raise ValueError(f"batch_stats {key!r}: {tuple(stats[key].shape)} does not "
+                                     f"fit {tuple(buf.shape)}")
+                buf.copy_(torch.from_numpy(np.array(stats[key], dtype=np.float32)))
+        extra = sorted(set(stats) - {key for key, _ in _stat_buffers(model)})
+        if extra:
+            raise KeyError(f"{len(extra)} batch_stats leaves match no port buffer: {extra[:10]}")
     flat = flatten_tree(tree)
     params = dict(model.named_parameters())
     consumed = set(unread_leaves(model))

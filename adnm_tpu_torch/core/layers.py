@@ -73,11 +73,17 @@ class Conv2d(nn.Conv2d):
 
 class ConvTranspose2d(nn.ConvTranspose2d):
     """``nn.ConvTranspose2d`` in its input's dtype, as ``Conv2d`` (no
-    ``output_size``: the padding is fixed at construction)."""
+    ``output_size``: the padding is fixed at construction), on cuDNN's
+    deterministic algorithms: its default choice for a transposed conv may
+    be nondeterministic, and two forwards of one input then differ (6e-8
+    at the ADNM-UNet's ``decoder.up_sample2`` on an H100, up to 3e-4 at the
+    model's output)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv_transpose2d(x, self.weight.to(x.dtype), _cast(self.bias, x), self.stride,
-                                  self.padding, self.output_padding, self.groups, self.dilation)
+        with deterministic_cudnn():
+            return F.conv_transpose2d(x, self.weight.to(x.dtype), _cast(self.bias, x),
+                                      self.stride, self.padding, self.output_padding,
+                                      self.groups, self.dilation)
 
 
 class Linear(nn.Linear):
@@ -172,6 +178,46 @@ class GroupNorm(nn.Module):
         var, mu = _stats(xg, (2, 3, 4))
         xn = ((xg - mu) * torch.rsqrt(var + self.eps)).reshape(b, c, h, w)
         return (xn * channel_view(self.weight, 4) + channel_view(self.bias, 4)).to(x.dtype)
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm over (B, H, W) of NCHW, eps 1e-5, momentum 0.1 (JAX:
+    ``BatchNorm``, torch's defaults). In train mode it normalises with the
+    batch's biased variance and moves the running statistics towards the
+    batch's mean and unbiased variance; in eval mode it normalises with the
+    running statistics. The variance is taken about the mean
+    (``torch.var_mean``): JAX's E[x^2] - E[x]^2 loses the digits that
+    mean^2 / variance costs, which SmaAt-UNet's BatchNorms reach hundreds
+    of times in training (``scripts/torch_baseline_precision.py`` measures
+    the fp32 step against fp64). The running statistics are the buffers ``mean`` and ``var``, the leaves of the JAX
+    ``batch_stats`` tree, so they land in ``state_dict()`` and in the
+    port's checkpoints. Statistics in fp32; the output in the input's
+    dtype. Cross-replica statistics (JAX's ``axis_name``) are not ported."""
+
+    batch_stats = ("mean", "var")  # the buffers ``convert`` carries
+
+    def __init__(self, dim: int, eps: float = 1e-5, momentum: float = 0.1):
+        super().__init__()
+        self.eps = eps
+        self.momentum = momentum
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+        self.register_buffer("mean", torch.zeros(dim))
+        self.register_buffer("var", torch.ones(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        if self.training:
+            var, mu = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
+            n = x.numel() // x.shape[1]
+            m = self.momentum
+            with torch.no_grad():
+                self.mean.copy_((1 - m) * self.mean + m * mu)
+                self.var.copy_((1 - m) * self.var + m * (var * n / max(n - 1, 1)))
+        else:
+            mu, var = self.mean, self.var
+        out = (xf - channel_view(mu, 4)) * torch.rsqrt(channel_view(var, 4) + self.eps)
+        return (out * channel_view(self.weight, 4) + channel_view(self.bias, 4)).to(x.dtype)
 
 
 def make_norm(kind: str, dim: int) -> nn.Module:
@@ -276,12 +322,7 @@ class DeConvLayer(nn.Module):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # cuDNN's default algorithm choice for a transposed conv may be
-        # nondeterministic: two forwards of one input then differ (6e-8 at
-        # decoder.up_sample2 on an H100, up to 3e-4 at the model's output).
-        # Its deterministic algorithms keep the forward bit-reproducible.
-        with deterministic_cudnn():
-            return self.trans_conv(x)
+        return self.trans_conv(x)
 
 
 class Mlp(nn.Module):

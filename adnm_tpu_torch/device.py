@@ -48,6 +48,23 @@ def deterministic_cudnn():
         cudnn.deterministic = saved
 
 
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """``torch.use_deterministic_algorithms(True)`` inside the block; the
+    mode before it (and its warn-only flag) is restored after. Hold it for
+    single calls whose default kernel sums in a changing order, such as
+    ``index_put_(accumulate=True)``: with atomics on CUDA's default path
+    and threads on the CPU's; in this mode both add each index's terms in
+    a fixed order."""
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+
+
 def resolve_device(name) -> torch.device:
     """``torch.device(name)``, with fp32 at full precision (``full_fp32``).
     A CUDA device raises when CUDA is absent: no entry point falls back to

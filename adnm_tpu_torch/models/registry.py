@@ -1,0 +1,63 @@
+"""Model registry (counterpart of adnm_tpu/models/registry.py; reference:
+train_untils.py:22-130, the model half of create_models).
+
+Every model maps (B, T_in, 1, H, W) to (B, T_out, 1, H, W). The port
+builds the ADNM-UNet and four baselines; TransUnet and SwinUnet are not
+ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+MODEL_NAMES = ("ADNMUnet", "ConvLSTM", "TrajGRU", "LPTQPN", "TransUnet", "SmaATUnet",
+               "SwinUnet")
+PORTED_MODELS = ("ADNMUnet", "SmaATUnet", "ConvLSTM", "TrajGRU", "LPTQPN")
+BASELINES = PORTED_MODELS[1:]
+
+
+def check_fp32(model_name: str, dtype: torch.dtype) -> None:
+    """Raise for a compute dtype below fp32: bf16 compute is ported for the
+    ADNM-UNet alone (fp64 runs, as a reference)."""
+    if dtype not in (torch.float32, torch.float64):
+        raise NotImplementedError(
+            f"{model_name} computes in float32 only: bf16 compute (--bf16) is ported for "
+            f"ADNMUnet alone, not yet for the baselines")
+
+
+def create_model(model_name: str, input_frames: int, output_frames: int, frame_interval: int,
+                 img_size: int = 256, **model_kwargs) -> nn.Module:
+    """``model_kwargs`` go to the ADNMUnet factory (``refiner_remat``,
+    ``linear_attn_duality``, ``mixer_type``) and to no other model.
+    ``img_size`` fixes ConvLSTM's peephole weights, which are shaped by
+    its stage grids; the other models take any frame size their strides
+    divide."""
+    if model_name == "ADNMUnet":
+        from adnm_tpu_torch.models.adnm_unet import create_adnm_unet
+
+        return create_adnm_unet(input_frames, output_frames, frame_interval, img_size=img_size,
+                                **model_kwargs)
+    if model_kwargs:
+        raise ValueError(f"model kwargs {sorted(model_kwargs)} are only supported for ADNMUnet")
+    if model_name == "SmaATUnet":
+        from adnm_tpu_torch.models.smaat_unet import SmaAtUNet
+
+        return SmaAtUNet(n_channels=input_frames, n_classes=output_frames)
+    if model_name == "ConvLSTM":
+        from adnm_tpu_torch.models.conv_lstm import create_conv_lstm
+
+        return create_conv_lstm(output_frames, img_size)
+    if model_name == "TrajGRU":
+        from adnm_tpu_torch.models.traj_gru import create_traj_gru
+
+        return create_traj_gru(output_frames)
+    if model_name == "LPTQPN":
+        from adnm_tpu_torch.models.lptqpn import LPTQPN
+
+        return LPTQPN(inp_channels=input_frames, out_channels=output_frames)
+    if model_name in ("TransUnet", "SwinUnet"):
+        raise NotImplementedError(
+            f"{model_name} is not ported to adnm_tpu_torch yet (it needs GroupNorm, StdConv, "
+            f"window attention, DropPath and --pretrained-npz, which are not ported either)")
+    raise ValueError(f"unknown model {model_name!r}; known: {MODEL_NAMES}")

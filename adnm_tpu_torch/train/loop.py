@@ -3,10 +3,14 @@ train.py:107-250), on one device.
 
 One step per batch: forward, loss, backward (with gradient accumulation
 over ``accum_steps`` microbatches), the global fp32 gradient norm, the
-adaptive clip, the epoch's LR and an AdamW step. With ``compute_dtype``
-bfloat16 (the JAX package's ``--bf16``) the activations run in bf16 while
-the parameters, their gradients and the AdamW state stay fp32, and the
-loss is computed in fp32. The backward runs with cuDNN held to its
+preset's clip (ADNMUnet's adaptive one; the baselines do not clip), the
+epoch's LR and the preset's optimizer step (AdamW, Adam or SGD). With
+``compute_dtype`` bfloat16 (the JAX package's ``--bf16``) the activations
+run in bf16 while the parameters, their gradients and the optimizer state
+stay fp32, and the loss is computed in fp32. The model is in train mode
+for a step and in eval mode for evaluation, so BatchNorm normalises with
+the batch's statistics and advances its running statistics (once per
+microbatch) in a step, and uses the running statistics in evaluation. The backward runs with cuDNN held to its
 deterministic algorithms, so two steps of one batch give the same bits on
 the card. LR and clip threshold are
 host-side scalars set per epoch, as in the reference's per-epoch Python
@@ -64,7 +68,9 @@ class Trainer:
 
         ``remat_forward=True`` runs the whole training forward under
         ``torch.utils.checkpoint``: the backward recomputes it instead of
-        keeping activations; the gradients are the same.
+        keeping activations; the gradients are the same. Ignored for a
+        model with BatchNorm, as in JAX: the recompute would advance its
+        running statistics a second time.
 
         ``accum_steps=m`` (m > 1) splits each batch into m equal
         microbatches, runs them one after another and averages their
@@ -85,7 +91,8 @@ class Trainer:
         self.preset = preset
         self.input_frames = input_frames
         self.device = device
-        self.remat_forward = remat_forward
+        self.has_batch_stats = any(getattr(m, "batch_stats", ()) for m in model.modules())
+        self.remat_forward = remat_forward and not self.has_batch_stats
         self.accum_steps = int(accum_steps)
         seeded_init_(model, seed)
         if param_transform is not None:
@@ -118,7 +125,9 @@ class Trainer:
     def _backward(self, batch: torch.Tensor) -> torch.Tensor:
         """The batch's loss, with its gradients in the parameters' ``grad``
         (the mean over the microbatches). A parameter the loss does not
-        reach gets a zero gradient, as in JAX, so AdamW still decays it."""
+        reach gets a zero gradient, as in JAX, so AdamW still decays it.
+        Runs the model in train mode."""
+        self.model.train()
         imgs, targets = self._split_batch(batch)
         m = self.accum_steps
         if imgs.shape[0] % m:
@@ -146,13 +155,16 @@ class Trainer:
 
     def train_step(self, batch: torch.Tensor, lr: float,
                    clip_norm: float) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(loss, global gradient norm) on the device, after one step: the
-        gradients scaled by min(1, clip_norm / (norm + 1e-6)), then AdamW at
-        ``lr``."""
+        """(loss, global gradient norm) on the device, after one step: under
+        the preset's ``norm_clip`` the gradients scaled by min(1, clip_norm
+        / (norm + 1e-6)), then the optimizer at ``lr``. Without it the
+        gradients are not scaled (the norm is still computed, for the
+        log)."""
         loss = self._backward(batch)
-        # the same scale: clip_grad_norm_ multiplies by
-        # clamp(max_norm / (norm + 1e-6), max=1)
-        gnorm = nn.utils.clip_grad_norm_(self.params, clip_norm)
+        # the same scale: clip_grad_norm_ multiplies by clamp(max_norm /
+        # (norm + 1e-6), max=1), which is exactly 1 at max_norm = inf
+        max_norm = clip_norm if self.preset.norm_clip else float("inf")
+        gnorm = nn.utils.clip_grad_norm_(self.params, max_norm)
         for group in self.optimizer.param_groups:
             group["lr"] = lr
         self.optimizer.step()
@@ -161,6 +173,8 @@ class Trainer:
 
     @torch.no_grad()
     def eval_step(self, batch: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(loss, predictions) in eval mode."""
+        self.model.eval()
         imgs, targets = self._split_batch(batch)
         out = self.model(imgs).float()
         return self.preset.loss_fn(out, targets), out
@@ -176,7 +190,7 @@ class Trainer:
         losses = torch.stack(losses).cpu().numpy() if losses else np.zeros(0, np.float32)
         gnorms = torch.stack(gnorms).cpu().numpy() if gnorms else np.zeros(0, np.float32)
         n = int(losses.size)
-        clip_count = int(np.sum(gnorms > clip_norm))
+        clip_count = int(np.sum(gnorms > clip_norm)) if self.preset.norm_clip else 0
         return {
             "loss": float(losses.sum()),
             "avg_grad_norm": float(gnorms.mean()) if n else 0.0,
@@ -216,13 +230,13 @@ class Trainer:
     def fit(self, train_loader, val_loader, test_loader=None, epochs: Optional[int] = None,
             ckpt_path: Optional[str] = None, metrics_path: Optional[str] = None,
             save_every: Optional[int] = None):
-        """The reference's epochs: LR and clip threshold from the preset,
-        train, validate, save the best checkpoint once past the save-epoch
-        gate, early stop; the test loss every epoch when there is a test
-        loader. ``save_every=N`` also writes {ckpt_path}_epoch{E} every N
-        epochs, keeping the last two."""
+        """The reference's epochs: LR (``preset.lr``) and clip threshold (0
+        when the preset does not clip) from the preset, train, validate,
+        save the best checkpoint (past the save-epoch gate where the preset
+        has one), early stop where the preset does; the test loss every
+        epoch when there is a test loader. ``save_every=N`` also writes
+        {ckpt_path}_epoch{E} every N epochs, keeping the last two."""
         preset = self.preset
-        clip = preset.clip_schedule
         epochs = epochs or preset.epochs
         jsonl = MetricsLogger(metrics_path, echo=False) if metrics_path else None
         best = float("inf")
@@ -231,13 +245,14 @@ class Trainer:
         logs = []
         for epoch in range(1, epochs + 1):
             t0 = time.time()
-            lr = preset.lr_at_epoch(epoch, epochs)
-            clip_norm = clip.threshold(epoch, prev_avg_grad_norm)
+            lr = preset.lr(epoch, epochs)
+            clip_norm = (preset.clip_schedule.threshold(epoch, prev_avg_grad_norm)
+                         if preset.norm_clip else 0.0)
             tr = self.train_epoch(train_loader, lr, clip_norm)
             prev_avg_grad_norm = tr["avg_grad_norm"]
 
             val_loss, _, _ = self.eval_epoch(val_loader)
-            save_gate = epoch > clip.save_epoch
+            save_gate = not preset.save_epoch_gated or epoch > preset.save_epoch
             if save_gate and val_loss < best:
                 best = val_loss
                 early_stop_count = 0
@@ -245,7 +260,7 @@ class Trainer:
                     ckpt.save_state(ckpt_path, self.state_dict())
                 print(f"epoch {epoch}: best_val_loss {val_loss:.6f} (saved)")
             else:
-                if save_gate:
+                if preset.if_early_stop and save_gate:
                     early_stop_count += 1
                 print(f"epoch {epoch}: val_loss {val_loss:.6f}")
 
@@ -271,7 +286,8 @@ class Trainer:
             print(f"epoch {epoch}: train_loss {tr['loss']:.6f} test_loss {test_loss:.6f} "
                    f"lr {lr:.2e} grad_norm {tr['avg_grad_norm']:.4f} "
                    f"clip_thr {clip_norm:.4f} clip_ratio {tr['clip_ratio']:.3f} ({dt:.1f}s)")
-            if early_stop_count >= preset.early_stop:
+            if preset.if_early_stop and preset.early_stop and \
+                    early_stop_count >= preset.early_stop:
                 print(f"early stop at epoch {epoch}")
                 break
         return logs
@@ -283,8 +299,9 @@ class Trainer:
                 "step": self.step}
 
     def load(self, ckpt_path: str) -> None:
-        """Restore parameters, optimizer state and step from a checkpoint."""
+        """Restore parameters (with BatchNorm's running statistics),
+        optimizer state and step from a checkpoint."""
         state = ckpt.restore_state(ckpt_path, self.state_dict())
-        self.model.load_state_dict(state["params"])
+        ckpt.load_model_state(self.model, state["params"], ckpt_path)
         self.optimizer.load_state_dict(state["opt_state"])
         self.step = int(state["step"])

@@ -1,19 +1,19 @@
 """Per-model training presets (counterpart of adnm_tpu/train/presets.py;
 reference: train_untils.py:22-130 + train.py:78-94).
 
-A preset bundles the optimizer's constants, base LR, loss, LR schedule
-(computed on the host per epoch, like the reference's per-epoch
-scheduler.step()), early stop, and the ADNMUnet adaptive clip, whose
-save epoch also gates the best checkpoint. Only the ADNMUnet preset is
-ported, so AdamW, the clip, the save gate and early stop are always on;
-the JAX presets' switches for them come with the baselines.
+A preset bundles the optimizer family and its constants, the base LR, the
+loss, the LR schedule (computed on the host per epoch, like the
+reference's per-epoch scheduler.step(); None means the loop's poly decay),
+early stop, the gradient clip and the save-epoch gate. The ADNMUnet preset
+clips adaptively (``ClipSchedule``) and gates the best checkpoint to
+epochs past the clip's save epoch; the baselines' presets do neither.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Iterable
+from typing import Callable, Iterable, Optional
 
 import torch
 
@@ -43,21 +43,51 @@ class ClipSchedule:
 
 @dataclasses.dataclass
 class TrainPreset:
+    opt_family: str  # "adamw" | "adam" | "sgd"
     base_lr: float
     loss_fn: Callable
-    lr_at_epoch: Callable[[int, int], float]  # (epoch, 1-indexed; total epochs) -> lr
-    early_stop: int  # epochs past the save gate without a better val loss
+    # (epoch, 1-indexed; total epochs) -> lr; None: the loop's poly decay
+    lr_at_epoch: Optional[Callable[[int, int], float]]
+    if_early_stop: bool
+    early_stop: Optional[int]  # epochs past the save gate without a better val loss
+    norm_clip: bool  # clip the gradients by the global norm (clip_schedule)
+    save_epoch_gated: bool  # save the best checkpoint only past ``save_epoch``
     epochs: int
-    clip_schedule: ClipSchedule
-    weight_decay: float
-    adam_eps: float
+    clip_schedule: Optional[ClipSchedule] = None
+    save_epoch: int = 0
+    weight_decay: float = 0.0
+    momentum: float = 0.0
+    adam_eps: float = 1e-8
 
     def make_optimizer(self, params: Iterable[torch.nn.Parameter]) -> torch.optim.Optimizer:
-        """AdamW with the update of ``optax.adamw``: decoupled weight decay
-        and eps added outside the square root. The loop sets the LR of the
-        param group every epoch."""
-        return torch.optim.AdamW(params, lr=self.base_lr, betas=(0.9, 0.999),
-                                 eps=self.adam_eps, weight_decay=self.weight_decay)
+        """The optimizer with the update of the JAX preset's optax one; the
+        loop sets the LR of the param group every epoch.
+
+        * adamw: ``optax.adamw`` (decoupled weight decay, eps added outside
+          the square root) is ``torch.optim.AdamW``;
+        * adam: ``optax.adam`` with its defaults is ``torch.optim.Adam``;
+        * sgd: the chain add_decayed_weights -> trace(momentum) -> scale by
+          -lr is ``torch.optim.SGD`` without dampening or Nesterov: the
+          decay is added to the gradient, the momentum buffer starts at
+          the first gradient."""
+        if self.opt_family == "adamw":
+            return torch.optim.AdamW(params, lr=self.base_lr, betas=(0.9, 0.999),
+                                     eps=self.adam_eps, weight_decay=self.weight_decay)
+        if self.opt_family == "adam":
+            return torch.optim.Adam(params, lr=self.base_lr, betas=(0.9, 0.999), eps=1e-8)
+        if self.opt_family == "sgd":
+            return torch.optim.SGD(params, lr=self.base_lr, momentum=self.momentum,
+                                   weight_decay=self.weight_decay, dampening=0.0,
+                                   nesterov=False)
+        raise ValueError(f"unknown optimizer family {self.opt_family!r}")
+
+    def lr(self, epoch: int, total: int) -> float:
+        """The LR of 1-indexed ``epoch``: the schedule's, else poly decay,
+        stepped at epoch end in the reference (train.py:188-191), so epoch e
+        trains at the value after e - 1 steps."""
+        if self.lr_at_epoch is not None:
+            return self.lr_at_epoch(epoch, total)
+        return self.base_lr * (1.0 - (epoch - 1) / total) ** 0.9
 
 
 def _cosine(base_lr: float, eta_min: float, t_max: int):
@@ -66,28 +96,64 @@ def _cosine(base_lr: float, eta_min: float, t_max: int):
     return lr
 
 
+def _multistep(base_lr: float, milestones, gamma: float):
+    def lr(t: int) -> float:
+        return base_lr * gamma ** sum(1 for m in milestones if t >= m)
+    return lr
+
+
 def get_preset(model_name: str, input_frames: int, output_frames: int, frame_interval: int,
                dataset: str) -> TrainPreset:
-    if model_name != "ADNMUnet":
-        raise NotImplementedError(f"the {model_name!r} preset is not ported (only ADNMUnet)")
-    base_lr, eta_min, warmup_epoch = 1e-3, 5e-7, 3
-    cos = _cosine(base_lr, eta_min, 50)
+    thresholds = (0.1, 0.3, 0.5, 0.7, 0.8) if dataset == "LAPS" else (20, 30, 35, 40)
 
-    def lr_at_epoch(epoch: int, total: int) -> float:
-        # torch LinearLR(start_factor=0.01, total_iters=3), then a
-        # SequentialLR switch to CosineAnnealingLR(T=50) at epoch 3
-        # (train_untils.py:44-46); scheduler.step() runs after the epoch,
-        # so epoch e trains with schedule state e-1.
-        t = epoch - 1
-        if t < warmup_epoch:
-            return base_lr * (0.01 + (1.0 - 0.01) * t / warmup_epoch)
-        return cos(t - warmup_epoch)
+    if model_name == "ADNMUnet":
+        base_lr, eta_min, warmup_epoch = 1e-3, 5e-7, 3
+        cos = _cosine(base_lr, eta_min, 50)
 
-    instance_norm = frame_interval < 120 / input_frames
-    clip = (ClipSchedule(3, 34, 1.75, 0.025, 0.175, 1) if instance_norm
-            else ClipSchedule(3, 20, 3.0, 0.035, 0.065, 0))
-    return TrainPreset(
-        base_lr=base_lr, loss_fn=get_loss("en_rainfall", omega_t=0.57, alpha=0.25, gamma=0.0),
-        lr_at_epoch=lr_at_epoch, early_stop=3 if instance_norm else 5, epochs=40,
-        clip_schedule=clip, weight_decay=1e-2, adam_eps=1e-9,
-    )
+        def lr_at_epoch(epoch: int, total: int) -> float:
+            # torch LinearLR(start_factor=0.01, total_iters=3), then a
+            # SequentialLR switch to CosineAnnealingLR(T=50) at epoch 3
+            # (train_untils.py:44-46); scheduler.step() runs after the epoch,
+            # so epoch e trains with schedule state e-1.
+            t = epoch - 1
+            if t < warmup_epoch:
+                return base_lr * (0.01 + (1.0 - 0.01) * t / warmup_epoch)
+            return cos(t - warmup_epoch)
+
+        instance_norm = frame_interval < 120 / input_frames
+        clip = (ClipSchedule(3, 34, 1.75, 0.025, 0.175, 1) if instance_norm
+                else ClipSchedule(3, 20, 3.0, 0.035, 0.065, 0))
+        return TrainPreset(
+            opt_family="adamw", base_lr=base_lr,
+            loss_fn=get_loss("en_rainfall", omega_t=0.57, alpha=0.25, gamma=0.0),
+            lr_at_epoch=lr_at_epoch, if_early_stop=True, early_stop=3 if instance_norm else 5,
+            norm_clip=True, save_epoch_gated=True, epochs=40, clip_schedule=clip,
+            save_epoch=clip.save_epoch, weight_decay=1e-2, adam_eps=1e-9,
+        )
+
+    if model_name in ("ConvLSTM", "TrajGRU"):
+        ms = _multistep(1e-4, (15000, 30000), 0.1)
+        return TrainPreset(
+            opt_family="adam", base_lr=1e-4,
+            loss_fn=get_loss("weighted_mse_mae", thresholds=thresholds),
+            lr_at_epoch=lambda e, total: ms(e - 1), if_early_stop=False, early_stop=None,
+            norm_clip=False, save_epoch_gated=False, epochs=60,
+        )
+
+    if model_name == "LPTQPN":
+        cos = _cosine(1e-3, 1e-9, 30)
+        return TrainPreset(
+            opt_family="adamw", base_lr=1e-3, loss_fn=get_loss("rain"),
+            lr_at_epoch=lambda e, total: cos(e - 1), if_early_stop=True, early_stop=10,
+            norm_clip=False, save_epoch_gated=False, epochs=60, weight_decay=1e-2,
+        )
+
+    if model_name == "SmaATUnet":
+        return TrainPreset(
+            opt_family="sgd", base_lr=1e-2, loss_fn=get_loss("rain"),
+            lr_at_epoch=None,  # poly decay (train.py:188-191)
+            if_early_stop=True, early_stop=30, norm_clip=False, save_epoch_gated=False,
+            epochs=60, momentum=0.9, weight_decay=1e-4,
+        )
+
+    raise NotImplementedError(f"the {model_name!r} preset is not ported")

@@ -98,6 +98,23 @@
    bimamba step runs K2's backward on the card and its plain version on
    the CPU); the bf16 loss and gradient norm against the fp32 ones on the
    card within ``BF16_STEP_REL``.
+6d. The four baselines (SmaAt-UNet, ConvLSTM, TrajGRU, LPTQPN) at their
+   published widths, 256x256, seeded weights, fp32, with every hand
+   kernel's launch count asserted 0: (a) the batch-1 forward on the card
+   against the CPU (``BASELINE_FORWARD_ATOL``; max abs and relative L2
+   printed) and (b) two forwards bit-equal; (c) a batch-1 training step on
+   the card against the CPU (``baseline_step_tol``: ``STEP_TOL``, or ten
+   times the CPU's fp32 distance from fp64 where larger; SmaAt's running
+   statistics within 1e-4) and (d) two card steps bit-equal; (f) the
+   batch-1 latency, batch-4 frames/s and peak memory of the forward, the
+   step time at batch 1 and 4 (median of 10 after 3) and the peak memory
+   of a batch-4 step, the batch-1 forward's kernels and profiles of the
+   batch-4 forward and step; (e) each through the train CLI (4 steps at
+   batch 4, an epoch snapshot), ``predict --ckpt`` on the snapshot (two
+   forwards of a clip bit-equal), and for SmaAt ``validate --ckpt`` (its
+   counts equal the train CLI's final protocol on the same weights, and
+   the evaluator's on the card and on the CPU; predict reproduces its
+   predictions). Prints the phase's seconds.
 7. Prints the kernels' JSON line (each K1 entry with its largest kernel /
    library time over the fp32 main-path shapes, ``worst_vs_library``; K2's
    with its largest kernel / bound time over its timed shapes,
@@ -865,6 +882,8 @@ KERNEL_GROUPS = {
     "AdamW and grad norm (multi-tensor)": ("multi_tensor_apply",),
     "reductions": ("reduce_kernel",),
     "softmax": ("softmax",),
+    "grid_sample (TrajGRU warp)": ("grid_sampler",),
+    "max pooling": ("max_pool",),
     "cat/copy/index": ("Cat", "copy", "index", "gather", "scatter"),
 }
 
@@ -1311,11 +1330,11 @@ def evaluate_through_clis(counts, root: str, snapshot: str, trained_metrics: dic
     return launches
 
 
-def train_batch(b: int) -> np.ndarray:
-    """(b, 25, 1, IMG, IMG) synthetic clips, as the CLI's loader makes them."""
+def train_batch(b: int, size: int = IMG) -> np.ndarray:
+    """(b, 25, 1, size, size) synthetic clips, as the CLI's loader makes them."""
     from adnm_tpu_torch.data.shanghai import _synthetic_clip
 
-    return np.stack([_synthetic_clip(np.random.default_rng(i), 25, IMG)
+    return np.stack([_synthetic_clip(np.random.default_rng(i), 25, size)
                      for i in range(b)])[:, :, None]
 
 
@@ -1487,6 +1506,292 @@ def time_train(card, label: str, kwargs: dict, counts, runs,
     return launches
 
 
+# -- the baselines -------------------------------------------------------------
+
+BASELINES = ("SmaATUnet", "ConvLSTM", "TrajGRU", "LPTQPN")
+# Card against CPU for a baseline's batch-1 forward at 256^2, fp32 without
+# TF32, seeded init, outputs up to ~1: set in PERF.md before the first chip
+# run of the phase from the CPU's fp32 against fp64 at 64^2 (4.5e-8 ...
+# 6.3e-7 max abs, scripts/torch_baseline_precision.py), with two orders of
+# margin for 256^2 and the card's own order of sums.
+BASELINE_FORWARD_ATOL = 1e-4
+# A batch-1 step at 256^2, card against CPU: STEP_TOL, or ten times the
+# CPU's own fp32 distance from fp64 at 256^2 where that is larger (seeded
+# init, the smoke's clip; scripts/torch_baseline_precision.py --img-size
+# 256): (loss rel, grad norm rel, the worst tensor's rel L2 among those
+# above 1e-4 of the global norm, the largest error of a ``bn_cancelled``
+# gradient over the global norm). The weighted MSE+MAE loss's gradient
+# sums signs over 1.3 M output pixels, which cancel, so the fp32 sums of
+# ConvLSTM's and TrajGRU's last convolutions lose three digits; SmaAt's
+# train-mode BatchNorms amplify rounding, and the gradient of a conv bias
+# before a BatchNorm, 0 in exact arithmetic, is rounding noise.
+BASELINE_FP64_DISTANCE = {"SmaATUnet": (6.7e-7, 5.0e-5, 1.18e-2, 2.1e-6),
+                          "ConvLSTM": (1.4e-7, 1.7e-3, 2.3e-3, 0.0),
+                          "TrajGRU": (6.3e-8, 9.0e-4, 2.8e-3, 0.0),
+                          "LPTQPN": (1.6e-8, 9.7e-8, 2.6e-5, 0.0)}
+
+
+def baseline_step_tol(name: str) -> dict:
+    loss, grad_norm, tensor, noise = (10 * d for d in BASELINE_FP64_DISTANCE[name])
+    return {"loss": max(STEP_TOL["loss"], loss),
+            "grad_norm": max(STEP_TOL["grad_norm"], grad_norm),
+            "tensor": max(STEP_TOL["tensor"], tensor),
+            "tensor_of_global": STEP_TOL["tensor_of_global"],
+            "bn_cancelled_of_global": max(STEP_TOL["tensor_of_global"], noise)}
+
+
+def bn_cancelled(name: str) -> bool:
+    """A SmaAt conv bias that feeds a BatchNorm in train mode through linear
+    maps alone (the depthwise and pointwise biases of each DoubleConvDS):
+    its gradient is 0 in exact arithmetic, rounding noise in fp32."""
+    return name.endswith(("depthwise.bias", "pointwise.bias")) and ".conv" in name
+
+
+def baseline_trainer(name: str, device, size: int = IMG):
+    """A baseline's trainer as the train CLI builds it: seeded init, the
+    model's preset, no reference init."""
+    from adnm_tpu_torch.models.registry import create_model
+    from adnm_tpu_torch.train.loop import Trainer
+    from adnm_tpu_torch.train.presets import get_preset
+
+    return Trainer(create_model(name, 5, 20, 6, img_size=size),
+                   get_preset(name, 5, 20, 6, "Shanghai"), 5, device, seed=0)
+
+
+def check_baseline_step(name: str) -> None:
+    """(c), (d): one batch-1 step twice on the card, bit-equal in loss and
+    every gradient; then on the CPU from the same seeded weights: the loss,
+    global gradient norm and every gradient tensor within
+    ``baseline_step_tol``, SmaAt's running statistics after the step
+    within 1e-4 relative."""
+    batch = train_batch(1)
+    card = baseline_trainer(name, torch.device("cuda"))
+    runs = []
+    for _ in range(2):
+        loss, grads = grads_of(card, batch)
+        runs.append((loss, grads, {k: b.detach().to("cpu", torch.float64).clone()
+                                   for k, b in card.model.named_buffers()}))
+    (loss_a, ga, sa), (loss_b, gb, _) = runs
+    if loss_a != loss_b or any(not torch.equal(ga[k], gb[k]) for k in ga):
+        raise AssertionError(f"{name}: two card runs of one step differ: "
+                             f"{[k for k in ga if not torch.equal(ga[k], gb[k])][:5]}")
+    del card
+    t0 = time.perf_counter()
+    cpu = baseline_trainer(name, torch.device("cpu"))
+    loss_cpu, grads_cpu = grads_of(cpu, batch)
+    secs = time.perf_counter() - t0
+    total, tol = gnorm(grads_cpu), baseline_step_tol(name)
+    err = {"loss": abs(loss_a - loss_cpu) / abs(loss_cpu),
+           "grad_norm": abs(gnorm(ga) - total) / total}
+    rows = []
+    for k, want in grads_cpu.items():
+        norm = float(want.norm())
+        floor = tol["bn_cancelled_of_global" if bn_cancelled(k) else "tensor_of_global"]
+        rows.append((float((ga[k] - want).norm()) / (tol["tensor"] * norm + floor * total),
+                     rel(ga[k], want), norm / total, k))
+    rows.sort(reverse=True)
+    stats = {k: rel(sa[k], b.to(torch.float64)) for k, b in cpu.model.named_buffers()}
+    print(f"{name} train step {IMG}^2 batch 1: two card runs bit-equal (loss {loss_a:.8f}); card "
+          f"vs CPU ({secs:.1f} s on the CPU): loss rel {err['loss']:.3e} (tol "
+          f"{tol['loss']:g}), grad norm rel {err['grad_norm']:.3e} (tol "
+          f"{tol['grad_norm']:g}), {len(rows)} gradient tensors (tol {tol['tensor']:g} of "
+          f"the norm + {tol['tensor_of_global']:g} of the global norm, "
+          f"{tol['bn_cancelled_of_global']:g} for a bias before a BatchNorm), the worst over their "
+          f"bounds: " + ", ".join(f"{k} {r:.3e} (rel {e:.3e}, |g|/global {g:.3e})"
+                                  for r, e, g, k in rows[:3])
+          + (f"; running statistics rel L2 max {max(stats.values()):.3e} (tol 1e-4)"
+             if stats else ""))
+    if not (err["loss"] <= tol["loss"] and err["grad_norm"] <= tol["grad_norm"]) \
+            or rows[0][0] > 1.0 or any(v > 1e-4 for v in stats.values()):
+        raise AssertionError(f"{name} train step: card disagrees with CPU")
+
+
+def lptqpn_gram_bound_ms(batch: int, dim: int = 20, blocks=(4, 6, 6, 8), refine: int = 2) -> float:
+    """The byte bound of LPTQPN's q·kᵀ products in one forward at IMG^2: q
+    and k (each B x C x L fp32) read once, for every TransformerBlock
+    (levels 1-3 in the encoder and decoder, the central level, the
+    refinement at level 1, dim doubling and L quartering per level; dec1
+    and refine at 2 * dim); their (heads, C/heads)^2 outputs are
+    negligible."""
+    per_level = [(dim * 2 ** i, IMG * IMG // 4 ** i) for i in range(4)]
+    counts = [blocks[0], blocks[1], blocks[2], blocks[3], blocks[2], blocks[1]]
+    levels = [0, 1, 2, 3, 2, 1]
+    nbytes = sum(n * 2 * batch * per_level[lv][0] * per_level[lv][1] * 4
+                 for n, lv in zip(counts, levels))
+    nbytes += (blocks[0] + refine) * 2 * batch * (2 * dim) * IMG * IMG * 4  # dec1, refine
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def time_baseline(name: str, counts, card: str) -> None:
+    """(f): batch-1 forward latency, batch-4 frames/s and the forward's peak
+    memory; step time at batch 1 and 4 (median of 10 after 3) and the peak
+    memory of a batch-4 step; profiles of the batch-4 forward and step and
+    the batch-1 forward's kernels. No hand kernel launches."""
+    from adnm_tpu_torch.cli import predict
+
+    device = torch.device("cuda")
+    model = predict.load_model(None, device, model_name=name, img_size=IMG)
+    rng = np.random.RandomState(0)
+    x1 = torch.from_numpy(rng.rand(1, 5, 1, IMG, IMG).astype(np.float32)).to(device)
+    x4 = torch.from_numpy(rng.rand(4, 5, 1, IMG, IMG).astype(np.float32)).to(device)
+    with torch.inference_mode():
+        lat = host_times(lambda: model(x1), 20)
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        fwd4 = host_times(lambda: model(x4), 10)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"[{card}] {name} batch-1 forward latency: median {statistics.median(lat):.2f} ms, "
+              f"min {min(lat):.2f} ms, mean {statistics.mean(lat):.2f} ms (20 runs); batch-4 "
+              f"forward median {statistics.median(fwd4):.2f} ms -> "
+              f"{4 * 20 / (statistics.median(fwd4) / 1e3):.1f} frames/s; peak device memory "
+              f"(batch-4 forward) {peak / 2**20:.1f} MiB, of which {before / 2**20:.1f} MiB "
+              f"allocated before it")
+        kernel_breakdown(lambda: model(x1), f"{name} batch-1 forward", n=3)
+        profile_device(lambda: model(x4), card, f"{name} profile batch 4", "forward", 3)
+        if name == "LPTQPN":
+            print(f"[{card}] LPTQPN's q·kᵀ products (42 a forward, the gemm group above): byte "
+                  f"bound {lptqpn_gram_bound_ms(4):.3f} ms a batch-4 forward (q and k read "
+                  f"once, {HBM_BYTES_PER_S / 1e12:g} TB/s)")
+    del model
+    trainer = baseline_trainer(name, device)
+    for b in (1, 4):
+        batch = torch.from_numpy(train_batch(b)).to(device)
+
+        def run():
+            trainer.train_step(batch, trainer.preset.lr(1, trainer.preset.epochs), 0.0)
+
+        times = host_times(run, 10)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        counts.reset()
+        run()
+        torch.cuda.synchronize()
+        launches, peak = counts.read(), torch.cuda.max_memory_allocated()
+        med = statistics.median(times)
+        print(f"[{card}] train {name} batch {b}: step median {med:.2f} ms, min {min(times):.2f} "
+              f"ms, mean {statistics.mean(times):.2f} ms (10 steps after 3) -> "
+              f"{b * 20 / (med / 1e3):.1f} frames/s; peak device memory of a step "
+              f"{peak / 2**20:.1f} MiB, of which {before / 2**20:.1f} MiB allocated before it")
+        if launches != NO_LAUNCHES:
+            raise AssertionError(f"train {name}: hand kernels launched {launches}")
+        if b == 4:
+            profile_device(run, card, f"train {name} profile batch 4", "step", 3)
+    del trainer
+    torch.cuda.empty_cache()
+
+
+def baselines_through_clis(counts, root: str) -> None:
+    """(e): each baseline through the train CLI (one epoch of 4 steps at
+    batch 4 with an epoch snapshot, no hand kernel launched), then
+    ``predict --ckpt`` on the snapshot (the test clips; two forwards of the
+    first clip bit-equal); for SmaAt also ``validate --ckpt``, whose
+    counts equal the train CLI's final protocol on the same weights and
+    whose predictions the evaluator counts alike on the card and on the
+    CPU, and which ``predict --ckpt`` reproduces."""
+    from adnm_tpu_torch.cli import predict
+    from adnm_tpu_torch.cli import train as train_cli
+    from adnm_tpu_torch.cli import validate as validate_cli
+    from adnm_tpu_torch.data.shanghai import ShanghaiDataset
+    from adnm_tpu_torch.metrics.evaluator import SimplifiedEvaluator
+    from adnm_tpu_torch.train.checkpoint import best_ckpt_dir
+
+    test = ShanghaiDataset(None, IMG, "test", synthetic_len=SYNTHETIC_LEN)
+    clips = np.stack([test[i][:5] for i in range(len(test))])[:, :, None]
+    x_path = os.path.join(root, "x.npy")
+    np.save(x_path, clips)
+    for name in BASELINES:
+        args = [*TRAIN_ARGS, "--model", name, "--img-size", str(IMG), "--root", root]
+        counts.reset()
+        t0 = time.perf_counter()
+        out = train_cli.main(args)
+        secs = time.perf_counter() - t0
+        trainer, (log,) = out["trainer"], out["logs"]
+        print(f"{name} train CLI: {trainer.step} steps at batch 4 on {trainer.device} in "
+              f"{secs:.1f} s; train loss {log.train_loss:.6f}, val loss {log.val_loss:.6f}, "
+              f"best-checkpoint test loss {out['test_loss']:.6f}, grad norm "
+              f"{log.grad_norm_avg:.4f}, lr {log.lr:.2e}, clip ratio {log.clip_ratio}")
+        if trainer.device.type != "cuda" or trainer.step != TRAIN_STEPS or log.clip_ratio:
+            raise AssertionError(f"{name} train CLI: {trainer.step} steps on {trainer.device}")
+        if not np.isfinite([log.train_loss, log.val_loss, out["test_loss"]]).all():
+            raise AssertionError(f"{name} train CLI: a loss is not finite")
+        if counts.read() != NO_LAUNCHES:
+            raise AssertionError(f"{name} train CLI launched hand kernels {counts.read()}")
+        check_metrics(f"{name} train CLI", out["metrics"])
+        snapshot = best_ckpt_dir(root, "Shanghai", name) + "_epoch1"
+        served = predict.main(["--model", name, "--input", x_path, "--output",
+                               os.path.join(root, "y.npy"), "--img-size", str(IMG), "--ckpt",
+                               snapshot, "--root", root])
+        if served.shape != (len(clips), 20, 1, IMG, IMG) or not np.isfinite(served).all():
+            raise AssertionError(f"{name} predict --ckpt: {served.shape}")
+        model = predict.load_model(None, "cuda", ckpt=snapshot, model_name=name, img_size=IMG)
+        spread, sources = spread_sources(model, torch.from_numpy(clips[:1]).to("cuda"))
+        del model
+        print(f"{name} predict --ckpt on its epoch-1 snapshot: {served.shape}; two forwards of "
+              f"the first test clip: max_abs_diff {spread:.3e} {sources}")
+        if spread:
+            raise AssertionError(f"{name}: two forwards of one clip differ on the card")
+        if name != "SmaATUnet":
+            continue
+        val = validate_cli.main([*DATA_ARGS, "--model", name, "--img-size", str(IMG), "--root",
+                                 root, "--ckpt", snapshot])
+        cells, trained = val["metrics"]["threshold_metrics"], out["metrics"]["threshold_metrics"]
+        differ = max(abs(cells[t][k] - trained[t][k])
+                     for t in THRESHOLDS for k in ("TP", "TN", "FP", "FN"))
+        evs = []
+        for dev in ("cuda", "cpu"):
+            ev = SimplifiedEvaluator(20, 90, THRESHOLDS, device=dev)
+            ev.evaluate(val["preds"], val["gts"])
+            evs.append(ev)
+        serve_err = float(np.abs(served[:, :, 0] - val["preds"]).max())
+        print(f"{name} validate --ckpt: " + "; ".join(
+            f"{t}mm CSI {cells[t]['CSI']:.4f} POD {cells[t]['POD']:.4f} HSS {cells[t]['HSS']:.4f}"
+            for t in THRESHOLDS) + f"; largest count difference from the train CLI's final "
+              f"protocol {differ:.0f}; evaluator counts card == CPU: "
+              f"{evs[0].metrics == evs[1].metrics}; predict vs validate max_abs_err "
+              f"{serve_err:.3e} (tol {SERVE_ATOL:g})")
+        check_metrics(f"{name} validate CLI", val["metrics"])
+        if differ or evs[0].metrics != evs[1].metrics or not serve_err <= SERVE_ATOL:
+            raise AssertionError(f"{name}: validate disagrees with the train CLI, the CPU's "
+                                 f"evaluator or predict")
+
+
+def baseline_phase(counts, card: str) -> None:
+    """The four baselines at 256^2: (a) card against CPU and (b) two
+    forwards bit-equal, (c) and (d) a training step, (f) the card's figures,
+    (e) the CLIs; no hand kernel on their path."""
+    from adnm_tpu_torch.cli import predict
+
+    t_phase = time.perf_counter()
+    x = np.random.RandomState(1).rand(1, 5, 1, IMG, IMG).astype(np.float32)
+    for name in BASELINES:
+        dev, cpu = torch.device("cuda"), torch.device("cpu")
+        model = predict.load_model(None, dev, model_name=name, img_size=IMG)
+        counts.reset()
+        a, b = (predict.forecast(model, x, 1, dev) for _ in range(2))
+        if counts.read() != NO_LAUNCHES:
+            raise AssertionError(f"{name} forward launched hand kernels {counts.read()}")
+        del model
+        t0 = time.perf_counter()
+        want = predict.forecast(predict.load_model(None, cpu, model_name=name, img_size=IMG), x,
+                                1, cpu)
+        err = float(np.abs(a - want).max())
+        rel_l2 = float(np.linalg.norm(a - want) / np.linalg.norm(want))
+        print(f"{name} forward {IMG}^2 batch 1, card vs CPU ({time.perf_counter() - t0:.1f} s "
+              f"on the CPU): max_abs_err {err:.3e} (tol {BASELINE_FORWARD_ATOL:g}), rel L2 "
+              f"{rel_l2:.3e}, max |y| {np.abs(want).max():.3f}; two card forwards bit-equal: "
+              f"{np.array_equal(a, b)}")
+        if a.shape != (1, 20, 1, IMG, IMG) or not np.isfinite(a).all():
+            raise AssertionError(f"{name}: forward {a.shape}")
+        if not np.array_equal(a, b) or not err <= BASELINE_FORWARD_ATOL:
+            raise AssertionError(f"{name}: the card's forward differs from itself or the CPU's")
+        check_baseline_step(name)
+        time_baseline(name, counts, card)
+    with tempfile.TemporaryDirectory() as root:
+        baselines_through_clis(counts, root)
+    print(f"baseline phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -1562,6 +1867,9 @@ def main() -> None:
     # -- one training step: twice on the card, card against CPU, bf16 ------
     compare_step_with_cpu("duality", {})
     compare_step_with_cpu("bimamba", BIMAMBA)
+
+    # -- the baselines: SmaAt-UNet, ConvLSTM, TrajGRU, LPTQPN ---------------
+    baseline_phase(counts, card)
 
     # Launches: serving kernels from the bimamba requests, K1's backward
     # from the train CLI's run, K2's from the bimamba training steps; K3

@@ -7,7 +7,7 @@ batch 1) twice on one input with every module's inputs and outputs hooked
 (``chip_smoke.spread_sources``), and prints the output's largest
 difference and the module calls that computed differently from equal
 inputs: once as shipped, once with the transposed convolutions on cuDNN's
-default algorithm choice (``DeConvLayer``'s deterministic flag undone),
+default algorithm choice (``ConvTranspose2d``'s deterministic flag undone),
 and once with K1 swapped for its plain version. Needs CUDA.
 """
 
@@ -18,6 +18,7 @@ import sys
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -35,11 +36,16 @@ def main() -> None:
     chip_smoke.build_all(_build, {"rms_norm": k1.SOURCES})
     x = np.random.RandomState(0).rand(1, 5, 1, 256, 256).astype(np.float32)
     x = torch.from_numpy(x).to("cuda")
-    shipped = layers.DeConvLayer.forward
+    shipped = layers.ConvTranspose2d.forward
+
+    def default_algorithms(self, v):
+        return F.conv_transpose2d(v, self.weight, self.bias, self.stride, self.padding,
+                                  self.output_padding, self.groups, self.dilation)
+
     variants = {
         "as shipped": {},
         "transposed conv on cuDNN's default algorithms":
-            {(layers.DeConvLayer, "forward"): lambda self, v: self.trans_conv(v)},
+            {(layers.ConvTranspose2d, "forward"): default_algorithms},
         "K1 plain": {(layers, "rms_norm"): k1.rms_norm_reference},
     }
     for label, kwargs in (("duality", {}), ("bimamba", {"linear_attn_duality": False})):
@@ -56,7 +62,7 @@ def main() -> None:
             print(f"{label}, {variant}: max_abs_diff {spread:.3e}; module calls computing "
                   f"differently from equal inputs: {sources[:2]}")
         del model
-    assert layers.DeConvLayer.forward is shipped
+    assert layers.ConvTranspose2d.forward is shipped
 
 
 if __name__ == "__main__":

@@ -31,7 +31,7 @@ from adnm_tpu_torch.ops.rms_norm import (
     rms_norm_backward_reference,
     rms_norm_reference,
 )
-from chip_smoke import channel_slices, k2_grad_terms
+from chip_smoke import baseline_trainer, bn_cancelled, channel_slices, k2_grad_terms, train_batch
 
 # The main path's shapes: refiner (B, 32, 256, 256), every Block norm at
 # 32^2 ... 8^2, and the Pallas contract's (rows, d) on the last axis; then
@@ -664,3 +664,63 @@ def test_two_fp32_training_steps_give_the_same_gradients_on_the_card(card, linea
     assert torch.equal(loss_a, loss_b)
     assert all(torch.equal(a[k], b[k]) for k in a), [k for k in a if not torch.equal(a[k], b[k])]
     assert torch.backends.cudnn.deterministic is False
+
+
+# -- the baselines ---------------------------------------------------------------
+
+BASELINES = ("SmaATUnet", "ConvLSTM", "TrajGRU", "LPTQPN")
+BASELINE_SIZE = 64
+# Card against CPU, fp32 without TF32, full width at 64^2, seeded init: the
+# forward's outputs (up to 1.0) within 1e-5 (CPU fp32 against fp64 at 64^2:
+# 4.5e-8 ... 6.3e-7, scripts/torch_baseline_precision.py); one step's loss
+# 1e-5 relative, global gradient norm 1e-3, each tensor 2e-2 of its norm +
+# 1e-7 of the global norm (the ADNM step's bounds; 1e-5 of the global norm
+# for a gradient that is 0 in exact arithmetic, ``chip_smoke.bn_cancelled``:
+# the CPU's fp32 at 64^2 is 2.4e-7 of it from fp64), SmaAt's running
+# statistics 1e-4 relative.
+BASELINE_FORWARD_ATOL = 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", BASELINES)
+def test_baseline_forward_on_the_card_matches_the_cpu_bit_for_bit_twice(card, name):
+    from adnm_tpu_torch.cli import predict
+
+    x = torch.rand(1, 5, 1, BASELINE_SIZE, BASELINE_SIZE, generator=torch.Generator().manual_seed(0))
+    models = {dev: predict.load_model(None, dev, model_name=name, img_size=BASELINE_SIZE)
+              for dev in (card, torch.device("cpu"))}
+    with torch.inference_mode():
+        a, b = models[card](x.to(card)), models[card](x.to(card))
+        want = models[torch.device("cpu")](x)
+    assert torch.equal(a, b)
+    assert float((a.cpu() - want).abs().max()) <= BASELINE_FORWARD_ATOL
+    assert torch.backends.cudnn.deterministic is False
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", BASELINES)
+def test_baseline_training_step_on_the_card_matches_the_cpu_bit_for_bit_twice(card, name):
+    """Two gradients of one batch on the card bit-equal (TrajGRU's warp sums
+    its image gradient in a fixed order), and the card against the CPU."""
+    batch = train_batch(1, BASELINE_SIZE)
+    on_card = baseline_trainer(name, card, BASELINE_SIZE)
+    runs = []
+    for _ in range(2):
+        loss, grads = on_card.grads(batch)
+        runs.append((loss.clone(), {k: g.clone() for k, g in grads.items()},
+                     {k: b.clone() for k, b in on_card.model.named_buffers()}))
+    (loss_a, a, stats), (loss_b, b, _) = runs
+    assert torch.equal(loss_a, loss_b)
+    assert all(torch.equal(a[k], b[k]) for k in a), [k for k in a if not torch.equal(a[k], b[k])]
+    on_cpu = baseline_trainer(name, torch.device("cpu"), BASELINE_SIZE)
+    loss_cpu, want = on_cpu.grads(batch)
+    assert abs(float(loss_a) - float(loss_cpu)) <= 1e-5 * abs(float(loss_cpu))
+    total = float(torch.sqrt(sum(g.double().square().sum() for g in want.values())))
+    got_total = float(torch.sqrt(sum(g.double().square().sum() for g in a.values())))
+    assert abs(got_total - total) <= 1e-3 * total
+    for k, w in want.items():
+        err = float((a[k].cpu().double() - w.double()).norm())
+        bound = 2e-2 * float(w.double().norm()) + (1e-5 if bn_cancelled(k) else 1e-7) * total
+        assert err <= bound, (k, err, bound)
+    for k, v in on_cpu.model.named_buffers():
+        torch.testing.assert_close(stats[k].cpu(), v, rtol=1e-4, atol=1e-6)

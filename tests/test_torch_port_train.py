@@ -244,8 +244,8 @@ def test_preset_matches_jax_for_forty_epochs():
             for prev in (0.0, 0.0123, 1.7):
                 assert got.clip_schedule.threshold(epoch, prev) == \
                     want.clip_schedule.threshold(epoch, prev)
-    with pytest.raises(NotImplementedError, match="SmaATUnet"):
-        get_preset("SmaATUnet", 5, 20, 6, "Shanghai")
+    with pytest.raises(NotImplementedError, match="TransUnet"):
+        get_preset("TransUnet", 5, 20, 6, "Shanghai")
 
 
 def test_adamw_is_optax_adamw():
@@ -412,8 +412,8 @@ def test_train_cli_end_to_end_and_resume(tmp_path, capsys):
 
 def test_train_cli_refuses_what_is_not_ported(tmp_path):
     base = ["--synthetic", "--img-size", "32", "--root", str(tmp_path), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="SmaATUnet"):
-        train_cli.main(base + ["--model", "SmaATUnet"])
+    with pytest.raises(NotImplementedError, match="TransUnet"):
+        train_cli.main(base + ["--model", "TransUnet"])
     with pytest.raises(NotImplementedError, match="LAPS"):
         train_cli.main(base + ["--dataset", "LAPS"])
     with pytest.raises(NotImplementedError, match="mla"):
