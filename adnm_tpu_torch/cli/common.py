@@ -6,21 +6,22 @@ from __future__ import annotations
 import argparse
 import os
 
+import numpy as np
 import torch
 
+from adnm_tpu_torch.convert import from_jax_params, to_jax_params
 from adnm_tpu_torch.data.loader import BatchLoader
 from adnm_tpu_torch.data.shanghai import make_datasets
 from adnm_tpu_torch.device import resolve_device
 from adnm_tpu_torch.models.adnm_unet import apply_reference_init
-from adnm_tpu_torch.models.registry import MODEL_NAMES, PORTED_MODELS, create_model
+from adnm_tpu_torch.models.registry import MODEL_NAMES, create_model
 from adnm_tpu_torch.train.checkpoint import best_ckpt_dir
 from adnm_tpu_torch.train.loop import Trainer
 from adnm_tpu_torch.train.presets import get_preset
 
 
 def add_common_args(p: argparse.ArgumentParser):
-    p.add_argument("--model", default="ADNMUnet", choices=list(MODEL_NAMES),
-                   help=f"model name; ported: {', '.join(PORTED_MODELS)} (the others raise)")
+    p.add_argument("--model", default="ADNMUnet", choices=list(MODEL_NAMES))
     p.add_argument("--dataset", default="Shanghai", choices=["Shanghai", "LAPS"],
                    help="LAPS is not ported and raises")
     p.add_argument("--data-path", default=os.environ.get("ADNM_DATA", "datasets/shanghai.h5"))
@@ -43,12 +44,15 @@ def add_common_args(p: argparse.ArgumentParser):
                    help="bfloat16 compute (fp32 params/optimizer - mixed precision; the loss "
                         "is computed in fp32); ADNMUnet only, the baselines raise")
     p.add_argument("--attn-type", default="standard", choices=["standard", "mla"],
-                   help="ADNMUnet only: mixer at the AttentionBlock sites; mla is not ported "
-                        "and raises")
+                   help="ADNMUnet only: mixer at the AttentionBlock sites (standard softmax "
+                        "attention or DeepSeek-V2 MLA)")
     p.add_argument("--transfer-dtype", default="float32", choices=["float32", "uint8"],
                    help="batch wire format host->device; uint8 ships round(x*255) "
                         "and normalizes on the device (4x fewer bytes)")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--pretrained-npz", default=None,
+                   help="TransUnet only: load the encoder from a google-ViT R50+ViT-B/16 .npz "
+                        "(train.npz_import.load_transunet_npz)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises when CUDA is absent) or cpu")
 
@@ -83,25 +87,37 @@ def model_kwargs(args) -> dict:
     """The ADNMUnet options of ``args`` for ``create_model``; with another
     model they exit, as in JAX (adnm_tpu/cli/common.py:173-178)."""
     kwargs = {}
-    if args.no_refiner_remat:
+    if getattr(args, "no_refiner_remat", False):
         if args.model != "ADNMUnet":
             raise SystemExit("--no-refiner-remat is only supported for --model ADNMUnet")
         kwargs["refiner_remat"] = False
     if args.attn_type != "standard":
         if args.model != "ADNMUnet":
             raise SystemExit("--attn-type is only supported for --model ADNMUnet")
-        raise NotImplementedError(f"--attn-type {args.attn_type!r} is not ported")
+        kwargs["attn_type"] = args.attn_type
     return kwargs
+
+
+def load_pretrained_npz(model: torch.nn.Module, path: str) -> None:
+    """``--pretrained-npz``: the encoder of the TransUnet ``model`` from the
+    .npz at ``path`` (JAX: adnm_tpu/cli/common.py:205-215)."""
+    from adnm_tpu_torch.train.npz_import import load_transunet_npz
+
+    with np.load(path) as npz:
+        tree = load_transunet_npz(npz, to_jax_params(model), model.hybrid_model.block_units,
+                                  model.num_layers)
+    from_jax_params(model, tree)
+    print(f"loaded pretrained encoder from {path}")
 
 
 def build(args):
     """(Trainer, (train, val, test) loaders, (input_frames, output_frames,
     frame_interval, thresholds)): ``args.model`` from the port's registry
-    with its preset; the reference init for ADNMUnet alone."""
-    if args.model not in PORTED_MODELS:
-        raise NotImplementedError(f"--model {args.model!r} is not ported to adnm_tpu_torch "
-                                  f"(ported: {', '.join(PORTED_MODELS)})")
+    with its preset; the reference init for ADNMUnet alone; TransUnet's
+    encoder from ``--pretrained-npz`` where given."""
     kwargs = model_kwargs(args)
+    if args.pretrained_npz and args.model != "TransUnet":
+        raise SystemExit("--pretrained-npz is only supported for --model TransUnet")
     shape = task_shape(args)
     input_frames, output_frames, frame_interval, _ = shape
     device = resolve_device(args.device)
@@ -115,6 +131,8 @@ def build(args):
                       param_transform=apply_reference_init if args.model == "ADNMUnet" else None,
                       remat_forward=args.remat, accum_steps=accum,
                       compute_dtype=compute_dtype(args))
+    if args.pretrained_npz:
+        load_pretrained_npz(trainer.model, args.pretrained_npz)
     data_path = None if args.synthetic else args.data_path
     tr, va, te = make_datasets(data_path, args.img_size, synthetic_len=args.synthetic_len)
     tdt = args.transfer_dtype

@@ -1,21 +1,23 @@
 """Serve a nowcast: input frames in, predicted frames out.
 
-    python -m adnm_tpu_torch.cli.predict --input frames.npy [--model NAME] [--ckpt PATH | --params params.npz] [--bf16]
+    python -m adnm_tpu_torch.cli.predict --input frames.npy [--model NAME] [--ckpt PATH | --params params.npz] [--bf16] [--attn-type mla]
 
 Reads (T_in, H, W) or (B, T_in, 1, H, W) frames in [0, 1] from .npy, runs
-the forward of ``--model`` (default ADNMUnet; the ported baselines
-SmaATUnet, ConvLSTM, TrajGRU and LPTQPN) for the Shanghai task (5 frames
-in, 20 out) in batches of ``--batch-size``, optionally chains it until
+the forward of ``--model`` (default ADNMUnet, with ``--attn-type``; or the
+baselines SmaATUnet, ConvLSTM, TrajGRU, LPTQPN, TransUnet and SwinUnet)
+for the Shanghai task (5 frames in, 20 out) in batches of
+``--batch-size``, optionally chains it until
 ``--horizon`` frames exist, writes (B, T, 1, H, W) predictions to
 ``--output`` and, with ``--png DIR``, PNG strips per clip. Weights come
 from ``--params`` (a JAX params tree saved by
-``adnm_tpu_torch.convert.save_params_npz``; not for SmaATUnet, whose
-running statistics it lacks), else from a checkpoint of the port's train CLI
-(``--ckpt``, by default the model's best checkpoint under ``--root``;
-BatchNorm's running statistics come with it), else, with a warning, from
-the seeded init. A ConvLSTM serves only ``--img-size`` frames, the size
-its checkpoint was trained at. ``--device`` defaults to cuda and raises
-when CUDA is absent. ``--bf16`` is ported for ADNMUnet alone.
+``adnm_tpu_torch.convert.save_params_npz``; not for SmaATUnet or
+TransUnet, whose running statistics it lacks), else from a checkpoint of
+the port's train CLI (``--ckpt``, by default the model's best checkpoint
+under ``--root``; BatchNorm's running statistics come with it), else,
+with a warning, from the seeded init. A ConvLSTM, TransUnet or SwinUnet
+serves only ``--img-size`` frames, the size its checkpoint was trained
+at. ``--device`` defaults to cuda and raises when CUDA is absent.
+``--bf16`` is ported for ADNMUnet alone.
 """
 
 from __future__ import annotations
@@ -27,11 +29,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from adnm_tpu_torch.cli.common import compute_dtype, resolve_ckpt
+from adnm_tpu_torch.cli.common import compute_dtype, model_kwargs, resolve_ckpt
 from adnm_tpu_torch.convert import from_jax_params, load_params_npz, to_jax_batch_stats
 from adnm_tpu_torch.core.layers import seeded_init_
 from adnm_tpu_torch.device import resolve_device
-from adnm_tpu_torch.models.registry import PORTED_MODELS, create_model
+from adnm_tpu_torch.models.registry import MODEL_NAMES, create_model
 from adnm_tpu_torch.train.checkpoint import load_model_state, restore_state
 from adnm_tpu_torch.viz import vis_res
 
@@ -49,11 +51,14 @@ def load_model(params: Optional[str], device, ckpt: Optional[str] = None,
     ``params`` .npz, else from the ``ckpt`` checkpoint file of the port's
     ``Trainer`` (its "params", BatchNorm's running statistics included),
     else from the init seeded with ``INIT_SEED``. ``img_size`` is the frame
-    size, which fixes ConvLSTM's peephole weights (a checkpoint of another
-    size raises). ``model_kwargs`` go to the ADNMUnet factory, as the JAX
+    size, which fixes ConvLSTM's peephole weights, TransUnet's position
+    embeddings and SwinUnet's windows (a checkpoint of another size
+    raises). ``model_kwargs`` go to the ADNMUnet factory, as the JAX
     registry passes them: ``linear_attn_duality=False`` builds the bimamba
-    chunked-scan configuration, ``mixer_type="vssd"`` the VSSD mixer; a
-    checkpoint must come from the same configuration. The parameters are
+    chunked-scan configuration, ``mixer_type="vssd"`` the VSSD mixer,
+    ``attn_type="mla"`` MLA at the attention sites, ``simple_patch`` and
+    ``compute_dead_features`` the factory's options; a checkpoint must come
+    from the same configuration. The parameters are
     fp32 whatever ``compute_dtype`` ``forecast`` runs in; a model that
     cannot compute in ``compute_dtype`` raises here."""
     device = resolve_device(device)
@@ -113,7 +118,10 @@ def forecast(model: torch.nn.Module, x: np.ndarray, batch_size: int, device: tor
 def main(argv=None) -> np.ndarray:
     p = argparse.ArgumentParser("adnm-torch-predict")
     p.add_argument("--input", required=True, help=".npy input frames")
-    p.add_argument("--model", default="ADNMUnet", choices=list(PORTED_MODELS))
+    p.add_argument("--model", default="ADNMUnet", choices=list(MODEL_NAMES))
+    p.add_argument("--attn-type", default="standard", choices=["standard", "mla"],
+                   help="ADNMUnet only: mixer at the AttentionBlock sites (standard softmax "
+                        "attention or DeepSeek-V2 MLA); a checkpoint must have the same")
     p.add_argument("--output", default="prediction.npy")
     p.add_argument("--params", default=None,
                    help=".npz of the JAX params tree (adnm_tpu_torch.convert.save_params_npz)")
@@ -142,7 +150,7 @@ def main(argv=None) -> np.ndarray:
         args.ckpt, args.root, "warning: no checkpoint at {}; predicting with fresh init",
         model=args.model)
     model = load_model(args.params, device, ckpt=ckpt, compute_dtype=cdt, model_name=args.model,
-                       img_size=args.img_size)
+                       img_size=args.img_size, **model_kwargs(args))
     if ckpt is not None:
         print(f"loaded checkpoint: {ckpt}")
     preds = forecast(model, x, args.batch_size, device, args.horizon, cdt)

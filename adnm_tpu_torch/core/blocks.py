@@ -59,6 +59,22 @@ class PatchEmbed(nn.Module):
         return channel_scale(x, self.gamma), res
 
 
+class SimplePatchEmbed(nn.Module):
+    """The one-conv patch embed (JAX: ``SimplePatchEmbed``; reference:
+    models/model_untils.py:318-355): a kernel x kernel conv to embed_dim
+    with padding (kernel - 1) // 2, no bias, then the norm. Returns the
+    frame stack's last frame too, as ``PatchEmbed``."""
+
+    def __init__(self, in_channels: int, embed_dim: int, kernel: int = 6,
+                 instance_norm: bool = True):
+        super().__init__()
+        self.conv = ConvLayer(in_channels, embed_dim, kernel, 1, (kernel - 1) // 2,
+                              use_bias=False, norm=norm_kind(instance_norm))
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self.conv(x), x[:, -1]
+
+
 class WTLayer(nn.Module):
     """Optional gated skip-concat, WTConv alpha/beta residual, Mlp, gamma
     scale, 3x3 conv to next_dim. ``this_dim`` is the width after the
@@ -85,6 +101,31 @@ class WTLayer(nn.Module):
         alpha, beta = gate_cast(x, self.alpha, self.beta)
         x = self.mlp(alpha * self.wtconv(x) + beta * x)
         return self.conv(channel_scale(x, self.gamma))
+
+
+class LayerToLayer(nn.Module):
+    """The plain-conv variant of WTLayer (JAX: ``LayerToLayer``; reference:
+    models/model_untils.py:429-465), exported and wired into no model in
+    JAX either: the gated skip-concat (or, without a residual, the gated
+    features added), then a 3x3 conv with norm and GELU. ``this_dim`` is
+    the width after the concat."""
+
+    def __init__(self, this_dim: int, next_dim: int, use_bias: bool = True,
+                 if_res: bool = False, instance_norm: bool = True):
+        super().__init__()
+        for name in ("gama1", "gama2", "gama3"):
+            setattr(self, name, scalar_param(1.0))
+        self.conv = ConvLayer(this_dim, next_dim, 3, 1, 1, use_bias=use_bias,
+                              norm=norm_kind(instance_norm, 8 if if_res else 4), act="gelu")
+
+    def forward(self, x: torch.Tensor, residual: Optional[torch.Tensor] = None,
+                features: Optional[torch.Tensor] = None) -> torch.Tensor:
+        gama1, gama2, gama3 = gate_cast(x, self.gama1, self.gama2, self.gama3)
+        if residual is not None:
+            x = torch.cat([gama1 * x, gama2 * residual.to(x.dtype)], dim=1)
+        elif features is not None:
+            x = x + gama3 * features.to(x.dtype)
+        return self.conv(x)
 
 
 class DownSample(nn.Module):

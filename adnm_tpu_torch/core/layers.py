@@ -118,6 +118,21 @@ class BiasFreeLayerNorm(nn.Module):
         return out.to(x.dtype)
 
 
+class LayerNorm(nn.Module):
+    """flax's ``nn.LayerNorm`` over the last axis: ``scale`` and ``bias``
+    (its parameter names), eps 1e-6 by default; the transformers of
+    TransUnet and SwinUnet normalise (B, L, C) tokens with it."""
+
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x, self.scale.shape, self.scale, self.bias, self.eps)
+
+
 class RMSNorm(nn.Module):
     """RMS norm over ``axis`` (the Block norms use axis 1, the channels of
     NCHW): kernel K1 on CUDA tensors, its plain version on CPU tensors."""

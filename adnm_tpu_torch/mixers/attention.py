@@ -1,12 +1,15 @@
-"""Softmax multi-head attention on NCHW tensors
-(counterpart of adnm_tpu/mixers/attention.py::StandardAttention)."""
+"""Attention mixers (counterpart of adnm_tpu/mixers/attention.py): softmax
+multi-head attention on NCHW tensors and DeepSeek-V2's multi-head latent
+attention (MLA) on (B, L, D) tokens."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
 
-from adnm_tpu_torch.core.layers import Linear, channel_linear
+from adnm_tpu_torch.core.layers import Linear, RMSNorm, channel_linear
 
 
 class StandardAttention(nn.Module):
@@ -30,3 +33,92 @@ class StandardAttention(nn.Module):
         logits = torch.einsum("bhdi,bhdj->bhij", q, k) * self.dim_head ** -0.5
         out = torch.einsum("bhij,bhdj->bhdi", logits.softmax(dim=-1), v)
         return channel_linear(self.to_out, out.reshape(b, -1, h, w))
+
+
+def _rope_cos_sin(seq_len: int, dim: int, theta: float, dtype=torch.float32, device=None):
+    """The rotary tables (seq_len, dim), made in fp32 and cast to ``dtype``."""
+    inv_freq = 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32, device=device)
+                                / dim))
+    t = torch.arange(seq_len, dtype=torch.float32, device=device)
+    emb = torch.outer(t, inv_freq).repeat(1, 2)
+    return emb.cos().to(dtype), emb.sin().to(dtype)
+
+
+def _rotate_half(x: torch.Tensor) -> torch.Tensor:
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([-x2, x1], dim=-1)
+
+
+def _apply_rope(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
+    """DeepSeek-V2's interleaved rope: the channels of each (B, H, S, D)
+    tensor are de-interleaved pairwise before the rotation."""
+
+    def de_interleave(t):
+        b, h, s, d = t.shape
+        return t.reshape(b, h, s, d // 2, 2).transpose(-1, -2).reshape(b, h, s, d)
+
+    q, k = de_interleave(q), de_interleave(k)
+    return q * cos + _rotate_half(q) * sin, k * cos + _rotate_half(k) * sin
+
+
+class MLA(nn.Module):
+    """Multi-head latent attention on (B, L, hidden) tokens: low-rank q and
+    kv projections, each through an RMSNorm over its last axis (kernel K1's
+    row path on CUDA tensors), a rope part shared by the heads, softmax
+    attention in plain matrix products. Computes in the input's dtype, as
+    the JAX module (its Dense layers have no dtype of their own); the norms
+    take fp32 statistics."""
+
+    def __init__(self, hidden_size: int, num_heads: int, q_lora_rank: int, kv_lora_rank: int,
+                 qk_rope_head_dim: int = 64, qk_nope_head_dim: int = 64,
+                 v_head_dim: int = 64, rope_theta: float = 128000.0,
+                 attention_bias: bool = False):
+        super().__init__()
+        self.num_heads, self.kv_lora_rank = num_heads, kv_lora_rank
+        self.rope, self.nope, self.v_head_dim = qk_rope_head_dim, qk_nope_head_dim, v_head_dim
+        self.rope_theta = rope_theta
+        q_head_dim = qk_nope_head_dim + qk_rope_head_dim
+        self.q_down_proj = Linear(hidden_size, q_lora_rank, bias=attention_bias)
+        self.q_down_norm = RMSNorm(q_lora_rank)
+        self.q_up_proj = Linear(q_lora_rank, num_heads * q_head_dim, bias=attention_bias)
+        self.kv_down_proj = Linear(hidden_size, kv_lora_rank + qk_rope_head_dim,
+                                   bias=attention_bias)
+        self.kv_down_norm = RMSNorm(kv_lora_rank)
+        self.kv_up_proj = Linear(kv_lora_rank, num_heads * (qk_nope_head_dim + v_head_dim),
+                                 bias=attention_bias)
+        self.out_proj = Linear(num_heads * v_head_dim, hidden_size, bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, l, _ = x.shape
+        nh = self.num_heads
+        q = self.q_up_proj(self.q_down_norm(self.q_down_proj(x)))
+        q = q.reshape(b, l, nh, self.nope + self.rope).transpose(1, 2)
+        q_nope, q_rope = q.split([self.nope, self.rope], dim=-1)
+
+        ckv, k_rope = self.kv_down_proj(x).split([self.kv_lora_rank, self.rope], dim=-1)
+        k_rope = k_rope.reshape(b, l, 1, self.rope).transpose(1, 2)
+        kv = self.kv_up_proj(self.kv_down_norm(ckv.contiguous()))  # K1 takes dense rows
+        kv = kv.reshape(b, l, nh, self.nope + self.v_head_dim).transpose(1, 2)
+        k_nope, v = kv.split([self.nope, self.v_head_dim], dim=-1)
+
+        cos, sin = _rope_cos_sin(l, self.rope, self.rope_theta, x.dtype, x.device)
+        q_rope, k_rope = _apply_rope(q_rope, k_rope, cos, sin)
+        q_full = torch.cat([q_nope, q_rope], dim=-1)
+        k_full = torch.cat([k_nope, k_rope.expand(-1, nh, -1, -1)], dim=-1)
+        logits = torch.matmul(q_full, k_full.transpose(-1, -2)) / math.sqrt(self.nope + self.rope)
+        out = torch.matmul(logits.softmax(dim=-1), v)
+        return self.out_proj(out.transpose(1, 2).reshape(b, l, nh * self.v_head_dim))
+
+
+def generate_mla_config(dim: int, strict: bool = True) -> dict:
+    """MLA's widths for a model width ``dim`` (JAX: ``generate_mla_config``;
+    reference: models/MLA.py:351-400). ``strict=False`` lifts the
+    reference's power-of-two list, for the U-Net's attention sites."""
+    if strict and dim not in (16, 32, 64, 128, 256, 512):
+        raise ValueError(f"Unsupported dim={dim}")
+    num_heads = max(1, dim // 8)
+    v_head_dim = dim // num_heads
+    return dict(hidden_size=dim, num_heads=num_heads, v_head_dim=v_head_dim,
+                qk_rope_head_dim=64, qk_nope_head_dim=v_head_dim,
+                q_lora_rank=max(64, dim // 4), kv_lora_rank=max(32, dim // 8),
+                rope_theta=128000.0, attention_bias=False)

@@ -9,9 +9,12 @@ with the last-input-frame residual). Contract:
 (B, T_in, 1, H, W) -> (B, T_out, 1, H, W).
 
 The ADN-SSD and VSSD mixers (``mixer_type``), each with the duality or
-the bimamba chunked scan (``linear_attn_duality``), and softmax attention;
-the decoder computes only the features it consumes (the JAX default,
-``compute_dead_features=False``). Every configuration trains: the chunked
+the bimamba chunked scan (``linear_attn_duality``); softmax attention or
+MLA (``attn_type``) at the three AttentionBlock sites; the PatchEmbed or
+the one-conv ``SimplePatchEmbed`` (``simple_patch``). The decoder computes
+only the features it consumes (the JAX default), or also the reference's
+four dead ones (``compute_dead_features``: the same prediction, a larger
+parameter tree). Every configuration trains: the chunked
 scan (K2) has its backward kernel. ``refiner_remat`` recomputes each
 refiner Block's forward in the backward, as the JAX model does;
 ``apply_reference_init`` is the reference's init scheme.
@@ -42,6 +45,7 @@ from adnm_tpu_torch.core.blocks import (
     EncoderToDecoder,
     OutProj,
     PatchEmbed,
+    SimplePatchEmbed,
     UpSample,
     WTLayer,
 )
@@ -58,7 +62,7 @@ from adnm_tpu_torch.core.layers import (
     scalar_param,
 )
 from adnm_tpu_torch.mixers import vssd
-from adnm_tpu_torch.mixers.attention import StandardAttention
+from adnm_tpu_torch.mixers.attention import MLA, StandardAttention, generate_mla_config
 from adnm_tpu_torch.mixers.ssd_mixer import ADNSSDMixer
 from adnm_tpu_torch.mixers.vssd import VSSDMixer
 
@@ -141,13 +145,15 @@ class Block(nn.Module):
 
 
 class AttentionBlock(nn.Module):
-    """Softmax attention with the Block skeleton: bias-free LayerNorm ->
-    attention -> beta residual -> LayerNorm -> Mlp -> beta residual, gamma,
-    optional out projection. No caller passes the JAX module's residual or
-    features, so they are not ported; their gates alpha1..alpha4 are
-    carried and never read."""
+    """Attention with the Block skeleton: bias-free LayerNorm -> attention
+    (softmax ``StandardAttention``, or ``MLA`` over the H*W tokens for
+    ``attn_type="mla"``) -> beta residual -> LayerNorm -> Mlp -> beta
+    residual, gamma, optional out projection. No caller passes the JAX
+    module's residual or features, so they are not ported; their gates
+    alpha1..alpha4 are carried and never read."""
 
-    def __init__(self, dim: int, out_dim: Optional[int] = None, headdim: int = 4):
+    def __init__(self, dim: int, out_dim: Optional[int] = None, headdim: int = 4,
+                 attn_type: str = "standard"):
         super().__init__()
         out_dim = out_dim or dim
         for name in ("alpha1", "alpha2", "alpha3", "alpha4",
@@ -156,7 +162,12 @@ class AttentionBlock(nn.Module):
         self.attn_shift1 = scalar_param(0.0)
         self.attn_shift2 = scalar_param(0.0)
         self.attn_norm1 = BiasFreeLayerNorm(dim)
-        self.attn_layer = StandardAttention(dim, heads=dim // headdim, dim_head=headdim)
+        if attn_type == "mla":
+            self.attn_layer = MLA(**generate_mla_config(dim, strict=False))
+        elif attn_type == "standard":
+            self.attn_layer = StandardAttention(dim, heads=dim // headdim, dim_head=headdim)
+        else:
+            raise ValueError(f"attn_type must be standard|mla, got {attn_type!r}")
         self.attn_norm2 = BiasFreeLayerNorm(dim)
         self.attn_mlp = Mlp(dim)
         self.gamma = nn.Parameter(torch.ones(dim))
@@ -167,7 +178,7 @@ class AttentionBlock(nn.Module):
             x, self.beta1, self.beta2, self.beta3, self.beta4, self.attn_scale1,
             self.attn_shift1, self.attn_scale2, self.attn_shift2)
         x_norm = scale1 * self.attn_norm1(x) + shift1
-        x = beta1 * x + beta2 * self.attn_layer(x_norm)
+        x = beta1 * x + beta2 * self._attend(x_norm)
         x_norm = scale2 * self.attn_norm2(x) + shift2
         x = beta3 * x + beta4 * self.attn_mlp(x_norm)
         x = channel_scale(x, self.gamma)
@@ -175,30 +186,41 @@ class AttentionBlock(nn.Module):
             x = channel_linear(self.out_proj, x)
         return x
 
+    def _attend(self, x: torch.Tensor) -> torch.Tensor:
+        if not isinstance(self.attn_layer, MLA):
+            return self.attn_layer(x)
+        b, d, h, w = x.shape
+        out = self.attn_layer(x.flatten(2).transpose(1, 2))  # (B, H*W, d) tokens
+        return out.transpose(1, 2).reshape(b, d, h, w)
+
 
 class Encoder(nn.Module):
     def __init__(self, embed_dim: Sequence[int], depth: Sequence[int], headdim: int,
                  in_channels: int, kernel: Sequence[int], ratio: Sequence[int],
                  wt_levels: Sequence[int], norm_epsilon: float = 1e-5,
-                 instance_norm: bool = True, linear_attn_duality: bool = True,
-                 mixer_type: str = "adnssd"):
+                 instance_norm: bool = True, simple_patch: bool = False,
+                 linear_attn_duality: bool = True, mixer_type: str = "adnssd",
+                 attn_type: str = "standard"):
         super().__init__()
         ed = embed_dim
         mix = dict(linear_attn_duality=linear_attn_duality, mixer_type=mixer_type)
-        self.encoder1 = PatchEmbed(in_channels, ed[0], kernel[0], wt_levels[0],
-                                   instance_norm=instance_norm)
+        if simple_patch:
+            self.encoder1 = SimplePatchEmbed(in_channels, ed[0], kernel[0], instance_norm)
+        else:
+            self.encoder1 = PatchEmbed(in_channels, ed[0], kernel[0], wt_levels[0],
+                                       instance_norm=instance_norm)
         self.down_sample1 = DownSample(ratio[0])
         self.encoder2 = WTLayer(ed[0], ed[1], kernel[1], wt_levels[1], instance_norm=instance_norm)
         self.down_sample2 = DownSample(ratio[1])
         self.encoder3 = WTLayer(ed[1], ed[2], kernel[2], wt_levels[2], instance_norm=instance_norm)
         self.down_sample3 = DownSample(ratio[2])
-        self.attn = AttentionBlock(ed[2], headdim=headdim)
+        self.attn = AttentionBlock(ed[2], headdim=headdim, attn_type=attn_type)
         self.encoder4 = Block(ed[2], ed[3], headdim, depth[0], norm_epsilon, **mix)
         self.down_sample4 = DownSample(ratio[3])
         self.encoder5 = Block(ed[3], ed[4], headdim, depth[1], norm_epsilon, **mix)
         self.down_sample5 = DownSample(ratio[4])
         self.encoder6 = Block(ed[4], ed[5], headdim, depth[2], norm_epsilon, **mix)
-        self.attn2 = AttentionBlock(ed[5], headdim=headdim)
+        self.attn2 = AttentionBlock(ed[5], headdim=headdim, attn_type=attn_type)
 
     def forward(self, x: torch.Tensor):
         skips = []
@@ -223,22 +245,27 @@ class Decoder(nn.Module):
     def __init__(self, embed_dim: Sequence[int], depth: Sequence[int], headdim: int,
                  refine_dim: Sequence[int], kernel: Sequence[int], ratio: Sequence[int],
                  wt_levels: Sequence[int], norm_epsilon: float = 1e-5,
-                 instance_norm: bool = True, linear_attn_duality: bool = True,
-                 mixer_type: str = "adnssd"):
+                 instance_norm: bool = True, compute_dead_features: bool = False,
+                 linear_attn_duality: bool = True, mixer_type: str = "adnssd",
+                 attn_type: str = "standard"):
         super().__init__()
         ed = list(embed_dim)
         mix = dict(linear_attn_duality=linear_attn_duality, mixer_type=mixer_type)
         c_list = ed[:2] + [ed[2], ed[2]] + ed[3:]  # level 2 listed twice
         self.fusion = ChannelAttBridge(c_list)
-        # e2d_i works on skip 6 - i; only features 0..2 are consumed.
-        for i in range(3):
+        # e2d_i works on skip 6 - i; only features 0..2 are consumed. With
+        # compute_dead_features, e2d_3..e2d_6 are built and run as in the
+        # reference: feature 3 goes nowhere, and WTLayer discards 4..6
+        # beside its residual (adnm_tpu/core/blocks.py:130-134).
+        self.n_features = 7 if compute_dead_features else 3
+        for i in range(self.n_features):
             self.add_module(f"e2d_{i}", EncoderToDecoder(c_list[6 - i], instance_norm))
         self.decoder1 = Block(ed[5], ed[4], headdim, depth[2], norm_epsilon, **mix)
         self.up_sample1 = UpSample(ed[4], ed[4], ratio=ratio[4])
         self.decoder2 = Block(ed[4] * 2, ed[3], headdim, depth[1], norm_epsilon, **mix)
         self.up_sample2 = UpSample(ed[3], ed[3], ratio=ratio[3])
         self.decoder3 = Block(ed[3] * 2, ed[2], headdim, depth[0], norm_epsilon, **mix)
-        self.attn = AttentionBlock(ed[2], ed[2], headdim=headdim)
+        self.attn = AttentionBlock(ed[2], ed[2], headdim=headdim, attn_type=attn_type)
         self.up_sample3 = UpSample(ed[2], ed[2], ratio=ratio[2])
         self.decoder4 = WTLayer(ed[2] * 2, ed[1], kernel[2], wt_levels[2], if_res=True,
                                 instance_norm=instance_norm)
@@ -252,7 +279,8 @@ class Decoder(nn.Module):
 
     def forward(self, x: torch.Tensor, skips) -> torch.Tensor:
         fusion = self.fusion(skips)
-        feats = [getattr(self, f"e2d_{i}")(skips[6 - i], fusion[6 - i]) for i in range(3)]
+        feats = [getattr(self, f"e2d_{i}")(skips[6 - i], fusion[6 - i])
+                 for i in range(self.n_features)]
         x = self.up_sample1(self.decoder1(x, features=feats[0]))
         x = self.up_sample2(self.decoder2(x, residual=skips[5], features=feats[1]))
         x = self.decoder3(x, residual=skips[4], features=feats[2])
@@ -305,17 +333,18 @@ class ADNMUNet(nn.Module):
                  channels: int = 5, out_channels: int = 20, kernel: Sequence[int] = (5, 5, 5),
                  ratio: Sequence[int] = (2, 2, 2, 2, 2, 2), wt_levels: Sequence[int] = (3, 2, 1),
                  out_expand: int = 2, norm_epsilon: float = 1e-6, instance_norm: bool = True,
+                 simple_patch: bool = False, compute_dead_features: bool = False,
                  linear_attn_duality: bool = True, mixer_type: str = "adnssd",
                  attn_type: str = "standard", refiner_remat: bool = True):
         super().__init__()
-        if attn_type != "standard":
-            raise NotImplementedError(f"attn_type {attn_type!r}: only 'standard' is ported")
         self.mixer_type, self.linear_attn_duality = mixer_type, linear_attn_duality
         mix = dict(linear_attn_duality=linear_attn_duality, mixer_type=mixer_type)
         self.encoder = Encoder(embed_dim, depth, headdim, channels, kernel, ratio, wt_levels,
-                               norm_epsilon, instance_norm, **mix)
+                               norm_epsilon, instance_norm, simple_patch, **mix,
+                               attn_type=attn_type)
         self.decoder = Decoder(embed_dim, depth, headdim, refine_dim, kernel, ratio, wt_levels,
-                               norm_epsilon, instance_norm, **mix)
+                               norm_epsilon, instance_norm, compute_dead_features, **mix,
+                               attn_type=attn_type)
         self.refiner = Refiner(refine_dim, refine_depth, refine_headdim, out_channels,
                                out_expand, norm_epsilon, instance_norm, **mix,
                                remat=refiner_remat)
@@ -338,8 +367,8 @@ def create_adnm_unet(input_frames: int, output_frames: int, frame_interval: int,
     """Reference: models/ADNMUNet.py:906-940 (create_ADNMUNet). The model
     takes any frame size that five halvings divide, which ``img_size``
     must be (the weights do not depend on it); ``kwargs`` go to
-    ``ADNMUNet`` (``linear_attn_duality``, ``mixer_type``,
-    ``refiner_remat``)."""
+    ``ADNMUNet`` (``linear_attn_duality``, ``mixer_type``, ``attn_type``,
+    ``simple_patch``, ``compute_dead_features``, ``refiner_remat``)."""
     if img_size % 32:
         raise ValueError(f"img_size {img_size}: five halvings must divide the frame size")
     refine_dim = (32, 32, 32, 32) if output_frames > 5 else (32, 32, 16, 16)

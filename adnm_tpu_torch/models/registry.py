@@ -2,8 +2,7 @@
 train_untils.py:22-130, the model half of create_models).
 
 Every model maps (B, T_in, 1, H, W) to (B, T_out, 1, H, W). The port
-builds the ADNM-UNet and four baselines; TransUnet and SwinUnet are not
-ported yet and raise.
+builds all seven: the ADNM-UNet and six baselines.
 """
 
 from __future__ import annotations
@@ -13,8 +12,7 @@ from torch import nn
 
 MODEL_NAMES = ("ADNMUnet", "ConvLSTM", "TrajGRU", "LPTQPN", "TransUnet", "SmaATUnet",
                "SwinUnet")
-PORTED_MODELS = ("ADNMUnet", "SmaATUnet", "ConvLSTM", "TrajGRU", "LPTQPN")
-BASELINES = PORTED_MODELS[1:]
+BASELINES = tuple(name for name in MODEL_NAMES if name != "ADNMUnet")
 
 
 def check_fp32(model_name: str, dtype: torch.dtype) -> None:
@@ -29,10 +27,11 @@ def check_fp32(model_name: str, dtype: torch.dtype) -> None:
 def create_model(model_name: str, input_frames: int, output_frames: int, frame_interval: int,
                  img_size: int = 256, **model_kwargs) -> nn.Module:
     """``model_kwargs`` go to the ADNMUnet factory (``refiner_remat``,
-    ``linear_attn_duality``, ``mixer_type``) and to no other model.
-    ``img_size`` fixes ConvLSTM's peephole weights, which are shaped by
-    its stage grids; the other models take any frame size their strides
-    divide."""
+    ``linear_attn_duality``, ``mixer_type``, ``attn_type``,
+    ``simple_patch``, ``compute_dead_features``) and to no other model.
+    ``img_size`` fixes ConvLSTM's peephole weights, TransUnet's position
+    embeddings and SwinUnet's windows, which are shaped by their grids;
+    the other models take any frame size their strides divide."""
     if model_name == "ADNMUnet":
         from adnm_tpu_torch.models.adnm_unet import create_adnm_unet
 
@@ -56,8 +55,12 @@ def create_model(model_name: str, input_frames: int, output_frames: int, frame_i
         from adnm_tpu_torch.models.lptqpn import LPTQPN
 
         return LPTQPN(inp_channels=input_frames, out_channels=output_frames)
-    if model_name in ("TransUnet", "SwinUnet"):
-        raise NotImplementedError(
-            f"{model_name} is not ported to adnm_tpu_torch yet (it needs GroupNorm, StdConv, "
-            f"window attention, DropPath and --pretrained-npz, which are not ported either)")
+    if model_name == "TransUnet":
+        from adnm_tpu_torch.models.trans_unet import create_trans_unet
+
+        return create_trans_unet(output_frames, img_size, input_frames)
+    if model_name == "SwinUnet":
+        from adnm_tpu_torch.models.swin_unet import create_swin_unet
+
+        return create_swin_unet(output_frames, img_size, input_frames)
     raise ValueError(f"unknown model {model_name!r}; known: {MODEL_NAMES}")

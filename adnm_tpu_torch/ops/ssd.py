@@ -16,6 +16,8 @@ softplus'd; A, D (H,); B, C (B, N, L) shared by the heads.
   kernel (the same source; the Pallas function's ``custom_vjp``
   backward) for CUDA tensors, or raises.
 * ``ssd_naive_scan``: the O(L^2) causal oracle for the tests.
+* ``ssd_state_update``: one token of the causal scan as a recurrence, in
+  the JAX function's layout; plain PyTorch (no model calls it).
 
 The scan takes ``dA = dt * A`` with A < 0 as it is; only the duality
 negates it (``ssd_positive_dA``). Its six inputs (and the backward's
@@ -77,6 +79,21 @@ def ssd_naive_scan(x, dt, A, B, C, D) -> torch.Tensor:
     qk = torch.einsum("bnt,bns->bts", C, B)
     y = torch.einsum("bhts,bhps->bhpt", decay * qk[:, None], x * dt[:, :, None])
     return y + x * D[None, :, None, None]
+
+
+def ssd_state_update(state, x_t, dt_t, A, B_t, C_t, D):
+    """One token of the causal scan as a recurrence (JAX:
+    ``ops/ssd.py::ssd_state_update``; the counterpart of mamba_ssm's
+    ``selective_state_update``), plain PyTorch: no model calls it, in JAX
+    either, so it has no kernel. state (B, H, N, P); x_t (B, H, P); dt_t
+    (B, H); A, D (H,); B_t, C_t (B, N). Returns (new_state, y_t) with
+    ``new_state = state * exp(dt A) + B_t (x_t dt_t)`` and
+    ``y_t = C_t . new_state + D x_t``."""
+    decay = torch.exp(dt_t * A)  # (B, H)
+    xdt = x_t * dt_t[..., None]  # (B, H, P)
+    new_state = state * decay[..., None, None] + torch.einsum("bn,bhp->bhnp", B_t, xdt)
+    y = torch.einsum("bn,bhnp->bhp", C_t, new_state) + x_t * D[None, :, None]
+    return new_state, y
 
 
 def _widened(*ts):

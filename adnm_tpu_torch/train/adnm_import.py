@@ -13,7 +13,9 @@ even/odd channel interleave is undone with the explicit permutations of
 Reference-only parameters with no effect on the forward (Mamba2
 scale/shift ADNssd.py:227-228, WTLayer gama4, EncoderToDecoder
 ffd31/act_func31/conv33, the constant wt/iwt filter banks, and the dead
-e2ds 3..6) are ignored on import.
+e2ds 3..6 unless the model computes them, ``compute_dead_features=True``)
+are ignored on import. The reference wires no MLA, so no reference file
+holds one.
 
 The helpers below are the port's own copies of those of
 adnm_tpu/train/torch_import.py.
@@ -268,6 +270,7 @@ def adnm_name_map(
     depth=(1, 1, 1),
     refine_depth=(1, 1, 1, 1),
     instance_norm=True,
+    compute_dead_features=False,
 ):
     m = _Map()
     ed = list(embed_dim)
@@ -282,7 +285,8 @@ def adnm_name_map(
     m.attention("encoder.attn2", "encoder/attn2", ed[5], ed[5])
     # ----- decoder (reference: ADNMUNet.py:486-636) --------------------
     m.channel_att_bridge("decoder.fusion", "decoder/fusion")
-    for i in range(3):  # only the consumed features 0..2 exist in our tree
+    # the consumed features 0..2, and the dead 3..6 where the model has them
+    for i in range(7 if compute_dead_features else 3):
         m.encoder_to_decoder(f"decoder.e2ds.{i}", f"decoder/e2d_{i}", instance_norm)
     m.block("decoder.decoder1", "decoder/decoder1", ed[5], ed[4], headdim, depth[2])
     m.upsample("decoder.up_sample1", "decoder/up_sample1")

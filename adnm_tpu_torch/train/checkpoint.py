@@ -43,16 +43,17 @@ def save_state(path: str, state: Dict[str, Any]) -> None:
 def load_model_state(model: torch.nn.Module, params: Dict[str, Any], path: str) -> None:
     """``model.load_state_dict(params)`` (parameters and buffers, BatchNorm's
     running statistics among them), after a check that names the entries
-    whose shapes do not fit (a RuntimeError, as ``load_state_dict``'s): a ConvLSTM checkpoint, whose peephole weights
-    are shaped by the frame size, serves only the ``--img-size`` it was
-    trained at."""
+    whose shapes do not fit (a RuntimeError, as ``load_state_dict``'s): a
+    ConvLSTM, TransUnet or SwinUnet checkpoint, whose peephole weights,
+    position embeddings or window tables are shaped by the frame size,
+    serves only the ``--img-size`` it was trained at."""
     want = model.state_dict()
     bad = [f"{k} {tuple(v.shape)} (model {tuple(want[k].shape)})" for k, v in params.items()
            if k in want and v.shape != want[k].shape]
     if bad:
         raise RuntimeError(f"checkpoint {path} does not fit the state_dict of the model built "
-                           f"here: {bad[:4]}; a ConvLSTM checkpoint serves only the --img-size "
-                           f"it was trained at")
+                           f"here: {bad[:4]}; a ConvLSTM, TransUnet or SwinUnet checkpoint "
+                           f"serves only the --img-size it was trained at")
     model.load_state_dict(params)
 
 

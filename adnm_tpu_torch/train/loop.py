@@ -10,7 +10,12 @@ run in bf16 while the parameters, their gradients and the optimizer state
 stay fp32, and the loss is computed in fp32. The model is in train mode
 for a step and in eval mode for evaluation, so BatchNorm normalises with
 the batch's statistics and advances its running statistics (once per
-microbatch) in a step, and uses the running statistics in evaluation. The backward runs with cuDNN held to its
+microbatch) in a step, and uses the running statistics in evaluation.
+Dropout and DropPath (TransUnet, SwinUnet) draw their masks from the
+trainer's own generator on the device, seeded from (seed, step,
+microbatch) at the start of each training forward, so a step is a function
+of the state and the step number; under whole-forward remat the recompute
+re-seeds it and draws the same masks. The backward runs with cuDNN held to its
 deterministic algorithms, so two steps of one batch give the same bits on
 the card. LR and clip threshold are
 host-side scalars set per epoch, as in the reference's per-epoch Python
@@ -35,6 +40,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from adnm_tpu_torch.core.layers import seeded_init_
+from adnm_tpu_torch.core.stochastic import attach_generator, step_seed
 from adnm_tpu_torch.data.loader import device_prefetch, to_device
 from adnm_tpu_torch.device import deterministic_cudnn
 from adnm_tpu_torch.train import checkpoint as ckpt
@@ -98,6 +104,9 @@ class Trainer:
         if param_transform is not None:
             param_transform(model, torch.Generator().manual_seed(seed + 1))
         model.to(device)
+        self.seed = seed
+        self.generator = torch.Generator(device=device)  # Dropout and DropPath masks
+        attach_generator(model, self.generator)
         self.params = list(model.parameters())
         self.optimizer = preset.make_optimizer(self.params)
         self.step = 0
@@ -117,10 +126,19 @@ class Trainer:
         scale = float(torch.tensor(1.0 / 255.0, dtype=cdt))  # 1/255 in cdt
         return batch[:, :t].to(cdt) * scale, batch[:, t:].to(torch.float32) * (1.0 / 255.0)
 
-    def _forward(self, imgs: torch.Tensor) -> torch.Tensor:
+    def _forward(self, imgs: torch.Tensor, micro: int = 0) -> torch.Tensor:
+        """The training forward of microbatch ``micro`` of this step, its
+        masks drawn from the generator seeded at its start (again in the
+        remat's recompute)."""
+        seed = step_seed(self.seed, self.step, micro)
+
+        def run(x):
+            self.generator.manual_seed(seed)
+            return self.model(x)
+
         if self.remat_forward and torch.is_grad_enabled():
-            return checkpoint(self.model, imgs, use_reentrant=False)
-        return self.model(imgs)
+            return checkpoint(run, imgs, use_reentrant=False)
+        return run(imgs)
 
     def _backward(self, batch: torch.Tensor) -> torch.Tensor:
         """The batch's loss, with its gradients in the parameters' ``grad``
@@ -135,8 +153,8 @@ class Trainer:
         for p in self.params:
             p.grad = None
         loss = torch.zeros((), device=imgs.device)
-        for im, tg in zip(imgs.chunk(m), targets.chunk(m)):
-            part = self.preset.loss_fn(self._forward(im).float(), tg)
+        for i, (im, tg) in enumerate(zip(imgs.chunk(m), targets.chunk(m))):
+            part = self.preset.loss_fn(self._forward(im, i).float(), tg)
             with deterministic_cudnn():  # the convolutions' dgrad and wgrad
                 part.backward()
             loss = loss + part.detach()

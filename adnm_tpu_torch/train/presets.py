@@ -7,6 +7,8 @@ reference's per-epoch scheduler.step(); None means the loop's poly decay),
 early stop, the gradient clip and the save-epoch gate. The ADNMUnet preset
 clips adaptively (``ClipSchedule``) and gates the best checkpoint to
 epochs past the clip's save epoch; the baselines' presets do neither.
+TransUnet and SwinUnet share SmaAt-UNet's SGD preset without its early
+stop.
 """
 
 from __future__ import annotations
@@ -148,12 +150,13 @@ def get_preset(model_name: str, input_frames: int, output_frames: int, frame_int
             norm_clip=False, save_epoch_gated=False, epochs=60, weight_decay=1e-2,
         )
 
-    if model_name == "SmaATUnet":
+    if model_name in ("SmaATUnet", "TransUnet", "SwinUnet"):
+        early = model_name == "SmaATUnet"  # TransUnet and SwinUnet train all 60 epochs
         return TrainPreset(
             opt_family="sgd", base_lr=1e-2, loss_fn=get_loss("rain"),
             lr_at_epoch=None,  # poly decay (train.py:188-191)
-            if_early_stop=True, early_stop=30, norm_clip=False, save_epoch_gated=False,
-            epochs=60, momentum=0.9, weight_decay=1e-4,
+            if_early_stop=early, early_stop=30 if early else None, norm_clip=False,
+            save_epoch_gated=False, epochs=60, momentum=0.9, weight_decay=1e-4,
         )
 
-    raise NotImplementedError(f"the {model_name!r} preset is not ported")
+    raise ValueError(f"unknown model {model_name!r}")

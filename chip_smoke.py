@@ -20,7 +20,8 @@
    the card could take (bytes over 3.35 TB/s, operations over 67 TFLOP/s
    fp32), and the kernel's time over the library call's. K1 (rms_norm)
    forward and backward (dx and dw, two launches bit-equal in dw) at every
-   Block norm's shape, and K3 (gated_rms_norm) forward and backward (dx,
+   Block norm's shape and at MLA's (rows, rank) norms, and K3
+   (gated_rms_norm) forward and backward (dx,
    dz and dw, bit-equal in dw) at its rows beside the unfused
    ``F.rms_norm(x * F.silu(z))`` and its autograd backward, in fp32 and
    bf16; K2 (ssd_chunked_scan) at every Block shape of both bimamba
@@ -115,8 +116,25 @@
    counts equal the train CLI's final protocol on the same weights, and
    the evaluator's on the card and on the CPU; predict reproduces its
    predictions). Prints the phase's seconds.
+6e. The last slice's models, at full width, 256x256, seeded weights:
+   (a) the MLA ADNM-UNet (``attn_type="mla"``): its batch-1 and batch-4
+   requests (26 K1 launches a forward), the batch-1 forward card against
+   CPU (the duality bound) and twice bit-equal, the requests in bf16
+   against fp32 (``BF16_FORWARD_REL``), a batch-1 step twice bit-equal in
+   fp32 and bf16 and card against CPU (``STEP_TOL``), the train CLI with
+   ``--attn-type mla`` (34 K1 and 26 K1 backward launches a step) and
+   ``predict --ckpt --attn-type mla`` on its snapshot, the latency,
+   frames/s, peak memory, step times and profiles; (b)
+   ``compute_dead_features=True`` against False from one weight set:
+   bit-equal predictions; (c) TransUnet and SwinUnet through the
+   baselines' checks (a)-(f) (the card-against-CPU step with the dropout
+   and DropPath rates at 0, two card steps at the published rates
+   bit-equal, validate for TransUnet) and a reference .pth round trip
+   through ``scripts/torch_convert_reference_ckpt.py``. Prints the phase's
+   seconds.
 7. Prints the kernels' JSON line (each K1 entry with its largest kernel /
-   library time over the fp32 main-path shapes, ``worst_vs_library``; K2's
+   library time over the fp32 main-path shapes, ``worst_vs_library``, and
+   its MLA launches and times at MLA's rows; K2's
    with its largest kernel / bound time over its timed shapes,
    ``worst_vs_bound``, and its walkers' sub-chunk T at each L; K2
    backward's likewise; both K2 entries with ``bf16_ms``,
@@ -156,7 +174,15 @@ FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
 # the last axis, which no model runs.
 K1_MAIN = [(1, 32, 256, 256), (4, 32, 256, 256), (1, 128, 32, 32), (1, 256, 16, 16),
            (1, 512, 8, 8), (1, 1024, 8, 8), (1, 1024, 16, 16), (1, 512, 32, 32)]
-K1_CASES = [(shape, 1) for shape in K1_MAIN] + [((4096, 32), -1)]
+# MLA's two RMSNorms over the last axis (q_down_norm, kv_down_norm) at the
+# three attention sites of create_adnm_unet(5, 20, 6, attn_type="mla"), at
+# batch 1 and 4: rows (B*1024, 64) and (B*1024, 32) at encoder.attn and
+# decoder.attn (32^2 tokens, dim 128), (B*64, 256) and (B*64, 128) at attn2
+# (8^2 tokens, dim 1024).
+K1_MLA_ROWS = [(b * l, c) for b in (1, 4) for l, c in ((1024, 64), (1024, 32), (64, 256),
+                                                        (64, 128))]
+K1_CASES = [(shape, 1) for shape in K1_MAIN] + [
+    (shape, -1) for shape in dict.fromkeys([(4096, 32), *K1_MLA_ROWS])]
 # fp32: rsqrtf and the summation order differ from the plain version by a
 # few ulp. bf16: both round the same fp32 value, so at most one bf16 step
 # (2^-7 relative) apart where the fp32 values straddle a rounding boundary.
@@ -214,14 +240,16 @@ K2B_NAMES = ("dx", "ddt", "dA", "dB", "dC", "dD")
 # card against CPU differ by ~7e-4 at seed 0 (H100, 700 W). Bimamba: the seeded decays (A in [-16, -1], dt
 # from 1e-3) keep each scan's sums to a few tokens, nothing amplifies, and
 # card against CPU measured 8.3e-7; the bound leaves two orders of margin.
-FORWARD_ATOL = {"duality": 5e-3, "bimamba": 1e-4, "vssd-bimamba": 1e-4}
+FORWARD_ATOL = {"duality": 5e-3, "bimamba": 1e-4, "vssd-bimamba": 1e-4, "mla": 5e-3}
 FORWARDS_PER_REQUEST = {"batch1": 1, "batch4": 1, "horizon40": 2}
 K1_PER_FORWARD = 20  # 10 Blocks x (norm1, norm2)
+# MLA: and the q_down_norm and kv_down_norm of each of the 3 attention sites
+K1_MLA_PER_FORWARD = 26
 K2_PER_FORWARD = 20  # 10 Blocks x (path 1, path 2), on the bimamba paths
-# Per training step: the forward's 20 K1 launches and the 8 of the four
-# refiner Blocks, whose forward the backward recomputes (refiner remat);
-# one K1 backward launch per norm.
-K1_PER_STEP, K1B_PER_STEP = 28, 20
+# Per training step: the forward's 20 K1 launches (26 with MLA) and the 8
+# of the four refiner Blocks, whose forward the backward recomputes
+# (refiner remat); one K1 backward launch per norm.
+REFINER_K1 = 8
 # Per bimamba training step: K2's 20 forward launches and the 8 of the
 # refiner Blocks' recompute; one K2 backward launch per scan.
 K2_PER_STEP, K2B_PER_STEP = 28, 20
@@ -234,6 +262,7 @@ NO_LAUNCHES = dict.fromkeys(["rms_norm", "rms_norm_backward", "ssd_chunked_scan"
                              "ssd_chunked_scan_backward", "gated_rms_norm",
                              "gated_rms_norm_backward"], 0)
 BIMAMBA = {"linear_attn_duality": False}
+MLA = {"attn_type": "mla"}
 VSSD_BIMAMBA = {"linear_attn_duality": False, "mixer_type": "vssd"}
 
 
@@ -351,6 +380,13 @@ def worst_vs_library(timing: dict) -> dict:
         return {"ratio": None, "shape": None}
     ratio, shape = max(ratios)
     return {"ratio": ratio, "shape": list(shape)}
+
+
+def mla_rows(timing: dict) -> dict:
+    """K1's fp32 (kernel, plain, library, bound) device ms at MLA's rows."""
+    return {str(list(shape)): {k: t for k, t in zip(("ms", "plain_ms", "library_ms", "bound_ms"),
+                                                    timing[("float32", shape)])}
+            for shape in K1_MLA_ROWS}
 
 
 def worst_vs_bound(timing: dict) -> dict:
@@ -826,9 +862,10 @@ def serve_duality(predict, inputs, counts, bf16: bool = False) -> tuple:
 
 
 def serve_model(predict, label, kwargs, inputs, counts, requests,
-                compute_dtype=torch.float32) -> tuple:
+                compute_dtype=torch.float32, per_forward=None) -> tuple:
     """Requests through ``predict.load_model`` and ``predict.forecast`` in
-    ``compute_dtype``; in fp32 the batch-1 request again on the CPU against
+    ``compute_dtype``, each with the launches ``per_forward`` (by default a
+    bimamba model's); in fp32 the batch-1 request again on the CPU against
     the card. Returns the launches and the outputs of each request."""
     dev = torch.device("cuda")
     model = predict.load_model(None, dev, compute_dtype=compute_dtype, **kwargs)
@@ -843,8 +880,8 @@ def serve_model(predict, label, kwargs, inputs, counts, requests,
         print(f"{label} request {name}: {outs[name].shape} in {time.perf_counter() - t0:.2f} s, "
               f"launches {per_request[name]}")
     check_requests(label, inputs, outs, per_request,
-                   {**NO_LAUNCHES, "rms_norm": K1_PER_FORWARD,
-                    "ssd_chunked_scan": K2_PER_FORWARD})
+                   per_forward or {**NO_LAUNCHES, "rms_norm": K1_PER_FORWARD,
+                                   "ssd_chunked_scan": K2_PER_FORWARD})
     if compute_dtype == torch.float32:
         t0 = time.perf_counter()
         cpu_dev = torch.device("cpu")
@@ -1002,10 +1039,11 @@ def time_forward(predict, label, kwargs, inputs, card, compute_dtype=torch.float
 
 # -- training -------------------------------------------------------------
 
-def train_through_cli(counts, root: str, *extra: str) -> tuple:
+def train_through_cli(counts, root: str, *extra: str, k1_forward: int = K1_PER_FORWARD) -> tuple:
     """One epoch through ``cli.train.main`` on the card under ``root`` (with
     the ``extra`` flags), with each step's launches counted from 0
-    (``Trainer.train_step`` wrapped for the run). Returns the launches
+    (``Trainer.train_step`` wrapped for the run) and held to those of a
+    model of ``k1_forward`` K1 launches a forward. Returns the launches
     summed over the steps, the epoch snapshot's path and the final
     protocol's evaluator results."""
     from adnm_tpu_torch.cli import train as train_cli
@@ -1043,7 +1081,7 @@ def train_through_cli(counts, root: str, *extra: str) -> tuple:
         raise AssertionError("train CLI: a loss or the gradient norm is not finite")
     if not os.path.exists(snapshot):
         raise AssertionError("train CLI: no epoch snapshot was written")
-    want = {**NO_LAUNCHES, "rms_norm": K1_PER_STEP, "rms_norm_backward": K1B_PER_STEP}
+    want = step_launches(True, False, k1_forward)
     if any(c != want for c in per_step):
         raise AssertionError(f"train CLI: launches per step {per_step}, want {want}")
     check_metrics("train CLI", out["metrics"])
@@ -1374,9 +1412,20 @@ STEP_TOL = {"loss": 1e-5, "grad_norm": 1e-3, "tensor": 2e-2, "tensor_of_global":
 # a forward of 2 clips and a batch-1 step: relative L2 of the predictions
 # 2.12e-2 duality and 6.33e-3 bimamba, the loss 1.70e-4 and 7.59e-5, the
 # global gradient norm 1.98e-2 and 2.32e-3), rounded up.
-BF16_FORWARD_REL = {"duality": 0.09, "bimamba": 0.03}
+# MLA: 4 times the larger of its distances at 32^2 and 64^2 (forward
+# 1.149e-2 and 1.610e-2, loss 7.05e-5 and 1.218e-4; scripts/torch_bf16_distance.py),
+# rounded up: at 256^2 the duality model's distance was 2.2 times its 32^2
+# one. Its gradients' distance is not bounded by the CPU's at 32^2 and
+# 64^2: at 256^2 the refiner's bf16 duality over 65,536 tokens sets it,
+# with about the same norm of difference in both models, which at MLA's
+# seeded weights is a large share of a gradient norm 6.5 times smaller
+# (PERF.md section 2; JAX's own distance, on a narrow model at 256^2, is
+# larger than the port's: scripts/torch_bf16_grad_vs_jax.py). The step
+# holds it to twice the duality model's in the same run (``mla_phase``).
+BF16_FORWARD_REL = {"duality": 0.09, "bimamba": 0.03, "mla": 0.07}
 BF16_STEP_REL = {"duality": {"loss": 7e-4, "grad_norm": 0.08},
-                 "bimamba": {"loss": 4e-4, "grad_norm": 0.01}}
+                 "bimamba": {"loss": 4e-4, "grad_norm": 0.01},
+                 "mla": {"loss": 5e-4}}
 
 
 def grads_of(trainer, batch) -> tuple:
@@ -1389,12 +1438,14 @@ def gnorm(g: dict) -> float:
     return float(torch.sqrt(sum(v.square().sum() for v in g.values())))
 
 
-def compare_step_with_cpu(label: str, kwargs: dict) -> None:
+def compare_step_with_cpu(label: str, kwargs: dict, bf16_grad_err: float = None) -> float:
     """One batch-1 step from the same seeded weights and batch: two card
     runs bit-equal in fp32 and in bf16 compute; the fp32 loss, global
     gradient norm and every gradient tensor on the card against the CPU
     (STEP_TOL); bf16's loss and global gradient norm against fp32's on the
-    card (BF16_STEP_REL)."""
+    card (BF16_STEP_REL), or, given ``bf16_grad_err``, the norm of the bf16
+    gradients' difference from the fp32 ones within it. Returns that
+    norm."""
     batch = train_batch(1)
     card = make_trainer(torch.device("cuda"), **kwargs)
     runs = {}
@@ -1409,12 +1460,15 @@ def compare_step_with_cpu(label: str, kwargs: dict) -> None:
               f"{loss_a:.8f}, grad norm {gnorm(ga):.6f})")
     del card
     (loss32, g32), (loss16, g16) = runs[torch.float32][0], runs[torch.bfloat16][0]
+    diff16 = rel_all(g16, g32) * gnorm(g32)
     err16 = {"loss": abs(loss16 - loss32) / abs(loss32),
-             "grad_norm": abs(gnorm(g16) - gnorm(g32)) / gnorm(g32)}
-    tol16 = BF16_STEP_REL[label]
-    print(f"{label} train step card bf16 vs card fp32: loss rel {err16['loss']:.3e} (bound "
-          f"{tol16['loss']:g}), grad norm rel {err16['grad_norm']:.3e} (bound "
-          f"{tol16['grad_norm']:g}), every gradient rel L2 {rel_all(g16, g32):.3e}")
+             "grad_norm": abs(gnorm(g16) - gnorm(g32)) / gnorm(g32), "grad_err": diff16}
+    tol16 = dict(BF16_STEP_REL[label])
+    if bf16_grad_err is not None:
+        tol16["grad_err"] = bf16_grad_err
+    print(f"{label} train step card bf16 vs card fp32: " + ", ".join(
+        f"{k} {'rel ' if k != 'grad_err' else ''}{err16[k]:.3e} (bound {tol16.get(k, 'none')})"
+        for k in err16) + f", every gradient rel L2 {rel_all(g16, g32):.3e}")
     if not all(err16[k] <= tol16[k] for k in tol16):
         raise AssertionError(f"{label}: the bf16 step is too far from the fp32 one")
     t0 = time.perf_counter()
@@ -1448,12 +1502,14 @@ def compare_step_with_cpu(label: str, kwargs: dict) -> None:
     if not (err["loss"] <= STEP_TOL["loss"] and err["grad_norm"] <= STEP_TOL["grad_norm"]) or bad:
         raise AssertionError(f"{label} train step: card disagrees with CPU (loss, grad norm or "
                              f"{bad[:5]})")
+    return diff16
 
 
-def step_launches(remat: bool, scan: bool) -> dict:
-    """Each kernel's launches in one training step."""
-    k1 = K1_PER_STEP if remat else K1_PER_FORWARD
-    want = {**NO_LAUNCHES, "rms_norm": k1, "rms_norm_backward": K1B_PER_STEP}
+def step_launches(remat: bool, scan: bool, k1_forward: int = K1_PER_FORWARD) -> dict:
+    """Each kernel's launches in one training step of a model with
+    ``k1_forward`` K1 launches a forward."""
+    k1 = k1_forward + REFINER_K1 if remat else k1_forward
+    want = {**NO_LAUNCHES, "rms_norm": k1, "rms_norm_backward": k1_forward}
     if scan:
         want["ssd_chunked_scan"] = K2_PER_STEP if remat else K2_PER_FORWARD
         want["ssd_chunked_scan_backward"] = K2B_PER_STEP
@@ -1461,7 +1517,7 @@ def step_launches(remat: bool, scan: bool) -> dict:
 
 
 def time_train(card, label: str, kwargs: dict, counts, runs,
-               compute_dtype=torch.float32) -> list:
+               compute_dtype=torch.float32, k1_forward: int = K1_PER_FORWARD) -> list:
     """For each (batch, refiner remat, profile) of ``runs``: the median,
     min and mean step time, frames/s and the peak memory of a step in
     ``compute_dtype``, that step's launches (asserted), and with
@@ -1498,9 +1554,9 @@ def time_train(card, label: str, kwargs: dict, counts, runs,
               f"{b * 20 / (med / 1e3):.1f} frames/s; peak device memory of a step "
               f"{peak / 2**20:.1f} MiB, of which {before / 2**20:.1f} MiB allocated before it; "
               f"launches {launches[-1]}")
-        if launches[-1] != step_launches(remat, scan):
-            raise AssertionError(f"train {what} batch {b}: launches {launches[-1]}, want "
-                                 f"{step_launches(remat, scan)}")
+        want = step_launches(remat, scan, k1_forward)
+        if launches[-1] != want:
+            raise AssertionError(f"train {what} batch {b}: launches {launches[-1]}, want {want}")
         if profile:
             profile_device(run, card, f"train {what} profile batch {b}", "step", 3)
     return launches
@@ -1519,16 +1575,22 @@ BASELINE_FORWARD_ATOL = 1e-4
 # CPU's own fp32 distance from fp64 at 256^2 where that is larger (seeded
 # init, the smoke's clip; scripts/torch_baseline_precision.py --img-size
 # 256): (loss rel, grad norm rel, the worst tensor's rel L2 among those
-# above 1e-4 of the global norm, the largest error of a ``bn_cancelled``
+# above 1e-4 of the global norm, the largest error of an ``exact_zero_gradient``
 # gradient over the global norm). The weighted MSE+MAE loss's gradient
 # sums signs over 1.3 M output pixels, which cancel, so the fp32 sums of
 # ConvLSTM's and TrajGRU's last convolutions lose three digits; SmaAt's
 # train-mode BatchNorms amplify rounding, and the gradient of a conv bias
-# before a BatchNorm, 0 in exact arithmetic, is rounding noise.
+# before a BatchNorm, 0 in exact arithmetic, is rounding noise. TransUnet
+# and SwinUnet at the stochastic rates 0; TransUnet's step loses digits in
+# its ResNetV2 (worst tensor 4.1e-2 from fp64), and its key biases have an
+# exact gradient of 0 (measured on the card machine's CPU, NVIDIA H100
+# 80GB HBM3 host, with the same script).
 BASELINE_FP64_DISTANCE = {"SmaATUnet": (6.7e-7, 5.0e-5, 1.18e-2, 2.1e-6),
                           "ConvLSTM": (1.4e-7, 1.7e-3, 2.3e-3, 0.0),
                           "TrajGRU": (6.3e-8, 9.0e-4, 2.8e-3, 0.0),
-                          "LPTQPN": (1.6e-8, 9.7e-8, 2.6e-5, 0.0)}
+                          "LPTQPN": (1.6e-8, 9.7e-8, 2.6e-5, 0.0),
+                          "TransUnet": (3.3e-7, 1.0e-3, 4.1e-2, 3.0e-12),
+                          "SwinUnet": (3.8e-8, 3.2e-8, 3.9e-6, 0.0)}
 
 
 def baseline_step_tol(name: str) -> dict:
@@ -1537,35 +1599,47 @@ def baseline_step_tol(name: str) -> dict:
             "grad_norm": max(STEP_TOL["grad_norm"], grad_norm),
             "tensor": max(STEP_TOL["tensor"], tensor),
             "tensor_of_global": STEP_TOL["tensor_of_global"],
-            "bn_cancelled_of_global": max(STEP_TOL["tensor_of_global"], noise)}
+            "zero_gradient_of_global": max(STEP_TOL["tensor_of_global"], noise)}
 
 
-def bn_cancelled(name: str) -> bool:
-    """A SmaAt conv bias that feeds a BatchNorm in train mode through linear
-    maps alone (the depthwise and pointwise biases of each DoubleConvDS):
-    its gradient is 0 in exact arithmetic, rounding noise in fp32."""
-    return name.endswith(("depthwise.bias", "pointwise.bias")) and ".conv" in name
+def exact_zero_gradient(name: str) -> bool:
+    """A parameter whose gradient is 0 in exact arithmetic, rounding noise
+    in fp32: a SmaAt conv bias that feeds a BatchNorm in train mode through
+    linear maps alone (the depthwise and pointwise biases of each
+    DoubleConvDS), and TransUnet's key biases (each query's logits move by
+    one constant, which the softmax removes)."""
+    return (name.endswith(("depthwise.bias", "pointwise.bias")) and ".conv" in name) or \
+        name.endswith(".key.bias")
 
 
-def baseline_trainer(name: str, device, size: int = IMG):
+def baseline_trainer(name: str, device, size: int = IMG, rates0: bool = False):
     """A baseline's trainer as the train CLI builds it: seeded init, the
-    model's preset, no reference init."""
+    model's preset, no reference init; with ``rates0`` its Dropout and
+    DropPath rates at 0 (a CPU and a CUDA generator draw different
+    masks)."""
+    from adnm_tpu_torch.core.stochastic import zero_rates
     from adnm_tpu_torch.models.registry import create_model
     from adnm_tpu_torch.train.loop import Trainer
     from adnm_tpu_torch.train.presets import get_preset
 
-    return Trainer(create_model(name, 5, 20, 6, img_size=size),
+    model = create_model(name, 5, 20, 6, img_size=size)
+    return Trainer(zero_rates(model) if rates0 else model,
                    get_preset(name, 5, 20, 6, "Shanghai"), 5, device, seed=0)
 
 
 def check_baseline_step(name: str) -> None:
-    """(c), (d): one batch-1 step twice on the card, bit-equal in loss and
-    every gradient; then on the CPU from the same seeded weights: the loss,
-    global gradient norm and every gradient tensor within
-    ``baseline_step_tol``, SmaAt's running statistics after the step
-    within 1e-4 relative."""
+    """(c), (d): one batch-1 step twice on the card (Dropout and DropPath at
+    their published rates, the masks of one step), bit-equal in loss and
+    every gradient; then on the CPU from the same seeded weights (with
+    stochastic rates at 0 on both devices where the model has them): the
+    loss, global gradient norm and every gradient tensor within
+    ``baseline_step_tol``, the running statistics after the step within
+    1e-4 relative."""
+    from adnm_tpu_torch.core.stochastic import stochastic_layers
+
     batch = train_batch(1)
     card = baseline_trainer(name, torch.device("cuda"))
+    masks = bool(stochastic_layers(card.model))
     runs = []
     for _ in range(2):
         loss, grads = grads_of(card, batch)
@@ -1576,8 +1650,16 @@ def check_baseline_step(name: str) -> None:
         raise AssertionError(f"{name}: two card runs of one step differ: "
                              f"{[k for k in ga if not torch.equal(ga[k], gb[k])][:5]}")
     del card
+    if masks:  # the card-against-CPU step without masks
+        print(f"{name} train step at the published rates: two card runs bit-equal (loss "
+              f"{loss_a:.8f})")
+        card = baseline_trainer(name, torch.device("cuda"), rates0=True)
+        loss_a, ga = grads_of(card, batch)
+        sa = {k: b.detach().to("cpu", torch.float64).clone()
+              for k, b in card.model.named_buffers()}
+        del card
     t0 = time.perf_counter()
-    cpu = baseline_trainer(name, torch.device("cpu"))
+    cpu = baseline_trainer(name, torch.device("cpu"), rates0=masks)
     loss_cpu, grads_cpu = grads_of(cpu, batch)
     secs = time.perf_counter() - t0
     total, tol = gnorm(grads_cpu), baseline_step_tol(name)
@@ -1586,17 +1668,18 @@ def check_baseline_step(name: str) -> None:
     rows = []
     for k, want in grads_cpu.items():
         norm = float(want.norm())
-        floor = tol["bn_cancelled_of_global" if bn_cancelled(k) else "tensor_of_global"]
+        floor = tol["zero_gradient_of_global" if exact_zero_gradient(k) else "tensor_of_global"]
         rows.append((float((ga[k] - want).norm()) / (tol["tensor"] * norm + floor * total),
                      rel(ga[k], want), norm / total, k))
     rows.sort(reverse=True)
     stats = {k: rel(sa[k], b.to(torch.float64)) for k, b in cpu.model.named_buffers()}
-    print(f"{name} train step {IMG}^2 batch 1: two card runs bit-equal (loss {loss_a:.8f}); card "
-          f"vs CPU ({secs:.1f} s on the CPU): loss rel {err['loss']:.3e} (tol "
+    print(f"{name} train step {IMG}^2 batch 1: "
+          + ("at rates 0 (loss " if masks else "two card runs bit-equal (loss ")
+          + f"{loss_a:.8f}); card vs CPU ({secs:.1f} s on the CPU): loss rel {err['loss']:.3e} (tol "
           f"{tol['loss']:g}), grad norm rel {err['grad_norm']:.3e} (tol "
           f"{tol['grad_norm']:g}), {len(rows)} gradient tensors (tol {tol['tensor']:g} of "
           f"the norm + {tol['tensor_of_global']:g} of the global norm, "
-          f"{tol['bn_cancelled_of_global']:g} for a bias before a BatchNorm), the worst over their "
+          f"{tol['zero_gradient_of_global']:g} for an exact-zero gradient), the worst over their "
           f"bounds: " + ", ".join(f"{k} {r:.3e} (rel {e:.3e}, |g|/global {g:.3e})"
                                   for r, e, g, k in rows[:3])
           + (f"; running statistics rel L2 max {max(stats.values()):.3e} (tol 1e-4)"
@@ -1681,14 +1764,16 @@ def time_baseline(name: str, counts, card: str) -> None:
     torch.cuda.empty_cache()
 
 
-def baselines_through_clis(counts, root: str) -> None:
-    """(e): each baseline through the train CLI (one epoch of 4 steps at
+def baselines_through_clis(counts, root: str, names=BASELINES) -> None:
+    """(e): each of ``names`` through the train CLI (one epoch of 4 steps at
     batch 4 with an epoch snapshot, no hand kernel launched), then
     ``predict --ckpt`` on the snapshot (the test clips; two forwards of the
-    first clip bit-equal); for SmaAt also ``validate --ckpt``, whose
-    counts equal the train CLI's final protocol on the same weights and
-    whose predictions the evaluator counts alike on the card and on the
-    CPU, and which ``predict --ckpt`` reproduces."""
+    first clip bit-equal); for the models with BatchNorm (SmaAt, TransUnet)
+    also ``validate --ckpt``, whose counts equal the train CLI's final
+    protocol on the same weights and whose predictions the evaluator counts
+    alike on the card and on the CPU, and which ``predict --ckpt``
+    reproduces; for TransUnet and SwinUnet a round trip through a
+    reference .pth (``reference_round_trip``)."""
     from adnm_tpu_torch.cli import predict
     from adnm_tpu_torch.cli import train as train_cli
     from adnm_tpu_torch.cli import validate as validate_cli
@@ -1700,7 +1785,7 @@ def baselines_through_clis(counts, root: str) -> None:
     clips = np.stack([test[i][:5] for i in range(len(test))])[:, :, None]
     x_path = os.path.join(root, "x.npy")
     np.save(x_path, clips)
-    for name in BASELINES:
+    for name in names:
         args = [*TRAIN_ARGS, "--model", name, "--img-size", str(IMG), "--root", root]
         counts.reset()
         t0 = time.perf_counter()
@@ -1731,7 +1816,9 @@ def baselines_through_clis(counts, root: str) -> None:
               f"the first test clip: max_abs_diff {spread:.3e} {sources}")
         if spread:
             raise AssertionError(f"{name}: two forwards of one clip differ on the card")
-        if name != "SmaATUnet":
+        if name in ("TransUnet", "SwinUnet"):
+            reference_round_trip(name, snapshot, x_path, served, root)
+        if name not in ("SmaATUnet", "TransUnet"):
             continue
         val = validate_cli.main([*DATA_ARGS, "--model", name, "--img-size", str(IMG), "--root",
                                  root, "--ckpt", snapshot])
@@ -1756,6 +1843,42 @@ def baselines_through_clis(counts, root: str) -> None:
                                  f"evaluator or predict")
 
 
+def reference_round_trip(name: str, snapshot: str, x_path: str, served: np.ndarray,
+                         root: str) -> None:
+    """The snapshot's weights (and running statistics) exported as a
+    reference state_dict (``torch_import.export_reference_state_dict``),
+    saved as a .pth, converted back by
+    ``scripts/torch_convert_reference_ckpt.py`` and served by ``predict
+    --ckpt``: the predictions of the snapshot, bit for bit."""
+    import importlib.util
+
+    from adnm_tpu_torch.cli import predict
+    from adnm_tpu_torch.train.torch_import import export_reference_state_dict
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_convert_reference_ckpt",
+        os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                     "torch_convert_reference_ckpt.py"))
+    converter = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(converter)
+    t0 = time.perf_counter()
+    model = predict.load_model(None, "cpu", ckpt=snapshot, model_name=name, img_size=IMG)
+    pth = os.path.join(root, f"{name}_best.pth")
+    torch.save({k: torch.from_numpy(v) for k, v in export_reference_state_dict(name, model).items()},
+               pth)
+    del model
+    converted = converter.main(["--model", name, "--pth", pth, "--out",
+                                os.path.join(root, "converted"), "--img-size", str(IMG)])
+    again = predict.main(["--model", name, "--input", x_path, "--output",
+                          os.path.join(root, "y_converted.npy"), "--img-size", str(IMG), "--ckpt",
+                          converted])
+    print(f"{name} reference .pth round trip ({time.perf_counter() - t0:.1f} s): predict --ckpt "
+          f"on the converted checkpoint bit-equal to the snapshot's: "
+          f"{np.array_equal(again, served)}")
+    if not np.array_equal(again, served):
+        raise AssertionError(f"{name}: the converted checkpoint predicts otherwise")
+
+
 def baseline_phase(counts, card: str) -> None:
     """The four baselines at 256^2: (a) card against CPU and (b) two
     forwards bit-equal, (c) and (d) a training step, (f) the card's figures,
@@ -1763,33 +1886,149 @@ def baseline_phase(counts, card: str) -> None:
     from adnm_tpu_torch.cli import predict
 
     t_phase = time.perf_counter()
-    x = np.random.RandomState(1).rand(1, 5, 1, IMG, IMG).astype(np.float32)
     for name in BASELINES:
-        dev, cpu = torch.device("cuda"), torch.device("cpu")
-        model = predict.load_model(None, dev, model_name=name, img_size=IMG)
-        counts.reset()
-        a, b = (predict.forecast(model, x, 1, dev) for _ in range(2))
-        if counts.read() != NO_LAUNCHES:
-            raise AssertionError(f"{name} forward launched hand kernels {counts.read()}")
-        del model
-        t0 = time.perf_counter()
-        want = predict.forecast(predict.load_model(None, cpu, model_name=name, img_size=IMG), x,
-                                1, cpu)
-        err = float(np.abs(a - want).max())
-        rel_l2 = float(np.linalg.norm(a - want) / np.linalg.norm(want))
-        print(f"{name} forward {IMG}^2 batch 1, card vs CPU ({time.perf_counter() - t0:.1f} s "
-              f"on the CPU): max_abs_err {err:.3e} (tol {BASELINE_FORWARD_ATOL:g}), rel L2 "
-              f"{rel_l2:.3e}, max |y| {np.abs(want).max():.3f}; two card forwards bit-equal: "
-              f"{np.array_equal(a, b)}")
-        if a.shape != (1, 20, 1, IMG, IMG) or not np.isfinite(a).all():
-            raise AssertionError(f"{name}: forward {a.shape}")
-        if not np.array_equal(a, b) or not err <= BASELINE_FORWARD_ATOL:
-            raise AssertionError(f"{name}: the card's forward differs from itself or the CPU's")
-        check_baseline_step(name)
-        time_baseline(name, counts, card)
+        check_baseline(predict, name, counts, card)
     with tempfile.TemporaryDirectory() as root:
         baselines_through_clis(counts, root)
     print(f"baseline phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+def check_baseline(predict, name: str, counts, card: str) -> None:
+    """(a) the batch-1 forward card against CPU, (b) twice bit-equal, no
+    hand kernel launched; (c), (d) a training step; (f) the card's
+    figures."""
+    x = np.random.RandomState(1).rand(1, 5, 1, IMG, IMG).astype(np.float32)
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    model = predict.load_model(None, dev, model_name=name, img_size=IMG)
+    counts.reset()
+    a, b = (predict.forecast(model, x, 1, dev) for _ in range(2))
+    if counts.read() != NO_LAUNCHES:
+        raise AssertionError(f"{name} forward launched hand kernels {counts.read()}")
+    del model
+    t0 = time.perf_counter()
+    want = predict.forecast(predict.load_model(None, cpu, model_name=name, img_size=IMG), x,
+                            1, cpu)
+    err = float(np.abs(a - want).max())
+    rel_l2 = float(np.linalg.norm(a - want) / np.linalg.norm(want))
+    print(f"{name} forward {IMG}^2 batch 1, card vs CPU ({time.perf_counter() - t0:.1f} s "
+          f"on the CPU): max_abs_err {err:.3e} (tol {BASELINE_FORWARD_ATOL:g}), rel L2 "
+          f"{rel_l2:.3e}, max |y| {np.abs(want).max():.3f}; two card forwards bit-equal: "
+          f"{np.array_equal(a, b)}")
+    if a.shape != (1, 20, 1, IMG, IMG) or not np.isfinite(a).all():
+        raise AssertionError(f"{name}: forward {a.shape}")
+    if not np.array_equal(a, b) or not err <= BASELINE_FORWARD_ATOL:
+        raise AssertionError(f"{name}: the card's forward differs from itself or the CPU's")
+    check_baseline_step(name)
+    time_baseline(name, counts, card)
+
+
+# -- the models of the last slice: MLA, the dead features, TransUnet, SwinUnet ----
+
+NEW_BASELINES = ("TransUnet", "SwinUnet")
+
+
+def serve_snapshot(predict, counts, label: str, snapshot: str, root: str, *extra: str,
+                   per_forward: dict) -> np.ndarray:
+    """``predict.main --ckpt`` on the test clips of TRAIN_ARGS' split, in one
+    batch (one forward), with its launches counted from 0."""
+    from adnm_tpu_torch.data.shanghai import ShanghaiDataset
+
+    test = ShanghaiDataset(None, IMG, "test", synthetic_len=SYNTHETIC_LEN)
+    x_path = os.path.join(root, "x.npy")
+    np.save(x_path, np.stack([test[i][:5] for i in range(len(test))])[:, :, None])
+    counts.reset()
+    out = predict.main(["--input", x_path, "--output", os.path.join(root, "y.npy"),
+                        "--img-size", str(IMG), "--ckpt", snapshot, "--root", root, *extra])
+    torch.cuda.synchronize()
+    launches = counts.read()
+    print(f"{label} predict --ckpt {' '.join(extra)} on its epoch-1 snapshot: {out.shape}, "
+          f"launches {launches}")
+    if out.shape != (len(test), 20, 1, IMG, IMG) or not np.isfinite(out).all():
+        raise AssertionError(f"{label} predict --ckpt: {out.shape}")
+    if launches != per_forward:
+        raise AssertionError(f"{label} predict --ckpt: launches {launches}, want {per_forward}")
+    return out
+
+
+def mla_phase(predict, inputs, counts, card, duality_bf16_grad_err: float) -> dict:
+    """(a) The MLA ADNM-UNet at full width, 256^2: the batch-1 and batch-4
+    requests (26 K1 launches a forward), the batch-1 forward card against
+    CPU (the duality bound) and twice bit-equal; the same requests in bf16
+    against fp32; a batch-1 step twice bit-equal and card against CPU
+    (``compare_step_with_cpu``; in bf16 the loss within
+    ``BF16_STEP_REL`` and the gradients' distance from fp32 within twice
+    the duality model's in this run: the refiner's bf16 duality, which both
+    share, sets it); the train CLI with ``--attn-type mla``
+    (34 K1 and 26 K1 backward launches a step) and ``predict --ckpt
+    --attn-type mla`` on its snapshot; latency, frames/s, peak memory and
+    a profile of the forward; step times, peak memory and a profile of a
+    step. Returns the K1 launches of a forward and of a step."""
+    dev = torch.device("cuda")
+    per_forward = {**NO_LAUNCHES, "rms_norm": K1_MLA_PER_FORWARD}
+    requests, outs = serve_model(predict, "mla", MLA, inputs, counts, ["batch1", "batch4"],
+                                 per_forward=per_forward)
+    again = predict.forecast(predict.load_model(None, dev, **MLA), inputs["batch1"], 4, dev)
+    print(f"mla two card forwards of the batch-1 request bit-equal: "
+          f"{np.array_equal(again, outs['batch1'])}")
+    if not np.array_equal(again, outs["batch1"]):
+        raise AssertionError("mla: two forwards of one input differ on the card")
+    _, outs16 = serve_model(predict, "mla bf16", MLA, inputs, counts, ["batch1", "batch4"],
+                            torch.bfloat16, per_forward=per_forward)
+    compare_bf16_with_fp32("mla", outs16, outs)
+    compare_step_with_cpu("mla", MLA, 2 * duality_bf16_grad_err)
+    with tempfile.TemporaryDirectory() as root:
+        trained, snapshot, _ = train_through_cli(counts, root, "--attn-type", "mla",
+                                                 k1_forward=K1_MLA_PER_FORWARD)
+        serve_snapshot(predict, counts, "mla", snapshot, root, "--attn-type", "mla",
+                       per_forward=per_forward)
+    time_forward(predict, "mla", MLA, inputs, card, profile_batches=(4,))
+    time_train(card, "mla", MLA, counts, [(1, True, False), (4, True, True)],
+               k1_forward=K1_MLA_PER_FORWARD)
+    return {"forward": requests["batch1"]["rms_norm"], "step": trained["rms_norm"] // TRAIN_STEPS,
+            "backward_step": trained["rms_norm_backward"] // TRAIN_STEPS}
+
+
+def check_dead_features(predict, inputs, counts) -> None:
+    """(b) ``compute_dead_features=True`` against False from one weight set
+    (the model with the dead e2ds seeded, the other loaded from it without
+    them): bit-equal batch-1 predictions on the card, 20 K1 launches each."""
+    from adnm_tpu_torch.models.adnm_unet import create_adnm_unet
+
+    dev = torch.device("cuda")
+    dead = predict.load_model(None, dev, compute_dead_features=True)
+    live = create_adnm_unet(5, 20, 6)
+    dead_keys = tuple(f"decoder.e2d_{i}." for i in range(3, 7))
+    live.load_state_dict({k: v for k, v in dead.state_dict().items()
+                          if not k.startswith(dead_keys)})
+    live.to(dev).eval()
+    outs, launches = [], []
+    for model in (dead, live):
+        counts.reset()
+        outs.append(predict.forecast(model, inputs["batch1"], 1, dev))
+        torch.cuda.synchronize()
+        launches.append(counts.read())
+    n_dead, n_live = (sum(p.numel() for p in m.parameters()) for m in (dead, live))
+    print(f"compute_dead_features True ({n_dead:,} parameters) vs False ({n_live:,}), one weight "
+          f"set: batch-1 predictions bit-equal {np.array_equal(*outs)}; launches {launches}")
+    want = {**NO_LAUNCHES, "rms_norm": K1_PER_FORWARD}
+    if not np.array_equal(*outs) or any(c != want for c in launches):
+        raise AssertionError("compute_dead_features changes the prediction or the launches")
+
+
+def new_models_phase(predict, inputs, counts, card, duality_bf16_grad_err: float) -> dict:
+    """(a) the MLA ADNM-UNet, (b) the dead features, (c) TransUnet and
+    SwinUnet through the baselines' checks (a)-(f) and a reference .pth
+    round trip; prints the phase's seconds. Returns MLA's K1 launches."""
+    t_phase = time.perf_counter()
+    mla = mla_phase(predict, inputs, counts, card, duality_bf16_grad_err)
+    check_dead_features(predict, inputs, counts)
+    for name in NEW_BASELINES:
+        check_baseline(predict, name, counts, card)
+    with tempfile.TemporaryDirectory() as root:
+        baselines_through_clis(counts, root, NEW_BASELINES)
+    print(f"new models phase (MLA, dead features, TransUnet, SwinUnet): "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return mla
 
 
 def main() -> None:
@@ -1865,11 +2104,14 @@ def main() -> None:
     print(f"bf16 phase: {time.perf_counter() - t_bf16:.1f} s")
 
     # -- one training step: twice on the card, card against CPU, bf16 ------
-    compare_step_with_cpu("duality", {})
+    duality_bf16_grad_err = compare_step_with_cpu("duality", {})
     compare_step_with_cpu("bimamba", BIMAMBA)
 
     # -- the baselines: SmaAt-UNet, ConvLSTM, TrajGRU, LPTQPN ---------------
     baseline_phase(counts, card)
+
+    # -- MLA, the dead features, TransUnet, SwinUnet ------------------------------
+    mla = new_models_phase(predict, inputs, counts, card, duality_bf16_grad_err)
 
     # Launches: serving kernels from the bimamba requests, K1's backward
     # from the train CLI's run, K2's from the bimamba training steps; K3
@@ -1894,12 +2136,15 @@ def main() -> None:
         "max_abs_err": k1["max_abs_err"], "ms": k1_ms, "plain_ms": k1_plain,
         "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": k1_lib,
         "worst_vs_library": worst_vs_library(k1["timing"]),
+        "mla": {"launches_per_forward": mla["forward"], "launches_per_step": mla["step"],
+                "rows": mla_rows(k1["timing"])},
     }, {
         "name": "rms_norm_backward", "route": "cuda", "source": "adnm_tpu_torch/csrc/rms_norm.cu",
         "replaces": "adnm_tpu/ops/pallas/fused_norm.py:57",
         "launches": launches["rms_norm_backward"], "max_abs_err": k1b["max_abs_err"],
         "ms": k1b_ms, "plain_ms": k1b_plain, "bound_ms": k1b_bound, "bound_by": k1b_by,
         "library_ms": k1b_lib, "worst_vs_library": worst_vs_library(k1b["timing"]),
+        "mla": {"launches_per_step": mla["backward_step"], "rows": mla_rows(k1b["timing"])},
     }, {
         "name": "ssd_chunked_scan", "route": "cuda", "source": "adnm_tpu_torch/csrc/ssd_scan.cu",
         "replaces": "adnm_tpu/ops/pallas/ssd_scan.py:132",

@@ -258,11 +258,10 @@ def test_reference_importer_matches_the_jax_forward(name):
 
 
 def test_registry_builds_the_ported_models_and_refuses_the_rest():
-    assert registry.PORTED_MODELS == ("ADNMUnet", "SmaATUnet", "ConvLSTM", "TrajGRU", "LPTQPN")
     assert set(registry.MODEL_NAMES) == set(jregistry.MODEL_NAMES)
-    for name in ("TransUnet", "SwinUnet"):
-        with pytest.raises(NotImplementedError, match=name):
-            registry.create_model(name, 5, 20, 6)
+    assert set(registry.BASELINES) == set(registry.MODEL_NAMES) - {"ADNMUnet"}
+    with pytest.raises(ValueError, match="unknown model"):
+        registry.create_model("UNet3D", 5, 20, 6)
     with pytest.raises(ValueError, match="only supported for ADNMUnet"):
         registry.create_model("SmaATUnet", 5, 20, 6, refiner_remat=False)
     for name, s in SIZES.items():

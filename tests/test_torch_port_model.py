@@ -85,8 +85,8 @@ def test_block_with_each_mixer_configuration(mixer_type, duality):
 def test_unknown_mixer_or_attention_raises():
     with pytest.raises(ValueError, match="mixer_type"):
         model.Block(16, 16, 4, mixer_type="mamba")
-    with pytest.raises(NotImplementedError, match="mla"):
-        model.create_adnm_unet(5, 20, 6, attn_type="mla")
+    with pytest.raises(ValueError, match="attn_type"):
+        model.create_adnm_unet(5, 20, 6, attn_type="linear")
 
 
 def test_block_norms_are_kernel_k1():

@@ -244,8 +244,12 @@ def test_preset_matches_jax_for_forty_epochs():
             for prev in (0.0, 0.0123, 1.7):
                 assert got.clip_schedule.threshold(epoch, prev) == \
                     want.clip_schedule.threshold(epoch, prev)
-    with pytest.raises(NotImplementedError, match="TransUnet"):
-        get_preset("TransUnet", 5, 20, 6, "Shanghai")
+    for name in ("TransUnet", "SwinUnet"):  # SmaAt-UNet's SGD preset, no early stop
+        want, got = (f(name, 5, 20, 6, "Shanghai") for f in (jget_preset, get_preset))
+        fields = ("opt_family", "base_lr", "momentum", "weight_decay", "if_early_stop",
+                  "early_stop", "norm_clip", "save_epoch_gated", "epochs")
+        assert {f: getattr(got, f) for f in fields} == {f: getattr(want, f) for f in fields}
+        assert got.lr_at_epoch is None and want.lr_at_epoch is None
 
 
 def test_adamw_is_optax_adamw():
@@ -412,12 +416,12 @@ def test_train_cli_end_to_end_and_resume(tmp_path, capsys):
 
 def test_train_cli_refuses_what_is_not_ported(tmp_path):
     base = ["--synthetic", "--img-size", "32", "--root", str(tmp_path), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="TransUnet"):
-        train_cli.main(base + ["--model", "TransUnet"])
+    with pytest.raises(NotImplementedError, match="bf16"):
+        train_cli.main(base + ["--model", "SmaATUnet", "--bf16"])
     with pytest.raises(NotImplementedError, match="LAPS"):
         train_cli.main(base + ["--dataset", "LAPS"])
-    with pytest.raises(NotImplementedError, match="mla"):
-        train_cli.main(base + ["--attn-type", "mla"])
+    with pytest.raises(SystemExit, match="only supported for --model TransUnet"):
+        train_cli.main(base + ["--pretrained-npz", str(tmp_path / "r50_vit.npz")])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             train_cli.main(["--synthetic", "--img-size", "32", "--root", str(tmp_path)])

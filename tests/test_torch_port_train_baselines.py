@@ -376,9 +376,8 @@ def test_clis_refuse_what_is_not_ported_for_the_baselines(tmp_path):
         train_cli.main(base + ["--no-refiner-remat"])
     with pytest.raises(SystemExit, match="only supported for --model ADNMUnet"):
         train_cli.main(base + ["--attn-type", "mla"])
-    for name in ("TransUnet", "SwinUnet"):
-        with pytest.raises(NotImplementedError, match=name):
-            train_cli.main(["--model", name] + base[2:])
+    with pytest.raises(SystemExit, match="only supported for --model TransUnet"):
+        train_cli.main(base + ["--pretrained-npz", str(tmp_path / "r50_vit.npz")])
     with pytest.raises(ValueError, match="running statistics"):
         predict.load_model(str(tmp_path / "p.npz"), "cpu", model_name="SmaATUnet", img_size=32)
     if not torch.cuda.is_available():  # without --device cpu the CLIs ask for the card
