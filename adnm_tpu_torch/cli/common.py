@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from adnm_tpu_torch.convert import from_jax_params, to_jax_params
+from adnm_tpu_torch.data.laps import LAPS_THRESHOLDS, make_laps_datasets
 from adnm_tpu_torch.data.loader import BatchLoader
 from adnm_tpu_torch.data.shanghai import make_datasets
 from adnm_tpu_torch.device import resolve_device
@@ -23,7 +24,8 @@ from adnm_tpu_torch.train.presets import get_preset
 def add_common_args(p: argparse.ArgumentParser):
     p.add_argument("--model", default="ADNMUnet", choices=list(MODEL_NAMES))
     p.add_argument("--dataset", default="Shanghai", choices=["Shanghai", "LAPS"],
-                   help="LAPS is not ported and raises")
+                   help="the task: Shanghai (5 -> 20 frames, 6-minute interval) or LAPS "
+                        "(5 -> 3 frames, 60-minute interval, its own ADNMUnet configuration)")
     p.add_argument("--data-path", default=os.environ.get("ADNM_DATA", "datasets/shanghai.h5"))
     p.add_argument("--synthetic", action="store_true",
                    help="use the synthetic dataset (no h5 needed)")
@@ -42,7 +44,8 @@ def add_common_args(p: argparse.ArgumentParser):
                         "recomputing their forward in the backward: faster step, more memory")
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 compute (fp32 params/optimizer - mixed precision; the loss "
-                        "is computed in fp32); ADNMUnet only, the baselines raise")
+                        "is computed in fp32) for every model, with the JAX model's dtype at "
+                        "each layer (the baselines turn fp32 where JAX promotes)")
     p.add_argument("--attn-type", default="standard", choices=["standard", "mla"],
                    help="ADNMUnet only: mixer at the AttentionBlock sites (standard softmax "
                         "attention or DeepSeek-V2 MLA)")
@@ -57,12 +60,17 @@ def add_common_args(p: argparse.ArgumentParser):
                    help="cuda (default; raises when CUDA is absent) or cpu")
 
 
+TASKS = {
+    "Shanghai": (5, 20, 6, (20, 30, 35, 40)),
+    "LAPS": (5, 3, 60, LAPS_THRESHOLDS),
+}
+
+
 def task_shape(args):
-    """(input_frames, output_frames, frame_interval, thresholds) of the
-    Shanghai task (reference: train.py:40-66)."""
-    if args.dataset != "Shanghai":
-        raise NotImplementedError(f"dataset {args.dataset!r} is not ported (only Shanghai)")
-    return 5, 20, 6, (20, 30, 35, 40)
+    """(input_frames, output_frames, frame_interval, thresholds) of
+    ``args.dataset`` (reference: train.py:40-66; JAX:
+    adnm_tpu/cli/common.py:91-96)."""
+    return TASKS[args.dataset]
 
 
 def resolve_ckpt(ckpt, root: str, missing: str, dataset: str = "Shanghai",
@@ -134,7 +142,8 @@ def build(args):
     if args.pretrained_npz:
         load_pretrained_npz(trainer.model, args.pretrained_npz)
     data_path = None if args.synthetic else args.data_path
-    tr, va, te = make_datasets(data_path, args.img_size, synthetic_len=args.synthetic_len)
+    make = make_laps_datasets if args.dataset == "LAPS" else make_datasets
+    tr, va, te = make(data_path, args.img_size, synthetic_len=args.synthetic_len)
     tdt = args.transfer_dtype
     return trainer, (
         BatchLoader(tr, args.batch_size, shuffle=True, seed=args.seed, transfer_dtype=tdt),

@@ -1,11 +1,12 @@
 """Serve a nowcast: input frames in, predicted frames out.
 
-    python -m adnm_tpu_torch.cli.predict --input frames.npy [--model NAME] [--ckpt PATH | --params params.npz] [--bf16] [--attn-type mla]
+    python -m adnm_tpu_torch.cli.predict --input frames.npy [--model NAME] [--dataset LAPS] [--ckpt PATH | --params params.npz] [--bf16] [--attn-type mla]
 
 Reads (T_in, H, W) or (B, T_in, 1, H, W) frames in [0, 1] from .npy, runs
 the forward of ``--model`` (default ADNMUnet, with ``--attn-type``; or the
 baselines SmaATUnet, ConvLSTM, TrajGRU, LPTQPN, TransUnet and SwinUnet)
-for the Shanghai task (5 frames in, 20 out) in batches of
+for the ``--dataset`` task (Shanghai: 5 frames in, 20 out; LAPS: 5 in, 3
+out, and its own ADNMUnet configuration) in batches of
 ``--batch-size``, optionally chains it until
 ``--horizon`` frames exist, writes (B, T, 1, H, W) predictions to
 ``--output`` and, with ``--png DIR``, PNG strips per clip. Weights come
@@ -17,7 +18,7 @@ under ``--root``; BatchNorm's running statistics come with it), else,
 with a warning, from the seeded init. A ConvLSTM, TransUnet or SwinUnet
 serves only ``--img-size`` frames, the size its checkpoint was trained
 at. ``--device`` defaults to cuda and raises when CUDA is absent.
-``--bf16`` is ported for ADNMUnet alone.
+``--bf16`` computes in bf16 from the fp32 weights, for every model.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from adnm_tpu_torch.cli.common import compute_dtype, model_kwargs, resolve_ckpt
+from adnm_tpu_torch.cli.common import TASKS, compute_dtype, model_kwargs, resolve_ckpt
 from adnm_tpu_torch.convert import from_jax_params, load_params_npz, to_jax_batch_stats
 from adnm_tpu_torch.core.layers import seeded_init_
 from adnm_tpu_torch.device import resolve_device
@@ -37,15 +38,13 @@ from adnm_tpu_torch.models.registry import MODEL_NAMES, create_model
 from adnm_tpu_torch.train.checkpoint import load_model_state, restore_state
 from adnm_tpu_torch.viz import vis_res
 
-# The Shanghai task: 5 frames in, 20 out, 6-minute interval
-# (adnm_tpu/cli/common.py::task_shape).
-INPUT_FRAMES, OUTPUT_FRAMES, FRAME_INTERVAL = 5, 20, 6
 INIT_SEED = 0  # weights without --params or a checkpoint
 
 
 def load_model(params: Optional[str], device, ckpt: Optional[str] = None,
                compute_dtype: torch.dtype = torch.float32, model_name: str = "ADNMUnet",
-               img_size: int = 256, **model_kwargs) -> torch.nn.Module:
+               img_size: int = 256, dataset: str = "Shanghai",
+               **model_kwargs) -> torch.nn.Module:
     """The model ``model_name`` in eval mode on ``device``
     (``resolve_device``: fp32 without TF32), with weights from the
     ``params`` .npz, else from the ``ckpt`` checkpoint file of the port's
@@ -53,7 +52,10 @@ def load_model(params: Optional[str], device, ckpt: Optional[str] = None,
     else from the init seeded with ``INIT_SEED``. ``img_size`` is the frame
     size, which fixes ConvLSTM's peephole weights, TransUnet's position
     embeddings and SwinUnet's windows (a checkpoint of another size
-    raises). ``model_kwargs`` go to the ADNMUnet factory, as the JAX
+    raises). ``dataset`` is the task (``cli.common.TASKS``): its frame
+    counts and interval, which pick the ADNMUnet configuration (LAPS's
+    ``create_adnm_unet(5, 3, 60)``). ``model_kwargs`` go to the ADNMUnet
+    factory, as the JAX
     registry passes them: ``linear_attn_duality=False`` builds the bimamba
     chunked-scan configuration, ``mixer_type="vssd"`` the VSSD mixer,
     ``attn_type="mla"`` MLA at the attention sites, ``simple_patch`` and
@@ -62,9 +64,12 @@ def load_model(params: Optional[str], device, ckpt: Optional[str] = None,
     fp32 whatever ``compute_dtype`` ``forecast`` runs in; a model that
     cannot compute in ``compute_dtype`` raises here."""
     device = resolve_device(device)
-    model = create_model(model_name, INPUT_FRAMES, OUTPUT_FRAMES, FRAME_INTERVAL,
+    input_frames, output_frames, frame_interval, _ = TASKS[dataset]
+    model = create_model(model_name, input_frames, output_frames, frame_interval,
                          img_size=img_size, **model_kwargs)
-    model.check_compute_dtype(compute_dtype)
+    check = getattr(model, "check_compute_dtype", None)
+    if check is not None:
+        check(compute_dtype)
     if params is not None:
         if to_jax_batch_stats(model):
             raise ValueError(f"{model_name} has BatchNorm running statistics, which a params "
@@ -77,11 +82,11 @@ def load_model(params: Optional[str], device, ckpt: Optional[str] = None,
     return model.to(device).eval()
 
 
-def read_frames(path: str, img_size: int) -> np.ndarray:
+def read_frames(path: str, img_size: int, input_frames: int = 5) -> np.ndarray:
     x = np.load(path).astype(np.float32)
     if x.ndim == 3:
         x = x[None, :, None]
-    expected = (INPUT_FRAMES, 1, img_size, img_size)
+    expected = (input_frames, 1, img_size, img_size)
     if x.ndim != 5 or x.shape[1:] != expected:
         raise ValueError(f"expected (B, {', '.join(map(str, expected))}) frames, got {x.shape}")
     return x
@@ -108,7 +113,7 @@ def forecast(model: torch.nn.Module, x: np.ndarray, batch_size: int, device: tor
     if horizon and horizon > preds.shape[1]:
         chunks, total, cur = [preds], preds.shape[1], preds
         while total < horizon:
-            cur = forward(np.clip(cur[:, -INPUT_FRAMES:], 0.0, 1.0))
+            cur = forward(np.clip(cur[:, -x.shape[1]:], 0.0, 1.0))
             chunks.append(cur)
             total += cur.shape[1]
         preds = np.concatenate(chunks, axis=1)[:, :horizon]
@@ -119,6 +124,9 @@ def main(argv=None) -> np.ndarray:
     p = argparse.ArgumentParser("adnm-torch-predict")
     p.add_argument("--input", required=True, help=".npy input frames")
     p.add_argument("--model", default="ADNMUnet", choices=list(MODEL_NAMES))
+    p.add_argument("--dataset", default="Shanghai", choices=list(TASKS),
+                   help="the task the weights were trained for: Shanghai (5 -> 20 frames) "
+                        "or LAPS (5 -> 3 frames)")
     p.add_argument("--attn-type", default="standard", choices=["standard", "mla"],
                    help="ADNMUnet only: mixer at the AttentionBlock sites (standard softmax "
                         "attention or DeepSeek-V2 MLA); a checkpoint must have the same")
@@ -140,17 +148,18 @@ def main(argv=None) -> np.ndarray:
     p.add_argument("--batch-size", type=int, default=4)
     p.add_argument("--device", default="cuda")
     p.add_argument("--bf16", action="store_true",
-                   help="bfloat16 compute (fp32 params; the predictions are written in fp32)")
+                   help="bfloat16 compute for any model (fp32 params; the predictions are "
+                        "written in fp32)")
     args = p.parse_args(argv)
     cdt = compute_dtype(args)
 
     device = resolve_device(args.device)
-    x = read_frames(args.input, args.img_size)
+    x = read_frames(args.input, args.img_size, TASKS[args.dataset][0])
     ckpt = None if args.params is not None else resolve_ckpt(
         args.ckpt, args.root, "warning: no checkpoint at {}; predicting with fresh init",
-        model=args.model)
+        args.dataset, args.model)
     model = load_model(args.params, device, ckpt=ckpt, compute_dtype=cdt, model_name=args.model,
-                       img_size=args.img_size, **model_kwargs(args))
+                       img_size=args.img_size, dataset=args.dataset, **model_kwargs(args))
     if ckpt is not None:
         print(f"loaded checkpoint: {ckpt}")
     preds = forecast(model, x, args.batch_size, device, args.horizon, cdt)

@@ -1,11 +1,12 @@
 """Train a nowcasting model (counterpart of adnm_tpu/cli/train.py;
 reference: train.py).
 
-    python -m adnm_tpu_torch.cli.train --synthetic --epochs 1 [--model NAME] [--device cpu] [--bf16]
+    python -m adnm_tpu_torch.cli.train --synthetic --epochs 1 [--model NAME] [--dataset LAPS] [--device cpu] [--bf16]
 
-Trains ``--model`` (default ADNMUnet, ``create_adnm_unet(5, 20, 6)``; or
-the baselines SmaATUnet, ConvLSTM, TrajGRU and LPTQPN) on the Shanghai
-task with the model's preset: ADNMUnet with en_rainfall loss, adaptive
+Trains ``--model`` (default ADNMUnet, ``create_adnm_unet(5, 20, 6)``, or
+``create_adnm_unet(5, 3, 60)`` for LAPS; or the baselines SmaATUnet,
+ConvLSTM, TrajGRU, LPTQPN, TransUnet and SwinUnet) on the Shanghai or
+LAPS task with the model's preset: ADNMUnet with en_rainfall loss, adaptive
 gradient clipping and AdamW; ConvLSTM and TrajGRU with weighted MSE+MAE
 and Adam on a multistep LR; LPTQPN with MSE+MAE and AdamW on a cosine LR;
 SmaATUnet with MSE+MAE and SGD with momentum on a poly LR (none of the
@@ -14,9 +15,11 @@ Checkpoints go to {root}/model_params/{dataset}/{model}/{model}_best and
 per-epoch metrics to {root}/results/{dataset}/{model}_train.jsonl. Ends
 with the reference's final protocol (train.py:209-250): reload the best
 checkpoint, run the test split, and print CSI/HSS per threshold and
-FAR/RMSE/SSIM/LPIPS. ``--device`` defaults to cuda and raises when CUDA is
-absent. ``--bf16`` (ADNMUnet only) trains with bf16 activations and fp32
-parameters and AdamW state; its checkpoints are the same fp32 files.
+FAR/RMSE/SSIM/LPIPS; for LAPS, ``laps_evaluate``'s CSI/POD/HSS/FAR per
+threshold on the flattened predictions (train.py:233-235). ``--device``
+defaults to cuda and raises when CUDA is absent. ``--bf16`` trains with
+bf16 activations and fp32 parameters and optimizer state; its checkpoints
+are the same fp32 files.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import contextlib
 import os
 
 from adnm_tpu_torch.cli.common import add_common_args, build
+from adnm_tpu_torch.data.laps import laps_evaluate
 from adnm_tpu_torch.metrics import SimplifiedEvaluator, print_metrics
 from adnm_tpu_torch.train.checkpoint import best_ckpt_dir
 from adnm_tpu_torch.utils.profiling import profile_trace
@@ -52,8 +56,9 @@ def make_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> dict:
     """Runs the training; returns the trainer, the epoch logs, the best
-    checkpoint's test loss and its evaluator results ("metrics"); the last
-    two are None with --no-final-eval."""
+    checkpoint's test loss and its evaluator results ("metrics";
+    ``laps_evaluate``'s dict for LAPS); the last two are None with
+    --no-final-eval."""
     args = make_parser().parse_args(argv)
     trainer, (train_loader, val_loader, test_loader), (_, to, _, thresholds) = build(args)
     ckpt_path = best_ckpt_dir(args.root, args.dataset, args.model)
@@ -78,6 +83,9 @@ def main(argv=None) -> dict:
         trainer.load(ckpt_path)
     result["test_loss"], preds, gts = trainer.eval_epoch(test_loader, collect=True)
     print(f"best-checkpoint test loss: {result['test_loss']}")
+    if args.dataset == "LAPS":  # reference orientation (train.py:235)
+        result["metrics"] = laps_evaluate(preds, gts, thresholds)
+        return result
     evaluator = SimplifiedEvaluator(seq_len=to, value_scale=90, thresholds=thresholds,
                                     device=trainer.device)
     evaluator.evaluate(preds, gts)  # reference orientation (train.py:241)

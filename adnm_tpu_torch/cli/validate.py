@@ -1,12 +1,14 @@
 """Validate a trained model (counterpart of adnm_tpu/cli/validate.py;
 reference: validate.py).
 
-    python -m adnm_tpu_torch.cli.validate --synthetic --ckpt PATH [--model NAME] [--device cpu] [--bf16]
+    python -m adnm_tpu_torch.cli.validate --synthetic --ckpt PATH [--model NAME] [--dataset LAPS] [--device cpu] [--bf16]
 
 Loads a checkpoint of the port's train CLI for ``--model`` (``--ckpt``,
 else the model's best checkpoint under ``--root``; with BatchNorm's
 running statistics), runs the test split and prints CSI, POD and
-HSS per threshold and FAR/RMSE/SSIM/LPIPS. Without a checkpoint it
+HSS per threshold and FAR/RMSE/SSIM/LPIPS (for LAPS over its 3 frames at
+its thresholds, with the Shanghai task's value scale of 90, as the JAX
+package's validate does). Without a checkpoint it
 evaluates the fresh init. ``--device`` defaults to cuda and raises when
 CUDA is absent. With ``--bf16`` the model runs in bf16 and the evaluator
 receives its predictions in fp32.

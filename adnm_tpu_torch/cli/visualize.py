@@ -2,13 +2,14 @@
 adnm_tpu/cli/visualize.py; reference: pic_results.py main loop
 :236-275).
 
-    python -m adnm_tpu_torch.cli.visualize --synthetic --ckpt PATH [--device cpu] [--bf16]
+    python -m adnm_tpu_torch.cli.visualize --synthetic --ckpt PATH [--dataset LAPS] [--device cpu] [--bf16]
 
 Loads a checkpoint (``--ckpt``, else the best under ``--root``), runs the
 test split and writes pred/gt/input PNG strips for up to
 ``--max-samples`` clips under ``--out`` (default
 {root}/result_pics2/{dataset}), one directory per clip. Shanghai's
-20-frame strips keep every second frame, as in the reference.
+20-frame strips keep every second frame, as in the reference; LAPS's
+3-frame strips keep every frame.
 """
 
 from __future__ import annotations

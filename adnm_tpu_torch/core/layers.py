@@ -121,7 +121,9 @@ class BiasFreeLayerNorm(nn.Module):
 class LayerNorm(nn.Module):
     """flax's ``nn.LayerNorm`` over the last axis: ``scale`` and ``bias``
     (its parameter names), eps 1e-6 by default; the transformers of
-    TransUnet and SwinUnet normalise (B, L, C) tokens with it."""
+    TransUnet and SwinUnet normalise (B, L, C) tokens with it. As flax's
+    with ``dtype=None``, it returns the promoted type of the input and the
+    fp32 parameters: a bf16 input comes out fp32."""
 
     def __init__(self, dim: int, eps: float = 1e-6):
         super().__init__()
@@ -130,6 +132,7 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(torch.promote_types(x.dtype, self.scale.dtype))
         return F.layer_norm(x, self.scale.shape, self.scale, self.bias, self.eps)
 
 

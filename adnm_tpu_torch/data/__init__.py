@@ -1,1 +1,2 @@
-"""Data of the port: the Shanghai radar clips and the batch loader."""
+"""Data of the port: the Shanghai and LAPS radar clips, the native decode
+and the batch loader."""

@@ -8,6 +8,10 @@ reference: datasets/Shanghai.py).
     (Shanghai.py:131-136).
   * Each clip is kept in memory after its first read, as the reference
     materializes the set (Shanghai.py:126).
+  * An h5 clip is decoded and resized by the native library
+    (``data/native.py``, multithreaded C++), as the JAX package does
+    (adnm_tpu/data/shanghai.py:116-121); ``ADNM_NATIVE=0`` selects the
+    one-thread ``F.interpolate`` path, which agrees within 3e-7.
 
 Without the h5 file a synthetic mode makes structured moving-blob fields
 from numpy seeds, bit-equal to the JAX package's. ``h5py`` is imported
@@ -24,6 +28,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from adnm_tpu_torch.data import native
+
+
 def _resize_bilinear_antialias(frames: np.ndarray, size: int) -> np.ndarray:
     """(T, H, W) float -> (T, size, size): bilinear with antialiasing, as
     torchvision's Resize does on tensors (the JAX package uses
@@ -32,6 +39,14 @@ def _resize_bilinear_antialias(frames: np.ndarray, size: int) -> np.ndarray:
     out = F.interpolate(t, size=(size, size), mode="bilinear", align_corners=False,
                         antialias=True)
     return out[:, 0].numpy()
+
+
+def decode_clip(imgs: np.ndarray, size: int) -> np.ndarray:
+    """(T, H, W) uint8 -> (T, size, size) float32 in [0, 1]: the native
+    decode, or with ``ADNM_NATIVE=0`` /255 and ``F.interpolate``."""
+    if native.enabled():
+        return native.decode_resize_clip(imgs, size)
+    return _resize_bilinear_antialias(imgs.astype(np.float32) / 255.0, size)
 
 
 def _synthetic_clip(rng: np.random.Generator, frames: int, size: int) -> np.ndarray:
@@ -97,7 +112,7 @@ class ShanghaiDataset:
         if self._h5 is None:
             self._h5 = h5py.File(self.data_path, "r")
         imgs = self._h5["train"][str(raw_index)][()]  # (25, 565, 784) uint8
-        return _resize_bilinear_antialias(imgs.astype(np.float32) / 255.0, self.img_size)
+        return decode_clip(imgs, self.img_size)
 
     def __getitem__(self, index: int) -> np.ndarray:
         """Returns (seq_len, img_size, img_size) float32 in [0, 1]."""

@@ -7,7 +7,9 @@ states (reference: ConvLSTM.py:100-197). JAX runs time with ``nn.scan``;
 the port runs it as a Python loop. The peephole weights ``Wci``, ``Wcf``
 and ``Wco`` are learnable and zero-initialised, as in JAX, and shaped by
 the stage grids (H/4, H/16, H/32): the model serves only the ``img_size``
-it was built for, and its forward raises on another.
+it was built for, and its forward raises on another. In bf16 compute the
+fp32 zero states (JAX's ``jnp.zeros``) promote every step: only the first
+convolution is bf16, as in JAX.
 """
 
 from __future__ import annotations
@@ -19,7 +21,6 @@ import torch.nn.functional as F
 from torch import nn
 
 from adnm_tpu_torch.core.layers import Conv2d, ConvTranspose2d
-from adnm_tpu_torch.models.registry import check_fp32
 
 
 def leaky(x: torch.Tensor) -> torch.Tensor:
@@ -36,6 +37,8 @@ def apply_seq(fn, x: torch.Tensor) -> torch.Tensor:
 class ConvLSTMCell(nn.Module):
     """Peephole ConvLSTM cell (reference: ConvLSTM.py:14-65). The peepholes
     are (nf, sh, sw) here and (sh, sw, nf) in JAX (``jax_layouts``)."""
+
+    jax_scanned = True  # JAX runs it under nn.scan (utils.profiling.analytic_flops)
 
     # port axes of each JAX leaf's axes: port = jax.permute(*perm)
     jax_layouts = {"Wci": (2, 0, 1), "Wcf": (2, 0, 1), "Wco": (2, 0, 1)}
@@ -74,8 +77,9 @@ class ConvLSTMLayer(nn.Module):
         self.cell = ConvLSTMCell(input_channel, num_filter, state_hw, kernel_size)
 
     def forward(self, inputs: Optional[torch.Tensor], states, seq_len: int):
-        if states is None:
-            h = inputs.new_zeros(inputs.shape[1], self.num_filter, *self.state_hw)
+        if states is None:  # fp32 zeros, as JAX's, whatever the inputs' dtype
+            h = inputs.new_zeros(inputs.shape[1], self.num_filter, *self.state_hw,
+                                 dtype=torch.promote_types(inputs.dtype, torch.float32))
             states = (h, h)
         h, c = states
         outs = []
@@ -112,11 +116,7 @@ class ConvLSTMEF(nn.Module):
         self.f_conv2 = Conv2d(8, 8, 3, 1, 1)
         self.f_conv3 = Conv2d(8, 1, 1)
 
-    def check_compute_dtype(self, dtype: torch.dtype) -> None:
-        check_fp32("ConvLSTM", dtype)
-
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        self.check_compute_dtype(x.dtype)
         t_in, (h, w) = x.shape[1], x.shape[-2:]
         if (h, w) != (self.img_size, self.img_size):
             raise ValueError(f"ConvLSTM built for {self.img_size}^2 frames got {h}x{w}: its "

@@ -9,7 +9,8 @@ temperature, with q and k divided by their norm + 1e-12 (LPTQPN.py:96-98);
 the FFN's GELU is ``jax.nn.gelu``'s tanh form; the ConvectionDiffusionLoss
 heads (LPTQPN.py:257-262) are dead in the reference forward and are not
 built. (B, T_in, 1, H, W) -> (B, out_channels, 1, H, W), H and W multiples
-of 8.
+of 8. In bf16 compute the model is fp32 from its first attention's
+temperature on, as in JAX.
 """
 
 from __future__ import annotations
@@ -21,7 +22,6 @@ import torch.nn.functional as F
 from torch import nn
 
 from adnm_tpu_torch.core.layers import ACTS, Conv2d, Swish, channel_view
-from adnm_tpu_torch.models.registry import check_fp32
 
 
 class SigmoidLayerNorm(nn.Module):
@@ -59,8 +59,10 @@ class SquaredAttention(nn.Module):
 
         q, k, v = self.qkv_dwconv(self.qkv(x)).chunk(3, dim=1)
         attn = torch.matmul(heads(q), heads(k).transpose(-1, -2))
+        # the fp32 temperature promotes a bf16 product, and v with it (JAX)
         attn = torch.sigmoid(attn * self.temperature[None, :, None, None])
-        out = torch.matmul(attn, v.reshape(b, self.num_heads, c // self.num_heads, h * w))
+        v = v.reshape(b, self.num_heads, c // self.num_heads, h * w).to(attn.dtype)
+        out = torch.matmul(attn, v)
         return self.project_out(out.reshape(b, c, h, w))
 
 
@@ -138,11 +140,7 @@ class LPTQPN(nn.Module):
             x = getattr(self, name)(x)
         return x
 
-    def check_compute_dtype(self, dtype: torch.dtype) -> None:
-        check_fp32("LPTQPN", dtype)
-
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        self.check_compute_dtype(x.dtype)
         inp = x[:, :, 0]  # the frames as channels
         e1 = self._run("enc1", self.patch_embed(inp))
         e2 = self._run("enc2", F.pixel_unshuffle(self.down1(e1), 2))

@@ -2,26 +2,19 @@
 train_untils.py:22-130, the model half of create_models).
 
 Every model maps (B, T_in, 1, H, W) to (B, T_out, 1, H, W). The port
-builds all seven: the ADNM-UNet and six baselines.
+builds all seven: the ADNM-UNet and six baselines. Each computes in its
+input's dtype, fp32 or bf16, with the JAX model's dtype at every module
+output (the JAX ``--bf16``); only the ADNM-UNet has a configuration that
+refuses bf16 (``ADNMUNet.check_compute_dtype``).
 """
 
 from __future__ import annotations
 
-import torch
 from torch import nn
 
 MODEL_NAMES = ("ADNMUnet", "ConvLSTM", "TrajGRU", "LPTQPN", "TransUnet", "SmaATUnet",
                "SwinUnet")
 BASELINES = tuple(name for name in MODEL_NAMES if name != "ADNMUnet")
-
-
-def check_fp32(model_name: str, dtype: torch.dtype) -> None:
-    """Raise for a compute dtype below fp32: bf16 compute is ported for the
-    ADNM-UNet alone (fp64 runs, as a reference)."""
-    if dtype not in (torch.float32, torch.float64):
-        raise NotImplementedError(
-            f"{model_name} computes in float32 only: bf16 compute (--bf16) is ported for "
-            f"ADNMUnet alone, not yet for the baselines")
 
 
 def create_model(model_name: str, input_frames: int, output_frames: int, frame_interval: int,

@@ -9,7 +9,9 @@ interpolation matrices, as in JAX: the same function as
 ``F.interpolate(scale_factor=2, mode="bilinear", align_corners=True)``,
 but its backward is a matrix product, where ``F.interpolate``'s sums with
 atomics on CUDA in an order that changes from run to run. BatchNorm keeps
-running statistics (``core.layers.BatchNorm``).
+running statistics (``core.layers.BatchNorm``, fp32 statistics in any
+compute dtype). In bf16 compute the down path is bf16 and the up path fp32
+from the first upsample on, as in JAX.
 """
 
 from __future__ import annotations
@@ -23,7 +25,6 @@ import torch.nn.functional as F
 from torch import nn
 
 from adnm_tpu_torch.core.layers import BatchNorm, Conv2d, Linear
-from adnm_tpu_torch.models.registry import check_fp32
 
 
 @functools.lru_cache(maxsize=None)
@@ -57,10 +58,14 @@ def _interp_tensor(n_in: int, factor: int, device: torch.device,
 
 def upsample_bilinear_align_corners(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
     """NCHW bilinear upsample by ``factor`` with align_corners=True: rows,
-    then columns, each a product with its interpolation matrix."""
+    then columns, each a product with its interpolation matrix. The
+    matrices are fp32, as JAX's, and promote a bf16 ``x``: the result is
+    fp32 (JAX: the einsum of an fp32 matrix and a bf16 activation)."""
     _, _, h, w = x.shape
-    mh = _interp_tensor(h, factor, x.device, x.dtype)
-    mw = _interp_tensor(w, factor, x.device, x.dtype)
+    dtype = torch.promote_types(x.dtype, torch.float32)
+    x = x.to(dtype)
+    mh = _interp_tensor(h, factor, x.device, dtype)
+    mw = _interp_tensor(w, factor, x.device, dtype)
     return torch.matmul(torch.matmul(mh, x), mw.T)
 
 
@@ -156,11 +161,7 @@ class SmaAtUNet(nn.Module):
             self.add_module(f"up{i}", DoubleConvDS(cin, feats, mid, kpl))
         self.outc = Conv2d(64, n_classes, 1)
 
-    def check_compute_dtype(self, dtype: torch.dtype) -> None:
-        check_fp32("SmaATUnet", dtype)
-
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        self.check_compute_dtype(x.dtype)
         x = x[:, :, 0]  # the frames as channels
         x = self.inc(x)
         skips = [self.cbam1(x)]

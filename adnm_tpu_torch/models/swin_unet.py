@@ -16,8 +16,9 @@ run in an order that changes from run to run, so the gather is a product
 with a one-hot matrix (exact in the forward, a fixed-order matrix product
 in the backward). The shifted windows' mask is a static array, made on the
 host once per shape. DropPath draws its masks from the ``Trainer``'s
-generator (``core.stochastic``). fp32 compute only
-(``registry.check_fp32``).
+generator (``core.stochastic``). In bf16 compute only the patch
+embedding's convolution is bf16: its LayerNorm returns fp32 (flax's
+promotion), and so does all that follows, as in JAX.
 """
 
 from __future__ import annotations
@@ -31,7 +32,6 @@ from torch import nn
 
 from adnm_tpu_torch.core.layers import ACTS, Conv2d, LayerNorm, Linear
 from adnm_tpu_torch.core.stochastic import Dropout, DropPath
-from adnm_tpu_torch.models.registry import check_fp32
 
 
 def window_partition(x: torch.Tensor, ws: int) -> torch.Tensor:
@@ -315,11 +315,7 @@ class SwinUnet(nn.Module):
         self.swin_unet = SwinTransformerSys(img_size=img_size, in_chans=in_chans,
                                             num_classes=num_classes, **swin_kwargs)
 
-    def check_compute_dtype(self, dtype: torch.dtype) -> None:
-        check_fp32("SwinUnet", dtype)
-
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        self.check_compute_dtype(x.dtype)
         x = x[:, :, 0]
         if x.shape[1] == 1:
             x = x.repeat(1, 3, 1, 1)

@@ -7,6 +7,9 @@ with the reference's specs: L = 13, 13, 9 in the encoder and 13, 13, 9 in
 the forecaster (TrajGRU.py:348-398). The L warps of a step run as one
 ``F.grid_sample`` with the flows folded into the batch; time runs as a
 Python loop (JAX: ``nn.scan``). No parameter depends on the frame size.
+In bf16 compute the fp32 zero state (JAX's ``jnp.zeros``) promotes every
+step: the first convolution and the first i2h are bf16, the rest fp32, as
+in JAX.
 
 The warp's backward: ``grid_sample``'s own sums the image gradient with
 atomics on CUDA, in an order that changes from run to run, so two training
@@ -29,7 +32,6 @@ from torch import nn
 from adnm_tpu_torch.core.layers import Conv2d, ConvTranspose2d
 from adnm_tpu_torch.device import deterministic_algorithms
 from adnm_tpu_torch.models.conv_lstm import apply_seq, leaky
-from adnm_tpu_torch.models.registry import check_fp32
 
 _BILINEAR, _ZEROS = 0, 0  # grid_sampler's interpolation and padding modes
 
@@ -85,17 +87,24 @@ def bilinear_warp(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """``img`` (N, C, H, W) sampled at the identity grid plus ``flow`` (N, H,
     W, 2), pixel offsets (x, y), bilinearly with zeros outside the frame
     (reference: TrajGRU.py:36-53, wrap()): ``F.grid_sample`` with
-    align_corners=True on the grid 2 (arange + flow) / (size - 1) - 1."""
+    align_corners=True on the grid 2 (arange + flow) / (size - 1) - 1. An
+    axis of one pixel (TrajGRU's deepest state at 32^2 frames) has no grid
+    spacing: the image is padded there with one zero pixel, which is what
+    zeros padding reads beyond it, so the warp stays JAX's."""
     _, _, h, w = img.shape
-    gx = 2 * (torch.arange(w, device=flow.device, dtype=flow.dtype) + flow[..., 0]) / (w - 1) - 1
+    img = F.pad(img, (0, int(w == 1), 0, int(h == 1)))
+    hp, wp = img.shape[-2:]
+    gx = 2 * (torch.arange(w, device=flow.device, dtype=flow.dtype) + flow[..., 0]) / (wp - 1) - 1
     gy = 2 * (torch.arange(h, device=flow.device, dtype=flow.dtype)[:, None]
-              + flow[..., 1]) / (h - 1) - 1
+              + flow[..., 1]) / (hp - 1) - 1
     return _GridSample.apply(img, torch.stack([gx, gy], dim=-1))
 
 
 class TrajGRUCell(nn.Module):
     """One TrajGRU step (reference: TrajGRU.py:150-206). A cell that never
     takes inputs (the forecaster's first) has no ``i2f_conv1``."""
+
+    jax_scanned = True  # JAX runs it under nn.scan (utils.profiling.analytic_flops)
 
     def __init__(self, input_channel: Optional[int], num_filter: int, L: int = 5):
         super().__init__()
@@ -144,9 +153,10 @@ class TrajGRULayer(nn.Module):
 
     def forward(self, inputs: Optional[torch.Tensor], state: Optional[torch.Tensor],
                 seq_len: int):
-        if state is None:
+        if state is None:  # fp32 zeros, as JAX's, whatever the inputs' dtype
             t, b, _, hh, ww = inputs.shape
-            state = inputs.new_zeros(b, self.num_filter, hh, ww)
+            state = inputs.new_zeros(b, self.num_filter, hh, ww,
+                                     dtype=torch.promote_types(inputs.dtype, torch.float32))
         h, outs = state, []
         i2h = None if inputs is None else apply_seq(self.i2h, inputs)
         for t in range(seq_len):
@@ -180,11 +190,7 @@ class TrajGRUEF(nn.Module):
         self.f_conv2 = Conv2d(8, 8, 3, 1, 1)
         self.f_conv3 = Conv2d(8, 1, 1)
 
-    def check_compute_dtype(self, dtype: torch.dtype) -> None:
-        check_fp32("TrajGRU", dtype)
-
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        self.check_compute_dtype(x.dtype)
         t_in = x.shape[1]
         x = x.transpose(0, 1)  # (T, B, 1, H, W)
         o1, st1 = self.e_rnn1(apply_seq(lambda v: leaky(self.e1_conv(v)), x), None, t_in)

@@ -15,7 +15,9 @@ The max pool after the root is 3x3, stride 2, unpadded (128 -> 63 at
 256^2); the reference zero-pads the 63^2 stage-1 feature to 64^2 for its
 skip alone, and the body goes on unpadded. BatchNorm keeps running
 statistics; Dropout draws its masks from the ``Trainer``'s generator
-(``core.stochastic``). fp32 compute only (``registry.check_fp32``).
+(``core.stochastic``). In bf16 compute the ResNetV2 and the patch
+embedding are bf16; the fp32 position embeddings promote the tokens, so
+the ViT and the decoder are fp32, as in JAX.
 """
 
 from __future__ import annotations
@@ -29,14 +31,14 @@ from torch import nn
 
 from adnm_tpu_torch.core.layers import ACTS, BatchNorm, Conv2d, GroupNorm, LayerNorm, Linear
 from adnm_tpu_torch.core.stochastic import Dropout
-from adnm_tpu_torch.models.registry import check_fp32
 from adnm_tpu_torch.models.smaat_unet import upsample_bilinear_align_corners
 
 
 class StdConv2d(nn.Conv2d):
     """Weight-standardised conv: each output filter standardised over
-    (cin, kh, kw) with the population variance and eps 1e-5 at use
-    (reference: TransUnet.py:28-35)."""
+    (cin, kh, kw) with the population variance and eps 1e-5 at use, in
+    fp32, then cast to the input's dtype (reference: TransUnet.py:28-35;
+    JAX: ``w.astype(x.dtype)``)."""
 
     def __init__(self, in_channels: int, features: int, kernel_size: int, stride: int = 1,
                  padding: int = 0):
@@ -45,7 +47,7 @@ class StdConv2d(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         var, mu = torch.var_mean(self.weight, dim=(1, 2, 3), keepdim=True, correction=0)
         w = (self.weight - mu) * torch.rsqrt(var + 1e-5)
-        return F.conv2d(x, w, None, self.stride, self.padding)
+        return F.conv2d(x, w.to(x.dtype), None, self.stride, self.padding)
 
 
 class PreActBottleneck(nn.Module):
@@ -184,11 +186,7 @@ class TransUnet(nn.Module):
         self.n_decoder = len(decoder_channels)
         self.segmentation_head = Conv2d(cin, n_classes, 3, 1, 1)
 
-    def check_compute_dtype(self, dtype: torch.dtype) -> None:
-        check_fp32("TransUnet", dtype)
-
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        self.check_compute_dtype(x.dtype)
         x = x[:, :, 0]
         if x.shape[1] == 1:
             x = x.repeat(1, 3, 1, 1)

@@ -1,1 +1,1 @@
-"""Logging and profiling helpers of the port."""
+"""Logging, profiling and numerics-debugging helpers of the port."""

@@ -34,7 +34,11 @@
    PERF.md records for its first, simple form. Both K2 kernels also on the
    same inputs rounded to bf16 (bf16 in and out, fp32 inside), within one
    bf16 step of their plain versions, the backward bit-equal across two
-   launches, each timed beside its fp32 time with its bf16 bound.
+   launches, each timed beside its fp32 time with its bf16 bound. The LAPS
+   model's new shapes too: K1 and its backward at the 16-channel refiner
+   Blocks, (1 and 4, 16, 256, 256), and K2 and its backward at its bimamba
+   refiner's 4 heads a path over 65,536 tokens, at batch 1 and 4 and with a
+   small |dA|.
 4. Serves three paths at full width, 256x256, seeded weights, with the
    kernels' launch counts set to 0 just before each request and read just
    after:
@@ -132,14 +136,38 @@
    bit-equal, validate for TransUnet) and a reference .pth round trip
    through ``scripts/torch_convert_reference_ckpt.py``. Prints the phase's
    seconds.
+6f. The LAPS task, at full width, 256x256, seeded weights: the duality
+   ``create_adnm_unet(5, 3, 60)`` (no InstanceNorm, kernels (5, 3, 3),
+   refiner widths 32, 32, 16, 16) and its bimamba configuration, each a
+   batch-1 forward through ``predict.load_model(dataset="LAPS")`` with its
+   launches counted from 0 (20 K1; and 20 K2), twice bit-equal and against
+   the CPU (``LAPS_FORWARD_ATOL``); bimamba training steps at batch 1 and 4
+   (28 K1, 20 K1 backward, 28 K2, 20 K2 backward); ``cli.train --dataset
+   LAPS`` (4 steps at batch 4, launches a step, ``laps_evaluate``'s table),
+   then ``validate``, ``visualize`` and ``predict --ckpt`` on its snapshot,
+   and ConvLSTM (3 output frames) through the train CLI; the native
+   decode-resize of a 25 x 565 x 784 uint8 clip against the
+   ``F.interpolate`` path (``NATIVE_ATOL``) with the host ms per clip of
+   both. Prints the phase's seconds.
+6g. The six baselines at their published widths, 256x256, seeded weights,
+   in bf16 compute (the JAX package's ``--bf16``): the batch-1 bf16
+   forward against fp32 and a batch-1 step's loss and gradient norm
+   against fp32 (``BASELINE_BF16_REL``), two bf16 forwards and two bf16
+   steps bit-equal, no hand kernel launched; the batch-1 latency, batch-4
+   frames/s, batch-4 step time and peak memory in fp32 and bf16 from the
+   same run; the train CLI with ``--bf16`` for SmaAt-UNet and TransUnet
+   and ``predict --bf16 --ckpt`` on each snapshot. Prints the phase's
+   seconds.
 7. Prints the kernels' JSON line (each K1 entry with its largest kernel /
    library time over the fp32 main-path shapes, ``worst_vs_library``, and
    its MLA launches and times at MLA's rows; K2's
    with its largest kernel / bound time over its timed shapes,
    ``worst_vs_bound``, and its walkers' sub-chunk T at each L; K2
    backward's likewise; both K2 entries with ``bf16_ms``,
-   ``bf16_bound_ms`` and ``bf16_max_abs_err`` at the refiner), the script's
-   total seconds, the card line, then the result line last.
+   ``bf16_bound_ms`` and ``bf16_max_abs_err`` at the refiner; each K1 and
+   K2 entry with a ``laps`` entry: its launches on the LAPS paths and its
+   times at the LAPS shapes), the script's total seconds, the card line,
+   then the result line last.
 
 Any failure raises: the exit code is then non-zero and no result line is
 printed.
@@ -181,7 +209,11 @@ K1_MAIN = [(1, 32, 256, 256), (4, 32, 256, 256), (1, 128, 32, 32), (1, 256, 16, 
 # (8^2 tokens, dim 1024).
 K1_MLA_ROWS = [(b * l, c) for b in (1, 4) for l, c in ((1024, 64), (1024, 32), (64, 256),
                                                         (64, 128))]
-K1_CASES = [(shape, 1) for shape in K1_MAIN] + [
+# The LAPS ADNM-UNet's refiner (create_adnm_unet(5, 3, 60): refiner widths
+# 32, 32, 16, 16) adds the 16-channel Blocks of refiner3-4, at batch 1 and
+# 4; its other Block norms are the Shanghai model's shapes above.
+K1_LAPS = [(1, 16, 256, 256), (4, 16, 256, 256)]
+K1_CASES = [(shape, 1) for shape in K1_MAIN + K1_LAPS] + [
     (shape, -1) for shape in dict.fromkeys([(4096, 32), *K1_MLA_ROWS])]
 # fp32: rsqrtf and the summation order differ from the plain version by a
 # few ulp. bf16: both round the same fp32 value, so at most one bf16 step
@@ -199,6 +231,9 @@ K3_CASES = [((65536, 32), -1), ((262144, 32), -1), ((262144, 64), -1), ((4096, 3
 # decoder3 at 32^2, encoder5 / decoder2 at 16^2, encoder6 / decoder1 at
 # 8^2, refiner1-4 at 256^2; P = 4, N = 16, chunks of 256 (64 at 8^2).
 K2_SHAPES = [(32, 1024), (128, 1024), (64, 256), (256, 256), (128, 64), (256, 64), (8, 65536)]
+# The LAPS bimamba configuration's refiner3-4 (16 channels, 8 heads, 4 a
+# path); its other Blocks run the shapes above.
+K2_LAPS = (4, 65536)
 K2_P, K2_N, K2_CHUNK = 4, 16, 256
 # The quadratic chunked K2 that this kernel replaced, device us per call at
 # (batch, heads, L), fp32, as PERF.md section 6 records them (NVIDIA H100
@@ -382,11 +417,19 @@ def worst_vs_library(timing: dict) -> dict:
     return {"ratio": ratio, "shape": list(shape)}
 
 
-def mla_rows(timing: dict) -> dict:
-    """K1's fp32 (kernel, plain, library, bound) device ms at MLA's rows."""
+def mla_rows(timing: dict, shapes=K1_MLA_ROWS) -> dict:
+    """K1's fp32 (kernel, plain, library, bound) device ms at MLA's rows (or
+    at ``shapes``)."""
     return {str(list(shape)): {k: t for k, t in zip(("ms", "plain_ms", "library_ms", "bound_ms"),
                                                     timing[("float32", shape)])}
-            for shape in K1_MLA_ROWS}
+            for shape in shapes}
+
+
+def k2_rows(timing: dict, shapes) -> dict:
+    """K2's (or its backward's) (kernel, plain, bound) device ms at the
+    (batch, heads, L) ``shapes``."""
+    return {str(list(shape)): dict(zip(("ms", "plain_ms", "bound_ms"), timing[shape][:3]))
+            for shape in shapes}
 
 
 def worst_vs_bound(timing: dict) -> dict:
@@ -563,6 +606,12 @@ def check_k3(k1_module) -> dict:
             "backward_timing": timing_bwd}
 
 
+def recorded_us(table: dict, key) -> str:
+    """A time PERF.md records for an earlier form, or "none recorded" for a
+    shape it was never timed at (the LAPS shapes)."""
+    return f"{table[key]:.2f} us" if key in table else "none recorded"
+
+
 def k2_flops(b: int, h: int, p: int, n: int, l: int) -> int:
     """The least operations of one scan: the state update per token and
     head, ``S = exp(dt A) S + B (x dt)``, ``y = C . S + D x``: dt*A and
@@ -642,10 +691,10 @@ def check_k2(ssd) -> dict:
     bf16 kernel beside them, each with its bound."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     rtol, atol = K2_TOL
-    cases = [(b, h, l, False, False) for b in (1, 4) for h, l in K2_SHAPES]
+    cases = [(b, h, l, False, False) for b in (1, 4) for h, l in (*K2_SHAPES, K2_LAPS)]
     # small |dA| across many chunks, forward and reversed
     cases += [(1, 8, 65536, True, False), (1, 8, 65536, True, True), (4, 32, 1024, True, False),
-              (1, 128, 1024, False, True)]
+              (1, 128, 1024, False, True), (1, *K2_LAPS, True, False)]
     worst, worst16, timing, timing16 = 0.0, 0.0, {}, {}
     for b, h, l, carry, reverse in cases:
         args32 = scan_inputs(b, h, l, gen, carry)
@@ -684,7 +733,7 @@ def check_k2(ssd) -> dict:
         bnd16, by16 = bound_ms(k2_bytes(b, h, K2_P, K2_N, l, 2), k2_flops(b, h, K2_P, K2_N, l))
         print(f"{text}; device time: kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
               f"bound {bnd * 1e3:.2f} us ({by}, {bnd / ms:.0%} of it; kernel / bound "
-              f"{ms / bnd:.1f}), quadratic kernel {K2_QUADRATIC_US[(b, h, l)]:.2f} us; bf16 "
+              f"{ms / bnd:.1f}), quadratic kernel {recorded_us(K2_QUADRATIC_US, (b, h, l))}; bf16 "
               f"kernel {ms16 * 1e3:.2f} us, bound {bnd16 * 1e3:.2f} us ({by16}; kernel / bound "
               f"{ms16 / bnd16:.1f}; bf16 / fp32 {ms16 / ms:.2f})")
         timing[(b, h, l)] = (ms, plain_ms, bnd, by)
@@ -703,10 +752,10 @@ def check_k2_backward(ssd) -> dict:
     bwd, ref = ssd.ssd_chunked_scan_backward, ssd.ssd_chunked_scan_backward_reference
     gen = torch.Generator(device="cuda").manual_seed(6)
     rtol, atol = K2B_TOL
-    cases = [(b, h, l, False, False, False) for b in (1, 4) for h, l in K2_SHAPES]
+    cases = [(b, h, l, False, False, False) for b in (1, 4) for h, l in (*K2_SHAPES, K2_LAPS)]
     cases += [(1, 8, 65536, True, False, False), (1, 8, 65536, True, True, False),
               (4, 32, 1024, True, False, False), (1, 128, 1024, False, True, False),
-              (2, 64, 1024, False, True, True)]
+              (2, 64, 1024, False, True, True), (1, *K2_LAPS, True, False, False)]
     worst, timing = {torch.float32: 0.0, torch.bfloat16: 0.0}, {}
     timing16 = {}
     for b, h, l, carry, reverse, sliced in cases:
@@ -757,11 +806,12 @@ def check_k2_backward(ssd) -> dict:
         flops = k2_bwd_flops(b, h, K2_P, K2_N, l)
         bnd, by = bound_ms(k2_bwd_bytes(b, h, K2_P, K2_N, l), flops)
         bnd16, by16 = bound_ms(k2_bwd_bytes(b, h, K2_P, K2_N, l, 2), flops)
-        first = K2_BWD_FIRST_US[(b, h, l)]
+        first = K2_BWD_FIRST_US.get((b, h, l))
+        versus = "" if first is None else f" (kernel / first form {ms * 1e3 / first:.2f})"
         print(f"{text}; device time: kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
               f"bound {bnd * 1e3:.2f} us ({by}, {bnd / ms:.0%} of it; kernel / bound "
-              f"{ms / bnd:.1f}), first form {first:.2f} us (kernel / first form "
-              f"{ms * 1e3 / first:.2f}); bf16 kernel {ms16 * 1e3:.2f} us, bound "
+              f"{ms / bnd:.1f}), first form {recorded_us(K2_BWD_FIRST_US, (b, h, l))}"
+              f"{versus}; bf16 kernel {ms16 * 1e3:.2f} us, bound "
               f"{bnd16 * 1e3:.2f} us ({by16}; kernel / bound {ms16 / bnd16:.1f}; bf16 / fp32 "
               f"{ms16 / ms:.2f})")
         timing[(b, h, l)] = (ms, plain_ms, bnd, by)
@@ -1039,13 +1089,14 @@ def time_forward(predict, label, kwargs, inputs, card, compute_dtype=torch.float
 
 # -- training -------------------------------------------------------------
 
-def train_through_cli(counts, root: str, *extra: str, k1_forward: int = K1_PER_FORWARD) -> tuple:
-    """One epoch through ``cli.train.main`` on the card under ``root`` (with
-    the ``extra`` flags), with each step's launches counted from 0
-    (``Trainer.train_step`` wrapped for the run) and held to those of a
-    model of ``k1_forward`` K1 launches a forward. Returns the launches
-    summed over the steps, the epoch snapshot's path and the final
-    protocol's evaluator results."""
+def train_through_cli(counts, root: str, *extra: str, k1_forward: int = K1_PER_FORWARD,
+                      dataset: str = "Shanghai") -> tuple:
+    """One epoch through ``cli.train.main --dataset dataset`` on the card
+    under ``root`` (with the ``extra`` flags), with each step's launches
+    counted from 0 (``Trainer.train_step`` wrapped for the run) and held to
+    those of a model of ``k1_forward`` K1 launches a forward. Returns the
+    launches summed over the steps, the epoch snapshot's path and the final
+    protocol's results (the evaluator's; ``laps_evaluate``'s for LAPS)."""
     from adnm_tpu_torch.cli import train as train_cli
     from adnm_tpu_torch.train.checkpoint import best_ckpt_dir
     from adnm_tpu_torch.train.loop import Trainer
@@ -1063,13 +1114,15 @@ def train_through_cli(counts, root: str, *extra: str, k1_forward: int = K1_PER_F
     Trainer.train_step = counted
     try:
         t0 = time.perf_counter()
-        out = train_cli.main([*TRAIN_ARGS, "--img-size", str(IMG), "--root", root, *extra])
+        out = train_cli.main([*TRAIN_ARGS, "--img-size", str(IMG), "--root", root,
+                              "--dataset", dataset, *extra])
         secs = time.perf_counter() - t0
     finally:
         Trainer.train_step = step
-    snapshot = best_ckpt_dir(root, "Shanghai", "ADNMUnet") + "_epoch1"
+    snapshot = best_ckpt_dir(root, dataset, "ADNMUnet") + "_epoch1"
     trainer, (log,) = out["trainer"], out["logs"]
-    print(f"train CLI{' ' + ' '.join(extra) if extra else ''}: {trainer.step} steps at batch 4 "
+    print(f"train CLI --dataset {dataset}{' ' + ' '.join(extra) if extra else ''}: "
+          f"{trainer.step} steps at batch 4 "
           f"on {trainer.device} in {trainer.compute_dtype} in {secs:.1f} s; "
           f"train loss {log.train_loss:.6f}, val loss {log.val_loss:.6f}, best-checkpoint "
           f"test loss {out['test_loss']:.6f}, grad norm {log.grad_norm_avg:.4f}; launches per "
@@ -1084,7 +1137,8 @@ def train_through_cli(counts, root: str, *extra: str, k1_forward: int = K1_PER_F
     want = step_launches(True, False, k1_forward)
     if any(c != want for c in per_step):
         raise AssertionError(f"train CLI: launches per step {per_step}, want {want}")
-    check_metrics("train CLI", out["metrics"])
+    check_metrics("train CLI", out["metrics"] if dataset == "Shanghai"
+                  else {"threshold_metrics": out["metrics"]})
     return {k: sum(c[k] for c in per_step) for k in want}, snapshot, out["metrics"]
 
 
@@ -1376,15 +1430,19 @@ def train_batch(b: int, size: int = IMG) -> np.ndarray:
                      for i in range(b)])[:, :, None]
 
 
-def make_trainer(device, compute_dtype=torch.float32, **model_kwargs):
-    """The CLI's trainer: seeded init, reference init, the ADNMUnet preset."""
+def make_trainer(device, compute_dtype=torch.float32, dataset: str = "Shanghai",
+                 **model_kwargs):
+    """The CLI's trainer for ``dataset``'s task: seeded init, reference init,
+    the ADNMUnet preset."""
+    from adnm_tpu_torch.cli.common import TASKS
     from adnm_tpu_torch.models.adnm_unet import apply_reference_init, create_adnm_unet
     from adnm_tpu_torch.train.loop import Trainer
     from adnm_tpu_torch.train.presets import get_preset
 
-    return Trainer(create_adnm_unet(5, 20, 6, **model_kwargs),
-                   get_preset("ADNMUnet", 5, 20, 6, "Shanghai"), 5, device, seed=0,
-                   param_transform=apply_reference_init, compute_dtype=compute_dtype)
+    t_in, t_out, interval, _ = TASKS[dataset]
+    return Trainer(create_adnm_unet(t_in, t_out, interval, **model_kwargs),
+                   get_preset("ADNMUnet", t_in, t_out, interval, dataset), t_in, device,
+                   seed=0, param_transform=apply_reference_init, compute_dtype=compute_dtype)
 
 
 def rel(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -1565,6 +1623,7 @@ def time_train(card, label: str, kwargs: dict, counts, runs,
 # -- the baselines -------------------------------------------------------------
 
 BASELINES = ("SmaATUnet", "ConvLSTM", "TrajGRU", "LPTQPN")
+ALL_BASELINES = (*BASELINES, "TransUnet", "SwinUnet")
 # Card against CPU for a baseline's batch-1 forward at 256^2, fp32 without
 # TF32, seeded init, outputs up to ~1: set in PERF.md before the first chip
 # run of the phase from the CPU's fp32 against fp64 at 64^2 (4.5e-8 ...
@@ -2031,6 +2090,361 @@ def new_models_phase(predict, inputs, counts, card, duality_bf16_grad_err: float
     return mla
 
 
+# -- the LAPS task (5 -> 3 frames, 60 minutes; its own ADNM-UNet) ----------------
+
+LAPS = "LAPS"
+LAPS_T_OUT = 3
+# Card against CPU for the LAPS model's batch-1 forward at 256^2, fp32 without
+# TF32, seeded init: set in PERF.md before the phase's first chip run from the
+# CPU's fp32 distance from fp64 at 256^2 (max abs 3.0e-6 duality, 2.5e-7
+# bimamba; no InstanceNorm, so nothing amplifies rounding as the Shanghai
+# duality model's refiner does), with 30 times margin for the card's own
+# order of sums.
+LAPS_FORWARD_ATOL = {"duality": 1e-4, "bimamba": 1e-4}
+# The native decode against the F.interpolate path: both compute the same
+# antialiased bilinear weights in other orders and precisions (the library
+# in fp32 taps normalised in fp64; torch in fp32); 3e-7 measured on the CPU.
+NATIVE_ATOL = 1e-6
+
+
+def check_laps_model(predict, label: str, kwargs: dict, counts) -> dict:
+    """The LAPS model's batch-1 forward on the card, launches counted from 0,
+    twice bit-equal, against the CPU within LAPS_FORWARD_ATOL. Returns the
+    launches of one forward."""
+    x = np.random.RandomState(2).rand(1, 5, 1, IMG, IMG).astype(np.float32)
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    model = predict.load_model(None, dev, dataset=LAPS, **kwargs)
+    n_params = sum(p.numel() for p in model.parameters())
+    counts.reset()
+    a = predict.forecast(model, x, 1, dev)
+    torch.cuda.synchronize()
+    launches = counts.read()
+    b = predict.forecast(model, x, 1, dev)
+    del model
+    t0 = time.perf_counter()
+    want = predict.forecast(predict.load_model(None, cpu, dataset=LAPS, **kwargs), x, 1, cpu)
+    err = float(np.abs(a - want).max())
+    print(f"LAPS {label} create_adnm_unet(5, 3, 60) ({n_params:,} parameters) forward {IMG}^2 "
+          f"batch 1: launches {launches}; card vs CPU ({time.perf_counter() - t0:.1f} s on the "
+          f"CPU) max_abs_err {err:.3e} (tol {LAPS_FORWARD_ATOL[label]:g}), rel L2 "
+          f"{np.linalg.norm(a - want) / np.linalg.norm(want):.3e}, max |y| "
+          f"{np.abs(want).max():.3f}; two card forwards bit-equal: {np.array_equal(a, b)}")
+    per_forward = {**NO_LAUNCHES, "rms_norm": K1_PER_FORWARD}
+    if kwargs:
+        per_forward["ssd_chunked_scan"] = K2_PER_FORWARD
+    if a.shape != (1, LAPS_T_OUT, 1, IMG, IMG) or not np.isfinite(a).all():
+        raise AssertionError(f"LAPS {label}: forward {a.shape}")
+    if launches != per_forward:
+        raise AssertionError(f"LAPS {label}: launches {launches}, want {per_forward}")
+    if not np.array_equal(a, b) or not err <= LAPS_FORWARD_ATOL[label]:
+        raise AssertionError(f"LAPS {label}: the card's forward differs from itself or the CPU's")
+    return launches
+
+
+def laps_bimamba_step(counts, card: str) -> dict:
+    """Batch-1 and batch-4 training steps of the LAPS bimamba model (refiner
+    remat) with their launches counted from 0: 28 K1, 20 K1 backward, 28 K2
+    and 20 K2 backward; the step time (median of 5 after 3) and peak
+    memory. Returns the batch-1 step's launches."""
+    trainer = make_trainer(torch.device("cuda"), dataset=LAPS, **BIMAMBA)
+    first = None
+    for b in (1, 4):
+        batch = torch.from_numpy(train_batch(b)[:, :5 + LAPS_T_OUT]).to("cuda")
+        times = host_times(lambda: trainer.train_step(batch, LR, CLIP), 5)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counts.reset()
+        loss = float(trainer.train_step(batch, LR, CLIP)[0])
+        torch.cuda.synchronize()
+        launches = counts.read()
+        first = first or launches
+        print(f"[{card}] train LAPS bimamba refiner remat batch {b}: loss {loss:.6f}, step "
+              f"median {statistics.median(times):.2f} ms (5 steps after 3); peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; launches {launches}")
+        want = step_launches(True, True)
+        if launches != want or not np.isfinite(loss):
+            raise AssertionError(f"LAPS bimamba step batch {b}: launches {launches}, want {want}, "
+                                 f"loss {loss}")
+    del trainer
+    torch.cuda.empty_cache()
+    return first
+
+
+def laps_through_clis(predict, counts, root: str) -> dict:
+    """The LAPS duality model through ``cli.train --dataset LAPS`` (4 steps at
+    batch 4, launches asserted a step, ``laps_evaluate``'s table), then on
+    its epoch snapshot ``cli.validate`` (3 frames, the LAPS thresholds; 20
+    K1 launches, one forward), ``cli.visualize`` (every frame of the
+    3-frame strips) and ``cli.predict --dataset LAPS --ckpt`` on the test
+    clips (validate's predictions within SERVE_ATOL); and ConvLSTM
+    (3 output frames) through the train CLI with no hand kernel launched.
+    Returns the train CLI's launches summed over its steps."""
+    from adnm_tpu_torch.cli import train as train_cli
+    from adnm_tpu_torch.cli import validate as validate_cli
+    from adnm_tpu_torch.cli import visualize as visualize_cli
+    from adnm_tpu_torch.data.laps import LAPS_THRESHOLDS, LAPSDataset, laps_evaluate
+
+    trained, snapshot, table = train_through_cli(counts, root, dataset=LAPS)
+    per_forward = {**NO_LAUNCHES, "rms_norm": K1_PER_FORWARD}
+    args = [*DATA_ARGS, "--dataset", LAPS, "--img-size", str(IMG), "--root", root,
+            "--ckpt", snapshot]
+    counts.reset()
+    val = validate_cli.main(args)
+    torch.cuda.synchronize()
+    launches = counts.read()
+    check_metrics("LAPS validate CLI", val["metrics"])
+    recount = laps_evaluate(val["preds"], val["gts"], verbose=False)
+    same = all(recount[t][k] == table[t][k] for t in LAPS_THRESHOLDS
+               for k in ("TP", "FN", "FP", "TN"))
+    print(f"LAPS validate --ckpt: preds {val['preds'].shape}, thresholds "
+          f"{sorted(val['metrics']['threshold_metrics'])}, launches {launches}; laps_evaluate of "
+          f"its predictions equals the train CLI's final table: {same}")
+    if val["preds"].shape[1:] != (LAPS_T_OUT, IMG, IMG) or launches != per_forward or not same:
+        raise AssertionError("LAPS validate: shape, launches or table")
+    counts.reset()
+    written = visualize_cli.main(args + ["--out", os.path.join(root, "pics"),
+                                         "--max-samples", "2"])
+    launches = counts.read()
+    heads = [png_header(os.path.join(d, "ADNMUnet.png")) for d in written]
+    print(f"LAPS visualize: {len(written)} strips {heads}, launches {launches}")
+    if len(written) != 2 or any(h[0] != strip_width(LAPS_T_OUT) for h in heads) \
+            or launches != per_forward:
+        raise AssertionError("LAPS visualize: strips or launches")
+    test = LAPSDataset(None, IMG, "test", synthetic_len=SYNTHETIC_LEN)
+    x_path = os.path.join(root, "x.npy")
+    np.save(x_path, np.stack([test[i][:5] for i in range(len(test))])[:, :, None])
+    counts.reset()
+    served = predict.main(["--dataset", LAPS, "--input", x_path, "--output",
+                           os.path.join(root, "y.npy"), "--img-size", str(IMG), "--ckpt",
+                           snapshot, "--root", root])
+    launches = counts.read()
+    err = float(np.abs(served[:, :, 0] - val["preds"]).max())
+    print(f"LAPS predict --ckpt: {served.shape}, launches {launches}, against validate's "
+          f"predictions max_abs_err {err:.3e} (tol {SERVE_ATOL:g})")
+    if served.shape != (len(test), LAPS_T_OUT, 1, IMG, IMG) or launches != per_forward \
+            or not err <= SERVE_ATOL:
+        raise AssertionError("LAPS predict: shape, launches or predictions")
+    counts.reset()
+    t0 = time.perf_counter()
+    out = train_cli.main([*TRAIN_ARGS, "--dataset", LAPS, "--model", "ConvLSTM", "--img-size",
+                          str(IMG), "--root", root])
+    log = out["logs"][0]
+    print(f"LAPS ConvLSTM train CLI: {out['trainer'].step} steps in "
+          f"{time.perf_counter() - t0:.1f} s, train loss {log.train_loss:.6f}, test loss "
+          f"{out['test_loss']:.6f}, launches {counts.read()}")
+    if out["trainer"].step != TRAIN_STEPS or counts.read() != NO_LAUNCHES or \
+            not np.isfinite([log.train_loss, out["test_loss"]]).all():
+        raise AssertionError("LAPS ConvLSTM train CLI: steps, launches or losses")
+    check_metrics("LAPS ConvLSTM train CLI", {"threshold_metrics": out["metrics"]})
+    return trained
+
+
+def check_native_decode() -> None:
+    """The native decode-resize (``data/native.py``, built with g++ from
+    ``csrc/radar_io.cpp``) of a random 25 x 565 x 784 uint8 clip (the h5's
+    frame size) to 256^2 against the ``F.interpolate`` path within
+    NATIVE_ATOL, with the host ms per clip of both (median of 5)."""
+    from adnm_tpu_torch.data import native, shanghai
+
+    t0 = time.perf_counter()
+    native.get_lib()
+    built = time.perf_counter() - t0
+    clip = np.random.RandomState(3).randint(0, 71, (25, 565, 784)).astype(np.uint8)
+    got = native.decode_resize_clip(clip, IMG)
+    want = shanghai._resize_bilinear_antialias(clip.astype(np.float32) / 255.0, IMG)
+    err = float(np.abs(got - want).max())
+    ms = {}
+    for name, fn in (("native", lambda: native.decode_resize_clip(clip, IMG)),
+                     ("F.interpolate", lambda: shanghai._resize_bilinear_antialias(
+                         clip.astype(np.float32) / 255.0, IMG))):
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms[name] = statistics.median(times)
+    print(f"native decode (g++ build or load {built:.2f} s): 25 x 565 x 784 uint8 -> {got.shape} "
+          f"against F.interpolate max_abs_err {err:.3e} (tol {NATIVE_ATOL:g}); host ms per clip "
+          f"native {ms['native']:.2f} (4 threads), F.interpolate {ms['F.interpolate']:.2f} "
+          f"(torch {torch.get_num_threads()} threads)")
+    if got.shape != (25, IMG, IMG) or not err <= NATIVE_ATOL:
+        raise AssertionError("native decode disagrees with the F.interpolate path")
+
+
+def laps_phase(predict, counts, card: str) -> dict:
+    """6f: the LAPS task. Returns the launches of its paths."""
+    t_phase = time.perf_counter()
+    forward = check_laps_model(predict, "duality", {}, counts)
+    scan_forward = check_laps_model(predict, "bimamba", BIMAMBA, counts)
+    step = laps_bimamba_step(counts, card)
+    with tempfile.TemporaryDirectory() as root:
+        trained = laps_through_clis(predict, counts, root)
+    check_native_decode()
+    print(f"LAPS phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"forward": forward, "bimamba_forward": scan_forward, "bimamba_step": step,
+            "cli_step": {k: v // TRAIN_STEPS for k, v in trained.items()}}
+
+
+# -- the six baselines in bf16 compute -----------------------------------------
+
+# bf16 against fp32 on the card from the same weights, set in PERF.md before
+# the phase's first chip run: 4 times the port's distance on the CPU, the
+# largest at 32^2, 64^2 and 128^2 (scripts/torch_bf16_distance.py; a forward
+# of 2 clips, relative L2; a batch-1 step's loss and global gradient norm,
+# relative), rounded up. JAX's bf16 is fp32 after a model's first few layers
+# (the interpolation matrices, the zero states, the temperature, the position
+# embeddings, the LayerNorms): ConvLSTM's and TrajGRU's bf16 touches the
+# first convolution alone. SmaAt's and TransUnet's seeded train-mode steps
+# are ill-conditioned (their BatchNorms and ResNetV2; PERF.md section 2):
+# their gradient norms move by 6 and 25 % on the CPU.
+BASELINE_BF16_REL = {
+    "SmaATUnet": {"forward": 2e-4, "loss": 3e-2, "grad_norm": 0.3},
+    "ConvLSTM": {"forward": 6e-6, "loss": 8e-7, "grad_norm": 1e-5},
+    "TrajGRU": {"forward": 6e-5, "loss": 6e-6, "grad_norm": 3e-6},
+    "LPTQPN": {"forward": 6e-3, "loss": 2e-3, "grad_norm": 4e-3},
+    "TransUnet": {"forward": 3e-3, "loss": 2e-2, "grad_norm": 1.0},
+    "SwinUnet": {"forward": 1e-2, "loss": 2e-4, "grad_norm": 2e-3},
+}
+
+
+def bf16_vs_fp32(name: str, counts) -> None:
+    """The batch-1 bf16 forward against fp32, two bf16 forwards bit-equal, no
+    hand kernel; two bf16 batch-1 steps bit-equal (rates 0), their loss and
+    gradient norm against the fp32 step's."""
+    from adnm_tpu_torch.cli import predict
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    x = np.random.RandomState(1).rand(1, 5, 1, IMG, IMG).astype(np.float32)
+    model = predict.load_model(None, dev, model_name=name, img_size=IMG, compute_dtype=bf16)
+    counts.reset()
+    a, b = (predict.forecast(model, x, 1, dev, compute_dtype=bf16) for _ in range(2))
+    launches = counts.read()
+    y32 = predict.forecast(model, x, 1, dev)  # fp32 parameters: fp32 compute on fp32 frames
+    del model
+    fwd = float(np.linalg.norm(a - y32) / np.linalg.norm(y32))
+    trainer = baseline_trainer(name, dev, rates0=True)
+    runs = {}
+    for dt in (torch.float32, bf16):
+        trainer.compute_dtype = dt  # read by _split_batch alone
+        runs[dt] = [grads_of(trainer, train_batch(1)) for _ in range(1 if dt == torch.float32
+                                                                     else 2)]
+    del trainer
+    (l32, g32), = runs[torch.float32]
+    (l16, g16), (l16b, g16b) = runs[bf16]
+    twice = l16 == l16b and all(torch.equal(g16[k], g16b[k]) for k in g16)
+    err = {"forward": fwd, "loss": abs(l16 - l32) / abs(l32),
+           "grad_norm": abs(gnorm(g16) - gnorm(g32)) / gnorm(g32)}
+    tol = BASELINE_BF16_REL[name]
+    print(f"{name} bf16 vs fp32 on the card, {IMG}^2 batch 1: " + ", ".join(
+        f"{k} rel {err[k]:.3e} (bound {tol[k]:g})" for k in err)
+        + f"; two bf16 forwards bit-equal {np.array_equal(a, b)}, two bf16 steps bit-equal "
+          f"{twice}; every gradient rel L2 {rel_all(g16, g32):.3e}; launches {launches}")
+    if a.shape != (1, 20, 1, IMG, IMG) or a.dtype != np.float32 or not np.isfinite(a).all():
+        raise AssertionError(f"{name} bf16: forward {a.shape} {a.dtype}")
+    if not np.array_equal(a, b) or not twice or launches != NO_LAUNCHES:
+        raise AssertionError(f"{name} bf16: forwards or steps differ, or hand kernels launched")
+    if not all(err[k] <= tol[k] for k in tol):
+        raise AssertionError(f"{name} bf16: too far from fp32")
+
+
+def time_bf16_baseline(name: str, counts, card: str) -> None:
+    """The batch-1 latency (median of 10), batch-4 frames/s (median of 5),
+    batch-4 step time (median of 5 after 3) and the peak memory of the
+    batch-4 forward and step, in fp32 and bf16 from the same weights, in
+    this run."""
+    from adnm_tpu_torch.cli import predict
+
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(0)
+    x1 = torch.from_numpy(rng.rand(1, 5, 1, IMG, IMG).astype(np.float32)).to(dev)
+    x4 = torch.from_numpy(rng.rand(4, 5, 1, IMG, IMG).astype(np.float32)).to(dev)
+    batch = torch.from_numpy(train_batch(4)).to(dev)
+    rows = {}
+    for dt in (torch.float32, torch.bfloat16):
+        model = predict.load_model(None, dev, model_name=name, img_size=IMG, compute_dtype=dt)
+        with torch.inference_mode():
+            lat = statistics.median(host_times(lambda: model(x1.to(dt)), 10))
+            torch.cuda.reset_peak_memory_stats()
+            fwd4 = statistics.median(host_times(lambda: model(x4.to(dt)), 5))
+            peak_fwd = torch.cuda.max_memory_allocated()
+        del model
+        trainer = baseline_trainer(name, dev)
+        trainer.compute_dtype = dt
+        lr = trainer.preset.lr(1, trainer.preset.epochs)
+        counts.reset()
+        step = statistics.median(host_times(lambda: trainer.train_step(batch, lr, 0.0), 5))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        trainer.train_step(batch, lr, 0.0)
+        torch.cuda.synchronize()
+        peak_step = torch.cuda.max_memory_allocated()
+        del trainer
+        torch.cuda.empty_cache()
+        if counts.read() != NO_LAUNCHES:
+            raise AssertionError(f"{name} {dt}: hand kernels launched {counts.read()}")
+        rows[str(dt)[6:]] = (lat, 4 * 20 / (fwd4 / 1e3), step, peak_fwd, peak_step)
+    print(f"[{card}] {name} fp32 / bf16: " + "; ".join(
+        f"{dt} batch-1 latency {r[0]:.2f} ms, batch-4 {r[1]:.1f} frames/s, batch-4 step "
+        f"{r[2]:.2f} ms, peak memory b4 forward {r[3] / 2**20:.1f} MiB, b4 step "
+        f"{r[4] / 2**20:.1f} MiB" for dt, r in rows.items()))
+
+
+def bf16_baselines_through_clis(predict, counts, root: str) -> None:
+    """The train CLI with --bf16 for SmaAt (BatchNorm) and TransUnet (4 steps
+    at batch 4, no hand kernel launched, fp32 parameters and running
+    statistics), and ``predict --bf16 --ckpt`` on each epoch snapshot (fp32
+    predictions, two forwards of the first clip bit-equal)."""
+    from adnm_tpu_torch.cli import train as train_cli
+    from adnm_tpu_torch.data.shanghai import ShanghaiDataset
+    from adnm_tpu_torch.train.checkpoint import best_ckpt_dir
+
+    test = ShanghaiDataset(None, IMG, "test", synthetic_len=SYNTHETIC_LEN)
+    x_path = os.path.join(root, "x.npy")
+    np.save(x_path, np.stack([test[i][:5] for i in range(len(test))])[:, :, None])
+    for name in ("SmaATUnet", "TransUnet"):
+        counts.reset()
+        t0 = time.perf_counter()
+        out = train_cli.main([*TRAIN_ARGS, "--model", name, "--img-size", str(IMG), "--root",
+                              root, "--bf16"])
+        trainer, (log,) = out["trainer"], out["logs"]
+        fp32_state = all(t.dtype == torch.float32 for t in
+                         (*trainer.model.parameters(), *trainer.model.buffers()))
+        print(f"{name} train CLI --bf16: {trainer.step} steps in {time.perf_counter() - t0:.1f} "
+              f"s, train loss {log.train_loss:.6f}, test loss {out['test_loss']:.6f}, "
+              f"parameters and buffers fp32 {fp32_state}, launches {counts.read()}")
+        if trainer.step != TRAIN_STEPS or counts.read() != NO_LAUNCHES or not fp32_state \
+                or not np.isfinite([log.train_loss, out["test_loss"]]).all():
+            raise AssertionError(f"{name} train CLI --bf16: steps, launches, dtypes or losses")
+        check_metrics(f"{name} train CLI --bf16", out["metrics"])
+        del out, trainer
+        snapshot = best_ckpt_dir(root, "Shanghai", name) + "_epoch1"
+        served = predict.main(["--model", name, "--bf16", "--input", x_path, "--output",
+                               os.path.join(root, "y.npy"), "--img-size", str(IMG), "--ckpt",
+                               snapshot, "--root", root])
+        model = predict.load_model(None, "cuda", ckpt=snapshot, model_name=name, img_size=IMG,
+                                   compute_dtype=torch.bfloat16)
+        first = torch.from_numpy(np.load(x_path)[:1]).to("cuda", torch.bfloat16)
+        with torch.inference_mode():
+            twice = torch.equal(model(first), model(first))
+        del model
+        print(f"{name} predict --bf16 --ckpt on its epoch-1 snapshot: {served.shape} "
+              f"{served.dtype}; two bf16 forwards of the first clip bit-equal {twice}")
+        if served.shape != (len(test), 20, 1, IMG, IMG) or served.dtype != np.float32 \
+                or not np.isfinite(served).all() or not twice:
+            raise AssertionError(f"{name} predict --bf16 --ckpt")
+
+
+def bf16_baseline_phase(predict, counts, card: str) -> None:
+    """6g: the six baselines at published width, 256^2, in bf16 compute."""
+    t_phase = time.perf_counter()
+    for name in ALL_BASELINES:
+        bf16_vs_fp32(name, counts)
+        time_bf16_baseline(name, counts, card)
+    with tempfile.TemporaryDirectory() as root:
+        bf16_baselines_through_clis(predict, counts, root)
+    print(f"bf16 baseline phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -2113,6 +2527,10 @@ def main() -> None:
     # -- MLA, the dead features, TransUnet, SwinUnet ------------------------------
     mla = new_models_phase(predict, inputs, counts, card, duality_bf16_grad_err)
 
+    # -- the LAPS task; the six baselines in bf16 -----------------------------
+    laps = laps_phase(predict, counts, card)
+    bf16_baseline_phase(predict, counts, card)
+
     # Launches: serving kernels from the bimamba requests, K1's backward
     # from the train CLI's run, K2's from the bimamba training steps; K3
     # is on no path.
@@ -2138,6 +2556,9 @@ def main() -> None:
         "worst_vs_library": worst_vs_library(k1["timing"]),
         "mla": {"launches_per_forward": mla["forward"], "launches_per_step": mla["step"],
                 "rows": mla_rows(k1["timing"])},
+        "laps": {"launches_per_forward": laps["forward"]["rms_norm"],
+                 "launches_per_step": laps["cli_step"]["rms_norm"],
+                 "rows": mla_rows(k1["timing"], K1_LAPS)},
     }, {
         "name": "rms_norm_backward", "route": "cuda", "source": "adnm_tpu_torch/csrc/rms_norm.cu",
         "replaces": "adnm_tpu/ops/pallas/fused_norm.py:57",
@@ -2145,6 +2566,8 @@ def main() -> None:
         "ms": k1b_ms, "plain_ms": k1b_plain, "bound_ms": k1b_bound, "bound_by": k1b_by,
         "library_ms": k1b_lib, "worst_vs_library": worst_vs_library(k1b["timing"]),
         "mla": {"launches_per_step": mla["backward_step"], "rows": mla_rows(k1b["timing"])},
+        "laps": {"launches_per_step": laps["cli_step"]["rms_norm_backward"],
+                 "rows": mla_rows(k1b["timing"], K1_LAPS)},
     }, {
         "name": "ssd_chunked_scan", "route": "cuda", "source": "adnm_tpu_torch/csrc/ssd_scan.cu",
         "replaces": "adnm_tpu/ops/pallas/ssd_scan.py:132",
@@ -2152,6 +2575,9 @@ def main() -> None:
         "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound, "bound_by": k2_by,
         "library_ms": None, "worst_vs_bound": worst_vs_bound(k2["timing"]), **k2_bf16,
         "sub_chunk": {str(l): ssd.sub_chunk(l) for l in sorted({l for _, l in K2_SHAPES})},
+        "laps": {"launches_per_forward": laps["bimamba_forward"]["ssd_chunked_scan"],
+                 "launches_per_step": laps["bimamba_step"]["ssd_chunked_scan"],
+                 "rows": k2_rows(k2["timing"], [(b, *K2_LAPS) for b in (1, 4)])},
     }, {
         "name": "ssd_chunked_scan_backward", "route": "cuda",
         "source": "adnm_tpu_torch/csrc/ssd_scan.cu",
@@ -2159,6 +2585,8 @@ def main() -> None:
         "launches": launches["ssd_chunked_scan_backward"], "max_abs_err": k2b["max_abs_err"],
         "ms": k2b_ms, "plain_ms": k2b_plain, "bound_ms": k2b_bound, "bound_by": k2b_by,
         "library_ms": None, "worst_vs_bound": worst_vs_bound(k2b["timing"]), **k2b_bf16,
+        "laps": {"launches_per_step": laps["bimamba_step"]["ssd_chunked_scan_backward"],
+                 "rows": k2_rows(k2b["timing"], [(b, *K2_LAPS) for b in (1, 4)])},
     }, {
         "name": "gated_rms_norm", "route": "cuda", "source": "adnm_tpu_torch/csrc/rms_norm.cu",
         "replaces": "adnm_tpu/ops/pallas/fused_norm.py:63",

@@ -1,17 +1,21 @@
 """How far the port's bf16 compute is from its fp32, on the CPU: the
 yardstick of ``chip_smoke.py``'s bf16 bounds (``BF16_FORWARD_REL``,
-``BF16_STEP_REL``: 4 times these distances, rounded up).
+``BF16_STEP_REL``, ``BASELINE_BF16_REL``: 4 times these distances, rounded
+up).
 
     python3 scripts/torch_bf16_distance.py [--img-size 32] [CONFIG ...]
 
 For the full-width ADNM-UNet ``create_adnm_unet(5, 20, 6)`` of each
 configuration (duality, bimamba, mla), from the weights the smoke uses
 (the serving init seeded with 0, ``predict.load_model(None, ...)``; the
-trainer's seeded and reference init, ``chip_smoke.make_trainer``): the
-relative L2 distance of the bf16 predictions from the fp32 ones for a
-forward of 2 random clips, and of a batch-1 step's loss and global
-gradient norm in bf16 compute from fp32 (the smoke's training clip). Runs
-on the CPU with one intra-op thread.
+trainer's seeded and reference init, ``chip_smoke.make_trainer``), and for
+each of the six baselines at its published width (SmaATUnet, ConvLSTM,
+TrajGRU, LPTQPN, TransUnet, SwinUnet; the serving init, and the train
+CLI's trainer with the dropout and DropPath rates at 0,
+``chip_smoke.baseline_trainer``): the relative L2 distance of the bf16
+predictions from the fp32 ones for a forward of 2 random clips, and of a
+batch-1 step's loss and global gradient norm in bf16 compute from fp32
+(the smoke's training clip). Runs on the CPU with one intra-op thread.
 """
 
 from __future__ import annotations
@@ -26,9 +30,19 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from adnm_tpu_torch.cli import predict  # noqa: E402
-from chip_smoke import BIMAMBA, MLA, gnorm, grads_of, make_trainer, train_batch  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    ALL_BASELINES,
+    BIMAMBA,
+    MLA,
+    baseline_trainer,
+    gnorm,
+    grads_of,
+    make_trainer,
+    train_batch,
+)
 
-CONFIGS = {"duality": {}, "bimamba": BIMAMBA, "mla": MLA}
+CONFIGS = {"duality": {}, "bimamba": BIMAMBA, "mla": MLA,
+           **{name: {"model_name": name} for name in ALL_BASELINES}}
 
 
 def rel(a: np.ndarray, b: np.ndarray) -> float:
@@ -47,10 +61,13 @@ def main() -> None:
     batch = train_batch(1, size)
     for name in args.configs:
         kw = CONFIGS[name]
+        if "model_name" in kw:
+            kw = {**kw, "img_size": size}
         preds = {dt: predict.forecast(predict.load_model(None, cpu, compute_dtype=dt, **kw), x, 2,
                                       cpu, compute_dtype=dt)
                  for dt in (torch.float32, torch.bfloat16)}
-        trainer = make_trainer(cpu, **kw)
+        trainer = (baseline_trainer(name, cpu, size, rates0=True) if "model_name" in kw
+                   else make_trainer(cpu, **kw))
         steps = {}
         for dt in (torch.float32, torch.bfloat16):
             trainer.compute_dtype = dt  # read by _split_batch alone

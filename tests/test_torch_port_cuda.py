@@ -864,3 +864,91 @@ def test_new_baseline_steps_are_bit_equal_at_their_rates_and_match_the_cpu(card,
     for k, v in on_card.model.named_buffers():
         w = cpu_stats[k].double()
         assert float((v.cpu().double() - w).norm()) <= 1e-4 * float(w.norm()), k
+
+
+# -- the LAPS task's new kernel shapes, the native decode, bf16 baselines --------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_and_its_backward_at_the_laps_refiner_shape(card, dtype):
+    """K1 and its backward at the LAPS model's 16-channel refiner Blocks,
+    (1, 16, 256, 256): against the plain versions with
+    ``test_kernel_matches_plain_version_on_the_card``'s and
+    ``test_backward_kernel_matches_plain_version_on_the_card``'s
+    tolerances, dw bit-equal across two launches."""
+    gen = torch.Generator(device=card).manual_seed(7)
+    x, dy = (torch.randn(1, 16, 256, 256, generator=gen, device=card).to(dtype)
+             for _ in range(2))
+    w = torch.rand(16, generator=gen, device=card) + 0.5
+    rtol, atol = (1e-5, 1e-5) if dtype == torch.float32 else (8e-3, 1e-5)
+    before = (rms_norm.launches, rms_norm_backward.launches)
+    y = rms_norm(x, w, 1e-6, 1)
+    dx, dw = rms_norm_backward(x, w, dy, 1e-6, 1)
+    dw2 = rms_norm_backward(x, w, dy, 1e-6, 1)[1]
+    torch.cuda.synchronize()
+    assert (rms_norm.launches, rms_norm_backward.launches) == (before[0] + 1, before[1] + 2)
+    torch.testing.assert_close(y.float(), rms_norm_reference(x, w, 1e-6, 1).float(), rtol=rtol,
+                               atol=atol)
+    dx_want, dw_want = rms_norm_backward_reference(x, w, dy, 1e-6, 1)
+    torch.testing.assert_close(dx.float(), dx_want.float(), rtol=rtol, atol=atol)
+    assert torch.equal(dw, dw2)
+    r = torch.rsqrt(x.float().square().mean(dim=1, keepdim=True) + 1e-6)
+    scale = (dy.float() * x.float() * r).abs().sum(dim=(0, 2, 3))
+    assert bool(((dw - dw_want).abs() <= 1e-4 * scale + 1e-6).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("carry", [False, True], ids=["model_scales", "small_dA_carry"])
+def test_k2_and_its_backward_at_the_laps_refiner_shape(card, carry):
+    """K2 and its backward at the LAPS bimamba refiner's 4 heads a path over
+    65,536 tokens, batch 1, forward and reversed: the tolerances of the
+    K2 tests above, the backward bit-equal across two launches."""
+    gen = torch.Generator(device=card).manual_seed(8)
+    for reverse in (False, True):
+        *args, dy = scan_grad_inputs(1, 4, 4, 65536, gen, carry)
+        flip = (lambda t: t.flip(-1)) if reverse else (lambda t: t)
+        x, dt, A, B, C, D = args
+        got = ssd.ssd_chunked_scan(*args, chunk_size=256, reverse=reverse)
+        want = flip(ssd.ssd_chunked_scan_reference(flip(x), flip(dt), A, flip(B), flip(C), D,
+                                                   256))
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        grads = ssd.ssd_chunked_scan_backward(*args, dy, 256, reverse)
+        again = ssd.ssd_chunked_scan_backward(*args, dy, 256, reverse)
+        ref = ssd.ssd_chunked_scan_backward_reference(*args, dy, 256, reverse)
+        terms = k2_grad_terms(*args, dy, ref)
+        for name, g, g2, w in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), grads, again, ref):
+            assert torch.equal(g, g2), name
+            if name in terms:
+                assert bool(((g - w).abs() <= 1e-4 * terms[name] + 1e-6).all()), name
+            else:
+                torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4 * w.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_native_decode_matches_interpolate_on_the_card_machine(card):
+    """The native decode-resize (built with g++ from csrc/radar_io.cpp) of a
+    clip at the h5's frame size against the F.interpolate path, within
+    1e-6."""
+    from adnm_tpu_torch.data import native, shanghai
+
+    clip = np.random.RandomState(0).randint(0, 71, (5, 565, 784)).astype(np.uint8)
+    got = native.decode_resize_clip(clip, 256)
+    want = shanghai._resize_bilinear_antialias(clip.astype(np.float32) / 255.0, 256)
+    assert got.shape == (5, 256, 256) and float(np.abs(got - want).max()) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_two_bf16_baseline_forwards_are_bit_equal_on_the_card(card):
+    """SmaAt-UNet in bf16 compute at 64^2, batch 1: two forwards give the
+    same bits, fp32 out (JAX's up path is fp32), no hand kernel."""
+    from adnm_tpu_torch.cli import predict
+
+    model = predict.load_model(None, card, model_name="SmaATUnet", img_size=BASELINE_SIZE,
+                               compute_dtype=torch.bfloat16)
+    x = torch.rand(1, 5, 1, BASELINE_SIZE, BASELINE_SIZE,
+                   generator=torch.Generator().manual_seed(0)).to(card, torch.bfloat16)
+    before = rms_norm.launches
+    with torch.inference_mode():
+        a, b = model(x), model(x)
+    assert a.dtype == torch.float32 and torch.isfinite(a).all() and torch.equal(a, b)
+    assert rms_norm.launches == before

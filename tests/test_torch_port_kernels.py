@@ -113,9 +113,10 @@ def test_backward_plain_version_matches_jax_vjp(shape, axis):
 
 
 def test_chip_smoke_times_k1_at_every_shape_the_model_gives_it(one_torch_thread, monkeypatch):
-    """The duality model (create_adnm_unet(5, 20, 6), seeded) at 64^2 on
-    the CPU: the shapes that reach K1, with H and W scaled to 256^2, are the
-    ones chip_smoke.py checks and times, and a forward makes 20 calls."""
+    """The duality models of both tasks (create_adnm_unet(5, 20, 6) and
+    LAPS's (5, 3, 60), seeded) at 64^2 on the CPU: the shapes that reach K1,
+    with H and W scaled to 256^2, are the ones chip_smoke.py checks and
+    times (with the refiners' at batch 4), and a forward makes 20 calls."""
     import chip_smoke
     from adnm_tpu_torch.cli import predict
     from adnm_tpu_torch.core import layers
@@ -127,15 +128,21 @@ def test_chip_smoke_times_k1_at_every_shape_the_model_gives_it(one_torch_thread,
         return rms_norm(x, weight, eps, axis)
 
     monkeypatch.setattr(layers, "rms_norm", recording)
-    model = predict.load_model(None, torch.device("cpu"))
     x = torch.from_numpy(np.random.RandomState(0).rand(1, 5, 1, 64, 64).astype(np.float32))
-    with torch.inference_mode():
-        model(x)
-    assert len(seen) == chip_smoke.K1_PER_FORWARD == 20
+    shapes = {}
+    for dataset in ("Shanghai", "LAPS"):
+        seen.clear()
+        model = predict.load_model(None, torch.device("cpu"), dataset=dataset, img_size=64)
+        with torch.inference_mode():
+            model(x)
+        assert len(seen) == chip_smoke.K1_PER_FORWARD == 20
+        assert all(axis == 1 for _, axis in seen)
+        shapes[dataset] = {(b, c, 4 * h, 4 * w) for (b, c, h, w), _ in seen}
     cases = {shape for shape, axis in chip_smoke.K1_CASES if axis == 1}
-    for (b, c, h, w), axis in seen:
-        assert axis == 1 and (b, c, 4 * h, 4 * w) in cases, (b, c, h, w)
-    assert {(b, c, 4 * h, 4 * w) for (b, c, h, w), _ in seen} | {(4, 32, 256, 256)} == cases
+    refiners_b4 = {(4, c, 256, 256) for c in (32, 16)}
+    assert shapes["Shanghai"] | {(4, 32, 256, 256)} == set(chip_smoke.K1_MAIN)
+    assert shapes["LAPS"] - shapes["Shanghai"] | {(4, 16, 256, 256)} == set(chip_smoke.K1_LAPS)
+    assert shapes["Shanghai"] | shapes["LAPS"] | refiners_b4 == cases
 
 
 def test_rms_norm_is_differentiable_on_the_cpu_through_the_explicit_formula():

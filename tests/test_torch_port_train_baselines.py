@@ -367,11 +367,7 @@ def smaat_test_inputs() -> np.ndarray:
 
 
 def test_clis_refuse_what_is_not_ported_for_the_baselines(tmp_path):
-    base = cli_args("SmaATUnet", tmp_path)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        train_cli.main(base + ["--bf16"])
-    with pytest.raises(NotImplementedError, match="bf16"):
-        validate_cli.main(cli_args("ConvLSTM", tmp_path) + ["--bf16"])
+    base = cli_args("SmaATUnet", tmp_path)  # --bf16 is ported: test_torch_port_bf16_baselines.py
     with pytest.raises(SystemExit, match="only supported for --model ADNMUnet"):
         train_cli.main(base + ["--no-refiner-remat"])
     with pytest.raises(SystemExit, match="only supported for --model ADNMUnet"):
