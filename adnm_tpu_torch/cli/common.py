@@ -4,7 +4,9 @@ flags, the task shape, and the Trainer and loaders they build."""
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
+from typing import Optional
 
 import numpy as np
 import torch
@@ -16,6 +18,7 @@ from adnm_tpu_torch.data.shanghai import make_datasets
 from adnm_tpu_torch.device import resolve_device
 from adnm_tpu_torch.models.adnm_unet import apply_reference_init
 from adnm_tpu_torch.models.registry import MODEL_NAMES, create_model
+from adnm_tpu_torch.parallel import launched_by_torchrun, parse_mesh
 from adnm_tpu_torch.train.checkpoint import best_ckpt_dir
 from adnm_tpu_torch.train.loop import Trainer
 from adnm_tpu_torch.train.presets import get_preset
@@ -58,6 +61,31 @@ def add_common_args(p: argparse.ArgumentParser):
                         "(train.npz_import.load_transunet_npz)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises when CUDA is absent) or cpu")
+    p.add_argument("--data-parallel", action="store_true",
+                   help="train data-parallel on every visible card, one rank each (DDP over "
+                        "NCCL); --batch-size is the global batch, split over the ranks. With "
+                        "--device cpu: one rank")
+    p.add_argument("--mesh", default=None, metavar="AXIS=N,...",
+                   help="explicit mesh, e.g. 'data=4': the batch is sharded over 'data', one "
+                        "rank per position (cards with cuda; CPU processes over gloo with "
+                        "--device cpu); implies --data-parallel. The 'seq' and 'model' axes "
+                        "(the JAX package's token sharding and tensor parallelism) are not "
+                        "ported yet: only size 1")
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="multi-host training: the rendezvous address (a TCP store that "
+                        "process 0 opens). Run the SAME command in every process with "
+                        "--num-processes/--process-id and --data-parallel; each process is one "
+                        "rank on one card (LOCAL_RANK, else the process id modulo the visible "
+                        "cards) and streams its --batch-size rows of every global batch "
+                        "(validate/visualize/predict stay single-card, against a checkpoint). "
+                        "Under torchrun leave the three flags out: its RANK, WORLD_SIZE, "
+                        "MASTER_ADDR and MASTER_PORT are read")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
+    p.add_argument("--zero1", action="store_true",
+                   help="ZeRO-1: shard the optimizer state over the 'data' ranks "
+                        "(ZeroRedundancyOptimizer) instead of replicating it; no effect on "
+                        "one rank")
 
 
 TASKS = {
@@ -118,27 +146,105 @@ def load_pretrained_npz(model: torch.nn.Module, path: str) -> None:
     print(f"loaded pretrained encoder from {path}")
 
 
-def build(args):
+@dataclasses.dataclass(frozen=True)
+class Launch:
+    """How a data-parallel train command runs: ``world`` ranks in all, each
+    stepping on ``rows`` rows of every global batch; ``multihost`` when
+    this process is one of them (``--coordinator`` or torchrun), else the
+    command starts ``world`` ranks itself on this host."""
+
+    world: int
+    rows: int
+    multihost: bool
+
+
+def parallel_launch(args) -> Optional[Launch]:
+    """The ``Launch`` of the parallel flags, None without them (one
+    process, no process group). Refuses, with the JAX package's messages
+    where it has them (adnm_tpu/cli/common.py:131-172): a 'seq' or 'model'
+    axis (not ported); a multi-host run without a data mesh; a global
+    batch that the 'data' axis does not divide. ``--batch-size`` is the
+    global batch under a single launch and each process's rows under a
+    multi-host one, as in JAX."""
+    mesh = parse_mesh(args.mesh) if args.mesh else None
+    multihost = (args.coordinator is not None or args.num_processes is not None
+                 or args.process_id is not None or launched_by_torchrun())
+    if multihost:
+        given = (args.coordinator, args.num_processes, args.process_id)
+        if any(v is None for v in given) and any(v is not None for v in given):
+            raise SystemExit("--coordinator, --num-processes and --process-id go together "
+                             "(or none of them, under torchrun)")
+        processes = args.num_processes or int(os.environ["WORLD_SIZE"])
+        if not (mesh or args.data_parallel):
+            raise SystemExit("multi-host run without a mesh spanning all hosts' devices: add "
+                             "--data-parallel (or a --mesh covering the processes' devices) - "
+                             "otherwise each host would silently train an independent model "
+                             "and race writes to the same checkpoint path")
+        n_data = mesh["data"] if mesh else processes
+        if (args.batch_size * processes) % n_data:
+            raise SystemExit(f"--batch-size {args.batch_size} x {processes} hosts = "
+                             f"{args.batch_size * processes} global rows per step, which does "
+                             f"not divide the mesh 'data' axis ({n_data}); pick a divisible "
+                             f"per-host batch size")
+        if n_data != processes:
+            raise SystemExit(f"--mesh data={n_data} with {processes} processes: the port runs "
+                             f"one rank, on one device, per process")
+        return Launch(processes, args.batch_size, True)
+    if mesh is None and not args.data_parallel:
+        return None
+    if mesh is not None:
+        world = mesh["data"]
+    else:
+        world = torch.cuda.device_count() if resolve_device(args.device).type == "cuda" else 1
+    if torch.device(args.device).type == "cuda" and world > torch.cuda.device_count():
+        raise SystemExit(f"--mesh data={world}: only {torch.cuda.device_count()} CUDA "
+                         f"device(s) are visible")
+    if args.batch_size % world:
+        raise SystemExit(f"--batch-size {args.batch_size} global rows per step does not divide "
+                         f"the mesh 'data' axis ({world}); pick a divisible batch size")
+    return Launch(world, args.batch_size // world, False)
+
+
+def single_card(args, tool: str) -> None:
+    """Exit on the parallel flags: ``tool`` runs on one card against a
+    checkpoint (its multi-card form, with the 'model' axis, is not ported
+    yet)."""
+    flags = [f for f, on in (("--data-parallel", getattr(args, "data_parallel", False)),
+                             ("--mesh", getattr(args, "mesh", None)),
+                             ("--coordinator", getattr(args, "coordinator", None))) if on]
+    if flags:
+        raise SystemExit(f"{tool} runs on one card against a checkpoint: {', '.join(flags)} "
+                         f"apply to training alone (the multi-card {tool} is not ported yet)")
+
+
+def build(args, ddp: bool = False, rows: Optional[int] = None, device=None):
     """(Trainer, (train, val, test) loaders, (input_frames, output_frames,
     frame_interval, thresholds)): ``args.model`` from the port's registry
     with its preset; the reference init for ADNMUnet alone; TransUnet's
-    encoder from ``--pretrained-npz`` where given."""
+    encoder from ``--pretrained-npz`` where given. With ``ddp`` (inside a
+    process group) the Trainer is data-parallel (``--zero1``), and the
+    train loader yields this rank's ``rows`` rows of every global batch;
+    the val and test loaders are the whole sets at ``--batch-size``, as
+    the single process's, on every rank."""
     kwargs = model_kwargs(args)
     if args.pretrained_npz and args.model != "TransUnet":
         raise SystemExit("--pretrained-npz is only supported for --model TransUnet")
     shape = task_shape(args)
     input_frames, output_frames, frame_interval, _ = shape
-    device = resolve_device(args.device)
+    device = device or resolve_device(args.device)
+    rows = rows or args.batch_size
     accum = getattr(args, "accum_steps", 1) or 1
-    if args.batch_size % accum:
-        raise SystemExit(f"--accum-steps {accum} must divide --batch-size {args.batch_size}")
+    if rows % accum:
+        raise SystemExit(f"--accum-steps {accum} must divide the {rows} rows a step of each "
+                         f"rank (--batch-size {args.batch_size})")
     model = create_model(args.model, input_frames, output_frames, frame_interval,
                          img_size=args.img_size, **kwargs)
     preset = get_preset(args.model, input_frames, output_frames, frame_interval, args.dataset)
     trainer = Trainer(model, preset, input_frames, device, seed=args.seed,
                       param_transform=apply_reference_init if args.model == "ADNMUnet" else None,
                       remat_forward=args.remat, accum_steps=accum,
-                      compute_dtype=compute_dtype(args))
+                      compute_dtype=compute_dtype(args), ddp=ddp,
+                      zero1=getattr(args, "zero1", False))
     if args.pretrained_npz:
         load_pretrained_npz(trainer.model, args.pretrained_npz)
     data_path = None if args.synthetic else args.data_path
@@ -146,7 +252,8 @@ def build(args):
     tr, va, te = make(data_path, args.img_size, synthetic_len=args.synthetic_len)
     tdt = args.transfer_dtype
     return trainer, (
-        BatchLoader(tr, args.batch_size, shuffle=True, seed=args.seed, transfer_dtype=tdt),
+        BatchLoader(tr, rows, shuffle=True, seed=args.seed, transfer_dtype=tdt,
+                    row_shard=(trainer.rank, trainer.world) if ddp else None),
         BatchLoader(va, args.batch_size, drop_last=False, transfer_dtype=tdt),
         BatchLoader(te, args.batch_size, drop_last=False, transfer_dtype=tdt),
     ), shape

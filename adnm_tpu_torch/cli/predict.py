@@ -30,7 +30,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from adnm_tpu_torch.cli.common import TASKS, compute_dtype, model_kwargs, resolve_ckpt
+from adnm_tpu_torch.cli.common import (TASKS, compute_dtype, model_kwargs, resolve_ckpt,
+                                       single_card)
 from adnm_tpu_torch.convert import from_jax_params, load_params_npz, to_jax_batch_stats
 from adnm_tpu_torch.core.layers import seeded_init_
 from adnm_tpu_torch.device import resolve_device
@@ -150,7 +151,12 @@ def main(argv=None) -> np.ndarray:
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 compute for any model (fp32 params; the predictions are "
                         "written in fp32)")
+    p.add_argument("--data-parallel", action="store_true",
+                   help="refused: predict serves on one card (the train CLI's flag)")
+    p.add_argument("--mesh", default=None, metavar="AXIS=N,...",
+                   help="refused: predict serves on one card (the train CLI's flag)")
     args = p.parse_args(argv)
+    single_card(args, "predict")
     cdt = compute_dtype(args)
 
     device = resolve_device(args.device)

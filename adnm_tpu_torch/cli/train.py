@@ -20,6 +20,22 @@ threshold on the flattened predictions (train.py:233-235). ``--device``
 defaults to cuda and raises when CUDA is absent. ``--bf16`` trains with
 bf16 activations and fp32 parameters and optimizer state; its checkpoints
 are the same fp32 files.
+
+Data-parallel training (the JAX package's mesh flags; one rank per card):
+
+    python -m adnm_tpu_torch.cli.train --synthetic --data-parallel            # every visible card
+    python -m adnm_tpu_torch.cli.train --synthetic --mesh data=2 --device cpu # 2 CPU ranks, gloo
+    python -m adnm_tpu_torch.cli.train --synthetic --data-parallel \
+        --coordinator HOST:PORT --num-processes P --process-id I  # in each of P processes
+    torchrun --nproc-per-node 8 -m adnm_tpu_torch.cli.train --synthetic --data-parallel
+
+``--batch-size`` is the global batch under a single launch (split over the
+ranks) and each process's rows under ``--coordinator`` or torchrun, as in
+JAX; ``--zero1`` shards the optimizer state. The ranks train the single
+process's model on the global batch; rank 0 writes the checkpoints (one
+file for any world size) and, under a single launch, runs the final
+protocol while the others wait; a multi-host run prints the test loss and
+defers the metrics to ``validate`` on one card.
 """
 
 from __future__ import annotations
@@ -27,10 +43,17 @@ from __future__ import annotations
 import argparse
 import contextlib
 import os
+import tempfile
+from typing import Optional
 
-from adnm_tpu_torch.cli.common import add_common_args, build
+import torch
+
+from adnm_tpu_torch.cli.common import Launch, add_common_args, build, parallel_launch
 from adnm_tpu_torch.data.laps import laps_evaluate
+from adnm_tpu_torch.device import resolve_device
 from adnm_tpu_torch.metrics import SimplifiedEvaluator, print_metrics
+from adnm_tpu_torch.ops import build_kernels
+from adnm_tpu_torch.parallel import finish_multihost, host_barrier, init_multihost, spawn
 from adnm_tpu_torch.train.checkpoint import best_ckpt_dir
 from adnm_tpu_torch.utils.profiling import profile_trace
 
@@ -58,40 +81,113 @@ def main(argv=None) -> dict:
     """Runs the training; returns the trainer, the epoch logs, the best
     checkpoint's test loss and its evaluator results ("metrics";
     ``laps_evaluate``'s dict for LAPS); the last two are None with
-    --no-final-eval."""
+    --no-final-eval. Under ``--data-parallel`` or ``--mesh`` (a single
+    launch) it starts one process per rank and returns rank 0's results
+    without the trainer."""
     args = make_parser().parse_args(argv)
-    trainer, (train_loader, val_loader, test_loader), (_, to, _, thresholds) = build(args)
+    launch = parallel_launch(args)
+    if launch is None:
+        return run(args)
+    kernels = torch.device(args.device).type == "cuda" and args.model == "ADNMUnet"
+    if launch.multihost:  # this process is one rank
+        local = local_rank(args)
+        device = resolve_device(args.device, local)
+        init_multihost(args.coordinator, args.num_processes, args.process_id, device)
+        if kernels and local == 0:
+            build_kernels(("rms_norm",))  # once a host; its other ranks wait, then load
+        host_barrier("adnm:kernels")
+        # A failed rank leaves without the teardown barrier: the others may
+        # wait in a collective, and the barrier would only hold this process.
+        result = run(args, launch, device)
+        finish_multihost()
+        return result
+    if kernels:
+        build_kernels(("rms_norm",))  # here, once, not once a rank
+    with tempfile.TemporaryDirectory(prefix="adnm-train-") as tmp:
+        out = os.path.join(tmp, "rank0.pt")
+        spawn(_rank_main, launch.world, args=(args, launch, out), device=args.device)
+        return torch.load(out, weights_only=False)  # written by rank 0 of this run
+
+
+def local_rank(args) -> int:
+    """The card of this process in a multi-host run: LOCAL_RANK where the
+    launcher sets it, else the process's rank modulo the visible cards."""
+    if "LOCAL_RANK" in os.environ:
+        return int(os.environ["LOCAL_RANK"])
+    rank = args.process_id if args.process_id is not None else int(os.environ["RANK"])
+    return rank % max(torch.cuda.device_count(), 1)
+
+
+def _rank_main(rank: int, world: int, device: torch.device, args, launch: Launch,
+               out: str) -> None:
+    result = run(args, launch, resolve_device(args.device, device.index))
+    if rank == 0:
+        torch.save({k: v for k, v in result.items() if k != "trainer"}, out)
+
+
+def run(args, launch: Optional[Launch] = None, device=None) -> dict:
+    """The training and the final protocol in this process: one process,
+    or one rank of ``launch``."""
+    ddp = launch is not None
+    trainer, (train_loader, val_loader, test_loader), (_, to, _, thresholds) = build(
+        args, ddp=ddp, rows=launch.rows if ddp else None, device=device)
+    lead = trainer.rank == 0
     ckpt_path = best_ckpt_dir(args.root, args.dataset, args.model)
     if args.resume and os.path.exists(ckpt_path):
         trainer.load(ckpt_path)
-        print(f"resumed from {ckpt_path} (step {trainer.step})")
-    print(f"model {args.model}  params {sum(p.numel() for p in trainer.params):,}  "
-          f"device {trainer.device}")
+        if lead:
+            print(f"resumed from {ckpt_path} (step {trainer.step})")
+    if lead:
+        print(f"model {args.model}  params {sum(p.numel() for p in trainer.params):,}  "
+              f"device {trainer.device}  ranks {trainer.world}")
     metrics_path = os.path.join(args.root, "results", args.dataset, f"{args.model}_train.jsonl")
-    prof = profile_trace(args.profile) if args.profile else contextlib.nullcontext()
+    profile = args.profile
+    if profile and trainer.world > 1:
+        profile = os.path.join(profile, f"rank{trainer.rank}")
+    prof = profile_trace(profile) if profile else contextlib.nullcontext()
     with prof:
         logs = trainer.fit(train_loader, val_loader, test_loader, epochs=args.epochs,
                            ckpt_path=ckpt_path, metrics_path=metrics_path,
                            save_every=args.save_every)
-    if args.profile:
+    if profile and lead:
         print(f"profiler trace written to {args.profile}")
     result = {"trainer": trainer, "logs": logs, "test_loss": None, "metrics": None}
     if args.no_final_eval:
         return result
-    print("-----------------test best-----------------")
+    if lead:
+        print("-----------------test best-----------------")
     if os.path.exists(ckpt_path):
         trainer.load(ckpt_path)
+    if ddp and launch.multihost:
+        # prediction collection is a single-card workflow: a multi-host run
+        # reports the loss and defers the metrics to validate (as in JAX)
+        result["test_loss"] = trainer._agreed(trainer.eval_epoch(test_loader)[0])
+        if lead:
+            print(f"best-checkpoint test loss: {result['test_loss']}")
+            print("multi-host run: metrics need prediction collection - run "
+                  "`python -m adnm_tpu_torch.cli.validate` on one card against "
+                  f"{ckpt_path}")
+        return result
+    if lead:  # under a single launch rank 0 collects the whole split
+        final_protocol(result, trainer, test_loader, args.dataset, to, thresholds)
+    host_barrier("adnm:final-eval")
+    return result
+
+
+def final_protocol(result: dict, trainer, test_loader, dataset: str, t_out: int,
+                   thresholds) -> None:
+    """The reference's final protocol on the test split (train.py:209-250),
+    into ``result``."""
     result["test_loss"], preds, gts = trainer.eval_epoch(test_loader, collect=True)
     print(f"best-checkpoint test loss: {result['test_loss']}")
-    if args.dataset == "LAPS":  # reference orientation (train.py:235)
+    if dataset == "LAPS":  # reference orientation (train.py:235)
         result["metrics"] = laps_evaluate(preds, gts, thresholds)
-        return result
-    evaluator = SimplifiedEvaluator(seq_len=to, value_scale=90, thresholds=thresholds,
+        return
+    evaluator = SimplifiedEvaluator(seq_len=t_out, value_scale=90, thresholds=thresholds,
                                     device=trainer.device)
     evaluator.evaluate(preds, gts)  # reference orientation (train.py:241)
     result["metrics"] = evaluator.done()
     print_metrics(result["metrics"])
-    return result
 
 
 if __name__ == "__main__":

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import argparse
 
-from adnm_tpu_torch.cli.common import add_common_args, build, resolve_ckpt
+from adnm_tpu_torch.cli.common import add_common_args, build, resolve_ckpt, single_card
 from adnm_tpu_torch.metrics import SimplifiedEvaluator, print_metrics
 
 
@@ -31,6 +31,7 @@ def main(argv=None) -> dict:
     p.add_argument("--ckpt", default=None, help="checkpoint file (default: the best under --root)")
     args = p.parse_args(argv)
 
+    single_card(args, "validate")
     trainer, (_, _, test_loader), (_, to, _, thresholds) = build(args)
     ckpt_path = resolve_ckpt(args.ckpt, args.root,
                              "checkpoint not found ({}); evaluating fresh init",

@@ -19,7 +19,7 @@ import os
 
 import numpy as np
 
-from adnm_tpu_torch.cli.common import add_common_args, build, resolve_ckpt
+from adnm_tpu_torch.cli.common import add_common_args, build, resolve_ckpt, single_card
 from adnm_tpu_torch.viz import vis_res
 
 
@@ -32,6 +32,7 @@ def main(argv=None) -> list:
     p.add_argument("--max-samples", type=int, default=8)
     args = p.parse_args(argv)
 
+    single_card(args, "visualize")
     trainer, (_, _, test_loader), (ti, _, _, _) = build(args)
     ckpt_path = resolve_ckpt(args.ckpt, args.root,
                              "checkpoint not found ({}); rendering fresh init",

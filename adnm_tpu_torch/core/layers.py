@@ -24,10 +24,12 @@ import math
 from typing import Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from adnm_tpu_torch.device import deterministic_cudnn
+from adnm_tpu_torch.parallel.multihost import all_reduce_sum
 from adnm_tpu_torch.ops.rms_norm import gated_rms_norm, rms_norm
 
 IntPair = Union[int, Tuple[int, int]]
@@ -210,7 +212,17 @@ class BatchNorm(nn.Module):
     the fp32 step against fp64). The running statistics are the buffers ``mean`` and ``var``, the leaves of the JAX
     ``batch_stats`` tree, so they land in ``state_dict()`` and in the
     port's checkpoints. Statistics in fp32; the output in the input's
-    dtype. Cross-replica statistics (JAX's ``axis_name``) are not ported."""
+    dtype.
+
+    Under data parallelism (``process_group`` set, by ``sync_batch_norm``,
+    to a group of two or more ranks) a train-mode forward takes the
+    statistics of the global batch, as JAX's BatchNorm does over a 'data'
+    mesh: the mean from the per-channel sums all-reduced over the ranks,
+    then the variance about that mean by a second all-reduce, over the
+    global count (every rank holds as many rows, as the loader's
+    ``row_shard`` gives). Both reductions are differentiable, so the
+    gradient is the single process's on the global batch, and the running
+    statistics move alike on every rank. Eval mode is unchanged."""
 
     batch_stats = ("mean", "var")  # the buffers ``convert`` carries
 
@@ -222,12 +234,21 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
         self.register_buffer("mean", torch.zeros(dim))
         self.register_buffer("var", torch.ones(dim))
+        self.process_group = None  # set by sync_batch_norm
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
         if self.training:
-            var, mu = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
             n = x.numel() // x.shape[1]
+            group = self.process_group
+            if group is not None and dist.get_world_size(group) > 1:
+                world = dist.get_world_size(group)
+                mu = all_reduce_sum(xf.sum(dim=(0, 2, 3)), group) / (n * world)
+                var = all_reduce_sum((xf - channel_view(mu, 4)).square().sum(dim=(0, 2, 3)),
+                                     group) / (n * world)
+                n *= world
+            else:
+                var, mu = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
             m = self.momentum
             with torch.no_grad():
                 self.mean.copy_((1 - m) * self.mean + m * mu)
@@ -236,6 +257,16 @@ class BatchNorm(nn.Module):
             mu, var = self.mean, self.var
         out = (xf - channel_view(mu, 4)) * torch.rsqrt(channel_view(var, 4) + self.eps)
         return (out * channel_view(self.weight, 4) + channel_view(self.bias, 4)).to(x.dtype)
+
+
+def sync_batch_norm(model: nn.Module, group=None) -> int:
+    """Give every BatchNorm of ``model`` the process ``group`` (the default
+    group when None) over which its train-mode statistics are taken;
+    returns how many there are."""
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.process_group = dist.group.WORLD if group is None else group
+    return len(norms)
 
 
 def make_norm(kind: str, dim: int) -> nn.Module:

@@ -13,6 +13,14 @@ forward with p > 0 and no generator raises. The ``Trainer`` seeds it from
 training forward, inside the function that whole-forward remat recomputes,
 so the recompute draws the masks again, bit for bit; the JAX trainer folds
 the step (and the micro-batch) into its dropout key likewise.
+
+Under data parallelism every rank holds its rows of one global batch and
+the same generator state. ``attach_generator(..., rows=(rank, world))``
+makes each layer draw the mask of the GLOBAL batch (a leading dimension
+world times the rank's, whose rows lie in rank order) and keep its own
+rows of it, so the ranks' masks together are the single process's mask on
+the global batch, and no two ranks drop the same pattern for different
+samples.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ class _Stochastic(nn.Module):
         super().__init__()
         self.rate = float(rate)
         self.generator = None  # set by attach_generator
+        self.rows = None  # (rank, world) under data parallelism, set by attach_generator
 
     def extra_repr(self) -> str:
         return f"rate={self.rate}"
@@ -35,7 +44,13 @@ class _Stochastic(nn.Module):
         if self.generator is None:
             raise RuntimeError(f"{type(self).__name__}(rate={self.rate}) in train mode needs a "
                                f"generator: attach_generator(model, generator)")
-        u = torch.rand(shape, generator=self.generator, device=x.device, dtype=torch.float32)
+        if self.rows is None:
+            u = torch.rand(shape, generator=self.generator, device=x.device, dtype=torch.float32)
+        else:  # this rank's rows of the global batch's mask
+            rank, world = self.rows
+            u = torch.rand((shape[0] * world, *shape[1:]), generator=self.generator,
+                           device=x.device, dtype=torch.float32)[rank * shape[0]:
+                                                                  (rank + 1) * shape[0]]
         return u < 1.0 - self.rate
 
 
@@ -65,12 +80,16 @@ def stochastic_layers(model: nn.Module):
     return [m for m in model.modules() if isinstance(m, _Stochastic)]
 
 
-def attach_generator(model: nn.Module, generator: torch.Generator) -> int:
+def attach_generator(model: nn.Module, generator: torch.Generator,
+                     rows: tuple[int, int] | None = None) -> int:
     """Give every Dropout and DropPath of ``model`` the ``generator`` (on the
-    device of the tensors they will see); returns how many there are."""
+    device of the tensors they will see) and, under data parallelism, the
+    ``rows=(rank, world)`` of the global batch that this rank holds;
+    returns how many there are."""
     layers = stochastic_layers(model)
     for m in layers:
         m.generator = generator
+        m.rows = rows
     return len(layers)
 
 

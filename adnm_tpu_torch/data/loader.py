@@ -1,5 +1,5 @@
 """Batch loader with background prefetch (counterpart of
-adnm_tpu/data/loader.py, single host; reference: train.py:55-57).
+adnm_tpu/data/loader.py; reference: train.py:55-57).
 
 A thread assembles (B, T, 1, S, S) batches ahead of consumption, so h5
 reads and resizes overlap the device's work. ``device_prefetch`` keeps
@@ -19,12 +19,30 @@ import torch
 
 class BatchLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = False, drop_last: bool = True,
-                 seed: int = 0, transfer_dtype: str = "float32"):
+                 seed: int = 0, transfer_dtype: str = "float32",
+                 shard: tuple[int, int] | None = None, row_shard: tuple[int, int] | None = None):
         """``transfer_dtype="uint8"`` ships batches as round(x * 255) uint8
         instead of float32: 4x fewer host-to-device bytes; the Trainer
         brings them back to [0, 1] on the device. Up to the post-resize
         requantization (<= 1/510 per pixel) that is the h5 clips' own
-        storage format."""
+        storage format.
+
+        Sharding over ranks, as in the JAX package:
+
+        ``row_shard=(rank, world)``: each rank yields its ``batch_size``
+        rows of every GLOBAL batch (global batch = batch_size x world; the
+        tail smaller than a global batch is dropped). The shuffle comes from
+        the shared seed, so the ranks' rows are disjoint and every rank
+        sees the SAME number of batches by construction, as data-parallel
+        training needs: each batch is one collective step, and a rank with
+        fewer steps would hang the others.
+
+        ``shard=(rank, world)``: each rank reads every world-th whole batch.
+        Ranks may get DIFFERENT batch counts, so this is for independent
+        per-rank work (such as sharded offline evaluation), not for
+        lockstep training. The two are exclusive."""
+        if shard and row_shard:
+            raise ValueError("shard and row_shard are exclusive")
         if transfer_dtype not in ("float32", "uint8"):
             raise ValueError(f"transfer_dtype must be float32|uint8, got {transfer_dtype}")
         self.dataset = dataset
@@ -33,18 +51,36 @@ class BatchLoader:
         self.drop_last = drop_last
         self.seed = seed
         self.transfer_dtype = transfer_dtype
+        self.shard = shard
+        self.row_shard = row_shard
         self._epoch = 0
 
-    def __len__(self) -> int:
+    def _batches(self) -> int:
+        """The number of whole batches of the dataset, before sharding."""
         n = len(self.dataset)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    def __len__(self) -> int:
+        if self.row_shard is not None:
+            return len(self.dataset) // (self.batch_size * self.row_shard[1])
+        if self.shard is not None:
+            rank, world = self.shard
+            return len(range(rank, self._batches(), world))
+        return self._batches()
 
     def _index_batches(self):
         order = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.default_rng(self.seed + self._epoch).shuffle(order)
-        for i in range(len(self)):
-            yield order[i * self.batch_size:(i + 1) * self.batch_size]
+        b = self.batch_size
+        if self.row_shard is not None:
+            rank, world = self.row_shard
+            for i in range(len(self)):  # this rank's rows of global batch i
+                yield order[(i * world + rank) * b:(i * world + rank + 1) * b]
+            return
+        rank, world = self.shard or (0, 1)
+        for i in range(rank, self._batches(), world):
+            yield order[i * b:(i + 1) * b]
 
     def _make_batch(self, idxs) -> np.ndarray:
         batch = np.stack([self.dataset[int(i)] for i in idxs])[:, :, None]  # (B, T, 1, S, S)
@@ -67,9 +103,12 @@ class BatchLoader:
             yield b
 
 
-def to_device(batch: np.ndarray, device: torch.device) -> torch.Tensor:
+def to_device(batch, device: torch.device) -> torch.Tensor:
     """A host batch on ``device``: for CUDA, copied from pinned memory
-    without waiting (the copy is ordered on the current stream)."""
+    without waiting (the copy is ordered on the current stream). A tensor
+    already on a device goes there as it is."""
+    if isinstance(batch, torch.Tensor) and batch.device.type != "cpu":
+        return batch.to(device)
     t = torch.from_numpy(np.ascontiguousarray(batch))
     if device.type != "cuda":
         return t.to(device)

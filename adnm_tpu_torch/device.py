@@ -9,6 +9,7 @@ allows for cuDNN convolutions by default.
 from __future__ import annotations
 
 import contextlib
+from typing import Optional
 
 import torch
 
@@ -65,12 +66,26 @@ def deterministic_algorithms():
         torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
 
 
-def resolve_device(name) -> torch.device:
-    """``torch.device(name)``, with fp32 at full precision (``full_fp32``).
-    A CUDA device raises when CUDA is absent: no entry point falls back to
-    the CPU."""
+def rank_device(base, local_rank: int) -> torch.device:
+    """The device of the rank with index ``local_rank`` on its host:
+    ``cuda:{local_rank}`` for a CUDA ``base``, else the CPU."""
+    return torch.device("cuda", local_rank) if torch.device(base).type == "cuda" \
+        else torch.device("cpu")
+
+
+def resolve_device(name, local_rank: Optional[int] = None) -> torch.device:
+    """``torch.device(name)``, with fp32 at full precision (``full_fp32``);
+    given the ``local_rank`` of a data-parallel rank, a CUDA device is the
+    card of that index on this host (``cuda:{local_rank}``), the CPU stays
+    the CPU. A CUDA device raises when CUDA is absent, or when the card is
+    not there: no entry point falls back to the CPU."""
     device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {name}: CUDA is not available")
+    if local_rank is not None and device.type == "cuda":
+        if local_rank >= torch.cuda.device_count():
+            raise RuntimeError(f"rank {local_rank} of this host: only "
+                               f"{torch.cuda.device_count()} CUDA device(s) are visible")
+        device = rank_device(device, local_rank)
     full_fp32()
     return device

@@ -1,0 +1,15 @@
+"""Data-parallel and multi-process training (counterpart of
+adnm_tpu/parallel/): the 'data' axis of the JAX package's mesh as ranks
+of processes joined by torch.distributed."""
+
+from adnm_tpu_torch.device import rank_device
+from adnm_tpu_torch.parallel.mesh import parse_mesh, spawn
+from adnm_tpu_torch.parallel.multihost import (
+    all_reduce_sum,
+    finish_multihost,
+    host_barrier,
+    init_multihost,
+    is_multiprocess,
+    launched_by_torchrun,
+    rank_and_world,
+)

@@ -24,25 +24,50 @@ the device until the epoch ends, so the host never waits for a step.
 
 As in the JAX package, validation consumes the val batches (the
 reference re-evaluates the last training batch, train.py:159-160).
+
+Data parallelism (``ddp=True``, inside a process group; JAX: a 'data'
+mesh): every rank steps on its rows of one global batch. The model runs
+under ``DistributedDataParallel``, which averages the gradients over the
+ranks (micro-batches before the last run under ``no_sync``); the loss is
+all-reduced to the global batch's; BatchNorm takes the global batch's
+statistics and Dropout and DropPath keep each rank's rows of the global
+batch's masks, so a step on N ranks is the single process's step on the
+global batch, up to the order of the sums. The ADNM-UNet carries gates
+that its forward never reads; DDP's reducer would wait for their gradients
+for ever, so they are found once, from the autograd graph of a batch-1
+forward at the first step, and left out of its buckets: every rank gives
+them the same zero gradient. With ``zero1`` the optimizer state is sharded
+over the ranks (``ZeroRedundancyOptimizer``). Evaluation runs the whole
+val and test sets on every rank (the JAX package's multi-host choice:
+every rank then holds the same losses, with the single process's batches
+and tails), and every decision of ``fit`` (best checkpoint, early stop,
+the next epoch's clip threshold) comes from values that are the same on
+every rank: rank 0's val and test losses, broadcast, and the gradient norm
+of the averaged gradients. Rank 0 alone writes checkpoints and metrics.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import glob
+import inspect
 import os
 import time
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.nn.parallel import DistributedDataParallel
 from torch.utils.checkpoint import checkpoint
 
-from adnm_tpu_torch.core.layers import seeded_init_
+from adnm_tpu_torch.core.layers import seeded_init_, sync_batch_norm
 from adnm_tpu_torch.core.stochastic import attach_generator, step_seed
 from adnm_tpu_torch.data.loader import device_prefetch, to_device
 from adnm_tpu_torch.device import deterministic_cudnn
+from adnm_tpu_torch.parallel.multihost import host_barrier
 from adnm_tpu_torch.train import checkpoint as ckpt
 from adnm_tpu_torch.train.presets import TrainPreset
 from adnm_tpu_torch.utils.logging import MetricsLogger
@@ -61,12 +86,67 @@ class EpochLog:
     seconds: float
 
 
+# DDP broadcasts no buffers before a forward: BatchNorm's running statistics
+# move alike on every rank (its statistics are the global batch's). Newer
+# torch names the switch forward_sync_buffers and deprecates the old name.
+NO_BUFFER_SYNC = ({"forward_sync_buffers": False}
+                  if "forward_sync_buffers" in inspect.signature(DistributedDataParallel).parameters
+                  else {"broadcast_buffers": False})
+
+
+class TrainForward(nn.Module):
+    """The training forward of one micro-batch: the Dropout and DropPath
+    generator seeded first, and under ``remat`` the whole forward
+    recomputed in the backward (``torch.utils.checkpoint``), re-seeding it.
+    The module that DDP wraps, so that the recompute runs inside DDP's
+    forward and not through it again."""
+
+    def __init__(self, model: nn.Module, generator: torch.Generator, remat: bool):
+        super().__init__()
+        self.model = model
+        self.generator = generator
+        self.remat = remat
+
+    def forward(self, x: torch.Tensor, seed: int) -> torch.Tensor:
+        def run(x):
+            self.generator.manual_seed(seed)
+            return self.model(x)
+
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(run, x, use_reentrant=False)
+        return run(x)
+
+
+def unreached_parameters(net: nn.Module, *inputs) -> list:
+    """The names of ``net``'s parameters that its output does not depend
+    on: those with no AccumulateGrad node in the autograd graph of an
+    eval-mode forward of ``inputs``. The mode is restored after."""
+    was_training = net.training
+    net.eval()
+    try:
+        with torch.enable_grad():
+            out = net(*inputs)
+        reached, seen, stack = set(), set(), [out.grad_fn]
+        while stack:
+            fn = stack.pop()
+            if fn is None or fn in seen:
+                continue
+            seen.add(fn)
+            if hasattr(fn, "variable"):
+                reached.add(id(fn.variable))
+            stack.extend(f for f, _ in fn.next_functions)
+    finally:
+        net.train(was_training)
+    return [name for name, p in net.named_parameters() if id(p) not in reached]
+
+
 class Trainer:
     def __init__(self, model: nn.Module, preset: TrainPreset, input_frames: int,
                  device: torch.device, seed: int = 0,
                  param_transform: Optional[Callable[[nn.Module, torch.Generator], nn.Module]] = None,
                  remat_forward: bool = False, accum_steps: int = 1,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32, ddp: bool = False,
+                 zero1: bool = False):
         """The model's weights come from the init seeded with ``seed``
         (``seeded_init_``, on the CPU), then ``param_transform(model,
         generator seeded with seed + 1)`` (``apply_reference_init`` for
@@ -86,7 +166,15 @@ class Trainer:
 
         ``compute_dtype`` is the activations' dtype (float32, or bfloat16
         as the JAX ``--bf16``); a model configuration that cannot compute in
-        it (``check_compute_dtype``) raises here, before any work."""
+        it (``check_compute_dtype``) raises here, before any work.
+
+        ``ddp=True`` trains data-parallel over the default process group
+        (``parallel.init_multihost``): each rank passes its rows of every
+        global batch (``BatchLoader(row_shard=...)``), all ranks as many,
+        and builds the Trainer from the same seed. ``zero1`` then shards
+        the optimizer state over the ranks (ZeRO-1; no effect on one
+        rank). The Trainer's ``rank`` and ``world`` are 0 and 1 without
+        ``ddp``."""
         if accum_steps < 1:
             raise ValueError("accum_steps must be >= 1")
         check = getattr(model, "check_compute_dtype", None)
@@ -105,10 +193,21 @@ class Trainer:
             param_transform(model, torch.Generator().manual_seed(seed + 1))
         model.to(device)
         self.seed = seed
+        self.ddp = ddp
+        if ddp and not dist.is_initialized():
+            raise RuntimeError("Trainer(ddp=True) needs a process group: "
+                               "adnm_tpu_torch.parallel.init_multihost first")
+        self.rank, self.world = (dist.get_rank(), dist.get_world_size()) if ddp else (0, 1)
         self.generator = torch.Generator(device=device)  # Dropout and DropPath masks
-        attach_generator(model, self.generator)
+        attach_generator(model, self.generator, (self.rank, self.world) if ddp else None)
+        if ddp:
+            sync_batch_norm(model)
+        self.forward_net = TrainForward(model, self.generator, self.remat_forward)
+        self._ddp_net = None  # built at the first step (unreached_parameters needs a batch)
+        self.unreached = None  # names of the parameters the loss does not reach, under ddp
         self.params = list(model.parameters())
-        self.optimizer = preset.make_optimizer(self.params)
+        self.zero1 = zero1 and ddp and self.world > 1  # ZeRO-1 shards nothing on one rank
+        self.optimizer = preset.make_optimizer(self.params, zero1=self.zero1)
         self.step = 0
 
     # ---- one batch ----------------------------------------------------
@@ -129,22 +228,32 @@ class Trainer:
     def _forward(self, imgs: torch.Tensor, micro: int = 0) -> torch.Tensor:
         """The training forward of microbatch ``micro`` of this step, its
         masks drawn from the generator seeded at its start (again in the
-        remat's recompute)."""
-        seed = step_seed(self.seed, self.step, micro)
+        remat's recompute); through DDP under ``ddp``."""
+        net = self._net(imgs) if self.ddp else self.forward_net
+        return net(imgs, step_seed(self.seed, self.step, micro))
 
-        def run(x):
-            self.generator.manual_seed(seed)
-            return self.model(x)
-
-        if self.remat_forward and torch.is_grad_enabled():
-            return checkpoint(run, imgs, use_reentrant=False)
-        return run(imgs)
+    def _net(self, imgs: torch.Tensor) -> DistributedDataParallel:
+        """The DDP module, built at the first step: the parameters that a
+        batch-1 forward of ``imgs`` does not reach stay out of its buckets.
+        Its construction broadcasts rank 0's parameters (already equal:
+        the same seed or checkpoint on every rank)."""
+        if self._ddp_net is None:
+            self.unreached = unreached_parameters(self.forward_net, imgs[:1], 0)
+            DistributedDataParallel._set_params_and_buffers_to_ignore_for_model(
+                self.forward_net, self.unreached)
+            # each gradient is copied into the all-reduce's bucket and then
+            # becomes a view of it: no copy back out of the bucket a step
+            self._ddp_net = DistributedDataParallel(
+                self.forward_net, device_ids=[self.device] if self.device.type == "cuda" else None,
+                gradient_as_bucket_view=True, **NO_BUFFER_SYNC)
+        return self._ddp_net
 
     def _backward(self, batch: torch.Tensor) -> torch.Tensor:
         """The batch's loss, with its gradients in the parameters' ``grad``
-        (the mean over the microbatches). A parameter the loss does not
-        reach gets a zero gradient, as in JAX, so AdamW still decays it.
-        Runs the model in train mode."""
+        (the mean over the microbatches, and under ``ddp`` over the ranks:
+        the global batch's). A parameter the loss does not reach gets a
+        zero gradient, as in JAX, so AdamW still decays it. Runs the model
+        in train mode."""
         self.model.train()
         imgs, targets = self._split_batch(batch)
         m = self.accum_steps
@@ -154,22 +263,31 @@ class Trainer:
             p.grad = None
         loss = torch.zeros((), device=imgs.device)
         for i, (im, tg) in enumerate(zip(imgs.chunk(m), targets.chunk(m))):
-            part = self.preset.loss_fn(self._forward(im, i).float(), tg)
-            with deterministic_cudnn():  # the convolutions' dgrad and wgrad
-                part.backward()
+            # the gradients are averaged over the ranks after the last micro-batch
+            sync = not self.ddp or i == m - 1
+            with contextlib.nullcontext() if sync else self._net(im).no_sync():
+                part = self.preset.loss_fn(self._forward(im, i).float(), tg)
+                with deterministic_cudnn():  # the convolutions' dgrad and wgrad
+                    part.backward()
             loss = loss + part.detach()
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
             elif m > 1:
                 p.grad.div_(m)
-        return loss / m
+        loss = loss / m
+        if self.ddp:  # the global batch's loss, the same on every rank
+            dist.all_reduce(loss)
+            loss = loss / self.world
+        return loss
 
     def grads(self, batch: np.ndarray) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(loss, {parameter name: gradient}) of one host batch, with no
         optimizer step."""
         loss = self._backward(to_device(batch, self.device))
-        return loss, {name: p.grad for name, p in self.model.named_parameters()}
+        # copies: under DDP the gradients are views of its buckets, which the
+        # next step overwrites
+        return loss, {name: p.grad.clone() for name, p in self.model.named_parameters()}
 
     def train_step(self, batch: torch.Tensor, lr: float,
                    clip_norm: float) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -256,7 +374,8 @@ class Trainer:
         {ckpt_path}_epoch{E} every N epochs, keeping the last two."""
         preset = self.preset
         epochs = epochs or preset.epochs
-        jsonl = MetricsLogger(metrics_path, echo=False) if metrics_path else None
+        lead = self.rank == 0  # prints, and writes the metrics
+        jsonl = MetricsLogger(metrics_path, echo=False) if metrics_path and lead else None
         best = float("inf")
         prev_avg_grad_norm = 0.0
         early_stop_count = 0
@@ -269,29 +388,32 @@ class Trainer:
             tr = self.train_epoch(train_loader, lr, clip_norm)
             prev_avg_grad_norm = tr["avg_grad_norm"]
 
-            val_loss, _, _ = self.eval_epoch(val_loader)
+            val_loss = self._agreed(self.eval_epoch(val_loader)[0])
             save_gate = not preset.save_epoch_gated or epoch > preset.save_epoch
             if save_gate and val_loss < best:
                 best = val_loss
                 early_stop_count = 0
                 if ckpt_path:
-                    ckpt.save_state(ckpt_path, self.state_dict())
-                print(f"epoch {epoch}: best_val_loss {val_loss:.6f} (saved)")
+                    self.save(ckpt_path)
+                if lead:
+                    print(f"epoch {epoch}: best_val_loss {val_loss:.6f} (saved)")
             else:
                 if preset.if_early_stop and save_gate:
                     early_stop_count += 1
-                print(f"epoch {epoch}: val_loss {val_loss:.6f}")
+                if lead:
+                    print(f"epoch {epoch}: val_loss {val_loss:.6f}")
 
             if save_every and ckpt_path and epoch % save_every == 0:
-                ckpt.save_state(f"{ckpt_path}_epoch{epoch}", self.state_dict())
-                snaps = sorted(glob.glob(f"{ckpt_path}_epoch*"),
-                               key=lambda p: int(p.rsplit("epoch", 1)[1]))
-                for old in snaps[:-2]:
-                    os.remove(old)
+                self.save(f"{ckpt_path}_epoch{epoch}")
+                if lead:
+                    snaps = sorted(glob.glob(f"{ckpt_path}_epoch*"),
+                                   key=lambda p: int(p.rsplit("epoch", 1)[1]))
+                    for old in snaps[:-2]:
+                        os.remove(old)
 
             test_loss = 0.0
             if test_loader is not None:
-                test_loss, _, _ = self.eval_epoch(test_loader)
+                test_loss = self._agreed(self.eval_epoch(test_loader)[0])
 
             dt = time.time() - t0
             logs.append(EpochLog(epoch, tr["loss"], val_loss, test_loss, lr, tr["avg_grad_norm"],
@@ -301,25 +423,56 @@ class Trainer:
                           test_loss=test_loss, lr=lr, grad_norm=tr["avg_grad_norm"],
                           clip_threshold=clip_norm, clip_ratio=tr["clip_ratio"],
                           steps=tr["steps"], seconds=dt)
-            print(f"epoch {epoch}: train_loss {tr['loss']:.6f} test_loss {test_loss:.6f} "
-                   f"lr {lr:.2e} grad_norm {tr['avg_grad_norm']:.4f} "
-                   f"clip_thr {clip_norm:.4f} clip_ratio {tr['clip_ratio']:.3f} ({dt:.1f}s)")
+            if lead:
+                print(f"epoch {epoch}: train_loss {tr['loss']:.6f} test_loss {test_loss:.6f} "
+                      f"lr {lr:.2e} grad_norm {tr['avg_grad_norm']:.4f} "
+                      f"clip_thr {clip_norm:.4f} clip_ratio {tr['clip_ratio']:.3f} ({dt:.1f}s)")
             if preset.if_early_stop and preset.early_stop and \
                     early_stop_count >= preset.early_stop:
-                print(f"early stop at epoch {epoch}")
+                if lead:
+                    print(f"early stop at epoch {epoch}")
                 break
         return logs
+
+    def _agreed(self, value: float) -> float:
+        """``value`` as rank 0 holds it, on every rank (under ``ddp``): a
+        decision taken from it is then the same everywhere, as the next
+        collective needs."""
+        if not self.ddp:
+            return value
+        t = torch.tensor([value], dtype=torch.float64, device=self.device)
+        dist.broadcast(t, src=0)
+        return float(t.item())
 
     # ---- state ----------------------------------------------------------
 
     def state_dict(self) -> dict:
+        """The model's state (its own keys, without DDP's), the optimizer's
+        and the step. Under ZeRO-1 only rank 0 can give it, after every rank
+        has called ``optimizer.consolidate_state_dict(to=0)`` (``save``
+        does both); it then has the layout of the plain optimizer's."""
         return {"params": self.model.state_dict(), "opt_state": self.optimizer.state_dict(),
                 "step": self.step}
 
+    def save(self, path: str) -> None:
+        """Write the checkpoint at ``path``. Under ``ddp`` every rank calls
+        it: ZeRO-1 first gathers the optimizer state on rank 0, rank 0
+        writes, and the others wait for the file. One file for any world
+        size, with or without ZeRO-1."""
+        if self.zero1:
+            self.optimizer.consolidate_state_dict(to=0)
+        if self.rank == 0:
+            ckpt.save_state(path, self.state_dict())
+        host_barrier(f"adnm:saved:{path}")
+
     def load(self, ckpt_path: str) -> None:
         """Restore parameters (with BatchNorm's running statistics),
-        optimizer state and step from a checkpoint."""
-        state = ckpt.restore_state(ckpt_path, self.state_dict())
+        optimizer state and step from a checkpoint, written at any world
+        size, with or without ZeRO-1; under ``ddp`` every rank reads it
+        (under ZeRO-1 each keeps its share of the optimizer state)."""
+        state = ckpt.restore_state(ckpt_path, {"params": self.model.state_dict(),
+                                               "opt_state": None, "step": self.step})
         ckpt.load_model_state(self.model, state["params"], ckpt_path)
-        self.optimizer.load_state_dict(state["opt_state"])
+        if state["opt_state"] is not None:
+            self.optimizer.load_state_dict(state["opt_state"])
         self.step = int(state["step"])

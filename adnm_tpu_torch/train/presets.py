@@ -61,7 +61,8 @@ class TrainPreset:
     momentum: float = 0.0
     adam_eps: float = 1e-8
 
-    def make_optimizer(self, params: Iterable[torch.nn.Parameter]) -> torch.optim.Optimizer:
+    def make_optimizer(self, params: Iterable[torch.nn.Parameter],
+                       zero1: bool = False) -> torch.optim.Optimizer:
         """The optimizer with the update of the JAX preset's optax one; the
         loop sets the LR of the param group every epoch.
 
@@ -71,16 +72,35 @@ class TrainPreset:
         * sgd: the chain add_decayed_weights -> trace(momentum) -> scale by
           -lr is ``torch.optim.SGD`` without dampening or Nesterov: the
           decay is added to the gradient, the momentum buffer starts at
-          the first gradient."""
+          the first gradient.
+
+        ``zero1`` gives ZeRO-1 (the JAX ``--zero1``):
+        ``ZeroRedundancyOptimizer`` around the same class and settings, each
+        rank holding and updating the state of its share of the parameters
+        and broadcasting them after the step. The caller asks for it only
+        inside a process group of two or more ranks (``Trainer``: on one
+        rank the plain optimizer, as JAX shards nothing over a 'data' axis
+        of 1, adnm_tpu/train/loop.py:126-130)."""
+        cls, settings = self._optimizer()
+        params = list(params)
+        if zero1:
+            # imported here: the module scripts functional optimizers with torch.jit
+            from torch.distributed.optim import ZeroRedundancyOptimizer
+
+            return ZeroRedundancyOptimizer(params, optimizer_class=cls, **settings)
+        return cls(params, **settings)
+
+    def _optimizer(self) -> tuple:
+        """(optimizer class, its settings) of the preset's family."""
         if self.opt_family == "adamw":
-            return torch.optim.AdamW(params, lr=self.base_lr, betas=(0.9, 0.999),
-                                     eps=self.adam_eps, weight_decay=self.weight_decay)
+            return torch.optim.AdamW, dict(lr=self.base_lr, betas=(0.9, 0.999),
+                                           eps=self.adam_eps, weight_decay=self.weight_decay)
         if self.opt_family == "adam":
-            return torch.optim.Adam(params, lr=self.base_lr, betas=(0.9, 0.999), eps=1e-8)
+            return torch.optim.Adam, dict(lr=self.base_lr, betas=(0.9, 0.999), eps=1e-8)
         if self.opt_family == "sgd":
-            return torch.optim.SGD(params, lr=self.base_lr, momentum=self.momentum,
-                                   weight_decay=self.weight_decay, dampening=0.0,
-                                   nesterov=False)
+            return torch.optim.SGD, dict(lr=self.base_lr, momentum=self.momentum,
+                                         weight_decay=self.weight_decay, dampening=0.0,
+                                         nesterov=False)
         raise ValueError(f"unknown optimizer family {self.opt_family!r}")
 
     def lr(self, epoch: int, total: int) -> float:

@@ -175,3 +175,11 @@ def device_memory_stats() -> dict:
     ...); empty without CUDA (counterpart of JAX's per-device
     ``memory_stats``)."""
     return {f"cuda:{i}": torch.cuda.memory_stats(i) for i in range(torch.cuda.device_count())}
+
+
+def optimizer_state_bytes(optimizer: torch.optim.Optimizer) -> int:
+    """Bytes of the optimizer state tensors this process holds: under ZeRO-1
+    (``ZeroRedundancyOptimizer``) its rank's share, else all of it."""
+    inner = getattr(optimizer, "optim", optimizer)  # ZeRO-1's local optimizer
+    return sum(v.numel() * v.element_size() for st in inner.state.values() for v in st.values()
+               if torch.is_tensor(v) and v.dim() > 0)

@@ -158,6 +158,27 @@
    same run; the train CLI with ``--bf16`` for SmaAt-UNet and TransUnet
    and ``predict --bf16 --ckpt`` on each snapshot. Prints the phase's
    seconds.
+6h. Data parallelism, full width, 256x256, fp32, the kernels built once
+   before any rank starts (``parallel_phase``): (1) one rank over NCCL
+   (``spawn``): one step of the DDP ``Trainer`` on a batch of 2 gives the
+   plain ``Trainer``'s bits (loss, gradient norm, every parameter and
+   buffer after AdamW), twice, with the second step's launches (28 K1, 20
+   K1 backward), two DDP gradient calls bit-equal, and each one's step
+   time, device busy time and peak memory, and the bytes all-reduced a
+   step; (2) two ranks on the one card over gloo (CUDA tensors), one row
+   each, against one process on the same global batch: the duality and
+   bimamba ADNM-UNet (K1, K2 and their backwards launched on each rank,
+   counted from 0 per rank), SmaAt-UNet (cross-rank BatchNorm: running
+   statistics within 1e-4) and SwinUnet at its Dropout and DropPath rates
+   (the global batch's masks): the ranks bit-equal, the loss, gradient
+   norm and every gradient within each model's card-against-CPU step
+   bound, the AdamW parameters within 2 lr; (3) ZeRO-1 on the duality
+   model: after two steps bit-equal to (2), each rank's optimizer state
+   against the replicated one's, and its consolidated checkpoint resumed
+   in one process, whose next step lands within 2 lr of the ranks'; with
+   two or more cards, (2) again over NCCL, one card a rank; (4)
+   ``cli.train --data-parallel`` (one rank per visible card, NCCL) for its
+   4-step epoch and ``cli.validate`` on its snapshot (the same test loss).
 7. Prints the kernels' JSON line (each K1 entry with its largest kernel /
    library time over the fp32 main-path shapes, ``worst_vs_library``, and
    its MLA launches and times at MLA's rows; K2's
@@ -1431,9 +1452,10 @@ def train_batch(b: int, size: int = IMG) -> np.ndarray:
 
 
 def make_trainer(device, compute_dtype=torch.float32, dataset: str = "Shanghai",
-                 **model_kwargs):
+                 trainer_kwargs: dict = None, **model_kwargs):
     """The CLI's trainer for ``dataset``'s task: seeded init, reference init,
-    the ADNMUnet preset."""
+    the ADNMUnet preset; ``trainer_kwargs`` (``ddp``, ``zero1``) go to the
+    Trainer."""
     from adnm_tpu_torch.cli.common import TASKS
     from adnm_tpu_torch.models.adnm_unet import apply_reference_init, create_adnm_unet
     from adnm_tpu_torch.train.loop import Trainer
@@ -1442,7 +1464,8 @@ def make_trainer(device, compute_dtype=torch.float32, dataset: str = "Shanghai",
     t_in, t_out, interval, _ = TASKS[dataset]
     return Trainer(create_adnm_unet(t_in, t_out, interval, **model_kwargs),
                    get_preset("ADNMUnet", t_in, t_out, interval, dataset), t_in, device,
-                   seed=0, param_transform=apply_reference_init, compute_dtype=compute_dtype)
+                   seed=0, param_transform=apply_reference_init, compute_dtype=compute_dtype,
+                   **(trainer_kwargs or {}))
 
 
 def rel(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -1671,11 +1694,12 @@ def exact_zero_gradient(name: str) -> bool:
         name.endswith(".key.bias")
 
 
-def baseline_trainer(name: str, device, size: int = IMG, rates0: bool = False):
+def baseline_trainer(name: str, device, size: int = IMG, rates0: bool = False,
+                     **trainer_kwargs):
     """A baseline's trainer as the train CLI builds it: seeded init, the
     model's preset, no reference init; with ``rates0`` its Dropout and
     DropPath rates at 0 (a CPU and a CUDA generator draw different
-    masks)."""
+    masks); ``trainer_kwargs`` (``ddp``, ``zero1``) go to the Trainer."""
     from adnm_tpu_torch.core.stochastic import zero_rates
     from adnm_tpu_torch.models.registry import create_model
     from adnm_tpu_torch.train.loop import Trainer
@@ -1683,7 +1707,7 @@ def baseline_trainer(name: str, device, size: int = IMG, rates0: bool = False):
 
     model = create_model(name, 5, 20, 6, img_size=size)
     return Trainer(zero_rates(model) if rates0 else model,
-                   get_preset(name, 5, 20, 6, "Shanghai"), 5, device, seed=0)
+                   get_preset(name, 5, 20, 6, "Shanghai"), 5, device, seed=0, **trainer_kwargs)
 
 
 def check_baseline_step(name: str) -> None:
@@ -2445,6 +2469,382 @@ def bf16_baseline_phase(predict, counts, card: str) -> None:
     print(f"bf16 baseline phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+# -- data parallelism: DDP, ZeRO-1, cross-rank BatchNorm, the DP train CLI ------
+
+# The global batch of the data-parallel checks: one row a rank at world size 2.
+DP_ROWS = 2
+DP_CASES = ("duality", "bimamba", "SmaATUnet", "SwinUnet")
+DP_TIMEOUT_S = 900
+# Two ranks against one process on one card, both fp32 without TF32: the
+# same kernels on the same data, except that the ranks' batch sums (the
+# convolutions' weight gradients, the loss's mean) run over one row each
+# and are then added by the all-reduce. That is one source of difference of
+# those that card against CPU has (other kernels, every sum in another
+# order), so each case takes its card-against-CPU step bound: STEP_TOL for
+# the ADNM-UNet, ``baseline_step_tol`` for a baseline. The parameters after
+# one AdamW step: within 2 lr (the update is lr * m/(sqrt(v) + eps), at
+# most lr in size; a gradient near 0 may flip its sign), with ``DP_ADAM``
+# for the bound of m/sqrt(v) after two steps (1.0013 at beta 0.9, 0.999).
+DP_ADAM = 1.002
+
+
+def dp_tol(case: str) -> dict:
+    if case in ("duality", "bimamba"):
+        return {**STEP_TOL, "zero_gradient_of_global": STEP_TOL["tensor_of_global"]}
+    return baseline_step_tol(case)
+
+
+def dp_trainer(case: str, device, **trainer_kwargs):
+    """The case's trainer as the train CLI builds it (seeded init; the
+    reference init for the ADNM-UNet; SwinUnet at its published Dropout and
+    DropPath rates)."""
+    if case in ("duality", "bimamba"):
+        return make_trainer(device, trainer_kwargs=trainer_kwargs,
+                            **(BIMAMBA if case == "bimamba" else {}))
+    return baseline_trainer(case, device, **trainer_kwargs)
+
+
+def kernel_counts() -> Counts:
+    from adnm_tpu_torch.ops import rms_norm as k1_module
+    from adnm_tpu_torch.ops import ssd
+
+    return Counts(rms_norm=k1_module.rms_norm, rms_norm_backward=k1_module.rms_norm_backward,
+                  ssd_chunked_scan=ssd.ssd_chunked_scan,
+                  ssd_chunked_scan_backward=ssd.ssd_chunked_scan_backward,
+                  gated_rms_norm=k1_module.gated_rms_norm,
+                  gated_rms_norm_backward=k1_module.gated_rms_norm_backward)
+
+
+def dp_launches(case: str) -> dict:
+    if case in ("duality", "bimamba"):
+        return step_launches(True, case == "bimamba")
+    return dict(NO_LAUNCHES)
+
+
+def state_digest(trainer) -> str:
+    """SHA-256 of every parameter and buffer's bytes, in order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, v in trainer.model.state_dict().items():
+        h.update(k.encode())
+        h.update(v.detach().cpu().reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_step_record(trainer, batch: torch.Tensor, counts, steps: int = 1,
+                   save: str = "") -> dict:
+    """The gradients of ``batch`` (a ``grads`` call; under DDP its first
+    call builds the DDP module), then ``steps`` optimizer steps, the first
+    with its launches counted from 0 and, given ``save``, the checkpoint
+    written there after it."""
+    from adnm_tpu_torch.utils.profiling import optimizer_state_bytes
+
+    loss, grads = trainer.grads(batch)
+    rec = {"grad_loss": float(loss), "grads": {k: g.detach().cpu().clone()
+                                               for k, g in grads.items()}}
+    for i in range(steps):
+        torch.cuda.synchronize()
+        counts.reset()
+        loss, gn = trainer.train_step(batch, LR, CLIP)
+        torch.cuda.synchronize()
+        if i == 0:
+            rec.update(loss=float(loss), gnorm=float(gn), launches=counts.read(),
+                       params={k: v.detach().cpu().clone()
+                               for k, v in trainer.model.state_dict().items()})
+            if save:
+                trainer.save(save)
+    rec["digest"] = state_digest(trainer)
+    rec["optimizer_bytes"] = optimizer_state_bytes(trainer.optimizer)
+    return rec
+
+
+def dp_two_ranks(rank: int, world: int, device, out: str) -> None:
+    """Rank ``rank`` of the two-rank run: each case on its row of the global
+    batch (``DP_CASES``; the duality model two steps), then ZeRO-1 on the
+    duality model (two steps, the consolidated checkpoint after the first;
+    the replicated duality run writes its checkpoint after its first step
+    too). Rank 0 writes every record, rank 1 its digests, launches and
+    bytes."""
+    from adnm_tpu_torch.utils.profiling import optimizer_state_bytes
+
+    counts = kernel_counts()
+    rows = torch.from_numpy(train_batch(DP_ROWS)[rank:rank + 1]).to(device)
+    for case in (*DP_CASES, "zero1"):
+        t0 = time.perf_counter()
+        if case == "zero1":
+            trainer = dp_trainer("duality", device, ddp=True, zero1=True)
+            trainer.train_step(rows, LR, CLIP)
+            trainer.save(os.path.join(out, "zero1_ckpt"))
+            trainer.train_step(rows, LR, CLIP)
+            rec = {"digest": state_digest(trainer),
+                   "optimizer_bytes": optimizer_state_bytes(trainer.optimizer),
+                   "params": {k: v.detach().cpu().clone()
+                              for k, v in trainer.model.state_dict().items()}}
+        else:
+            trainer = dp_trainer(case, device, ddp=True)
+            rec = dp_step_record(trainer, rows, counts, steps=2 if case == "duality" else 1,
+                                 save=os.path.join(out, "replicated_ckpt")
+                                 if case == "duality" else "")
+            rec["unreached"] = len(trainer.unreached)
+        rec["seconds"] = time.perf_counter() - t0
+        if rank != 0:
+            rec = {k: v for k, v in rec.items() if k not in ("grads", "params")}
+        torch.save(rec, os.path.join(out, f"{case}_rank{rank}.pt"))
+        del trainer
+        torch.cuda.empty_cache()
+
+
+def dp_world_one(rank: int, world: int, device, out: str) -> None:
+    """Case 1, one rank over NCCL: the DDP Trainer's step against the plain
+    Trainer's on a batch of DP_ROWS, from the same seeded weights: the same
+    bits (loss, gradient norm, every parameter and buffer after AdamW), the
+    second step's launches, two DDP gradient calls of one batch bit-equal;
+    then each one's step time, device busy time and peak memory."""
+    counts, card = kernel_counts(), card_line()
+    batch = torch.from_numpy(train_batch(DP_ROWS)).to(device)
+    res = {}
+    plain = dp_trainer("duality", device)
+    ddp = dp_trainer("duality", device, ddp=True)
+    for step in (1, 2):
+        got = {}
+        for label, t in (("plain", plain), ("ddp", ddp)):
+            torch.cuda.synchronize()
+            counts.reset()
+            loss, gn = t.train_step(batch, LR, CLIP)
+            torch.cuda.synchronize()
+            got[label] = (float(loss), float(gn), counts.read(), state_digest(t))
+        same = got["plain"][0] == got["ddp"][0] and got["plain"][1] == got["ddp"][1] \
+            and got["plain"][3] == got["ddp"][3]
+        print(f"[{card}] DDP over NCCL at world size 1, duality {IMG}^2 batch {DP_ROWS}, step "
+              f"{step}: loss {got['ddp'][0]:.8f} vs plain {got['plain'][0]:.8f}, grad norm "
+              f"{got['ddp'][1]:.6f} vs {got['plain'][1]:.6f}, parameters and buffers "
+              f"{'bit-equal' if same else 'DIFFER'}; launches DDP {got['ddp'][2]}, plain "
+              f"{got['plain'][2]}")
+        if not same:
+            raise AssertionError("DDP at world size 1 does not give the plain step's bits")
+        if step == 2 and not got["ddp"][2] == got["plain"][2] == dp_launches("duality"):
+            raise AssertionError(f"DDP step launches {got['ddp'][2]}, want "
+                                 f"{dp_launches('duality')}")
+        res[f"step{step}_launches"] = got["ddp"][2]
+    (la, ga), (lb, gb) = ddp.grads(batch), ddp.grads(batch)
+    if float(la) != float(lb) or any(not torch.equal(ga[k], gb[k]) for k in ga):
+        raise AssertionError("two DDP gradient calls of one batch differ")
+    print(f"DDP world size 1: two gradient calls of one batch bit-equal (loss {float(la):.8f})")
+    synced = [p for n, p in ddp.forward_net.named_parameters() if n not in ddp.unreached]
+    res["allreduce_bytes"] = sum(p.numel() * p.element_size() for p in synced)
+    res["unreached"] = len(ddp.unreached)
+    for label, t in (("plain", plain), ("ddp", ddp)):
+        def run(t=t):
+            t.train_step(batch, LR, CLIP)
+
+        times = host_times(run, 6, warm=2)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        run()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        res[label] = {"median_ms": statistics.median(times), "min_ms": min(times),
+                      "peak_mib": peak}
+        print(f"[{card}] train step duality {IMG}^2 batch {DP_ROWS}, {label}"
+              f"{' (DDP, NCCL, world size 1)' if label == 'ddp' else ''}: median "
+              f"{statistics.median(times):.2f} ms, min {min(times):.2f} ms, mean "
+              f"{statistics.mean(times):.2f} ms (6 steps after 2); peak device memory of a "
+              f"step {peak:.1f} MiB")
+        profile_device(run, card, f"train step duality batch {DP_ROWS}, {label}", "step", 2)
+    print(f"DDP all-reduces {res['allreduce_bytes']:,} bytes of fp32 gradients a step "
+          f"({res['unreached']} parameters the loss does not reach stay out of its buckets) "
+          f"and the 4-byte loss")
+    torch.save(res, os.path.join(out, "world1.pt"))
+
+
+def optimizer_state_diff(got: dict, want: dict) -> list:
+    """The (parameter index, entry) pairs where two optimizer state dicts
+    differ (``torch.equal``), and the hyperparameters' if they do."""
+    diff = [(i, k) for i, w in want["state"].items() for k, v in w.items()
+            if i not in got["state"] or k not in got["state"][i]
+            or not torch.equal(torch.as_tensor(got["state"][i][k]), torch.as_tensor(v))]
+    diff += [(i, "?") for i in got["state"] if i not in want["state"]]
+    groups = [{k: v for k, v in g.items() if k in w} == w
+              for g, w in zip(got["param_groups"], want["param_groups"])]
+    if len(got["param_groups"]) != len(want["param_groups"]) or not all(groups):
+        diff.append(("param_groups", "?"))
+    return diff
+
+
+def check_dp_case(case: str, ranks: list, ref: dict, steps_label: str) -> dict:
+    """Two ranks' records of ``case`` against each other (bit-equal losses,
+    gradient norms, parameters and buffers; the same launches) and against
+    the single process's (``dp_tol``); returns the errors."""
+    a, b = ranks
+    if (a["loss"], a["gnorm"], a["digest"]) != (b["loss"], b["gnorm"], b["digest"]):
+        raise AssertionError(f"{case}: the two ranks disagree after the step")
+    if not a["launches"] == b["launches"] == dp_launches(case):
+        raise AssertionError(f"{case}: launches per rank {a['launches']}, {b['launches']}, "
+                             f"want {dp_launches(case)}")
+    tol = dp_tol(case)
+    want, got = ref["grads"], a["grads"]
+    total = float(torch.sqrt(sum(w.double().square().sum() for w in want.values())))
+    gn = float(torch.sqrt(sum(g.double().square().sum() for g in got.values())))
+    err = {"loss": abs(a["grad_loss"] - ref["grad_loss"]) / abs(ref["grad_loss"]),
+           "grad_norm": abs(gn - total) / total}
+    rows = []
+    for k, w in want.items():
+        w = w.double()
+        floor = tol["zero_gradient_of_global" if exact_zero_gradient(k) else "tensor_of_global"]
+        rows.append((float((got[k].double() - w).norm()) / (tol["tensor"] * float(w.norm())
+                                                            + floor * total), k))
+    rows.sort(reverse=True)
+    param_err = max(float((a["params"][k].double() - v.double()).abs().max())
+                    for k, v in ref["params"].items() if v.is_floating_point() and v.numel())
+    moved = sum(int(((a["params"][k].double() - v.double()).abs() > 1e-6).sum())
+                for k, v in ref["params"].items() if v.is_floating_point())
+    stats = {k: rel(a["params"][k].double(), v.double()) for k, v in ref["params"].items()
+             if k.endswith((".mean", ".var"))}
+    print(f"{case} {steps_label}: ranks bit-equal (loss {a['loss']:.8f}, grad norm "
+          f"{a['gnorm']:.6f}), launches per rank {a['launches']}; against one process on the "
+          f"global batch: loss rel {err['loss']:.3e} (tol {tol['loss']:g}), grad norm rel "
+          f"{err['grad_norm']:.3e} (tol {tol['grad_norm']:g}), worst gradient tensor "
+          f"{rows[0][1]} at {rows[0][0]:.3e} of its bound; parameters after the step max abs "
+          f"{param_err:.3e} (bound {2 * LR * DP_ADAM:g} for AdamW), {moved} entries beyond 1e-6"
+          + (f"; running statistics rel L2 max {max(stats.values()):.3e} (tol 1e-4)"
+             if stats else "") + f"; {a['seconds']:.1f} s a rank")
+    adam = case in ("duality", "bimamba")
+    if not (err["loss"] <= tol["loss"] and err["grad_norm"] <= tol["grad_norm"]) \
+            or rows[0][0] > 1.0 or any(v > 1e-4 for v in stats.values()) \
+            or (adam and param_err > 2 * LR * DP_ADAM):
+        raise AssertionError(f"{case}: two ranks disagree with one process")
+    return {"loss_rel": err["loss"], "grad_norm_rel": err["grad_norm"],
+            "worst_tensor_of_bound": rows[0][0], "param_max_abs": param_err}
+
+
+def parallel_phase(card: str) -> dict:
+    """Data parallelism (phase 6h), full width, 256^2, fp32:
+    (1) DDP over NCCL at world size 1 against the plain Trainer, bit for
+    bit, with step time, busy time and peak memory; (2) two ranks on the
+    one card over gloo (CUDA tensors), one row each, against one process
+    on the same global batch, for the duality and bimamba ADNM-UNet (K1 and
+    K2 and their backwards on each rank), SmaAt-UNet (cross-rank
+    BatchNorm) and SwinUnet (the global batch's masks); (3) ZeRO-1 on the
+    duality model against (2), and its checkpoint resumed in one process;
+    (4) the train CLI with --data-parallel and validate on its snapshot;
+    over NCCL across cards where there are two or more."""
+    import tempfile
+
+    from adnm_tpu_torch.cli import train as train_cli
+    from adnm_tpu_torch.cli import validate as validate_cli
+    from adnm_tpu_torch.parallel import spawn
+    from adnm_tpu_torch.train.checkpoint import best_ckpt_dir
+
+    t_phase = time.perf_counter()
+    device = torch.device("cuda")
+    n_cards = torch.cuda.device_count()
+    counts = kernel_counts()
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="adnm-dp-") as out:
+        # (1) NCCL, one rank
+        t0 = time.perf_counter()
+        spawn(dp_world_one, 1, args=(out,), device="cuda", timeout_s=DP_TIMEOUT_S)
+        res["world1"] = torch.load(os.path.join(out, "world1.pt"), weights_only=False)
+        print(f"parallel (1): NCCL at world size 1 in {time.perf_counter() - t0:.1f} s")
+        # the single process's records on the global batch, on this card
+        refs = {}
+        batch = torch.from_numpy(train_batch(DP_ROWS)).to(device)
+        for case in DP_CASES:
+            trainer = dp_trainer(case, device)
+            refs[case] = dp_step_record(trainer, batch, counts)
+            del trainer
+            torch.cuda.empty_cache()
+        # (2) and (3): two ranks on the one card over gloo
+        t0 = time.perf_counter()
+        spawn(dp_two_ranks, 2, args=(out,), device="cuda", backend="gloo", shared_device=True,
+              timeout_s=DP_TIMEOUT_S)
+        ranks = {case: [torch.load(os.path.join(out, f"{case}_rank{r}.pt"), weights_only=False)
+                        for r in range(2)] for case in (*DP_CASES, "zero1")}
+        print(f"parallel (2): two ranks on one card over gloo, {len(DP_CASES)} models and "
+              f"ZeRO-1, in {time.perf_counter() - t0:.1f} s")
+        res["cases"] = {case: check_dp_case(case, ranks[case], refs[case],
+                                            f"two ranks (gloo, one {card.split(',')[0]})")
+                        for case in DP_CASES}
+        res["launches_per_rank"] = {case: ranks[case][0]["launches"] for case in DP_CASES}
+        rep, z1 = ranks["duality"], ranks["zero1"]
+        same = z1[0]["digest"] == z1[1]["digest"] == rep[0]["digest"]
+        print(f"ZeRO-1, duality, two ranks: parameters and buffers after two steps "
+              f"{'bit-equal to' if same else 'DIFFER from'} the replicated run's (the same "
+              f"AdamW arithmetic on the same gradients); optimizer state per rank "
+              f"{z1[0]['optimizer_bytes']:,} and {z1[1]['optimizer_bytes']:,} bytes against "
+              f"{rep[0]['optimizer_bytes']:,} replicated")
+        if not same or max(r["optimizer_bytes"] for r in z1) >= rep[0]["optimizer_bytes"] \
+                or sum(r["optimizer_bytes"] for r in z1) != rep[0]["optimizer_bytes"]:
+            raise AssertionError("ZeRO-1 disagrees with replicated training")
+        # the consolidated AdamW state: every rank's share, the replicated
+        # run's after step 1, bit for bit
+        opt = {label: torch.load(os.path.join(out, f"{label}_ckpt"), map_location="cpu",
+                                 weights_only=True)["opt_state"]
+               for label in ("zero1", "replicated")}
+        state_diff = optimizer_state_diff(opt["zero1"], opt["replicated"])
+        print(f"ZeRO-1 consolidated checkpoint after step 1: AdamW state of "
+              f"{len(opt['zero1']['state'])} parameters (step, exp_avg, exp_avg_sq) against the "
+              f"replicated run's checkpoint: "
+              + ("bit-equal" if not state_diff else f"DIFFERS at {state_diff[:5]}"))
+        single = dp_trainer("duality", device)
+        if state_diff or len(opt["replicated"]["state"]) != len(single.params):
+            raise AssertionError("the ZeRO-1 checkpoint's optimizer state is not the "
+                                 "replicated run's")
+        single.load(os.path.join(out, "zero1_ckpt"))
+        loss, _ = single.train_step(batch, LR, CLIP)
+        now = single.model.state_dict()
+        resumed = max(float((now[k].cpu().double() - v.double()).abs().max())
+                      for k, v in z1[0]["params"].items() if v.is_floating_point() and v.numel())
+        print(f"ZeRO-1 checkpoint (after step 1) resumed in one process "
+              f"({type(single.optimizer).__name__}, step {single.step}): its step 2 against the "
+              f"two ranks' step 2, parameters max abs {resumed:.3e} (bound "
+              f"{2 * LR * DP_ADAM:g})")
+        if single.step != 2 or resumed > 2 * LR * DP_ADAM:
+            raise AssertionError("the ZeRO-1 checkpoint does not resume in one process")
+        res["zero1"] = {"optimizer_bytes": [r["optimizer_bytes"] for r in z1],
+                        "replicated_bytes": rep[0]["optimizer_bytes"], "resumed_max_abs": resumed}
+        del single
+        torch.cuda.empty_cache()
+        if n_cards >= 2:
+            t0 = time.perf_counter()
+            spawn(dp_two_ranks, 2, args=(out,), device="cuda", timeout_s=DP_TIMEOUT_S)
+            for case in DP_CASES:
+                check_dp_case(case, [torch.load(os.path.join(out, f"{case}_rank{r}.pt"),
+                                                weights_only=False) for r in range(2)],
+                              refs[case], "two ranks over NCCL, one card each")
+            print(f"parallel: case (2) over NCCL on two cards in {time.perf_counter() - t0:.1f} s")
+        else:
+            print(f"parallel: {n_cards} card visible: case (2) over NCCL across cards not run")
+    print(f"parallel (3): the references, the comparisons and ZeRO-1's resume in "
+          f"{time.perf_counter() - t_phase:.1f} s from the phase's start")
+    # (4) the train CLI, one rank per visible card, and validate on its snapshot
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        out = train_cli.main([*TRAIN_ARGS, "--img-size", str(IMG), "--root", root,
+                              "--data-parallel"])
+        secs = time.perf_counter() - t0
+        snapshot = best_ckpt_dir(root, "Shanghai", "ADNMUnet") + "_epoch1"
+        (log,) = out["logs"]
+        got = validate_cli.main([*DATA_ARGS, "--img-size", str(IMG), "--root", root,
+                                 "--ckpt", snapshot])
+        print(f"train CLI --data-parallel ({n_cards} rank(s), NCCL): 1 epoch at global batch 4 "
+              f"in {secs:.1f} s, train loss {log.train_loss:.6f}, grad norm "
+              f"{log.grad_norm_avg:.4f}, final-protocol test loss {out['test_loss']:.6f}; "
+              f"validate on its snapshot: test loss {got['test_loss']:.6f} (rel tol "
+              f"{SERVE_ATOL:g})")
+        # the same weights in another process: cuDNN may pick other forward
+        # algorithms, so predict's bound against validate (SERVE_ATOL) applies
+        if not (os.path.exists(snapshot) and np.isfinite(log.train_loss)
+                and abs(got["test_loss"] - out["test_loss"]) <= SERVE_ATOL * abs(out["test_loss"])):
+            raise AssertionError("the data-parallel train CLI's snapshot does not validate to "
+                                 "its own test loss")
+        check_metrics("train CLI --data-parallel", out["metrics"])
+    print(f"[{card}] parallel phase: backends NCCL (world size 1{', 2' if n_cards >= 2 else ''})"
+          f" and gloo (world size 2 on one card); {time.perf_counter() - t_phase:.1f} s")
+    return res
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -2471,11 +2871,7 @@ def main() -> None:
     k2b = check_k2_backward(ssd)
 
     # -- the main paths -------------------------------------------------
-    counts = Counts(rms_norm=rms_norm, rms_norm_backward=k1_module.rms_norm_backward,
-                    ssd_chunked_scan=ssd.ssd_chunked_scan,
-                    ssd_chunked_scan_backward=ssd.ssd_chunked_scan_backward,
-                    gated_rms_norm=k1_module.gated_rms_norm,
-                    gated_rms_norm_backward=k1_module.gated_rms_norm_backward)
+    counts = kernel_counts()
     rng = np.random.RandomState(0)
     inputs = {"batch1": rng.rand(1, 5, 1, IMG, IMG).astype(np.float32),
               "batch4": rng.rand(4, 5, 1, IMG, IMG).astype(np.float32)}
@@ -2531,6 +2927,10 @@ def main() -> None:
     laps = laps_phase(predict, counts, card)
     bf16_baseline_phase(predict, counts, card)
 
+    # -- data parallelism: DDP over NCCL and gloo, ZeRO-1, the DP train CLI ----
+    par = parallel_phase(card)
+    per_rank = par["launches_per_rank"]
+
     # Launches: serving kernels from the bimamba requests, K1's backward
     # from the train CLI's run, K2's from the bimamba training steps; K3
     # is on no path.
@@ -2559,6 +2959,7 @@ def main() -> None:
         "laps": {"launches_per_forward": laps["forward"]["rms_norm"],
                  "launches_per_step": laps["cli_step"]["rms_norm"],
                  "rows": mla_rows(k1["timing"], K1_LAPS)},
+        "parallel": {"launches_per_rank_step": per_rank["duality"]["rms_norm"]},
     }, {
         "name": "rms_norm_backward", "route": "cuda", "source": "adnm_tpu_torch/csrc/rms_norm.cu",
         "replaces": "adnm_tpu/ops/pallas/fused_norm.py:57",
@@ -2568,6 +2969,7 @@ def main() -> None:
         "mla": {"launches_per_step": mla["backward_step"], "rows": mla_rows(k1b["timing"])},
         "laps": {"launches_per_step": laps["cli_step"]["rms_norm_backward"],
                  "rows": mla_rows(k1b["timing"], K1_LAPS)},
+        "parallel": {"launches_per_rank_step": per_rank["duality"]["rms_norm_backward"]},
     }, {
         "name": "ssd_chunked_scan", "route": "cuda", "source": "adnm_tpu_torch/csrc/ssd_scan.cu",
         "replaces": "adnm_tpu/ops/pallas/ssd_scan.py:132",
@@ -2578,6 +2980,7 @@ def main() -> None:
         "laps": {"launches_per_forward": laps["bimamba_forward"]["ssd_chunked_scan"],
                  "launches_per_step": laps["bimamba_step"]["ssd_chunked_scan"],
                  "rows": k2_rows(k2["timing"], [(b, *K2_LAPS) for b in (1, 4)])},
+        "parallel": {"launches_per_rank_step": per_rank["bimamba"]["ssd_chunked_scan"]},
     }, {
         "name": "ssd_chunked_scan_backward", "route": "cuda",
         "source": "adnm_tpu_torch/csrc/ssd_scan.cu",
@@ -2587,6 +2990,8 @@ def main() -> None:
         "library_ms": None, "worst_vs_bound": worst_vs_bound(k2b["timing"]), **k2b_bf16,
         "laps": {"launches_per_step": laps["bimamba_step"]["ssd_chunked_scan_backward"],
                  "rows": k2_rows(k2b["timing"], [(b, *K2_LAPS) for b in (1, 4)])},
+        "parallel": {"launches_per_rank_step":
+                     per_rank["bimamba"]["ssd_chunked_scan_backward"]},
     }, {
         "name": "gated_rms_norm", "route": "cuda", "source": "adnm_tpu_torch/csrc/rms_norm.cu",
         "replaces": "adnm_tpu/ops/pallas/fused_norm.py:63",

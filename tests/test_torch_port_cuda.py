@@ -952,3 +952,75 @@ def test_two_bf16_baseline_forwards_are_bit_equal_on_the_card(card):
         a, b = model(x), model(x)
     assert a.dtype == torch.float32 and torch.isfinite(a).all() and torch.equal(a, b)
     assert rms_norm.launches == before
+
+
+# Data parallelism on the card: the TINY ADNM-UNet of tests/test_multihost.py
+# (K1 on every rank; K2 too in the bimamba configuration), one row a rank.
+DP_CFG = dict(channels=5, out_channels=2, kernel=(3, 3, 3), wt_levels=(1, 1, 1),
+              embed_dim=(8, 8, 16, 16, 16, 16), refine_dim=(8, 8, 8, 8))
+
+
+def dp_job(**kw):
+    import functools
+
+    from adnm_tpu_torch.models.adnm_unet import ADNMUNet
+    from test_torch_port_parallel_workers import Job
+
+    batch = np.random.default_rng(100).uniform(0, 1, (2, 7, 1, 32, 32)).astype(np.float32)
+    return Job(functools.partial(ADNMUNet, **DP_CFG, **kw), "ADNMUnet", batch, grads=True,
+               steps=2)
+
+
+@pytest.mark.cuda
+def test_ddp_over_nccl_at_world_size_one_gives_the_plain_step_bits(card, tmp_path):
+    """One rank over NCCL: the DDP Trainer's gradients, two steps' losses and
+    gradient norms and every parameter after them are the plain Trainer's,
+    bit for bit; K1 launched each step."""
+    from adnm_tpu_torch.parallel import spawn
+    from test_torch_port_parallel_workers import load_ranks, run_steps, single_process
+
+    job = dp_job()
+    spawn(run_steps, 1, args=(job, str(tmp_path)), device="cuda", timeout_s=600)
+    (rank,) = load_ranks(str(tmp_path), 1)
+    plain = single_process(job, card)
+    assert rank["losses"] == plain["losses"] and rank["gnorms"] == plain["gnorms"]
+    for k, g in plain["grads"].items():
+        assert torch.equal(rank["grads"][k], g), k
+    for k, v in plain["params"].items():
+        assert torch.equal(rank["params"][k], v), k
+    assert all(c["rms_norm"] > 0 and c["rms_norm_backward"] > 0 for c in rank["launches"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("linear_attn_duality", [True, False])
+def test_two_gloo_ranks_on_one_card_match_the_single_process(card, tmp_path,
+                                                            linear_attn_duality):
+    """Two ranks on the one card over gloo (CUDA tensors), one row each,
+    against one process on the global batch of 2: the ranks agree bit for
+    bit, the loss within 1e-5 and every gradient within 1e-4 of its norm or
+    1e-6 of the global norm (fp32, the batch's sums in another order), the
+    parameters after two AdamW steps within 2 lr a step; K1 (and K2) and
+    their backwards launched on each rank."""
+    from adnm_tpu_torch.parallel import spawn
+    from test_torch_port_parallel_workers import load_ranks, run_steps, single_process
+
+    job = dp_job(linear_attn_duality=linear_attn_duality)
+    spawn(run_steps, 2, args=(job, str(tmp_path)), device="cuda", backend="gloo",
+          shared_device=True, timeout_s=600)
+    ranks = load_ranks(str(tmp_path), 2)
+    plain = single_process(job, card)
+    a, b = ranks
+    assert a["losses"] == b["losses"] and a["gnorms"] == b["gnorms"]
+    assert all(torch.equal(a["params"][k], b["params"][k]) for k in a["params"])
+    assert a["launches"] == b["launches"]
+    scan = not linear_attn_duality
+    assert all(c["rms_norm_backward"] > 0 and (c["ssd_chunked_scan_backward"] > 0) == scan
+               for c in a["launches"])
+    assert a["grad_loss"] == pytest.approx(plain["grad_loss"], rel=1e-5)
+    total = float(torch.sqrt(sum(g.double().square().sum() for g in plain["grads"].values())))
+    for k, g in plain["grads"].items():
+        err = float((a["grads"][k].double() - g.double()).norm())
+        assert err <= max(1e-4 * float(g.double().norm()), 1e-6 * total), k
+    for k, v in plain["params"].items():
+        if v.is_floating_point() and v.numel():
+            assert float((a["params"][k] - v).abs().max()) <= 2 * 2 * job.lr * 1.002, k

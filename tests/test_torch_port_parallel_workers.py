@@ -1,0 +1,126 @@
+"""Rank functions for the port's data-parallel tests
+(``test_torch_port_parallel.py`` on the CPU, ``test_torch_port_cuda.py`` on
+the card), started by ``adnm_tpu_torch.parallel.spawn``. This module
+imports no JAX: each rank imports it afresh. It holds no test itself.
+
+``run_steps`` builds the Trainer that a ``Job`` describes, steps on its
+rank's rows of the job's global batch and writes what the test compares to
+``{out}/rank{rank}.pt``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from adnm_tpu_torch.device import full_fp32
+from adnm_tpu_torch.ops import rms_norm, ssd
+from adnm_tpu_torch.train.loop import Trainer
+from adnm_tpu_torch.train.presets import get_preset
+from adnm_tpu_torch.utils.profiling import optimizer_state_bytes
+
+COUNTED = {"rms_norm": rms_norm.rms_norm, "rms_norm_backward": rms_norm.rms_norm_backward,
+           "ssd_chunked_scan": ssd.ssd_chunked_scan,
+           "ssd_chunked_scan_backward": ssd.ssd_chunked_scan_backward}
+
+
+@dataclasses.dataclass
+class Job:
+    """``make()`` builds the model (a picklable factory, such as a
+    ``functools.partial`` of its class), ``preset`` names its training
+    preset (Shanghai, 5 -> ``t_out`` frames). ``state``: a state dict
+    loaded after the Trainer's own init. Each rank takes its
+    ``len(batch) // world`` rows of ``batch``, records the averaged
+    gradients of a first ``grads`` call (with ``grads``), then runs
+    ``steps`` optimizer steps at ``lr`` and ``clip``; with ``save_after=k``
+    it writes ``ckpt`` after step k. ``remat``: the whole training
+    forward recomputed in the backward; ``accum``: micro-batches a step."""
+
+    make: Callable
+    preset: str
+    batch: np.ndarray
+    t_out: int = 2
+    state: Optional[dict] = None
+    steps: int = 1
+    lr: float = 1e-3
+    clip: float = 0.025
+    grads: bool = False
+    zero1: bool = False
+    save_after: Optional[int] = None
+    ckpt: Optional[str] = None
+    remat: bool = False
+    accum: int = 1
+
+
+def trainer_for(job: Job, device, ddp: bool) -> Trainer:
+    t = Trainer(job.make(), get_preset(job.preset, 5, job.t_out, 6, "Shanghai"), 5, device,
+                seed=0, ddp=ddp, zero1=job.zero1, remat_forward=job.remat,
+                accum_steps=job.accum)
+    if job.state is not None:
+        t.model.load_state_dict(job.state)
+    return t
+
+
+def run_steps(rank: int, world: int, device: torch.device, job: Job, out: str) -> None:
+    torch.set_num_threads(1)
+    t = trainer_for(job, device, ddp=True)
+    rows = len(job.batch) // world
+    batch = torch.from_numpy(np.ascontiguousarray(job.batch[rank * rows:(rank + 1) * rows]))
+    batch = batch.to(device)
+    res = {"losses": [], "gnorms": [], "launches": []}
+    if job.grads:
+        loss, grads = t.grads(batch)
+        res["grad_loss"] = float(loss)
+        res["grads"] = {k: g.detach().cpu().clone() for k, g in grads.items()}
+    for step in range(1, job.steps + 1):
+        for w in COUNTED.values():
+            w.launches = 0
+        loss, gnorm = t.train_step(batch, job.lr, job.clip)
+        res["losses"].append(float(loss))
+        res["gnorms"].append(float(gnorm))
+        res["launches"].append({k: w.launches for k, w in COUNTED.items()})
+        if step == job.save_after:
+            t.save(job.ckpt)
+    res["params"] = {k: v.detach().cpu().clone() for k, v in t.model.state_dict().items()}
+    res["optimizer_bytes"] = optimizer_state_bytes(t.optimizer)
+    res["unreached"] = t.unreached
+    torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+
+
+def run_jobs(rank: int, world: int, device: torch.device, jobs: list, out: str) -> None:
+    """``run_steps`` for each job in turn, in one process group: job i
+    writes to ``{out}/{i}``."""
+    for i, job in enumerate(jobs):
+        sub = os.path.join(out, str(i))
+        os.makedirs(sub, exist_ok=True)
+        run_steps(rank, world, device, job, sub)
+
+
+def single_process(job: Job, device) -> dict:
+    """The job's steps in this process, on the whole global batch: what
+    ``run_steps`` records, without a process group."""
+    full_fp32()
+    t = trainer_for(job, device, ddp=False)
+    batch = torch.from_numpy(np.ascontiguousarray(job.batch)).to(device)
+    res = {"losses": [], "gnorms": []}
+    if job.grads:
+        loss, grads = t.grads(batch)
+        res["grad_loss"] = float(loss)
+        res["grads"] = {k: g.detach().cpu().clone() for k, g in grads.items()}
+    for _ in range(job.steps):
+        loss, gnorm = t.train_step(batch, job.lr, job.clip)
+        res["losses"].append(float(loss))
+        res["gnorms"].append(float(gnorm))
+    res["params"] = {k: v.detach().cpu().clone() for k, v in t.model.state_dict().items()}
+    res["optimizer_bytes"] = optimizer_state_bytes(t.optimizer)
+    res["trainer"] = t
+    return res
+
+
+def load_ranks(out: str, world: int) -> list:
+    return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)]
