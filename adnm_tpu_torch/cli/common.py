@@ -244,7 +244,8 @@ def build(args, ddp: bool = False, rows: Optional[int] = None, device=None):
                       param_transform=apply_reference_init if args.model == "ADNMUnet" else None,
                       remat_forward=args.remat, accum_steps=accum,
                       compute_dtype=compute_dtype(args), ddp=ddp,
-                      zero1=getattr(args, "zero1", False))
+                      zero1=getattr(args, "zero1", False),
+                      scan_steps=getattr(args, "scan_steps", 1) or 1)
     if args.pretrained_npz:
         load_pretrained_npz(trainer.model, args.pretrained_npz)
     data_path = None if args.synthetic else args.data_path

@@ -19,13 +19,15 @@ with a warning, from the seeded init. A ConvLSTM, TransUnet or SwinUnet
 serves only ``--img-size`` frames, the size its checkpoint was trained
 at. ``--device`` defaults to cuda and raises when CUDA is absent.
 ``--bf16`` computes in bf16 from the fp32 weights, for every model.
+On the card each forward is one CUDA graph replay (``forecast``), as JAX
+jits it: the first batch of a shape runs eagerly and is captured.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -37,6 +39,7 @@ from adnm_tpu_torch.core.layers import seeded_init_
 from adnm_tpu_torch.device import resolve_device
 from adnm_tpu_torch.models.registry import MODEL_NAMES, create_model
 from adnm_tpu_torch.train.checkpoint import load_model_state, restore_state
+from adnm_tpu_torch.utils.graphs import GraphSet
 from adnm_tpu_torch.viz import vis_res
 
 INIT_SEED = 0  # weights without --params or a checkpoint
@@ -94,20 +97,40 @@ def read_frames(path: str, img_size: int, input_frames: int = 5) -> np.ndarray:
 
 
 def forecast(model: torch.nn.Module, x: np.ndarray, batch_size: int, device: torch.device,
-             horizon: Optional[int] = None,
-             compute_dtype: torch.dtype = torch.float32) -> np.ndarray:
+             horizon: Optional[int] = None, compute_dtype: torch.dtype = torch.float32,
+             graphs: Union[GraphSet, bool, None] = None) -> np.ndarray:
     """Fp32 predictions for ``x`` (B, T_in, 1, H, W), the model run in eval
     mode on frames cast to ``compute_dtype``; with ``horizon`` beyond the
     model's T_out, the last T_in predicted frames (clipped to [0, 1] in
-    fp32) are fed back until ``horizon`` frames exist."""
+    fp32) are fed back until ``horizon`` frames exist. With graphs each
+    forward is one CUDA graph replay, one graph per (batch shape, compute
+    dtype); the first batch of a shape runs eagerly and is captured. The
+    same bits either way. ``graphs``: the caller's ``GraphSet`` for this
+    model, whose graphs serve its later calls too; True, a set for this
+    call alone; False, eager; None (the default), True on a card and False
+    elsewhere."""
     model.eval()
+    device = torch.device(device)
+    if graphs is None:
+        graphs = device.type == "cuda"
+    if graphs is not False and device.type != "cuda":
+        raise ValueError(f"graphs needs a CUDA device, not {device}")
+    graph_set = None if graphs is False else GraphSet(device) if graphs is True else graphs
+
+    def run(xb: torch.Tensor) -> torch.Tensor:
+        if graph_set is None:
+            return model(xb).float()
+        return graph_set.run(("forward", tuple(xb.shape), xb.dtype), lambda v: model(v).float(),
+                             (xb,), binding=lambda: [*model.parameters(), *model.buffers()],
+                             label=f"{type(model).__name__} forward of {tuple(xb.shape)} "
+                                   f"{xb.dtype}")
 
     def forward(inp: np.ndarray) -> np.ndarray:
         outs = []
         with torch.inference_mode():
             for i in range(0, inp.shape[0], batch_size):
                 xb = torch.from_numpy(np.ascontiguousarray(inp[i:i + batch_size]))
-                outs.append(model(xb.to(device, compute_dtype)).float().cpu().numpy())
+                outs.append(run(xb.to(device, compute_dtype)).cpu().numpy())
         return np.concatenate(outs)
 
     preds = forward(x)

@@ -19,7 +19,10 @@ FAR/RMSE/SSIM/LPIPS; for LAPS, ``laps_evaluate``'s CSI/POD/HSS/FAR per
 threshold on the flattened predictions (train.py:233-235). ``--device``
 defaults to cuda and raises when CUDA is absent. ``--bf16`` trains with
 bf16 activations and fp32 parameters and optimizer state; its checkpoints
-are the same fp32 files.
+are the same fp32 files. ``--scan-steps K`` runs K steps per dispatch: on
+the card one CUDA graph replay of K whole steps (the first group eagerly,
+captured), the same bits as K steps; validation and the final protocol
+replay the eval forward's graph on the card in any case.
 
 Data-parallel training (the JAX package's mesh flags; one rank per card):
 
@@ -68,6 +71,11 @@ def make_parser() -> argparse.ArgumentParser:
                         "best checkpoint before training")
     p.add_argument("--save-every", type=int, default=None,
                    help="also write rotating epoch snapshots every N epochs")
+    p.add_argument("--scan-steps", type=int, default=1, metavar="K",
+                   help="run K train steps per device dispatch (one CUDA graph replay over K "
+                        "stacked batches on the card): same step math/order (bit for bit), but "
+                        "per-step host dispatch stops gating the device - throughput win when "
+                        "the host is slow relative to the step (single-process only)")
     p.add_argument("--accum-steps", type=int, default=1, metavar="M",
                    help="gradient accumulation: split each batch into M equal microbatches, "
                         "one optimizer step on the averaged gradients (batch-size %% M == 0)")
@@ -88,6 +96,10 @@ def main(argv=None) -> dict:
     launch = parallel_launch(args)
     if launch is None:
         return run(args)
+    if args.scan_steps > 1:
+        raise SystemExit("--scan-steps > 1 under data-parallel training is not supported: the "
+                         "global batch and the first collective are per batch; use "
+                         "--scan-steps 1")
     kernels = torch.device(args.device).type == "cuda" and args.model == "ADNMUnet"
     if launch.multihost:  # this process is one rank
         local = local_rank(args)

@@ -3,7 +3,9 @@ adnm_tpu/data/loader.py; reference: train.py:55-57).
 
 A thread assembles (B, T, 1, S, S) batches ahead of consumption, so h5
 reads and resizes overlap the device's work. ``device_prefetch`` keeps
-the next batches' host-to-device copies in flight from pinned memory.
+the next batches' host-to-device copies in flight from pinned memory;
+``grouped`` stacks K batches into one (K, B, T, 1, S, S) group for
+``Trainer(scan_steps=K)``, sent in one copy.
 """
 
 from __future__ import annotations
@@ -101,6 +103,28 @@ class BatchLoader:
         threading.Thread(target=worker, daemon=True).start()
         while (b := q.get()) is not None:
             yield b
+
+
+def grouped(batches: Iterable[np.ndarray], k: int) -> Iterator[np.ndarray]:
+    """``batches`` stacked k at a time into (k, B, ...) groups (JAX:
+    ``grouped`` in adnm_tpu/train/loop.py:433-446). A batch of another shape
+    than the group's (a ``drop_last=False`` tail) flushes the group: the
+    batches held and the odd one then come one at a time, as do those left
+    at the end. ``k = 1`` yields the batches as they are."""
+    if k == 1:
+        yield from batches
+        return
+    buf: list = []
+    for b in batches:
+        b = np.asarray(b)
+        if buf and b.shape != buf[0].shape:
+            yield from buf
+            buf = []
+        buf.append(b)
+        if len(buf) == k:
+            yield np.stack(buf)
+            buf = []
+    yield from buf
 
 
 def to_device(batch, device: torch.device) -> torch.Tensor:

@@ -317,7 +317,10 @@ class Refiner(nn.Module):
         for i in range(4):
             block = getattr(self, f"refiner{i + 1}")
             if self.remat and torch.is_grad_enabled():
-                x = checkpoint(block, x, use_reentrant=False)
+                # preserve_rng_state=False: a Block draws nothing at random, and
+                # stashing the default generators' states would read the card's
+                # on the host, which a CUDA graph capture refuses
+                x = checkpoint(block, x, use_reentrant=False, preserve_rng_state=False)
             else:
                 x = block(x)
         return self.out_proj(x, res)

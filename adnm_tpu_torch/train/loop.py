@@ -17,10 +17,31 @@ microbatch) at the start of each training forward, so a step is a function
 of the state and the step number; under whole-forward remat the recompute
 re-seeds it and draws the same masks. The backward runs with cuDNN held to its
 deterministic algorithms, so two steps of one batch give the same bits on
-the card. LR and clip threshold are
-host-side scalars set per epoch, as in the reference's per-epoch Python
-schedules (train.py:122-130,186-191). Losses and gradient norms stay on
-the device until the epoch ends, so the host never waits for a step.
+the card. LR and clip threshold are set per epoch, as in the reference's
+per-epoch Python schedules (train.py:122-130,186-191), into two fp32
+device tensors that the optimizer and the clip read on the device (Adam
+and AdamW fused and ``capturable`` on the card, SGD as
+``presets.TensorLRSGD``), so no step reads a host value. Losses and
+gradient norms stay on the device until the epoch ends, so the host never
+waits for a step.
+
+Single dispatch (JAX: ``jax.jit`` of every step and forward, and
+``scan_steps``' ``lax.scan``): with ``scan_steps=K`` the epoch stacks K
+batches into one (K, B, ...) group (``data.loader.grouped``, one
+host-to-device copy) and runs its K steps (forward, loss, backward with
+the accumulation, the global norm, the clip, the optimizer) as one CUDA
+graph replay on the card (``utils.graphs``): the first group of a shape
+runs its K steps eagerly and captures them, every later one replays. The
+stragglers of an epoch run one step at a time; on the CPU the same K
+steps run eagerly. A replay draws the Dropout and DropPath masks of its
+steps (and of their recompute under remat) from generator states seeded
+with ``step_seed`` before it, so a graphed step gives the eager step's
+bits. The eval forward (``eval_step``, ``predict``, ``eval_epoch``)
+replays one graph per (batch shape, its dtype, compute dtype) on the card
+likewise. A step's graph is also keyed by the compute dtype, the remat and
+the accumulation, so a Trainer whose settings change captures anew. Graphs
+are the default on a card and off on the CPU and under data parallelism
+(``scan_steps`` > 1 then raises, as JAX's does under multi-host).
 
 As in the JAX package, validation consumes the val batches (the
 reference re-evaluates the last training batch, train.py:159-160).
@@ -65,11 +86,12 @@ from torch.utils.checkpoint import checkpoint
 
 from adnm_tpu_torch.core.layers import seeded_init_, sync_batch_norm
 from adnm_tpu_torch.core.stochastic import attach_generator, step_seed
-from adnm_tpu_torch.data.loader import device_prefetch, to_device
+from adnm_tpu_torch.data.loader import device_prefetch, grouped, to_device
 from adnm_tpu_torch.device import deterministic_cudnn
 from adnm_tpu_torch.parallel.multihost import host_barrier
 from adnm_tpu_torch.train import checkpoint as ckpt
-from adnm_tpu_torch.train.presets import TrainPreset
+from adnm_tpu_torch.train.presets import CARD_ADAM, TrainPreset
+from adnm_tpu_torch.utils.graphs import GraphSet
 from adnm_tpu_torch.utils.logging import MetricsLogger
 
 
@@ -99,7 +121,14 @@ class TrainForward(nn.Module):
     generator seeded first, and under ``remat`` the whole forward
     recomputed in the backward (``torch.utils.checkpoint``), re-seeding it.
     The module that DDP wraps, so that the recompute runs inside DDP's
-    forward and not through it again."""
+    forward and not through it again.
+
+    ``seed`` is the generator's seed (an int, set on the host), or, in a
+    CUDA graph's capture, the (forward, recompute) pair of generator states
+    that the graph registers and the Trainer seeds with that int before
+    each replay: the generator is pointed at the first for the forward and
+    at the second for the recompute, each drawing from offset 0 as after
+    ``manual_seed``."""
 
     def __init__(self, model: nn.Module, generator: torch.Generator, remat: bool):
         super().__init__()
@@ -107,14 +136,39 @@ class TrainForward(nn.Module):
         self.generator = generator
         self.remat = remat
 
-    def forward(self, x: torch.Tensor, seed: int) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, seed) -> torch.Tensor:
+        states = iter(seed) if isinstance(seed, tuple) else None
+
         def run(x):
-            self.generator.manual_seed(seed)
+            if states is None:
+                self.generator.manual_seed(seed)
+            else:
+                self.generator.graphsafe_set_state(next(states))
             return self.model(x)
 
         if self.remat and torch.is_grad_enabled():
-            return checkpoint(run, x, use_reentrant=False)
+            # preserve_rng_state=False: the masks come from the Trainer's own
+            # generator, which ``run`` seeds again, and nothing draws from
+            # the default generators; stashing their states would read the
+            # card's on the host, which a CUDA graph capture refuses
+            return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
         return run(x)
+
+
+def portable_optimizer_state(state: dict) -> dict:
+    """An optimizer's state dict in the checkpoints' one form, whichever
+    device and mode it comes from: each group's LR a float and its
+    ``capturable`` and ``fused`` flags at their defaults (where the
+    optimizer has them), Adam's step counts on the CPU: the form of an eager
+    Trainer's AdamW on the CPU. A ``Trainer`` adopts it into its own mode
+    (``load``), so a file written on the card, after graphed steps or not,
+    loads into a Trainer on the CPU, and the other way round."""
+    groups = [{**g, "lr": float(g["lr"]),
+               **{k: v for k, v in (("capturable", False), ("fused", None)) if k in g}}
+              for g in state["param_groups"]]
+    per_param = {i: {k: v.cpu() if k == "step" else v for k, v in st.items()}
+                 for i, st in state["state"].items()}
+    return {**state, "state": per_param, "param_groups": groups}
 
 
 def unreached_parameters(net: nn.Module, *inputs) -> list:
@@ -146,7 +200,7 @@ class Trainer:
                  param_transform: Optional[Callable[[nn.Module, torch.Generator], nn.Module]] = None,
                  remat_forward: bool = False, accum_steps: int = 1,
                  compute_dtype: torch.dtype = torch.float32, ddp: bool = False,
-                 zero1: bool = False):
+                 zero1: bool = False, scan_steps: int = 1):
         """The model's weights come from the init seeded with ``seed``
         (``seeded_init_``, on the CPU), then ``param_transform(model,
         generator seeded with seed + 1)`` (``apply_reference_init`` for
@@ -174,9 +228,21 @@ class Trainer:
         and builds the Trainer from the same seed. ``zero1`` then shards
         the optimizer state over the ranks (ZeRO-1; no effect on one
         rank). The Trainer's ``rank`` and ``world`` are 0 and 1 without
+        ``ddp``.
+
+        ``scan_steps=k`` (k > 1) runs k steps per dispatch (JAX's
+        ``scan_steps``): ``train_epoch`` stacks k batches into a group and
+        ``train_steps`` runs its k steps as one CUDA graph replay on the
+        card, eagerly on the CPU; the same steps, bit for bit. Not under
         ``ddp``."""
-        if accum_steps < 1:
-            raise ValueError("accum_steps must be >= 1")
+        if accum_steps < 1 or scan_steps < 1:
+            raise ValueError("scan_steps and accum_steps must be >= 1")
+        if scan_steps > 1 and ddp:
+            raise NotImplementedError(
+                "scan_steps > 1 under data-parallel training is not supported: the "
+                "global-batch assembly and the first collective are per batch "
+                "(parallel/multihost.py); use scan_steps=1, the per-rank dispatch already "
+                "overlaps the collectives there")
         check = getattr(model, "check_compute_dtype", None)
         if check is not None:
             check(compute_dtype)
@@ -188,6 +254,7 @@ class Trainer:
         self.has_batch_stats = any(getattr(m, "batch_stats", ()) for m in model.modules())
         self.remat_forward = remat_forward and not self.has_batch_stats
         self.accum_steps = int(accum_steps)
+        self.scan_steps = int(scan_steps)
         seeded_init_(model, seed)
         if param_transform is not None:
             param_transform(model, torch.Generator().manual_seed(seed + 1))
@@ -207,8 +274,13 @@ class Trainer:
         self.unreached = None  # names of the parameters the loss does not reach, under ddp
         self.params = list(model.parameters())
         self.zero1 = zero1 and ddp and self.world > 1  # ZeRO-1 shards nothing on one rank
-        self.optimizer = preset.make_optimizer(self.params, zero1=self.zero1)
+        # the epoch's LR and clip threshold, read on the device (``set_schedule``)
+        self.lr = torch.zeros((), dtype=torch.float32, device=device)
+        self.clip = torch.full((), float("inf"), dtype=torch.float32, device=device)
+        self.optimizer = preset.make_optimizer(self.params, zero1=self.zero1, lr=self.lr)
         self.step = 0
+        self.graphs = GraphSet(device) if device.type == "cuda" else None
+        self._step_states = []  # (forward, recompute) generator states of a group's steps
 
     # ---- one batch ----------------------------------------------------
 
@@ -225,12 +297,18 @@ class Trainer:
         scale = float(torch.tensor(1.0 / 255.0, dtype=cdt))  # 1/255 in cdt
         return batch[:, :t].to(cdt) * scale, batch[:, t:].to(torch.float32) * (1.0 / 255.0)
 
-    def _forward(self, imgs: torch.Tensor, micro: int = 0) -> torch.Tensor:
-        """The training forward of microbatch ``micro`` of this step, its
-        masks drawn from the generator seeded at its start (again in the
-        remat's recompute); through DDP under ``ddp``."""
+    def _forward(self, imgs: torch.Tensor, seed=None) -> torch.Tensor:
+        """The training forward of a microbatch, its masks drawn from the
+        generator seeded with ``seed`` (by default this step's first
+        microbatch's) at its start, again in the remat's recompute
+        (``TrainForward``); through DDP under ``ddp``."""
         net = self._net(imgs) if self.ddp else self.forward_net
-        return net(imgs, step_seed(self.seed, self.step, micro))
+        return net(imgs, self._seeds()[0][0] if seed is None else seed)
+
+    def _seeds(self, steps: int = 1) -> list:
+        """The generator seeds of the next ``steps`` steps' microbatches."""
+        return [[step_seed(self.seed, self.step + i, j) for j in range(self.accum_steps)]
+                for i in range(steps)]
 
     def _net(self, imgs: torch.Tensor) -> DistributedDataParallel:
         """The DDP module, built at the first step: the parameters that a
@@ -248,12 +326,12 @@ class Trainer:
                 gradient_as_bucket_view=True, **NO_BUFFER_SYNC)
         return self._ddp_net
 
-    def _backward(self, batch: torch.Tensor) -> torch.Tensor:
+    def _backward(self, batch: torch.Tensor, seeds: list) -> torch.Tensor:
         """The batch's loss, with its gradients in the parameters' ``grad``
         (the mean over the microbatches, and under ``ddp`` over the ranks:
         the global batch's). A parameter the loss does not reach gets a
         zero gradient, as in JAX, so AdamW still decays it. Runs the model
-        in train mode."""
+        in train mode; ``seeds`` holds each microbatch's (``_forward``)."""
         self.model.train()
         imgs, targets = self._split_batch(batch)
         m = self.accum_steps
@@ -266,7 +344,7 @@ class Trainer:
             # the gradients are averaged over the ranks after the last micro-batch
             sync = not self.ddp or i == m - 1
             with contextlib.nullcontext() if sync else self._net(im).no_sync():
-                part = self.preset.loss_fn(self._forward(im, i).float(), tg)
+                part = self.preset.loss_fn(self._forward(im, seeds[i]).float(), tg)
                 with deterministic_cudnn():  # the convolutions' dgrad and wgrad
                     part.backward()
             loss = loss + part.detach()
@@ -284,47 +362,165 @@ class Trainer:
     def grads(self, batch: np.ndarray) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(loss, {parameter name: gradient}) of one host batch, with no
         optimizer step."""
-        loss = self._backward(to_device(batch, self.device))
+        loss = self._backward(to_device(batch, self.device), self._seeds()[0])
         # copies: under DDP the gradients are views of its buckets, which the
         # next step overwrites
         return loss, {name: p.grad.clone() for name, p in self.model.named_parameters()}
 
+    def set_schedule(self, lr: float, clip_norm: float) -> None:
+        """The LR and the clip threshold of the steps that follow, written
+        into their device tensors (no wait for the device); the threshold
+        is infinite where the preset does not clip."""
+        self.lr.fill_(lr)
+        self.clip.fill_(clip_norm if self.preset.norm_clip else float("inf"))
+
+    def _step(self, batch: torch.Tensor, seeds: list) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One step on the device, reading ``self.lr`` and ``self.clip``
+        there: (loss, global gradient norm). The gradients are scaled by
+        min(1, clip / (norm + 1e-6)), ``clip_grad_norm_``'s scale, exactly 1
+        at an infinite threshold; then the optimizer."""
+        loss = self._backward(batch, seeds)
+        grads = [p.grad for p in self.params]
+        # Under DDP the gradients are views into its buckets, at any offset.
+        # The foreach norm sums a 16-byte-aligned tensor in another order
+        # than a misaligned one, so the norm reads aligned copies of the
+        # misaligned views (their magnitudes, in one foreach call): it then
+        # has the single process's bits.
+        gnorm = nn.utils.get_total_norm(self._aligned(grads) if self.ddp else grads, 2.0)
+        torch._foreach_mul_(grads, torch.clamp(self.clip / (gnorm + 1e-6), max=1.0))
+        self.optimizer.step()
+        return loss, gnorm
+
+    @staticmethod
+    def _aligned(grads: list) -> list:
+        """``grads`` with each tensor that does not start on 16 bytes
+        replaced by a new tensor of its absolute values."""
+        odd = [i for i, g in enumerate(grads) if g.data_ptr() % 16]
+        out = list(grads)
+        if odd:
+            for i, a in zip(odd, torch._foreach_abs([grads[i] for i in odd])):
+                out[i] = a
+        return out
+
+    def _steps(self, group: torch.Tensor, seeds: list) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The steps of the (K, B, ...) ``group``, one after another:
+        (losses, norms), each (K,)."""
+        out = [self._step(batch, s) for batch, s in zip(group, seeds)]
+        return torch.stack([o[0] for o in out]), torch.stack([o[1] for o in out])
+
     def train_step(self, batch: torch.Tensor, lr: float,
                    clip_norm: float) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(loss, global gradient norm) on the device, after one step: under
-        the preset's ``norm_clip`` the gradients scaled by min(1, clip_norm
-        / (norm + 1e-6)), then the optimizer at ``lr``. Without it the
-        gradients are not scaled (the norm is still computed, for the
-        log)."""
-        loss = self._backward(batch)
-        # the same scale: clip_grad_norm_ multiplies by clamp(max_norm /
-        # (norm + 1e-6), max=1), which is exactly 1 at max_norm = inf
-        max_norm = clip_norm if self.preset.norm_clip else float("inf")
-        gnorm = nn.utils.clip_grad_norm_(self.params, max_norm)
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr
-        self.optimizer.step()
+        """(loss, global gradient norm) on the device, after one eager
+        step: under the preset's ``norm_clip`` the gradients scaled by
+        min(1, clip_norm / (norm + 1e-6)), then the optimizer at ``lr``.
+        Without it the gradients are not scaled (the norm is still
+        computed, for the log)."""
+        self.set_schedule(lr, clip_norm)
+        loss, gnorm = self._step(batch, self._seeds()[0])
         self.step += 1
         return loss, gnorm
 
+    def train_steps(self, group: torch.Tensor, lr: float,
+                    clip_norm: float) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(losses, global gradient norms), each (K,), after the K steps of
+        the (K, B, ...) ``group`` on the device, as K ``train_step`` calls
+        give them, bit for bit. On the card one CUDA graph replay holds the
+        K steps; the first group of a shape (and the first after ``load``)
+        runs them eagerly and captures them. On the CPU they run
+        eagerly."""
+        self.set_schedule(lr, clip_norm)
+        k = group.shape[0]
+        if self.graphs is None:
+            out = self._steps(group, self._seeds(k))
+        else:
+            states = self._group_states(k)
+            for i, per_micro in enumerate(self._seeds(k)):
+                for seed, pair in zip(per_micro, states[i]):
+                    for state in pair:
+                        state.manual_seed(seed)
+            out = self.graphs.run(
+                ("steps", tuple(group.shape), group.dtype, self.compute_dtype,
+                 self.remat_forward, self.accum_steps),
+                lambda g: self._captured_steps(g, states), (group,),
+                warmup=lambda: self._steps(group, self._seeds(k)), binding=self._binding,
+                states=[s for step in states for pair in step for s in pair],
+                label=f"{k} steps of {tuple(group.shape[1:])} {group.dtype}")
+        self.step += k
+        return out
+
+    def _group_states(self, k: int) -> list:
+        """The (forward, recompute) generator states of each microbatch of
+        k steps, made once (a replay re-seeds them)."""
+        while len(self._step_states) < k:
+            self._step_states.append([(self.generator.clone_state(),
+                                       self.generator.clone_state())
+                                      for _ in range(self.accum_steps)])
+        return self._step_states[:k]
+
+    def _captured_steps(self, group: torch.Tensor, states: list):
+        """``_steps`` in a capture: each microbatch's masks from its pair of
+        generator states; the generator points at its own state after."""
+        own = self.generator.graphsafe_get_state()
+        try:
+            return self._steps(group, states)
+        finally:
+            self.generator.graphsafe_set_state(own)
+
+    def _binding(self) -> list:
+        """What a step reads and writes in place: the parameters, buffers,
+        optimizer state, LR and threshold."""
+        state = [v for st in self.optimizer.state.values() for v in st.values()
+                 if isinstance(v, torch.Tensor)]
+        return [*self._model_binding(), *state, self.lr, self.clip]
+
+    def _model_binding(self) -> list:
+        return [*self.params, *self.model.buffers()]
+
+    def _graphed(self, graphs: Optional[bool]) -> bool:
+        """Whether an eval forward replays a CUDA graph: ``graphs``, by
+        default on a card without ``ddp``; a graph needs a card."""
+        if graphs is None:
+            return self.graphs is not None and not self.ddp
+        if graphs and self.graphs is None:
+            raise ValueError(f"graphs=True needs a CUDA device, not {self.device}")
+        return graphs
+
     @torch.no_grad()
-    def eval_step(self, batch: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(loss, predictions) in eval mode."""
+    def _eval(self, batch: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         self.model.eval()
         imgs, targets = self._split_batch(batch)
         out = self.model(imgs).float()
         return self.preset.loss_fn(out, targets), out
 
+    @torch.no_grad()
+    def eval_step(self, batch: torch.Tensor,
+                  graphs: Optional[bool] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(loss, predictions) in eval mode; with ``graphs`` (the default on
+        a card) one CUDA graph replay per (batch shape, its dtype, compute
+        dtype), the first batch of a shape run eagerly and captured."""
+        if not self._graphed(graphs):
+            return self._eval(batch)
+        return self.graphs.run(("eval", tuple(batch.shape), batch.dtype, self.compute_dtype),
+                               self._eval, (batch,),
+                               binding=self._model_binding,
+                               label=f"eval forward of {tuple(batch.shape)} {batch.dtype}")
+
     # ---- loops ----------------------------------------------------------
 
     def train_epoch(self, loader, lr: float, clip_norm: float) -> Dict[str, float]:
+        """One epoch at ``lr`` and ``clip_norm``: groups of ``scan_steps``
+        batches through ``train_steps``, the epoch's stragglers (and every
+        batch at ``scan_steps=1``) through ``train_step``."""
         losses, gnorms = [], []
-        for batch in device_prefetch(loader, self.device):
-            loss, gnorm = self.train_step(batch, lr, clip_norm)
-            losses.append(loss)
-            gnorms.append(gnorm)
-        losses = torch.stack(losses).cpu().numpy() if losses else np.zeros(0, np.float32)
-        gnorms = torch.stack(gnorms).cpu().numpy() if gnorms else np.zeros(0, np.float32)
+        for batch in device_prefetch(grouped(loader, self.scan_steps), self.device):
+            step = self.train_steps if batch.dim() == 6 else self.train_step
+            loss, gnorm = step(batch, lr, clip_norm)
+            losses.append(loss.reshape(-1))
+            gnorms.append(gnorm.reshape(-1))
+        # flatten: a group's entries carry its K steps' values (JAX:
+        # adnm_tpu/train/loop.py:483-490)
+        losses = torch.cat(losses).cpu().numpy() if losses else np.zeros(0, np.float32)
+        gnorms = torch.cat(gnorms).cpu().numpy() if gnorms else np.zeros(0, np.float32)
         n = int(losses.size)
         clip_count = int(np.sum(gnorms > clip_norm)) if self.preset.norm_clip else 0
         return {
@@ -334,17 +530,18 @@ class Trainer:
             "steps": n,
         }
 
-    def predict(self, batch: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(loss, predictions) for one host batch."""
-        return self.eval_step(to_device(batch, self.device))
+    def predict(self, batch: np.ndarray,
+                graphs: Optional[bool] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(loss, predictions) for one host batch (``eval_step``)."""
+        return self.eval_step(to_device(batch, self.device), graphs)
 
-    def eval_epoch(self, loader, collect: bool = False):
+    def eval_epoch(self, loader, collect: bool = False, graphs: Optional[bool] = None):
         """(summed loss, predictions, ground truths); the last two are None
         unless ``collect``, else (N, T_out, S, S) fp32 arrays, the ground
-        truths in [0, 1]."""
+        truths in [0, 1]. Each batch through ``eval_step(graphs=...)``."""
         losses, preds, gts = [], [], []
         for batch in device_prefetch(loader, self.device):
-            loss, out = self.eval_step(batch)
+            loss, out = self.eval_step(batch, graphs)
             losses.append(loss)
             if collect:
                 preds.append(out[:, :, 0].cpu().numpy())
@@ -448,10 +645,12 @@ class Trainer:
 
     def state_dict(self) -> dict:
         """The model's state (its own keys, without DDP's), the optimizer's
-        and the step. Under ZeRO-1 only rank 0 can give it, after every rank
-        has called ``optimizer.consolidate_state_dict(to=0)`` (``save``
-        does both); it then has the layout of the plain optimizer's."""
-        return {"params": self.model.state_dict(), "opt_state": self.optimizer.state_dict(),
+        (``portable_optimizer_state``) and the step. Under ZeRO-1 only rank
+        0 can give it, after every rank has called
+        ``optimizer.consolidate_state_dict(to=0)`` (``save`` does both); it
+        then has the layout of the plain optimizer's."""
+        return {"params": self.model.state_dict(),
+                "opt_state": portable_optimizer_state(self.optimizer.state_dict()),
                 "step": self.step}
 
     def save(self, path: str) -> None:
@@ -475,4 +674,26 @@ class Trainer:
         ckpt.load_model_state(self.model, state["params"], ckpt_path)
         if state["opt_state"] is not None:
             self.optimizer.load_state_dict(state["opt_state"])
+            self._adopt_optimizer_state()
         self.step = int(state["step"])
+        if self.graphs is not None:  # they read the optimizer state that was replaced
+            self.graphs.clear()
+
+    def _adopt_optimizer_state(self) -> None:
+        """After ``load_state_dict`` of a portable state: every group's LR is
+        ``self.lr`` again (holding the file's value) and, on a card, Adam's
+        and AdamW's flags are this Trainer's (``presets.CARD_ADAM``), their
+        step counts on the device (for ZeRO-1 in the optimizer it wraps
+        too, which keeps them on the CPU)."""
+        self.lr.fill_(float(self.optimizer.param_groups[0]["lr"]))
+        inner = getattr(self.optimizer, "optim", self.optimizer)
+        for opt in dict.fromkeys((self.optimizer, inner)):
+            card_adam = self.lr.is_cuda and isinstance(opt, (torch.optim.Adam, torch.optim.AdamW))
+            for group in opt.param_groups:
+                group["lr"] = self.lr
+                if card_adam:
+                    group.update(CARD_ADAM)
+            if card_adam:
+                for p, st in opt.state.items():
+                    if isinstance(st, dict) and isinstance(st.get("step"), torch.Tensor):
+                        st["step"] = st["step"].to(p.device, torch.float32)

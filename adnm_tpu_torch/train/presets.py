@@ -43,6 +43,48 @@ class ClipSchedule:
         return self.norm_ratio * prev_avg_grad_norm
 
 
+class TensorLRSGD(torch.optim.SGD):
+    """``torch.optim.SGD`` with momentum, weight decay added to the
+    gradient and no dampening, Nesterov or maximize, whose LR may be a
+    device tensor that the device reads: torch's own SGD turns a tensor LR
+    into a host number (a synchronisation, which a CUDA graph cannot
+    hold). The update is optax's chain, add_decayed_weights -> trace ->
+    scale by -lr: ``p + buf * (-lr)``, the momentum buffer starting at the
+    first gradient. The state and its dict are torch's SGD's."""
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("TensorLRSGD takes no closure")
+        for group in self.param_groups:
+            if group["dampening"] or group["nesterov"] or group["maximize"]:
+                raise ValueError("TensorLRSGD has no dampening, Nesterov or maximize")
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            grads = [p.grad for p in params]
+            if group["weight_decay"]:
+                grads = torch._foreach_add(grads, params, alpha=group["weight_decay"])
+            if group["momentum"]:
+                bufs = [self.state[p].get("momentum_buffer") for p in params]
+                kept = [i for i, b in enumerate(bufs) if b is not None]
+                if kept:
+                    torch._foreach_mul_([bufs[i] for i in kept], group["momentum"])
+                    torch._foreach_add_([bufs[i] for i in kept], [grads[i] for i in kept])
+                for i, b in enumerate(bufs):
+                    if b is None:  # a parameter's first step: its buffer starts at d_p
+                        bufs[i] = self.state[params[i]]["momentum_buffer"] = grads[i].clone()
+                grads = bufs
+            lr = group["lr"]
+            neg_lr = -lr if isinstance(lr, torch.Tensor) else -float(lr)
+            torch._foreach_add_(params, torch._foreach_mul(grads, neg_lr))
+        return None
+
+
+# Adam's and AdamW's flags on a card (``make_optimizer``)
+CARD_ADAM = {"fused": True, "capturable": True}
+
+
 @dataclasses.dataclass
 class TrainPreset:
     opt_family: str  # "adamw" | "adam" | "sgd"
@@ -61,8 +103,8 @@ class TrainPreset:
     momentum: float = 0.0
     adam_eps: float = 1e-8
 
-    def make_optimizer(self, params: Iterable[torch.nn.Parameter],
-                       zero1: bool = False) -> torch.optim.Optimizer:
+    def make_optimizer(self, params: Iterable[torch.nn.Parameter], zero1: bool = False,
+                       lr: Optional[torch.Tensor] = None) -> torch.optim.Optimizer:
         """The optimizer with the update of the JAX preset's optax one; the
         loop sets the LR of the param group every epoch.
 
@@ -70,9 +112,17 @@ class TrainPreset:
           the square root) is ``torch.optim.AdamW``;
         * adam: ``optax.adam`` with its defaults is ``torch.optim.Adam``;
         * sgd: the chain add_decayed_weights -> trace(momentum) -> scale by
-          -lr is ``torch.optim.SGD`` without dampening or Nesterov: the
-          decay is added to the gradient, the momentum buffer starts at
-          the first gradient.
+          -lr is ``TensorLRSGD``, torch's SGD without dampening or
+          Nesterov: the decay is added to the gradient, the momentum buffer
+          starts at the first gradient.
+
+        ``lr``, a one-element tensor on the parameters' device, is the LR
+        of every group (the ``Trainer`` fills it in place each epoch). On a
+        card Adam and AdamW then take their fused form (``fused``: one
+        kernel per chunk of parameters, the step counts on the device), and
+        ``capturable``, which a CUDA graph capture of ``step`` asks for: no
+        update reads a host value. It is also the cheapest eager step of
+        the three forms (``scripts/torch_step_time.py --optimizers``).
 
         ``zero1`` gives ZeRO-1 (the JAX ``--zero1``):
         ``ZeroRedundancyOptimizer`` around the same class and settings, each
@@ -82,6 +132,10 @@ class TrainPreset:
         rank the plain optimizer, as JAX shards nothing over a 'data' axis
         of 1, adnm_tpu/train/loop.py:126-130)."""
         cls, settings = self._optimizer()
+        if lr is not None:
+            settings["lr"] = lr
+            if lr.is_cuda and cls is not TensorLRSGD:
+                settings.update(CARD_ADAM)
         params = list(params)
         if zero1:
             # imported here: the module scripts functional optimizers with torch.jit
@@ -98,7 +152,7 @@ class TrainPreset:
         if self.opt_family == "adam":
             return torch.optim.Adam, dict(lr=self.base_lr, betas=(0.9, 0.999), eps=1e-8)
         if self.opt_family == "sgd":
-            return torch.optim.SGD, dict(lr=self.base_lr, momentum=self.momentum,
+            return TensorLRSGD, dict(lr=self.base_lr, momentum=self.momentum,
                                          weight_decay=self.weight_decay, dampening=0.0,
                                          nesterov=False)
         raise ValueError(f"unknown optimizer family {self.opt_family!r}")

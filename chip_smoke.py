@@ -74,17 +74,15 @@
    ``cli.visualize.main --max-samples 2`` (PNG headers read with
    the standard library); the evaluator's device time on a 4 x 20 x 256^2
    batch (CUDA graph replay) beside its bound, and the validate wall.
-6. For the duality and the bimamba models: times the batch-1 forward
-   latency and the batch-4 frames/s, reads the peak device memory, and
-   traces 5 forwards at batch 1 and 4 with ``torch.profiler`` (device busy
-   time and share, kernels per forward, device time by kernel group and
-   by kernel). For training, through the ``Trainer`` (the bimamba
-   configurations have no CLI flag, in JAX either): the median, min and
-   mean step time at batch 1 and 4, frames/s, the peak memory of a step
-   with and without the refiner's remat, each with its launches counted
-   from 0 and asserted (bimamba: 28 K2 with remat, 20 without, and 20 K2
-   backward), traces of 3 steps (duality at batch 1 and 4, bimamba at
-   batch 1), and one VSSD bimamba measurement at batch 1.
+6. Training the duality and the bimamba models through the ``Trainer``
+   (the bimamba configurations have no CLI flag, in JAX either): the
+   median, min and mean step time at batch 1 and 4, frames/s, the peak
+   memory of a step with and without the refiner's remat, each with its
+   launches counted from 0 and asserted (bimamba: 28 K2 with remat, 20
+   without, and 20 K2 backward), a trace of 2 steps of bimamba at batch 1,
+   and one VSSD bimamba measurement at batch 1. The fp32 forwards of both
+   models and the duality steps' traces are phase 6i (d)'s, eager beside
+   graphed.
 6b. bf16 compute (the JAX package's ``--bf16``): the duality model's three
    requests through ``cli.predict.main --bf16`` and the bimamba model's
    through ``forecast(compute_dtype=bfloat16)``, launches as in fp32 (20
@@ -153,9 +151,8 @@
    in bf16 compute (the JAX package's ``--bf16``): the batch-1 bf16
    forward against fp32 and a batch-1 step's loss and gradient norm
    against fp32 (``BASELINE_BF16_REL``), two bf16 forwards and two bf16
-   steps bit-equal, no hand kernel launched; the batch-1 latency, batch-4
-   frames/s, batch-4 step time and peak memory in fp32 and bf16 from the
-   same run; the train CLI with ``--bf16`` for SmaAt-UNet and TransUnet
+   steps bit-equal, no hand kernel launched; the train CLI with ``--bf16``
+   for SmaAt-UNet and TransUnet
    and ``predict --bf16 --ckpt`` on each snapshot. Prints the phase's
    seconds.
 6h. Data parallelism, full width, 256x256, fp32, the kernels built once
@@ -179,6 +176,53 @@
    two or more cards, (2) again over NCCL, one card a rank; (4)
    ``cli.train --data-parallel`` (one rank per visible card, NCCL) for its
    4-step epoch and ``cli.validate`` on its snapshot (the same test loss).
+6i. Single dispatch (``Trainer(scan_steps=K)``, ``--scan-steps K``, the
+   eval and serving forwards as CUDA graph replays), 256x256, seeded
+   weights (``single_dispatch_phase``; (b) and the CLIs of (c) run on
+   phase 5's epoch): (a) two groups of K steps (the first run eagerly and
+   captured, the second one replay) against 2K eager steps from the same
+   weights, every loss, gradient norm, parameter, BatchNorm buffer and
+   AdamW or SGD state entry bit for bit, the replay's launches as K eager
+   steps' (counters; for the ADNM-UNet also the hand kernels' names in a
+   ``torch.profiler`` trace of one replay, those of K eager steps, and the
+   launches they make, ``trace_launches``): the duality model in fp32 at
+   batch 4 with the refiner's remat and K = 4 (4 x (28 K1 + 20 K1
+   backward)), bimamba at batch 1 and K = 2 (2 x (28 K1 + 20 K1 backward +
+   28 K2 + 20 K2 backward)), duality in bf16 at batch 4, SmaAt-UNet,
+   SwinUnet at its published Dropout and DropPath rates under ``--remat``
+   and TrajGRU at batch 4, K = 2; an epoch of 5 batches at K = 2 (two
+   replays and one eager tail) against five eager steps, and a change of
+   LR and clip threshold between two replays; (b) ``cli.train
+   --scan-steps 4`` and ``--scan-steps 2``: the epoch record and the epoch
+   snapshot bit-equal to the eager CLI's; (c) ``forecast`` with the
+   caller's ``GraphSet`` (capture, then replay) and with a set of the
+   call's own against without graphs, bit for bit with the same launches,
+   at batch 1 and 4 for duality, bimamba, MLA, LAPS duality, SmaAt-UNet,
+   TrajGRU and SwinUnet, and for duality and bimamba a trace of a batch-4
+   replay with the hand kernels of an eager forward, 20 K1 (and 20 K2)
+   launches (the ``graphed`` forward launches of the JSON line come from
+   it); ``predict --ckpt --horizon 40`` against
+   the eager chain, and ``validate`` at batch 1 against the eager
+   ``eval_epoch``; (d) beside each other from one run, eager and graphed:
+   the batch-1 latency and batch-4 frames/s of the duality, bimamba,
+   TransUnet and SwinUnet forwards, the step median of duality at batch 1
+   and 4 and of TrajGRU and SwinUnet at batch 4, each with its busy share
+   and kernels (``profile_device``), peak memory, and the capture's
+   seconds and pool. Prints the phase's seconds.
+   To keep the smoke within its limit with this phase, earlier phases time
+   with fewer repeats, and every correctness check stays: phase 6 no longer
+   times the fp32 forwards or traces the duality steps (6i (d) does both,
+   eager beside graphed) and takes a step median over 3 steps after 1 (was
+   10 after 3), each configuration's launches still asserted; the bf16
+   forwards (6b), MLA (6e) and the baselines (6d, 6e) take the batch-1
+   latency over 10 forwards (was 20) and the batch-4 forward over 5 (was
+   10), the baselines a step median over 5 steps after 2 (was 10 after 3);
+   the traces follow the timed calls without 3 more warm-up calls, over 2
+   forwards or steps (was 3 or 5), and the baselines' separate batch-1
+   kernel breakdown is gone (each trace lists device time by kernel); 6g
+   no longer times the six baselines in fp32 against bf16 (bf16 buys them no
+   speed, ``PERF.md`` §5) and keeps its bf16-against-fp32 forward and
+   step checks, its bit-equality and launch checks and its CLIs.
 7. Prints the kernels' JSON line (each K1 entry with its largest kernel /
    library time over the fp32 main-path shapes, ``worst_vs_library``, and
    its MLA launches and times at MLA's rows; K2's
@@ -187,8 +231,9 @@
    backward's likewise; both K2 entries with ``bf16_ms``,
    ``bf16_bound_ms`` and ``bf16_max_abs_err`` at the refiner; each K1 and
    K2 entry with a ``laps`` entry: its launches on the LAPS paths and its
-   times at the LAPS shapes), the script's total seconds, the card line,
-   then the result line last.
+   times at the LAPS shapes; each K1, K1 backward, K2 and K2 backward entry
+   with a ``graphed`` entry: its launches per graphed forward and step),
+   the script's total seconds, the card line, then the result line last.
 
 Any failure raises: the exit code is then non-zero and no result line is
 printed.
@@ -201,6 +246,7 @@ import functools
 import json
 import os
 import re
+import shutil
 import statistics
 import struct
 import subprocess
@@ -937,15 +983,20 @@ def serve_model(predict, label, kwargs, inputs, counts, requests,
     """Requests through ``predict.load_model`` and ``predict.forecast`` in
     ``compute_dtype``, each with the launches ``per_forward`` (by default a
     bimamba model's); in fp32 the batch-1 request again on the CPU against
-    the card. Returns the launches and the outputs of each request."""
+    the card. Returns the launches and the outputs of each request. The
+    requests share the model's graphs, as a server's would."""
+    from adnm_tpu_torch.utils.graphs import GraphSet
+
     dev = torch.device("cuda")
     model = predict.load_model(None, dev, compute_dtype=compute_dtype, **kwargs)
+    graphs = GraphSet(dev)
     outs, per_request = {}, {}
     for name in requests:
         t0 = time.perf_counter()
         counts.reset()
         outs[name] = predict.forecast(model, inputs[name], 4, dev,
-                                      40 if name == "horizon40" else None, compute_dtype)
+                                      40 if name == "horizon40" else None, compute_dtype,
+                                      graphs=graphs)
         torch.cuda.synchronize()
         per_request[name] = counts.read()
         print(f"{label} request {name}: {outs[name].shape} in {time.perf_counter() - t0:.2f} s, "
@@ -996,14 +1047,14 @@ KERNEL_GROUPS = {
 }
 
 
-def profile_device(run, card: str, label: str, unit: str, n: int) -> None:
-    """Trace ``n`` calls of ``run`` (after 3 untraced ones) and print the
-    device's busy time (the union of kernel intervals), its share of the
-    first-to-last-kernel span, the kernels per call, and device time by
+def profile_device(run, card: str, label: str, unit: str, n: int, warm: int = 3) -> None:
+    """Trace ``n`` calls of ``run`` (after ``warm`` untraced ones) and print
+    the device's busy time (the union of kernel intervals), its share of
+    the first-to-last-kernel span, the kernels per call, and device time by
     group and by kernel."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
+    for _ in range(warm):
         run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1089,15 +1140,15 @@ def time_forward(predict, label, kwargs, inputs, card, compute_dtype=torch.float
     x1 = torch.from_numpy(inputs["batch1"]).to(device, compute_dtype)
     x4 = torch.from_numpy(inputs["batch4"]).to(device, compute_dtype)
     with torch.inference_mode():
-        lat = host_times(lambda: model(x1), 20)
+        lat = host_times(lambda: model(x1), 10)
         torch.cuda.reset_peak_memory_stats()
         before = torch.cuda.memory_allocated()  # weights, inputs and whatever else is live
-        step = host_times(lambda: model(x4), 10)
+        step = host_times(lambda: model(x4), 5)
         peak = torch.cuda.max_memory_allocated()
         fps = 4 * 20 / (statistics.median(step) / 1e3)
         print(f"[{card}] {label} batch-1 forward latency: median "
               f"{statistics.median(lat):.2f} ms, min {min(lat):.2f} ms, mean "
-              f"{statistics.mean(lat):.2f} ms (20 runs)")
+              f"{statistics.mean(lat):.2f} ms (10 runs)")
         print(f"[{card}] {label} batch-4 forward: median {statistics.median(step):.2f} ms -> "
               f"{fps:.1f} frames/s (4*20 frames per step)")
         print(f"[{card}] {label} peak device memory (batch-4 forward): {peak / 2**20:.1f} MiB, "
@@ -1105,7 +1156,7 @@ def time_forward(predict, label, kwargs, inputs, card, compute_dtype=torch.float
         for x in (x1, x4):
             if x.shape[0] in profile_batches:
                 profile_device(lambda: model(x), card, f"{label} profile batch {x.shape[0]}",
-                               "forward", 5)
+                               "forward", 3, warm=0)
 
 
 # -- training -------------------------------------------------------------
@@ -1617,7 +1668,7 @@ def time_train(card, label: str, kwargs: dict, counts, runs,
         def run():
             trainer.train_step(batch, LR, CLIP)
 
-        times = host_times(run, 10)
+        times = host_times(run, 3, warm=1)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         before = torch.cuda.memory_allocated()  # weights, optimizer state, batch
@@ -1631,7 +1682,7 @@ def time_train(card, label: str, kwargs: dict, counts, runs,
         if compute_dtype != torch.float32:
             what = f"{what} {str(compute_dtype)[6:]}"
         print(f"[{card}] train {what} batch {b}: step median {med:.2f} ms, min "
-              f"{min(times):.2f} ms, mean {statistics.mean(times):.2f} ms (10 steps after 3) -> "
+              f"{min(times):.2f} ms, mean {statistics.mean(times):.2f} ms (3 steps after 1) -> "
               f"{b * 20 / (med / 1e3):.1f} frames/s; peak device memory of a step "
               f"{peak / 2**20:.1f} MiB, of which {before / 2**20:.1f} MiB allocated before it; "
               f"launches {launches[-1]}")
@@ -1639,7 +1690,7 @@ def time_train(card, label: str, kwargs: dict, counts, runs,
         if launches[-1] != want:
             raise AssertionError(f"train {what} batch {b}: launches {launches[-1]}, want {want}")
         if profile:
-            profile_device(run, card, f"train {what} profile batch {b}", "step", 3)
+            profile_device(run, card, f"train {what} profile batch {b}", "step", 2, warm=0)
     return launches
 
 
@@ -1801,19 +1852,18 @@ def time_baseline(name: str, counts, card: str) -> None:
     x1 = torch.from_numpy(rng.rand(1, 5, 1, IMG, IMG).astype(np.float32)).to(device)
     x4 = torch.from_numpy(rng.rand(4, 5, 1, IMG, IMG).astype(np.float32)).to(device)
     with torch.inference_mode():
-        lat = host_times(lambda: model(x1), 20)
+        lat = host_times(lambda: model(x1), 10)
         torch.cuda.reset_peak_memory_stats()
         before = torch.cuda.memory_allocated()
-        fwd4 = host_times(lambda: model(x4), 10)
+        fwd4 = host_times(lambda: model(x4), 5)
         peak = torch.cuda.max_memory_allocated()
         print(f"[{card}] {name} batch-1 forward latency: median {statistics.median(lat):.2f} ms, "
-              f"min {min(lat):.2f} ms, mean {statistics.mean(lat):.2f} ms (20 runs); batch-4 "
+              f"min {min(lat):.2f} ms, mean {statistics.mean(lat):.2f} ms (10 runs); batch-4 "
               f"forward median {statistics.median(fwd4):.2f} ms -> "
               f"{4 * 20 / (statistics.median(fwd4) / 1e3):.1f} frames/s; peak device memory "
               f"(batch-4 forward) {peak / 2**20:.1f} MiB, of which {before / 2**20:.1f} MiB "
               f"allocated before it")
-        kernel_breakdown(lambda: model(x1), f"{name} batch-1 forward", n=3)
-        profile_device(lambda: model(x4), card, f"{name} profile batch 4", "forward", 3)
+        profile_device(lambda: model(x4), card, f"{name} profile batch 4", "forward", 2, warm=0)
         if name == "LPTQPN":
             print(f"[{card}] LPTQPN's q·kᵀ products (42 a forward, the gemm group above): byte "
                   f"bound {lptqpn_gram_bound_ms(4):.3f} ms a batch-4 forward (q and k read "
@@ -1826,7 +1876,7 @@ def time_baseline(name: str, counts, card: str) -> None:
         def run():
             trainer.train_step(batch, trainer.preset.lr(1, trainer.preset.epochs), 0.0)
 
-        times = host_times(run, 10)
+        times = host_times(run, 5, warm=2)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         before = torch.cuda.memory_allocated()
@@ -1836,13 +1886,13 @@ def time_baseline(name: str, counts, card: str) -> None:
         launches, peak = counts.read(), torch.cuda.max_memory_allocated()
         med = statistics.median(times)
         print(f"[{card}] train {name} batch {b}: step median {med:.2f} ms, min {min(times):.2f} "
-              f"ms, mean {statistics.mean(times):.2f} ms (10 steps after 3) -> "
+              f"ms, mean {statistics.mean(times):.2f} ms (5 steps after 2) -> "
               f"{b * 20 / (med / 1e3):.1f} frames/s; peak device memory of a step "
               f"{peak / 2**20:.1f} MiB, of which {before / 2**20:.1f} MiB allocated before it")
         if launches != NO_LAUNCHES:
             raise AssertionError(f"train {name}: hand kernels launched {launches}")
         if b == 4:
-            profile_device(run, card, f"train {name} profile batch 4", "step", 3)
+            profile_device(run, card, f"train {name} profile batch 4", "step", 2, warm=0)
     del trainer
     torch.cuda.empty_cache()
 
@@ -2371,48 +2421,6 @@ def bf16_vs_fp32(name: str, counts) -> None:
         raise AssertionError(f"{name} bf16: too far from fp32")
 
 
-def time_bf16_baseline(name: str, counts, card: str) -> None:
-    """The batch-1 latency (median of 10), batch-4 frames/s (median of 5),
-    batch-4 step time (median of 5 after 3) and the peak memory of the
-    batch-4 forward and step, in fp32 and bf16 from the same weights, in
-    this run."""
-    from adnm_tpu_torch.cli import predict
-
-    dev = torch.device("cuda")
-    rng = np.random.RandomState(0)
-    x1 = torch.from_numpy(rng.rand(1, 5, 1, IMG, IMG).astype(np.float32)).to(dev)
-    x4 = torch.from_numpy(rng.rand(4, 5, 1, IMG, IMG).astype(np.float32)).to(dev)
-    batch = torch.from_numpy(train_batch(4)).to(dev)
-    rows = {}
-    for dt in (torch.float32, torch.bfloat16):
-        model = predict.load_model(None, dev, model_name=name, img_size=IMG, compute_dtype=dt)
-        with torch.inference_mode():
-            lat = statistics.median(host_times(lambda: model(x1.to(dt)), 10))
-            torch.cuda.reset_peak_memory_stats()
-            fwd4 = statistics.median(host_times(lambda: model(x4.to(dt)), 5))
-            peak_fwd = torch.cuda.max_memory_allocated()
-        del model
-        trainer = baseline_trainer(name, dev)
-        trainer.compute_dtype = dt
-        lr = trainer.preset.lr(1, trainer.preset.epochs)
-        counts.reset()
-        step = statistics.median(host_times(lambda: trainer.train_step(batch, lr, 0.0), 5))
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        trainer.train_step(batch, lr, 0.0)
-        torch.cuda.synchronize()
-        peak_step = torch.cuda.max_memory_allocated()
-        del trainer
-        torch.cuda.empty_cache()
-        if counts.read() != NO_LAUNCHES:
-            raise AssertionError(f"{name} {dt}: hand kernels launched {counts.read()}")
-        rows[str(dt)[6:]] = (lat, 4 * 20 / (fwd4 / 1e3), step, peak_fwd, peak_step)
-    print(f"[{card}] {name} fp32 / bf16: " + "; ".join(
-        f"{dt} batch-1 latency {r[0]:.2f} ms, batch-4 {r[1]:.1f} frames/s, batch-4 step "
-        f"{r[2]:.2f} ms, peak memory b4 forward {r[3] / 2**20:.1f} MiB, b4 step "
-        f"{r[4] / 2**20:.1f} MiB" for dt, r in rows.items()))
-
-
 def bf16_baselines_through_clis(predict, counts, root: str) -> None:
     """The train CLI with --bf16 for SmaAt (BatchNorm) and TransUnet (4 steps
     at batch 4, no hand kernel launched, fp32 parameters and running
@@ -2463,7 +2471,6 @@ def bf16_baseline_phase(predict, counts, card: str) -> None:
     t_phase = time.perf_counter()
     for name in ALL_BASELINES:
         bf16_vs_fp32(name, counts)
-        time_bf16_baseline(name, counts, card)
     with tempfile.TemporaryDirectory() as root:
         bf16_baselines_through_clis(predict, counts, root)
     print(f"bf16 baseline phase: {time.perf_counter() - t_phase:.1f} s")
@@ -2845,6 +2852,393 @@ def parallel_phase(card: str) -> dict:
     return res
 
 
+# -- single dispatch: K training steps and the eval forward as CUDA graphs ------
+
+# The hand kernels' names in a trace (K1 and K3: rms_norm*; K2: ssd_*).
+HAND_KERNELS = ("rms_norm", "ssd_")
+# (label, trainer kind, model options, batch, K, whole-forward remat, dtype):
+# phase 6i (a)'s cases; the hand kernels a step launches are ``step_launches``'.
+GRAPH_STEP_CASES = [
+    ("duality", "ADNMUnet", {}, 4, 4, False, torch.float32),
+    ("bimamba", "ADNMUnet", BIMAMBA, 1, 2, False, torch.float32),
+    ("duality bf16", "ADNMUnet", {}, 4, 2, False, torch.bfloat16),
+    ("SmaATUnet", "SmaATUnet", {}, 4, 2, False, torch.float32),
+    ("SwinUnet --remat", "SwinUnet", {}, 4, 2, True, torch.float32),
+    ("TrajGRU", "TrajGRU", {}, 4, 2, False, torch.float32),
+]
+
+
+def graph_case_trainer(kind: str, options: dict, k: int, remat: bool, dtype):
+    """The CLI's trainer of ``kind`` at full width, ``scan_steps=k``: the
+    ADNM-UNet with the reference init, a baseline at its published rates."""
+    device = torch.device("cuda")
+    kwargs = {"scan_steps": k, "remat_forward": remat}
+    if kind == "ADNMUnet":
+        return make_trainer(device, dtype, trainer_kwargs=kwargs, **options)
+    return baseline_trainer(kind, device, compute_dtype=dtype, **kwargs)
+
+
+def synthetic_batches(n: int, b: int, seed: int = 0) -> np.ndarray:
+    """(n, b, 25, 1, IMG, IMG): n batches of b synthetic clips, each its own."""
+    from adnm_tpu_torch.data.shanghai import _synthetic_clip
+
+    rng = np.random.default_rng(seed)
+    clips = np.stack([_synthetic_clip(rng, 25, IMG) for _ in range(n * b)])
+    return clips[:, :, None].reshape(n, b, 25, 1, IMG, IMG)
+
+
+def graph_groups(n: int, k: int, b: int, seed: int = 0) -> list:
+    """``n`` (k, b, ...) groups on the card, each clip its own."""
+    return [torch.from_numpy(g).cuda()
+            for g in synthetic_batches(n * k, b, seed).reshape(n, k, b, 25, 1, IMG, IMG)]
+
+
+def hand_kernel_names(run) -> dict:
+    """{kernel name: launches} of the hand kernels that one call of ``run``
+    runs on the card, from a ``torch.profiler`` trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    names: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and any(p in e.name
+                                                                   for p in HAND_KERNELS):
+            names[e.name] = names.get(e.name, 0) + 1
+    return names
+
+
+def trace_launches(names: dict) -> dict:
+    """Each counted wrapper's launches in the hand kernels of a trace
+    (``hand_kernel_names``): a K1 launch runs one rms_norm row or tile
+    kernel, its backward one rms_norm_bwd kernel (and the dw reduction); a
+    K2 launch ends in one ssd_scan_fused or ssd_scan_outputs kernel, its
+    backward in one ssd_bwd_sums."""
+    def n(*parts, but=()):
+        return sum(v for k, v in names.items()
+                   if any(p in k for p in parts) and not any(b in k for b in but))
+
+    return {**NO_LAUNCHES, "rms_norm": n("rms_norm", but=("bwd", "dw_reduce")),
+            "rms_norm_backward": n("rms_norm_bwd"),
+            "ssd_chunked_scan": n("ssd_scan_fused", "ssd_scan_outputs"),
+            "ssd_chunked_scan_backward": n("ssd_bwd_sums")}
+
+
+def assert_same_trainer_state(label: str, a, b) -> None:
+    """Every parameter, buffer and optimizer state entry of two trainers,
+    bit for bit, and the step."""
+    bad = [n for (n, p), q in zip(a.model.state_dict().items(), b.model.state_dict().values())
+           if not torch.equal(p, q)]
+    sa, sb = a.optimizer.state_dict()["state"], b.optimizer.state_dict()["state"]
+    bad += [(i, k) for i, st in sa.items() for k, v in st.items()
+            if not torch.equal(v, sb[i][k])]
+    if bad or a.step != b.step or sa.keys() != sb.keys():
+        raise AssertionError(f"{label}: graphed and eager trainers differ at {bad[:6]} "
+                             f"(steps {a.step}, {b.step})")
+
+
+def check_graph_steps(counts, label, kind, options, b, k, remat, dtype) -> dict:
+    """(a): two groups of k steps through ``Trainer(scan_steps=k).train_steps``
+    (the first eager and captured, the second one replay) against 2k eager
+    steps from the same weights, every loss, gradient norm and state entry
+    bit for bit; the launches of the replay as those of k eager steps, by
+    the counters and by the hand kernels' names in a trace."""
+    scan = options.get("linear_attn_duality") is False
+    eager = graph_case_trainer(kind, options, 1, remat, dtype)
+    graphed = graph_case_trainer(kind, options, k, remat, dtype)
+    launches = []
+    for g, group in enumerate(graph_groups(2, k, b)):
+        counts.reset()
+        want = [eager.train_step(batch, LR, CLIP) for batch in group]
+        torch.cuda.synchronize()
+        eager_counts = counts.read()
+        counts.reset()
+        losses, norms = graphed.train_steps(group, LR, CLIP)
+        torch.cuda.synchronize()
+        launches.append(counts.read())
+        if not (torch.equal(losses, torch.stack([w[0] for w in want]))
+                and torch.equal(norms, torch.stack([w[1] for w in want]))):
+            eager_values = [[float(v) for v in w] for w in want]
+            raise AssertionError(f"graph {label}: group {g} losses {losses.tolist()} norms "
+                                 f"{norms.tolist()}, eager {eager_values}")
+        if launches[-1] != eager_counts:
+            raise AssertionError(f"graph {label}: group {g} launched {launches[-1]}, eager "
+                                 f"{eager_counts}")
+    assert_same_trainer_state(f"graph {label}", graphed, eager)
+    captured = next(iter(graphed.graphs.graphs.values()))
+    want = (step_launches(True, scan) if kind == "ADNMUnet" else dict(NO_LAUNCHES))
+    want = {n: k * v for n, v in want.items()}
+    if launches[-1] != want:
+        raise AssertionError(f"graph {label}: a replay launched {launches[-1]}, want {want}")
+    names = {}
+    if kind == "ADNMUnet":
+        group = graph_groups(1, k, b, seed=1)[0]
+        replay = hand_kernel_names(lambda: graphed.train_steps(group, LR, CLIP))
+        steps = hand_kernel_names(lambda: [eager.train_step(x, LR, CLIP) for x in group])
+        if replay != steps or not replay:
+            raise AssertionError(f"graph {label}: hand kernels of a replay {replay}, of {k} "
+                                 f"eager steps {steps}")
+        if trace_launches(replay) != want:
+            raise AssertionError(f"graph {label}: launches in the trace of a replay "
+                                 f"{trace_launches(replay)}, want {want}")
+        names = replay
+    print(f"graph {label} batch {b}, K={k}{' remat' if remat else ''} "
+          f"{str(dtype)[6:]}: 2 groups bit-equal to {2 * k} eager steps (losses, norms, "
+          f"parameters, buffers, optimizer state); a replay launched {launches[-1]}; "
+          f"capture {captured.capture_s:.3f} s, pool {captured.pool_bytes / 2**20:.1f} MiB"
+          f"{'; trace of a replay: ' + str(names) if names else ''}")
+    return {"launches_per_replay": trace_launches(names) if names else launches[-1], "k": k,
+            "pool_mib": captured.pool_bytes / 2**20, "capture_s": captured.capture_s}
+
+
+def check_graph_epoch(counts) -> None:
+    """(a): an epoch of 5 batches at K=2 (two replays, one eager tail)
+    against five eager steps, after a first group that captured the graph;
+    then an LR and clip change between two replays."""
+    eager = graph_case_trainer("ADNMUnet", {}, 1, False, torch.float32)
+    graphed = graph_case_trainer("ADNMUnet", {}, 2, False, torch.float32)
+    first, five = synthetic_batches(2, 1, seed=3), synthetic_batches(5, 1, seed=5)
+    logs = []
+    for t in (eager, graphed):
+        t.train_epoch(list(first), LR, CLIP)
+        counts.reset()
+        logs.append(t.train_epoch(list(five), LR, CLIP))
+        torch.cuda.synchronize()
+        logs.append(counts.read())
+    if logs[0] != logs[2] or logs[1] != logs[3] or logs[0]["steps"] != 5:
+        raise AssertionError(f"graph epoch: eager {logs[0]} {logs[1]}, graphed {logs[2]} "
+                             f"{logs[3]}")
+    assert_same_trainer_state("graph epoch", graphed, eager)
+    group = graph_groups(1, 2, 1, seed=2)[0]
+    for lr, clip in ((LR / 2, 1e9), (LR / 4, CLIP / 2)):
+        want = [eager.train_step(x, lr, clip) for x in group]
+        losses, norms = graphed.train_steps(group, lr, clip)
+        if not torch.equal(norms, torch.stack([w[1] for w in want])):
+            raise AssertionError(f"graph LR {lr} clip {clip}: norms {norms.tolist()}")
+    assert_same_trainer_state("graph LR and clip change", graphed, eager)
+    print(f"graph epoch of 5 batches at K=2 (2 replays, 1 eager tail) = 5 eager steps: "
+          f"{logs[2]}, launches {logs[3]}; two replays at new LRs and clip thresholds "
+          f"({LR / 2:g}, no clip; {LR / 4:g}, {CLIP / 2:g}) bit-equal to eager steps")
+
+
+def epoch_record(root: str) -> dict:
+    """The train CLI's epoch record under ``root``, without its clock."""
+    with open(os.path.join(root, "results", "Shanghai", "ADNMUnet_train.jsonl")) as f:
+        (rec,) = [json.loads(line) for line in f]
+    return {k: v for k, v in rec.items() if k not in ("seconds", "ts")}
+
+
+def check_scan_cli(root: str, snapshot: str) -> None:
+    """(b): ``cli.train --scan-steps 4`` (one group, run eagerly and captured)
+    and ``--scan-steps 2`` (a capture and a replay) give the eager CLI's
+    epoch under ``root``: its epoch record and its epoch snapshot, bit for
+    bit."""
+    from adnm_tpu_torch.cli import train as train_cli
+
+    want = torch.load(snapshot, map_location="cpu", weights_only=True)
+    for k in (4, 2):
+        sub = os.path.join(root, f"scan{k}")
+        out = train_cli.main([*TRAIN_ARGS, "--img-size", str(IMG), "--root", sub,
+                              "--scan-steps", str(k)])
+        got = torch.load(os.path.join(sub, os.path.relpath(snapshot, root)), map_location="cpu",
+                         weights_only=True)
+        same = epoch_record(sub) == epoch_record(root) and got["step"] == want["step"]
+        same = same and all(torch.equal(v, got["params"][n]) for n, v in want["params"].items())
+        same = same and all(torch.equal(v, got["opt_state"]["state"][i][e])
+                            for i, st in want["opt_state"]["state"].items()
+                            for e, v in st.items())
+        if not same or out["trainer"].scan_steps != k:
+            raise AssertionError(f"train CLI --scan-steps {k}: its epoch {epoch_record(sub)} "
+                                 f"differs from the eager CLI's {epoch_record(root)}")
+        shutil.rmtree(sub)
+        print(f"train CLI --scan-steps {k}: {epoch_record(root)}; its epoch record and "
+              f"snapshot bit-equal to the eager CLI's")
+
+
+# the hand kernels' launches a forward, checked in a trace of a replay
+FORWARD_LAUNCHES = {"duality": {"rms_norm": K1_PER_FORWARD},
+                    "bimamba": {"rms_norm": K1_PER_FORWARD, "ssd_chunked_scan": K2_PER_FORWARD}}
+# (label, predict.load_model options) of (c)'s graphed forwards
+GRAPH_FORWARD_CASES = [("duality", {}), ("bimamba", BIMAMBA), ("MLA", MLA),
+                       ("LAPS duality", {"dataset": "LAPS"}),
+                       ("SmaATUnet", {"model_name": "SmaATUnet"}),
+                       ("TrajGRU", {"model_name": "TrajGRU"}),
+                       ("SwinUnet", {"model_name": "SwinUnet"})]
+
+
+def check_graph_forwards(predict, counts) -> dict:
+    """(c): ``forecast`` with the caller's ``GraphSet`` (the first call of a
+    shape eager and captured, the second replayed) and with the default (a
+    set for the call) against without graphs, at batch 1 and 4, bit for
+    bit, with the same launches. For the models with hand kernels, a trace
+    of a batch-4 replay runs the hand kernels of an eager forward, as many
+    as the counters say (``FORWARD_LAUNCHES``). Returns each model's
+    launches a graphed forward, from that trace where there is one."""
+    from adnm_tpu_torch.utils.graphs import GraphSet
+
+    rng = np.random.RandomState(5)
+    dev = torch.device("cuda")
+    per_forward = {}
+    for label, kwargs in GRAPH_FORWARD_CASES:
+        model = predict.load_model(None, dev, img_size=IMG, **kwargs)
+        graphs = GraphSet(dev)
+        for b in (1, 4):
+            x = rng.rand(b, 5, 1, IMG, IMG).astype(np.float32)
+            counts.reset()
+            want = predict.forecast(model, x, b, dev, graphs=False)
+            eager_counts = counts.read()
+            for i, owned in enumerate((graphs, graphs, None)):
+                counts.reset()
+                got = predict.forecast(model, x, b, dev, graphs=owned)
+                if not np.array_equal(got, want) or counts.read() != eager_counts:
+                    raise AssertionError(f"graphed forward {label} batch {b} call {i}: max "
+                                         f"diff {np.abs(got - want).max()}, launches "
+                                         f"{counts.read()} against {eager_counts}")
+        per_forward[label] = counts.read()
+        traced = ""
+        if label in FORWARD_LAUNCHES:
+            replay = hand_kernel_names(lambda: predict.forecast(model, x, 4, dev, graphs=graphs))
+            eager = hand_kernel_names(lambda: predict.forecast(model, x, 4, dev, graphs=False))
+            want = {**NO_LAUNCHES, **FORWARD_LAUNCHES[label]}
+            if replay != eager or trace_launches(replay) != want or per_forward[label] != want:
+                raise AssertionError(f"graphed forward {label}: hand kernels of a replay "
+                                     f"{replay}, of an eager forward {eager}; counted "
+                                     f"{per_forward[label]}, want {want}")
+            per_forward[label] = trace_launches(replay)
+            traced = f"; trace of a batch-4 replay: {replay}"
+        print(f"graphed forward {label}: batch 1 and 4, capture, replay and a call's own set "
+              f"bit-equal to the eager forward; launches a forward {per_forward[label]}{traced}")
+        del model, graphs
+    return per_forward
+
+
+def check_graph_clis(predict, root: str, snapshot: str) -> None:
+    """(c): ``predict --ckpt --horizon 40`` (its second forward a replay)
+    against the eager chain of the same weights, and ``validate`` at batch
+    1 (three test clips: a capture, two replays) against the eager
+    ``eval_epoch`` of its trainer."""
+    from adnm_tpu_torch.cli import validate as validate_cli
+    from adnm_tpu_torch.data.loader import BatchLoader
+    from adnm_tpu_torch.data.shanghai import make_datasets
+
+    x = os.path.join(root, "graph_x.npy")
+    np.save(x, train_batch(1)[0, :5, 0])
+    got = predict.main(["--input", x, "--img-size", str(IMG), "--ckpt", snapshot, "--horizon",
+                        "40", "--output", os.path.join(root, "graph_y.npy")])
+    model = predict.load_model(None, torch.device("cuda"), ckpt=snapshot)
+    want = predict.forecast(model, np.load(x)[None, :, None], 4, torch.device("cuda"), 40,
+                            graphs=False)
+    if not np.array_equal(got, want):
+        raise AssertionError(f"predict --horizon 40: graphed chain differs from the eager one "
+                             f"by {np.abs(got - want).max()}")
+    args = list(DATA_ARGS)
+    args[args.index("--batch-size") + 1] = "1"
+    val = validate_cli.main([*args, "--img-size", str(IMG), "--root", root, "--ckpt", snapshot])
+    test = make_datasets(None, IMG, synthetic_len=SYNTHETIC_LEN)[2]
+    loss, preds, _ = val["trainer"].eval_epoch(BatchLoader(test, 1, drop_last=False),
+                                               collect=True, graphs=False)
+    if not (np.array_equal(val["preds"], preds) and val["test_loss"] == loss):
+        raise AssertionError("validate: graphed predictions differ from the eager ones")
+    print(f"predict --ckpt --horizon 40 (a capture, a replay) and validate at batch 1 "
+          f"({preds.shape[0]} clips: a capture, {preds.shape[0] - 1} replays): bit-equal to "
+          f"their eager forwards")
+
+
+def time_graph_forward(card: str, predict, label: str, kwargs: dict, inputs) -> None:
+    """(d): batch-1 latency and batch-4 frames/s of the eager forward and of
+    its graph replay (``GraphSet.run``: the input copied in, the output
+    copied out), from one run; their busy share and kernels per forward, the
+    peak memory and the capture's seconds."""
+    from adnm_tpu_torch.utils.graphs import GraphSet
+
+    device = torch.device("cuda")
+    model = predict.load_model(None, device, img_size=IMG, **kwargs)
+    graphs = GraphSet(device)
+    with torch.inference_mode():
+        for b in (1, 4):
+            x = torch.from_numpy(inputs[f"batch{b}"]).to(device)
+            key = ("forward", b)
+            graphs.run(key, model, (x,))
+            modes = {"eager": lambda: model(x), "graphed": lambda: graphs.run(key, model, (x,))}
+            for mode, run in modes.items():
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                times = host_times(run, 5 if b == 1 else 3)
+                med = statistics.median(times)
+                what = (f"latency median {med:.2f} ms, min {min(times):.2f} ms" if b == 1
+                        else f"median {med:.2f} ms -> {4 * 20 / (med / 1e3):.1f} frames/s")
+                print(f"[{card}] {label} {mode} forward batch {b}: {what}; peak allocated "
+                      f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB"
+                      f"{' besides the graph pool' if mode == 'graphed' else ''}")
+                profile_device(run, card, f"{label} {mode} forward profile batch {b}",
+                               "forward", 2, warm=0)
+            print(f"[{card}] {label} forward batch {b}: capture "
+                  f"{graphs.graphs[key].capture_s:.3f} s, graph pool "
+                  f"{graphs.graphs[key].pool_bytes / 2**20:.1f} MiB")
+
+
+def time_graph_steps(card: str, label: str, make, b: int, k: int = 2) -> None:
+    """(d): the step median of eager ``train_step`` and of a graph replay of
+    k steps (per step), from one run; busy share, kernels a step, the peak
+    memory and the capture's seconds."""
+    trainer = make(k)
+    group = graph_groups(1, k, b, seed=4)[0]
+    trainer.train_steps(group, LR, CLIP)  # eager, captured
+    modes = {"eager": lambda: [trainer.train_step(x, LR, CLIP) for x in group],
+             "graphed": lambda: trainer.train_steps(group, LR, CLIP)}
+    for mode, run in modes.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = [t / k for t in host_times(run, 3, warm=1)]
+        med = statistics.median(times)
+        print(f"[{card}] train {label} {mode} batch {b}: step median {med:.2f} ms, min "
+              f"{min(times):.2f} ms (3 groups of {k} steps after 1) -> "
+              f"{b * 20 / (med / 1e3):.1f} frames/s; peak allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB"
+              f"{' besides the graph pool' if mode == 'graphed' else ''}")
+        profile_device(run, card, f"train {label} {mode} profile batch {b}, a group of {k} "
+                       f"steps", "group", 1, warm=0)
+    captured = next(iter(trainer.graphs.graphs.values()))
+    print(f"[{card}] train {label} batch {b}: capture of {k} steps {captured.capture_s:.3f} s, "
+          f"graph pool {captured.pool_bytes / 2**20:.1f} MiB")
+
+
+def single_dispatch_phase(predict, counts, card: str, inputs) -> dict:
+    """Phase 6i: (a) graphed training steps, (c) graphed forwards, (d)
+    times; (b) and the CLIs' part of (c) run in phase 5's directory
+    (``check_scan_cli``, ``check_graph_clis``). Returns the hand kernels'
+    launches per graphed step and forward."""
+    t_phase = time.perf_counter()
+    print(f"single dispatch phase on {card}")
+    steps = {}
+    for label, kind, options, b, k, remat, dtype in GRAPH_STEP_CASES:
+        steps[label] = check_graph_steps(counts, label, kind, options, b, k, remat, dtype)
+        torch.cuda.empty_cache()
+    check_graph_epoch(counts)
+    per_forward = check_graph_forwards(predict, counts)
+    torch.cuda.empty_cache()
+    for label, kwargs in (("duality", {}), ("bimamba", BIMAMBA),
+                          ("TransUnet", {"model_name": "TransUnet"}),
+                          ("SwinUnet", {"model_name": "SwinUnet"})):
+        time_graph_forward(card, predict, label, kwargs, inputs)
+        torch.cuda.empty_cache()
+    duality = lambda k: graph_case_trainer("ADNMUnet", {}, k, False, torch.float32)  # noqa: E731
+    for b in (1, 4):
+        time_graph_steps(card, "duality", duality, b)
+    for name in ("TrajGRU", "SwinUnet"):
+        time_graph_steps(card, name, lambda k: graph_case_trainer(name, {}, k, False,
+                                                                  torch.float32), 4)
+        torch.cuda.empty_cache()
+    print(f"single dispatch phase: {time.perf_counter() - t_phase:.1f} s")
+    per_step = {n: v // steps["duality"]["k"]
+                for n, v in steps["duality"]["launches_per_replay"].items()}
+    per_step_scan = {n: v // steps["bimamba"]["k"]
+                     for n, v in steps["bimamba"]["launches_per_replay"].items()}
+    return {"step": per_step, "bimamba_step": per_step_scan, "forward": per_forward}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -2860,8 +3254,14 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     resolve_device("cuda")  # fp32 without TF32 for the kernels' checks
 
+    def phase_done(name: str, since: float) -> float:
+        now = time.perf_counter()
+        print(f"{name}: {now - since:.1f} s")
+        return now
+
     # -- build ---------------------------------------------------------
     build_all(_build, {"rms_norm": k1_module.SOURCES, "ssd_scan": ssd.SOURCES})
+    t = phase_done("phases 1-2 (set-up, build)", t_start)
 
     # -- kernels against their plain versions ---------------------------
     k1 = check_k1(rms_norm, rms_norm_reference)
@@ -2869,6 +3269,7 @@ def main() -> None:
     k3 = check_k3(k1_module)
     k2 = check_k2(ssd)
     k2b = check_k2_backward(ssd)
+    t = phase_done("phase 3 (kernels against their plain versions)", t)
 
     # -- the main paths -------------------------------------------------
     counts = kernel_counts()
@@ -2883,18 +3284,24 @@ def main() -> None:
     bimamba, bimamba_outs = serve_model(predict, "bimamba", BIMAMBA, inputs, counts,
                                         FORWARDS_PER_REQUEST)
     serve_model(predict, "vssd-bimamba", VSSD_BIMAMBA, inputs, counts, ["batch1"])
+    t = phase_done("phase 4 (serving)", t)
     with tempfile.TemporaryDirectory() as root:
         trained, snapshot, trained_metrics = train_through_cli(counts, root)
         evaluate_through_clis(counts, root, snapshot, trained_metrics, card)
+        t = phase_done("phases 5 and 5b (train, validate, visualise, serve)", t)
+        # phase 6i (b) and the CLIs of (c), on this epoch
+        check_scan_cli(root, snapshot)
+        check_graph_clis(predict, root, snapshot)
+        t = phase_done("single dispatch phase, its CLIs", t)
 
-    # -- timing -----------------------------------------------------------
-    time_forward(predict, "duality", {}, inputs, card)
-    time_forward(predict, "bimamba", BIMAMBA, inputs, card)
+    # -- timing (the fp32 forwards and duality's profiles: phase 6i (d)) ----
     # (batch, refiner remat, profile) of each training measurement
-    time_train(card, "duality", {}, counts, [(1, True, True), (4, True, True), (4, False, False)])
+    time_train(card, "duality", {}, counts,
+               [(1, True, False), (4, True, False), (4, False, False)])
     scan_steps = time_train(card, "bimamba", BIMAMBA, counts,
                             [(1, True, True), (4, True, False), (4, False, False)])
     time_train(card, "vssd-bimamba", VSSD_BIMAMBA, counts, [(1, True, False)])
+    t = phase_done("phase 6 (timing)", t)
 
     # -- bf16 compute: serving, training, timing -------------------------
     t_bf16 = time.perf_counter()
@@ -2914,8 +3321,10 @@ def main() -> None:
     print(f"bf16 phase: {time.perf_counter() - t_bf16:.1f} s")
 
     # -- one training step: twice on the card, card against CPU, bf16 ------
+    t = time.perf_counter()
     duality_bf16_grad_err = compare_step_with_cpu("duality", {})
     compare_step_with_cpu("bimamba", BIMAMBA)
+    phase_done("phase 6c (a step card against CPU)", t)
 
     # -- the baselines: SmaAt-UNet, ConvLSTM, TrajGRU, LPTQPN ---------------
     baseline_phase(counts, card)
@@ -2929,6 +3338,9 @@ def main() -> None:
 
     # -- data parallelism: DDP over NCCL and gloo, ZeRO-1, the DP train CLI ----
     par = parallel_phase(card)
+
+    # -- single dispatch: K steps and the eval forward as CUDA graphs ---------
+    graphed = single_dispatch_phase(predict, counts, card, inputs)
     per_rank = par["launches_per_rank"]
 
     # Launches: serving kernels from the bimamba requests, K1's backward
@@ -2960,6 +3372,8 @@ def main() -> None:
                  "launches_per_step": laps["cli_step"]["rms_norm"],
                  "rows": mla_rows(k1["timing"], K1_LAPS)},
         "parallel": {"launches_per_rank_step": per_rank["duality"]["rms_norm"]},
+        "graphed": {"launches_per_forward": graphed["forward"]["duality"]["rms_norm"],
+                    "launches_per_step": graphed["step"]["rms_norm"]},
     }, {
         "name": "rms_norm_backward", "route": "cuda", "source": "adnm_tpu_torch/csrc/rms_norm.cu",
         "replaces": "adnm_tpu/ops/pallas/fused_norm.py:57",
@@ -2970,6 +3384,7 @@ def main() -> None:
         "laps": {"launches_per_step": laps["cli_step"]["rms_norm_backward"],
                  "rows": mla_rows(k1b["timing"], K1_LAPS)},
         "parallel": {"launches_per_rank_step": per_rank["duality"]["rms_norm_backward"]},
+        "graphed": {"launches_per_step": graphed["step"]["rms_norm_backward"]},
     }, {
         "name": "ssd_chunked_scan", "route": "cuda", "source": "adnm_tpu_torch/csrc/ssd_scan.cu",
         "replaces": "adnm_tpu/ops/pallas/ssd_scan.py:132",
@@ -2981,6 +3396,8 @@ def main() -> None:
                  "launches_per_step": laps["bimamba_step"]["ssd_chunked_scan"],
                  "rows": k2_rows(k2["timing"], [(b, *K2_LAPS) for b in (1, 4)])},
         "parallel": {"launches_per_rank_step": per_rank["bimamba"]["ssd_chunked_scan"]},
+        "graphed": {"launches_per_forward": graphed["forward"]["bimamba"]["ssd_chunked_scan"],
+                    "launches_per_step": graphed["bimamba_step"]["ssd_chunked_scan"]},
     }, {
         "name": "ssd_chunked_scan_backward", "route": "cuda",
         "source": "adnm_tpu_torch/csrc/ssd_scan.cu",
@@ -2992,6 +3409,7 @@ def main() -> None:
                  "rows": k2_rows(k2b["timing"], [(b, *K2_LAPS) for b in (1, 4)])},
         "parallel": {"launches_per_rank_step":
                      per_rank["bimamba"]["ssd_chunked_scan_backward"]},
+        "graphed": {"launches_per_step": graphed["bimamba_step"]["ssd_chunked_scan_backward"]},
     }, {
         "name": "gated_rms_norm", "route": "cuda", "source": "adnm_tpu_torch/csrc/rms_norm.cu",
         "replaces": "adnm_tpu/ops/pallas/fused_norm.py:63",

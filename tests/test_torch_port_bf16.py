@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import functools
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -465,7 +466,8 @@ def bf16_run(tmp_path_factory):
     out = train_cli.main([*CLI_ARGS, "--bf16", "--epochs", "1", "--save-every", "1",
                           "--root", root])
     snapshot = ckpt.best_ckpt_dir(root, "Shanghai", "ADNMUnet") + "_epoch1"
-    return root, out, snapshot
+    yield root, out, snapshot
+    shutil.rmtree(root)  # after the module's last test: the snapshot is 851 MB
 
 
 def test_train_cli_trains_in_bf16_with_fp32_parameters_and_adamw_state(bf16_run):

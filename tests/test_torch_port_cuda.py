@@ -1024,3 +1024,106 @@ def test_two_gloo_ranks_on_one_card_match_the_single_process(card, tmp_path,
     for k, v in plain["params"].items():
         if v.is_floating_point() and v.numel():
             assert float((a["params"][k] - v).abs().max()) <= 2 * 2 * job.lr * 1.002, k
+
+
+# Single dispatch on the card: Trainer(scan_steps=K) replays one CUDA graph
+# of K steps, and the eval and serving forwards replay one graph per batch
+# shape; each gives the eager bits.
+GRAPH_LR, GRAPH_CLIP = 1e-3, 0.025
+
+
+def graph_model(case: str):
+    from adnm_tpu_torch.models.adnm_unet import ADNMUNet
+    from adnm_tpu_torch.models.registry import create_model
+
+    if case == "duality":
+        return ADNMUNet(**DP_CFG)
+    if case == "bimamba":
+        return ADNMUNet(**DP_CFG, linear_attn_duality=False)
+    if case == "SwinUnet":  # nonzero Dropout and DropPath rates
+        from adnm_tpu_torch.models.swin_unet import SwinUnet
+
+        return SwinUnet(2, img_size=32, embed_dim=12, depths=(1, 1, 1, 1),
+                        num_heads=(1, 1, 1, 1), window_size=2, drop_rate=0.1,
+                        attn_drop_rate=0.1, drop_path_rate=0.2)
+    return create_model(case, 5, 2, 6, img_size=32)
+
+
+def counted() -> dict:
+    from adnm_tpu_torch.utils.graphs import COUNTED
+
+    return {f.__name__: f.launches for f in COUNTED}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["duality", "bimamba", "SwinUnet", "SmaATUnet", "TrajGRU"])
+def test_graphed_steps_give_the_eager_steps_bits(card, case):
+    """Three groups of two steps (the first eager and captured, then two
+    replays) against six eager steps from the same weights: every loss,
+    gradient norm, parameter, buffer and optimizer state entry bit for
+    bit, and a replay launches the hand kernels as the eager steps do.
+    SwinUnet at its rates under whole-forward remat (the masks and their
+    recompute), SmaAt-UNet with its BatchNorm buffers, TrajGRU with its
+    deterministic warp."""
+    from adnm_tpu_torch.train.loop import Trainer
+    from adnm_tpu_torch.train.presets import get_preset
+
+    preset = "ADNMUnet" if case in ("duality", "bimamba") else case
+    eager, graphed = (Trainer(graph_model(case), get_preset(preset, 5, 2, 6, "Shanghai"), 5,
+                              card, seed=0, remat_forward=case == "SwinUnet", scan_steps=k)
+                      for k in (1, 2))
+    rng = np.random.default_rng(7)
+    for g in range(3):
+        group = torch.from_numpy(rng.uniform(0, 1, (2, 2, 7, 1, 32, 32)).astype(np.float32))
+        group = group.to(card)
+        before = counted()
+        want = [eager.train_step(b, GRAPH_LR, GRAPH_CLIP) for b in group]
+        mid = counted()
+        losses, norms = graphed.train_steps(group, GRAPH_LR, GRAPH_CLIP)
+        after = counted()
+        torch.cuda.synchronize()
+        assert torch.equal(losses, torch.stack([w[0] for w in want])), g
+        assert torch.equal(norms, torch.stack([w[1] for w in want])), g
+        assert {k: after[k] - mid[k] for k in after} == {k: mid[k] - before[k] for k in mid}
+        if g:
+            assert len(graphed.graphs.graphs) == 1
+    for (name, p), q in zip(eager.model.state_dict().items(),
+                            graphed.model.state_dict().values()):
+        assert torch.equal(p, q), name
+    want, got = eager.optimizer.state_dict(), graphed.optimizer.state_dict()
+    for i, st in want["state"].items():
+        for k, v in st.items():
+            assert torch.equal(v, got["state"][i][k]), (i, k)
+
+
+@pytest.mark.cuda
+def test_graphed_forwards_give_the_eager_forwards_bits(card):
+    """``forecast`` and ``eval_epoch`` with graphs against without, batch 2
+    and the tail of 1: the first call of a shape eager and captured, the
+    next replayed (``forecast`` with the caller's ``GraphSet``, and with
+    the default, a set for the call); K1 launched as often either way."""
+    from adnm_tpu_torch.cli.predict import forecast
+    from adnm_tpu_torch.train.loop import Trainer
+    from adnm_tpu_torch.train.presets import get_preset
+    from adnm_tpu_torch.utils.graphs import GraphSet
+
+    t = Trainer(graph_model("duality"), get_preset("ADNMUnet", 5, 2, 6, "Shanghai"), 5, card,
+                seed=0)
+    clips = np.random.default_rng(8).uniform(0, 1, (3, 7, 1, 32, 32)).astype(np.float32)
+    before = counted()
+    want = forecast(t.model, clips[:, :5], 2, card, graphs=False)
+    eager_k1 = counted()["rms_norm"] - before["rms_norm"]
+    graphs = GraphSet(card)
+    for owned in (graphs, graphs, None):
+        before = counted()
+        np.testing.assert_array_equal(forecast(t.model, clips[:, :5], 2, card, graphs=owned),
+                                      want)
+        assert counted()["rms_norm"] - before["rms_norm"] == eager_k1
+    assert len(graphs.graphs) == 2
+    batches = [clips[:2], clips[2:]]
+    loss, preds, _ = t.eval_epoch(batches, collect=True, graphs=False)
+    for _ in range(2):
+        got = t.eval_epoch(batches, collect=True)
+        assert got[0] == loss
+        np.testing.assert_array_equal(got[1], preds)
+    assert len(t.graphs.graphs) == 2

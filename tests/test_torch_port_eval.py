@@ -23,6 +23,7 @@ from __future__ import annotations
 import ast
 import json
 import pathlib
+import shutil
 
 import jax.numpy as jnp
 import numpy as np
@@ -491,7 +492,8 @@ def trained(tmp_path_factory):
     root = tmp_path_factory.mktemp("run")
     out = train_cli.main(CLI_ARGS + ["--epochs", "1", "--save-every", "1", "--root", str(root)])
     snapshot = best_ckpt_dir(str(root), "Shanghai", "ADNMUnet") + "_epoch1"
-    return root, snapshot, out
+    yield root, snapshot, out
+    shutil.rmtree(root)  # after the module's last test: the snapshot is 851 MB
 
 
 def test_train_cli_ends_with_the_csi_table(trained, capsys):
@@ -565,6 +567,7 @@ def test_load_model_serves_a_bimamba_checkpoint(tmp_path):
     with pytest.raises(RuntimeError, match="state_dict"):  # the VSSD mixer's own layout
         predict.load_model(None, "cpu", ckpt=str(tmp_path / "c"), linear_attn_duality=False,
                            mixer_type="vssd")
+    (tmp_path / "c").unlink()  # checked: a full-width checkpoint
 
 
 def test_visualize_cli_writes_strips(trained, tmp_path, capsys):

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import math
 import os
+import shutil
 
 import h5py
 import jax
@@ -286,3 +287,4 @@ def test_four_clis_run_the_laps_task(name, tmp_path, capsys, narrow_adnm):
                            "--img-size", str(SIZE), "--device", "cpu", "--ckpt", snapshot,
                            "--output", str(tmp_path / "y.npy")])
     assert served.shape == (1, 3, 1, SIZE, SIZE) and np.isfinite(served).all()
+    shutil.rmtree(tmp_path / "model_params")  # checked: the epoch snapshot

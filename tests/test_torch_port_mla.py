@@ -26,6 +26,8 @@ Tolerances, fp32 on both sides with sums in other orders:
 
 from __future__ import annotations
 
+import shutil
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -334,7 +336,8 @@ def mla_snapshot(tmp_path_factory):
     out = train_cli.main(cli_args(root, "--epochs", "1", "--save-every", "1"))
     x = root / "x.npy"
     np.save(x, frames(1)[0, :, 0])
-    return out, root, str(root / "model_params/Shanghai/ADNMUnet/ADNMUnet_best_epoch1"), x
+    yield out, root, str(root / "model_params/Shanghai/ADNMUnet/ADNMUnet_best_epoch1"), x
+    shutil.rmtree(root)  # after the module's last test: the snapshot is 851 MB
 
 
 def test_train_cli_trains_mla_in_fp32_and_bf16(mla_snapshot, tmp_path):

@@ -215,6 +215,7 @@ def test_predict_cli_reproduces_the_jax_forward(tmp_path):
                         "--img-size", "32", "--batch-size", "1", "--horizon", "30"])
     assert got.shape == (2, 30, 1, 32, 32)
     np.testing.assert_array_equal(np.load(out), got)
+    (tmp_path / "p.npz").unlink()  # served: the full-width params
 
     fwd = jax.jit(lambda p, v: jm.apply({"params": p}, v, train=False))
     jp = jax.tree.map(jnp.asarray, params)
@@ -237,6 +238,7 @@ def test_predict_load_model_builds_the_bimamba_configuration(tmp_path):
     got = predict.forecast(m, x, 1, cpu)
     want = np.asarray(jax_apply(jm, params, jnp.asarray(x), train=False))
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=MODEL_ATOL)
+    (tmp_path / "p.npz").unlink()  # served: the full-width params
 
 
 def test_predict_cli_refuses_a_missing_card(tmp_path):
