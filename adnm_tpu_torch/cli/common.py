@@ -6,7 +6,8 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
-from typing import Optional
+import tempfile
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -18,7 +19,8 @@ from adnm_tpu_torch.data.shanghai import make_datasets
 from adnm_tpu_torch.device import resolve_device
 from adnm_tpu_torch.models.adnm_unet import apply_reference_init
 from adnm_tpu_torch.models.registry import MODEL_NAMES, create_model
-from adnm_tpu_torch.parallel import launched_by_torchrun, parse_mesh
+from adnm_tpu_torch.ops import build_kernels
+from adnm_tpu_torch.parallel import launched_by_torchrun, make_mesh, parse_mesh, spawn
 from adnm_tpu_torch.train.checkpoint import best_ckpt_dir
 from adnm_tpu_torch.train.loop import Trainer
 from adnm_tpu_torch.train.presets import get_preset
@@ -61,23 +63,14 @@ def add_common_args(p: argparse.ArgumentParser):
                         "(train.npz_import.load_transunet_npz)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises when CUDA is absent) or cpu")
-    p.add_argument("--data-parallel", action="store_true",
-                   help="train data-parallel on every visible card, one rank each (DDP over "
-                        "NCCL); --batch-size is the global batch, split over the ranks. With "
-                        "--device cpu: one rank")
-    p.add_argument("--mesh", default=None, metavar="AXIS=N,...",
-                   help="explicit mesh, e.g. 'data=4': the batch is sharded over 'data', one "
-                        "rank per position (cards with cuda; CPU processes over gloo with "
-                        "--device cpu); implies --data-parallel. The 'seq' and 'model' axes "
-                        "(the JAX package's token sharding and tensor parallelism) are not "
-                        "ported yet: only size 1")
+    add_mesh_args(p)
     p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
                    help="multi-host training: the rendezvous address (a TCP store that "
                         "process 0 opens). Run the SAME command in every process with "
                         "--num-processes/--process-id and --data-parallel; each process is one "
                         "rank on one card (LOCAL_RANK, else the process id modulo the visible "
                         "cards) and streams its --batch-size rows of every global batch "
-                        "(validate/visualize/predict stay single-card, against a checkpoint). "
+                        "(validate/visualize collection stays on one host, as in JAX). "
                         "Under torchrun leave the three flags out: its RANK, WORLD_SIZE, "
                         "MASTER_ADDR and MASTER_PORT are read")
     p.add_argument("--num-processes", type=int, default=None)
@@ -86,6 +79,22 @@ def add_common_args(p: argparse.ArgumentParser):
                    help="ZeRO-1: shard the optimizer state over the 'data' ranks "
                         "(ZeroRedundancyOptimizer) instead of replicating it; no effect on "
                         "one rank")
+
+
+def add_mesh_args(p: argparse.ArgumentParser) -> None:
+    """``--data-parallel`` and ``--mesh``, the JAX package's mesh flags, for
+    every CLI."""
+    p.add_argument("--data-parallel", action="store_true",
+                   help="one rank per visible card (NCCL; one rank with --device cpu): train "
+                        "data-parallel (DDP), or split validate/visualize/predict's batches "
+                        "over the ranks; --batch-size is the global batch")
+    p.add_argument("--mesh", default=None, metavar="AXIS=N,...",
+                   help="explicit mesh, e.g. 'data=4' or 'data=2,model=2': one rank per "
+                        "position (cards with cuda, NCCL; CPU processes over gloo with "
+                        "--device cpu); implies --data-parallel. Batches are split over "
+                        "'data'; for validate/visualize/predict the heads and MLP hidden "
+                        "channels over 'model' (inference tensor parallelism). Training on "
+                        "'model', and any 'seq' axis, are not ported yet: only size 1")
 
 
 TASKS = {
@@ -148,27 +157,28 @@ def load_pretrained_npz(model: torch.nn.Module, path: str) -> None:
 
 @dataclasses.dataclass(frozen=True)
 class Launch:
-    """How a data-parallel train command runs: ``world`` ranks in all, each
-    stepping on ``rows`` rows of every global batch; ``multihost`` when
-    this process is one of them (``--coordinator`` or torchrun), else the
-    command starts ``world`` ranks itself on this host."""
+    """How a parallel command runs: ``world`` ranks in all, each stepping on
+    ``rows`` rows of every global batch (training); ``multihost`` when this
+    process is one of them (``--coordinator`` or torchrun), else the
+    command starts ``world`` ranks itself on this host; ``model`` ranks on
+    the mesh's 'model' axis (inference), the rest on 'data'."""
 
     world: int
     rows: int
     multihost: bool
+    model: int = 1
 
 
 def parallel_launch(args) -> Optional[Launch]:
     """The ``Launch`` of the parallel flags, None without them (one
     process, no process group). Refuses, with the JAX package's messages
-    where it has them (adnm_tpu/cli/common.py:131-172): a 'seq' or 'model'
-    axis (not ported); a multi-host run without a data mesh; a global
+    where it has them (adnm_tpu/cli/common.py:131-172): a 'seq' axis, or
+    a 'model' axis to train on (not ported); a multi-host run without a data mesh; a global
     batch that the 'data' axis does not divide. ``--batch-size`` is the
     global batch under a single launch and each process's rows under a
     multi-host one, as in JAX."""
     mesh = parse_mesh(args.mesh) if args.mesh else None
-    multihost = (args.coordinator is not None or args.num_processes is not None
-                 or args.process_id is not None or launched_by_torchrun())
+    multihost = multihost_flags(args)
     if multihost:
         given = (args.coordinator, args.num_processes, args.process_id)
         if any(v is None for v in given) and any(v is not None for v in given):
@@ -205,27 +215,77 @@ def parallel_launch(args) -> Optional[Launch]:
     return Launch(world, args.batch_size // world, False)
 
 
-def single_card(args, tool: str) -> None:
-    """Exit on the parallel flags: ``tool`` runs on one card against a
-    checkpoint (its multi-card form, with the 'model' axis, is not ported
-    yet)."""
-    flags = [f for f, on in (("--data-parallel", getattr(args, "data_parallel", False)),
-                             ("--mesh", getattr(args, "mesh", None)),
-                             ("--coordinator", getattr(args, "coordinator", None))) if on]
-    if flags:
-        raise SystemExit(f"{tool} runs on one card against a checkpoint: {', '.join(flags)} "
-                         f"apply to training alone (the multi-card {tool} is not ported yet)")
+def multihost_flags(args) -> bool:
+    """Whether this process is one of several started apart: the multi-host
+    flags, or a launcher's environment."""
+    return (getattr(args, "coordinator", None) is not None
+            or getattr(args, "num_processes", None) is not None
+            or getattr(args, "process_id", None) is not None or launched_by_torchrun())
 
 
-def build(args, ddp: bool = False, rows: Optional[int] = None, device=None):
+def inference_launch(args, tool: str) -> Optional[Launch]:
+    """The ``Launch`` of ``tool``'s (validate, visualize, predict) parallel
+    flags, None without them: ``--mesh data=D[,model=M]`` starts D x M
+    ranks on this host, ``--data-parallel`` one per visible card (one with
+    --device cpu). A multi-process launch exits with the JAX package's
+    reason (adnm_tpu/train/loop.py:519-525); a 'seq' axis exits. The
+    batches need not divide 'data': a tail leaves some ranks fewer rows."""
+    if multihost_flags(args):
+        raise SystemExit(f"{tool}: prediction collection fetches full output arrays, which are "
+                         f"not addressable across hosts - run {tool} as a single host against "
+                         f"the shared checkpoint (--mesh or --data-parallel start its ranks on "
+                         f"this host)")
+    mesh = parse_mesh(args.mesh, training=False) if args.mesh else None
+    if mesh is None and not args.data_parallel:
+        return None
+    if mesh is not None:
+        data, model = mesh["data"], mesh.get("model", 1)
+    else:
+        data = torch.cuda.device_count() if resolve_device(args.device).type == "cuda" else 1
+        model = 1
+    world = data * model
+    if torch.device(args.device).type == "cuda" and world > torch.cuda.device_count():
+        raise SystemExit(f"--mesh data={data},model={model}: {world} ranks, one a card, and "
+                         f"only {torch.cuda.device_count()} CUDA device(s) are visible")
+    return Launch(world, args.batch_size, False, model)
+
+
+def run_on_mesh(run: Callable, args, launch: Launch):
+    """``run(args, mesh=..., device=...)`` on each rank of ``launch``, on
+    this host (``parallel.spawn``, one card a rank over NCCL, or CPU ranks
+    over gloo), the hand kernels built first, once; returns rank 0's
+    result without its ``trainer``."""
+    if torch.device(args.device).type == "cuda" and args.model == "ADNMUnet":
+        build_kernels(("rms_norm",))  # here, once, not once a rank
+    with tempfile.TemporaryDirectory(prefix="adnm-mesh-") as tmp:
+        out = os.path.join(tmp, "rank0.pt")
+        spawn(mesh_rank_main, launch.world, args=(run, args, launch.model, out),
+              device=args.device)
+        return torch.load(out, weights_only=False)  # written by rank 0 of this run
+
+
+def mesh_rank_main(rank: int, world: int, device: torch.device, run: Callable, args,
+                   model: int, out: str) -> None:
+    """One rank of ``run_on_mesh`` (or of a caller's own ``spawn``, such as
+    ranks over gloo sharing one card): ``run`` on the (world / model, model)
+    mesh; rank 0 writes its result, without its ``trainer``, to ``out``."""
+    mesh = make_mesh(world // model, model, device)
+    result = run(args, mesh=mesh, device=device)
+    if rank == 0:
+        torch.save({k: v for k, v in result.items() if k != "trainer"}
+                   if isinstance(result, dict) else result, out)
+
+
+def build(args, ddp: bool = False, rows: Optional[int] = None, device=None, mesh=None):
     """(Trainer, (train, val, test) loaders, (input_frames, output_frames,
     frame_interval, thresholds)): ``args.model`` from the port's registry
     with its preset; the reference init for ADNMUnet alone; TransUnet's
     encoder from ``--pretrained-npz`` where given. With ``ddp`` (inside a
     process group) the Trainer is data-parallel (``--zero1``), and the
     train loader yields this rank's ``rows`` rows of every global batch;
-    the val and test loaders are the whole sets at ``--batch-size``, as
-    the single process's, on every rank."""
+    with ``mesh`` it evaluates on that mesh. The val and test loaders are
+    the whole sets at ``--batch-size``, as the single process's, on every
+    rank (the Trainer takes each rank's rows of them)."""
     kwargs = model_kwargs(args)
     if args.pretrained_npz and args.model != "TransUnet":
         raise SystemExit("--pretrained-npz is only supported for --model TransUnet")
@@ -245,7 +305,7 @@ def build(args, ddp: bool = False, rows: Optional[int] = None, device=None):
                       remat_forward=args.remat, accum_steps=accum,
                       compute_dtype=compute_dtype(args), ddp=ddp,
                       zero1=getattr(args, "zero1", False),
-                      scan_steps=getattr(args, "scan_steps", 1) or 1)
+                      scan_steps=getattr(args, "scan_steps", 1) or 1, mesh=mesh)
     if args.pretrained_npz:
         load_pretrained_npz(trainer.model, args.pretrained_npz)
     data_path = None if args.synthetic else args.data_path

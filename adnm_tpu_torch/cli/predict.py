@@ -21,6 +21,14 @@ at. ``--device`` defaults to cuda and raises when CUDA is absent.
 ``--bf16`` computes in bf16 from the fp32 weights, for every model.
 On the card each forward is one CUDA graph replay (``forecast``), as JAX
 jits it: the first batch of a shape runs eagerly and is captured.
+
+``--mesh data=D[,model=M]`` (or ``--data-parallel``: one rank per visible
+card) serves on D x M ranks of this host, one card each over NCCL, or CPU
+ranks over gloo with ``--device cpu``: each 'data' position runs its rows
+of every batch, the heads and hidden channels are split over 'model', the
+predictions are gathered in order (the ``--horizon`` chain runs on the
+gathered frames, across the ranks) and rank 0 writes ``--output`` and
+``--png``. On a 'model' axis larger than 1 the forwards run eagerly.
 """
 
 from __future__ import annotations
@@ -32,12 +40,13 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from adnm_tpu_torch.cli.common import (TASKS, compute_dtype, model_kwargs, resolve_ckpt,
-                                       single_card)
+from adnm_tpu_torch.cli.common import (TASKS, add_mesh_args, compute_dtype, inference_launch,
+                                       model_kwargs, resolve_ckpt, run_on_mesh)
 from adnm_tpu_torch.convert import from_jax_params, load_params_npz, to_jax_batch_stats
 from adnm_tpu_torch.core.layers import seeded_init_
 from adnm_tpu_torch.device import resolve_device
 from adnm_tpu_torch.models.registry import MODEL_NAMES, create_model
+from adnm_tpu_torch.parallel.tensor import axis_size, data_rows, gather_data, use_mesh
 from adnm_tpu_torch.train.checkpoint import load_model_state, restore_state
 from adnm_tpu_torch.utils.graphs import GraphSet
 from adnm_tpu_torch.viz import vis_res
@@ -98,7 +107,7 @@ def read_frames(path: str, img_size: int, input_frames: int = 5) -> np.ndarray:
 
 def forecast(model: torch.nn.Module, x: np.ndarray, batch_size: int, device: torch.device,
              horizon: Optional[int] = None, compute_dtype: torch.dtype = torch.float32,
-             graphs: Union[GraphSet, bool, None] = None) -> np.ndarray:
+             graphs: Union[GraphSet, bool, None] = None, mesh=None) -> np.ndarray:
     """Fp32 predictions for ``x`` (B, T_in, 1, H, W), the model run in eval
     mode on frames cast to ``compute_dtype``; with ``horizon`` beyond the
     model's T_out, the last T_in predicted frames (clipped to [0, 1] in
@@ -108,13 +117,17 @@ def forecast(model: torch.nn.Module, x: np.ndarray, batch_size: int, device: tor
     same bits either way. ``graphs``: the caller's ``GraphSet`` for this
     model, whose graphs serve its later calls too; True, a set for this
     call alone; False, eager; None (the default), True on a card and False
-    elsewhere."""
+    elsewhere and on a 'model' axis larger than 1. On ``mesh``
+    (``parallel.make_mesh``; every rank passes the same ``x``) each 'data'
+    position runs its rows of every batch, under the 'model' axis, and
+    every rank gets every row's predictions."""
     model.eval()
     device = torch.device(device)
+    tensor_parallel = axis_size(mesh, "model") > 1
     if graphs is None:
-        graphs = device.type == "cuda"
-    if graphs is not False and device.type != "cuda":
-        raise ValueError(f"graphs needs a CUDA device, not {device}")
+        graphs = device.type == "cuda" and not tensor_parallel
+    if graphs is not False and (device.type != "cuda" or tensor_parallel):
+        raise ValueError(f"graphs needs a CUDA device, not {device}, and a 'model' axis of 1")
     graph_set = None if graphs is False else GraphSet(device) if graphs is True else graphs
 
     def run(xb: torch.Tensor) -> torch.Tensor:
@@ -127,10 +140,15 @@ def forecast(model: torch.nn.Module, x: np.ndarray, batch_size: int, device: tor
 
     def forward(inp: np.ndarray) -> np.ndarray:
         outs = []
-        with torch.inference_mode():
+        with torch.inference_mode(), use_mesh(mesh):
             for i in range(0, inp.shape[0], batch_size):
-                xb = torch.from_numpy(np.ascontiguousarray(inp[i:i + batch_size]))
-                outs.append(run(xb.to(device, compute_dtype)).cpu().numpy())
+                batch = inp[i:i + batch_size]
+                rows = batch[data_rows(mesh, batch.shape[0])]
+                out = None
+                if rows.shape[0]:
+                    out = run(torch.from_numpy(np.ascontiguousarray(rows)).to(device,
+                                                                              compute_dtype))
+                outs.append(gather_data(mesh, out, batch.shape[0]).cpu().numpy())
         return np.concatenate(outs)
 
     preds = forward(x)
@@ -144,7 +162,7 @@ def forecast(model: torch.nn.Module, x: np.ndarray, batch_size: int, device: tor
     return preds
 
 
-def main(argv=None) -> np.ndarray:
+def make_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("adnm-torch-predict")
     p.add_argument("--input", required=True, help=".npy input frames")
     p.add_argument("--model", default="ADNMUnet", choices=list(MODEL_NAMES))
@@ -174,31 +192,39 @@ def main(argv=None) -> np.ndarray:
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 compute for any model (fp32 params; the predictions are "
                         "written in fp32)")
-    p.add_argument("--data-parallel", action="store_true",
-                   help="refused: predict serves on one card (the train CLI's flag)")
-    p.add_argument("--mesh", default=None, metavar="AXIS=N,...",
-                   help="refused: predict serves on one card (the train CLI's flag)")
-    args = p.parse_args(argv)
-    single_card(args, "predict")
-    cdt = compute_dtype(args)
+    add_mesh_args(p)
+    return p
 
-    device = resolve_device(args.device)
+
+def main(argv=None) -> np.ndarray:
+    args = make_parser().parse_args(argv)
+    launch = inference_launch(args, "predict")
+    return run(args) if launch is None else run_on_mesh(run, args, launch)
+
+
+def run(args, mesh=None, device=None) -> np.ndarray:
+    """Serve in this process, one rank of ``mesh`` where given; rank 0 writes
+    the outputs. Returns the predictions."""
+    cdt = compute_dtype(args)
+    device = resolve_device(args.device) if device is None else device
+    lead = mesh is None or mesh.get_rank() == 0
     x = read_frames(args.input, args.img_size, TASKS[args.dataset][0])
     ckpt = None if args.params is not None else resolve_ckpt(
         args.ckpt, args.root, "warning: no checkpoint at {}; predicting with fresh init",
         args.dataset, args.model)
     model = load_model(args.params, device, ckpt=ckpt, compute_dtype=cdt, model_name=args.model,
                        img_size=args.img_size, dataset=args.dataset, **model_kwargs(args))
-    if ckpt is not None:
+    if ckpt is not None and lead:
         print(f"loaded checkpoint: {ckpt}")
-    preds = forecast(model, x, args.batch_size, device, args.horizon, cdt)
-    np.save(args.output, preds)
-    print(f"wrote {args.output} {preds.shape}")
-    if args.png:
-        for b in range(preds.shape[0]):
-            vis_res(preds[b, :, 0], input_seq=x[b, :, 0],
-                    save_path=os.path.join(args.png, f"sample{b}"), pic_name="pred")
-        print(f"rendered strips under {args.png}")
+    preds = forecast(model, x, args.batch_size, device, args.horizon, cdt, mesh=mesh)
+    if lead:
+        np.save(args.output, preds)
+        print(f"wrote {args.output} {preds.shape}")
+        if args.png:
+            for b in range(preds.shape[0]):
+                vis_res(preds[b, :, 0], input_seq=x[b, :, 0],
+                        save_path=os.path.join(args.png, f"sample{b}"), pic_name="pred")
+            print(f"rendered strips under {args.png}")
     return preds
 
 

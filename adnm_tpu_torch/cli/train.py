@@ -36,9 +36,10 @@ Data-parallel training (the JAX package's mesh flags; one rank per card):
 ranks) and each process's rows under ``--coordinator`` or torchrun, as in
 JAX; ``--zero1`` shards the optimizer state. The ranks train the single
 process's model on the global batch; rank 0 writes the checkpoints (one
-file for any world size) and, under a single launch, runs the final
-protocol while the others wait; a multi-host run prints the test loss and
-defers the metrics to ``validate`` on one card.
+file for any world size). Validation and the test split run sharded: each
+rank evaluates its rows of every batch; under a single launch rank 0
+gathers the predictions and runs the final protocol; a multi-host run
+prints the test loss and defers the metrics to ``validate`` on one host.
 """
 
 from __future__ import annotations
@@ -180,23 +181,25 @@ def run(args, launch: Optional[Launch] = None, device=None) -> dict:
                   "`python -m adnm_tpu_torch.cli.validate` on one card against "
                   f"{ckpt_path}")
         return result
-    if lead:  # under a single launch rank 0 collects the whole split
-        final_protocol(result, trainer, test_loader, args.dataset, to, thresholds)
+    # every rank evaluates its rows of the test split; rank 0 holds the
+    # gathered predictions and runs the evaluator
+    result["test_loss"], preds, gts = trainer.eval_epoch(test_loader, collect=True)
+    if lead:
+        final_protocol(result, preds, gts, args.dataset, to, thresholds, trainer.device)
     host_barrier("adnm:final-eval")
     return result
 
 
-def final_protocol(result: dict, trainer, test_loader, dataset: str, t_out: int,
-                   thresholds) -> None:
-    """The reference's final protocol on the test split (train.py:209-250),
-    into ``result``."""
-    result["test_loss"], preds, gts = trainer.eval_epoch(test_loader, collect=True)
+def final_protocol(result: dict, preds, gts, dataset: str, t_out: int, thresholds,
+                   device) -> None:
+    """The reference's final protocol (train.py:209-250) on the test split's
+    predictions and ground truths, into ``result``."""
     print(f"best-checkpoint test loss: {result['test_loss']}")
     if dataset == "LAPS":  # reference orientation (train.py:235)
         result["metrics"] = laps_evaluate(preds, gts, thresholds)
         return
     evaluator = SimplifiedEvaluator(seq_len=t_out, value_scale=90, thresholds=thresholds,
-                                    device=trainer.device)
+                                    device=device)
     evaluator.evaluate(preds, gts)  # reference orientation (train.py:241)
     result["metrics"] = evaluator.done()
     print_metrics(result["metrics"])

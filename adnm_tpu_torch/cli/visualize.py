@@ -9,7 +9,9 @@ test split and writes pred/gt/input PNG strips for up to
 ``--max-samples`` clips under ``--out`` (default
 {root}/result_pics2/{dataset}), one directory per clip. Shanghai's
 20-frame strips keep every second frame, as in the reference; LAPS's
-3-frame strips keep every frame.
+3-frame strips keep every frame. With ``--mesh`` or ``--data-parallel``
+(as validate) the ranks predict their rows of each batch and rank 0
+writes the strips.
 """
 
 from __future__ import annotations
@@ -19,27 +21,41 @@ import os
 
 import numpy as np
 
-from adnm_tpu_torch.cli.common import add_common_args, build, resolve_ckpt, single_card
+from adnm_tpu_torch.cli.common import (add_common_args, build, inference_launch, resolve_ckpt,
+                                       run_on_mesh)
 from adnm_tpu_torch.viz import vis_res
 
 
-def main(argv=None) -> list:
-    """Returns the sample directories written."""
+def make_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("adnm-torch-visualize")
     add_common_args(p)
     p.add_argument("--ckpt", default=None)
     p.add_argument("--out", default=None, help="output dir (default {root}/result_pics2/{dataset})")
     p.add_argument("--max-samples", type=int, default=8)
-    args = p.parse_args(argv)
+    return p
 
-    single_card(args, "visualize")
-    trainer, (_, _, test_loader), (ti, _, _, _) = build(args)
+
+def main(argv=None) -> list:
+    """Returns the sample directories written (rank 0's, on a mesh)."""
+    args = make_parser().parse_args(argv)
+    launch = inference_launch(args, "visualize")
+    if launch is None:
+        return run(args)["written"]
+    return run_on_mesh(run, args, launch)["written"]
+
+
+def run(args, mesh=None, device=None) -> dict:
+    """Render in this process, one rank of ``mesh`` where given: every rank
+    predicts its rows of each batch, rank 0 writes the strips."""
+    trainer, (_, _, test_loader), (ti, _, _, _) = build(args, device=device, mesh=mesh)
+    lead = trainer.rank == 0
     ckpt_path = resolve_ckpt(args.ckpt, args.root,
                              "checkpoint not found ({}); rendering fresh init",
                              args.dataset, args.model)
     if ckpt_path:
         trainer.load(ckpt_path)
-        print(f"loaded checkpoint: {ckpt_path}")
+        if lead:
+            print(f"loaded checkpoint: {ckpt_path}")
     out_root = args.out or os.path.join(args.root, "result_pics2", args.dataset)
     even = args.dataset == "Shanghai"  # 20-frame outputs get the even-index subsample
 
@@ -55,11 +71,12 @@ def main(argv=None) -> list:
             if len(written) >= args.max_samples:
                 break
             sample_dir = os.path.join(out_root, args.model, f"sample{len(written)}")
-            vis_res(preds[b, :, 0], gt_seq=batch[b, ti:, 0], input_seq=batch[b, :ti, 0],
-                    save_path=sample_dir, pic_name=args.model, even_index_only=even)
+            if lead:
+                vis_res(preds[b, :, 0], gt_seq=batch[b, ti:, 0], input_seq=batch[b, :ti, 0],
+                        save_path=sample_dir, pic_name=args.model, even_index_only=even)
+                print(f"wrote {sample_dir}")
             written.append(sample_dir)
-            print(f"wrote {sample_dir}")
-    return written
+    return {"written": written, "trainer": trainer}
 
 
 if __name__ == "__main__":

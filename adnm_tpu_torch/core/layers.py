@@ -30,6 +30,7 @@ from torch import nn
 
 from adnm_tpu_torch.device import deterministic_cudnn
 from adnm_tpu_torch.parallel.multihost import all_reduce_sum
+from adnm_tpu_torch.parallel.tensor import model_slice, reduce_model
 from adnm_tpu_torch.ops.rms_norm import gated_rms_norm, rms_norm
 
 IntPair = Union[int, Tuple[int, int]]
@@ -95,10 +96,40 @@ class Linear(nn.Linear):
         return F.linear(x, self.weight.to(x.dtype), _cast(self.bias, x))
 
 
-def channel_linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+def rows_of(t: Optional[torch.Tensor], rows) -> Optional[torch.Tensor]:
+    """The rows of ``t`` in the (start, stop) ranges ``rows``, in order:
+    ``t`` itself where they cover it in order, or where ``rows`` is None
+    (None stays None)."""
+    if t is None or rows is None:
+        return t
+    merged = []
+    for a, b in rows:
+        if merged and merged[-1][1] == a:
+            merged[-1] = (merged[-1][0], b)
+        else:
+            merged.append((a, b))
+    if merged == [(0, t.shape[0])]:
+        return t
+    return torch.cat([t[a:b] for a, b in merged])
+
+
+def channel_linear(lin: nn.Linear, x: torch.Tensor, rows=None) -> torch.Tensor:
     """``lin`` over the channel axis 1 of a (B, C, H, W) tensor (a 1x1 conv),
-    in ``x``'s dtype."""
-    return F.conv2d(x, lin.weight.to(x.dtype)[:, :, None, None], _cast(lin.bias, x))
+    in ``x``'s dtype; with ``rows``, its outputs in those ranges alone
+    (``rows_of``)."""
+    return F.conv2d(x, rows_of(lin.weight, rows).to(x.dtype)[:, :, None, None],
+                    _cast(rows_of(lin.bias, rows), x))
+
+
+def conv_rows(conv: nn.Conv2d, x: torch.Tensor, rows) -> torch.Tensor:
+    """``conv`` (dense, or depthwise over ``x``'s channels) for its output
+    channels in the ranges ``rows`` alone (``rows_of``), in ``x``'s dtype:
+    ``conv`` itself where they cover it."""
+    weight = rows_of(conv.weight, rows)
+    if weight is conv.weight:
+        return conv(x)
+    return F.conv2d(x, weight.to(x.dtype), _cast(rows_of(conv.bias, rows), x), conv.stride,
+                    conv.padding, conv.dilation, 1 if conv.groups == 1 else x.shape[1])
 
 
 def _stats(x: torch.Tensor, dims) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -388,18 +419,33 @@ class Mlp(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """1x1 expand (2*hidden) -> dw 3x3 -> gelu(x1)*sigmoid(x2) -> 1x1."""
+    """1x1 expand (2*hidden) -> dw 3x3 -> gelu(x1)*sigmoid(x2) -> 1x1. On a
+    mesh's 'model' axis each rank takes its part of the hidden channels
+    (JAX: the 'model' annotation of the expanded channels, Megatron-style,
+    adnm_tpu/core/layers.py:713-760)."""
 
     def __init__(self, dim: int, expansion: int = 2):
         super().__init__()
         hidden = int(dim * expansion)
+        self.hidden = hidden
         self.project_in = ConvLayer(dim, hidden * 2, 1, 1, 0)
         self.dwconv = ConvLayer(hidden * 2, hidden * 2, 3, 1, 1, groups=hidden * 2)
         self.project_out = ConvLayer(hidden, dim, 1, 1, 0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x1, x2 = self.dwconv(self.project_in(x)).chunk(2, dim=1)
-        return self.project_out(ACTS["gelu"](x1) * torch.sigmoid(x2))
+        part = model_slice(self.hidden)
+        s, e = (0, self.hidden) if part is None else (part.start, part.stop)
+        rows = [(s, e), (self.hidden + s, self.hidden + e)]  # of x1 and of x2
+        y = conv_rows(self.dwconv.conv, conv_rows(self.project_in.conv, x, rows), rows)
+        x1, x2 = y.chunk(2, dim=1)
+        y = ACTS["gelu"](x1) * torch.sigmoid(x2)
+        if part is None:
+            return self.project_out(y)
+        # this rank's columns of project_out; the partial outputs summed,
+        # then the bias added once
+        pout = self.project_out.conv
+        out = reduce_model(F.conv2d(y, pout.weight[:, part].to(y.dtype)))
+        return out if pout.bias is None else out + channel_view(pout.bias.to(y.dtype), 4)
 
 
 class ConvFFD(nn.Module):

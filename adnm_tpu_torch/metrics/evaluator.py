@@ -171,20 +171,26 @@ class SimplifiedEvaluator:
         }
 
 
-def print_metrics(results: dict, pod: bool = False) -> None:
-    """The reference scripts' table: CSI (and POD, validate's) and HSS per
-    threshold, then FAR, RMSE, SSIM and LPIPS (train.py:241-250,
-    validate.py:117-126)."""
+def metrics_table(results: dict, pod: bool = False) -> str:
+    """The reference scripts' table, as ``print_metrics`` prints it: CSI
+    (and POD, validate's) and HSS per threshold, then FAR, RMSE, SSIM and
+    LPIPS (train.py:241-250, validate.py:117-126)."""
+    lines = []
     for thresh, m in results["threshold_metrics"].items():
         middle = f" POD: {m['POD']:.4f}" if pod else ""
-        print(f"{thresh}mm CSI: {m['CSI']:.4f}{middle} HSS: {m['HSS']:.4f}")
+        lines.append(f"{thresh}mm CSI: {m['CSI']:.4f}{middle} HSS: {m['HSS']:.4f}")
     if not pod:
-        print("\nOverall Metrics:")
-    print(f"FAR:  {results['FAR']:.4f}")
-    print(f"RMSE: {results['RMSE']:.2f}")
-    print(f"SSIM: {results['SSIM']:.4f}")
+        lines += ["", "Overall Metrics:"]
+    lines += [f"FAR:  {results['FAR']:.4f}", f"RMSE: {results['RMSE']:.2f}",
+              f"SSIM: {results['SSIM']:.4f}"]
     if results["LPIPS_available"]:
-        print(f"LPIPS: {results['LPIPS']:.4f}")
+        lines.append(f"LPIPS: {results['LPIPS']:.4f}")
     else:
-        print("LPIPS: UNAVAILABLE (no pretrained weights: set ADNM_LPIPS_WEIGHTS to an "
-              "exported lpips_alex.npz; the column must NOT be compared)")
+        lines.append("LPIPS: UNAVAILABLE (no pretrained weights: set ADNM_LPIPS_WEIGHTS to an "
+                     "exported lpips_alex.npz; the column must NOT be compared)")
+    return "\n".join(lines) + "\n"
+
+
+def print_metrics(results: dict, pod: bool = False) -> None:
+    """Print ``metrics_table``."""
+    print(metrics_table(results, pod), end="")

@@ -1,15 +1,19 @@
 """Attention mixers (counterpart of adnm_tpu/mixers/attention.py): softmax
 multi-head attention on NCHW tensors and DeepSeek-V2's multi-head latent
-attention (MLA) on (B, L, D) tokens."""
+attention (MLA) on (B, L, D) tokens. On a mesh's 'model' axis the softmax
+attention splits its heads (JAX: ``maybe_shard`` of q, k and v, :45-51);
+MLA stays replicated, as JAX annotates nothing there."""
 
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from adnm_tpu_torch.core.layers import Linear, RMSNorm, channel_linear
+from adnm_tpu_torch.core.layers import Linear, RMSNorm, channel_linear, channel_view
+from adnm_tpu_torch.parallel.tensor import model_slice, reduce_model
 
 
 class StandardAttention(nn.Module):
@@ -28,11 +32,21 @@ class StandardAttention(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, _, h, w = x.shape
-        qkv = channel_linear(self.to_qkv, x).reshape(b, 3, self.heads, self.dim_head, h * w)
+        heads = model_slice(self.heads)  # this rank's heads on the 'model' axis
+        s, e = (0, self.heads) if heads is None else (heads.start, heads.stop)
+        dh, inner = self.dim_head, self.heads * self.dim_head
+        rows = [(part * inner + s * dh, part * inner + e * dh) for part in range(3)]  # q, k, v
+        qkv = channel_linear(self.to_qkv, x, rows).reshape(b, 3, e - s, dh, h * w)
         q, k, v = qkv.unbind(1)  # (B, heads, dim_head, L)
         logits = torch.einsum("bhdi,bhdj->bhij", q, k) * self.dim_head ** -0.5
-        out = torch.einsum("bhij,bhdj->bhdi", logits.softmax(dim=-1), v)
-        return channel_linear(self.to_out, out.reshape(b, -1, h, w))
+        out = torch.einsum("bhij,bhdj->bhdi", logits.softmax(dim=-1), v).reshape(b, -1, h, w)
+        if heads is None:
+            return channel_linear(self.to_out, out)
+        # this rank's columns of to_out; the partial outputs summed, then
+        # the bias added once
+        w_out = self.to_out.weight[:, s * dh:e * dh].to(x.dtype)[:, :, None, None]
+        return (reduce_model(F.conv2d(out, w_out))
+                + channel_view(self.to_out.bias.to(x.dtype), 4))
 
 
 def _rope_cos_sin(seq_len: int, dim: int, theta: float, dtype=torch.float32, device=None):

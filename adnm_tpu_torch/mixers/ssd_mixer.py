@@ -24,6 +24,15 @@ depthwise convs cast their weights, ``softplus(dt + dt_bias)`` is computed
 in fp32 and then cast, A, D and alpha1 are cast, the LayerNorm takes fp32
 statistics, the duality's products are bf16 ``bmm``, and K2 takes its six
 inputs in bf16.
+
+On a mesh's 'model' axis (``parallel/tensor.py``) each rank computes its
+part of the scan heads of both paths (JAX: ``maybe_shard`` of the heads,
+adnm_tpu/mixers/ssd_mixer.py:321-332,450-451): its in_proj rows of x1, x2
+and dt, their depthwise convs, A and D, and the duality or K2 over them;
+z, B and C, which every head reads or which follow the merge, are computed
+whole on every rank. The heads are gathered before the merge, the
+LayerNorm, the gate and out_proj, which every rank then computes whole: no
+collective until the channel merge, as in JAX.
 """
 
 from __future__ import annotations
@@ -35,8 +44,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from adnm_tpu_torch.core.layers import (Conv2d, Linear, channel_linear, channel_view,
-                                        gate_cast, scalar_param)
+                                        conv_rows, gate_cast, rows_of, scalar_param)
 from adnm_tpu_torch.ops.ssd import linear_attn_dual_seqminor, ssd_chunked_scan
+from adnm_tpu_torch.parallel.tensor import gather_model, model_slice
 
 SCAN_CHUNK = 256  # the chunked scan's chunk, as every model of the reference sets it
 
@@ -142,25 +152,39 @@ class ADNSSDMixer(nn.Module):
         d_inner, gN, P = self.d_inner, self.gN, self.headdim
         hh = self.nheads // 2
         half, qx, qbc = self.conv_dim // 2, d_inner // 4, gN // 2
+        heads = model_slice(hh)  # this rank's heads of each path on the 'model' axis
+        s, e = (0, hh) if heads is None else (heads.start, heads.stop)
+        n = e - s
+        # The rows of in_proj this rank reads: z whole; of conv2d's channels
+        # x1's heads, B1 and C1; of each path-2 x quarter's convs the
+        # channels [s P/2, e P/2), since path 2's head k holds x2a's and
+        # x2b's channels [k P/2, (k + 1) P/2) (the [a, a, b, b] assembly
+        # below); B2 and C2 whole; dt of the heads of both paths. At the
+        # whole range of heads they are all of in_proj, in order.
+        xo, dto = d_inner, d_inner + self.conv_dim  # offsets of xBC and dt in in_proj
+        x1_rows = [(s * P, e * P), (d_inner // 2, half)]
+        x2_rows = [(s * P // 2, e * P // 2)]
+        dt_rows = [(s, e), (hh + s, hh + e)]
+        rows = [(0, d_inner), *((xo + a, xo + c) for a, c in x1_rows),
+                *((xo + half + q * qx + a, xo + half + q * qx + c)
+                  for q in range(2) for a, c in x2_rows),
+                (xo + half + 2 * qx, dto), *((dto + a, dto + c) for a, c in dt_rows)]
+        z, xBC1, x2a, x2b, bc2, dt = channel_linear(self.in_proj, u, rows).split(
+            [d_inner, n * P + gN, n * P // 2, n * P // 2, gN, 2 * n], dim=1)
+        dt = F.softplus(dt + channel_view(rows_of(self.dt_bias, dt_rows), 4))
+        dt = dt.to(u.dtype).reshape(b, 2 * n, l)
+        A = rows_of((-torch.exp(self.A_log)).to(u.dtype), dt_rows)
+        D = rows_of(self.D.to(u.dtype), dt_rows)
 
-        zxbcdt = channel_linear(self.in_proj, u)
-        z = zxbcdt[:, :d_inner]
-        xBC = zxbcdt[:, d_inner:d_inner + self.conv_dim]
-        dt = F.softplus(zxbcdt[:, d_inner + self.conv_dim:] + channel_view(self.dt_bias, 4))
-        dt = dt.to(u.dtype).reshape(b, self.nheads, l)
-        A = (-torch.exp(self.A_log)).to(u.dtype)
-        D = self.D.to(u.dtype)
+        xBC1 = F.silu(conv_rows(self.conv2d, xBC1, x1_rows))
+        x2a = F.silu(conv_rows(self.conv_x1_b, conv_rows(self.conv_x1_a, x2a, x2_rows), x2_rows))
+        x2b = F.silu(conv_rows(self.conv_x2_b, conv_rows(self.conv_x2_a, x2b, x2_rows), x2_rows))
+        bc2a = self._sep(bc2[:, :qbc], "conv_bc1")
+        bc2b = self._sep(bc2[:, qbc:], "conv_bc2")
 
-        xBC1 = F.silu(self.conv2d(xBC[:, :half]))
-        xBC2 = xBC[:, half:]
-        x2a = self._sep(xBC2[:, :qx], "conv_x1")
-        x2b = self._sep(xBC2[:, qx:2 * qx], "conv_x2")
-        bc2a = self._sep(xBC2[:, 2 * qx:2 * qx + qbc], "conv_bc1")
-        bc2b = self._sep(xBC2[:, 2 * qx + qbc:], "conv_bc2")
-
-        x1 = xBC1[:, :d_inner // 2].reshape(b, hh, P, l)
-        B1 = xBC1[:, d_inner // 2:d_inner // 2 + gN // 2].reshape(b, -1, l)
-        C1 = xBC1[:, d_inner // 2 + gN // 2:].reshape(b, -1, l)
+        x1 = xBC1[:, :n * P].reshape(b, n, P, l)
+        B1 = xBC1[:, n * P:n * P + gN // 2].reshape(b, -1, l)
+        C1 = xBC1[:, n * P + gN // 2:].reshape(b, -1, l)
         # Path 2 heads in [a, a, b, b] order, where the JAX token-minor path
         # interleaves them [a, b, a, b]. Exact for both scans: inside a
         # head every channel p is mixed over L on its own, with the head's
@@ -169,22 +193,24 @@ class ADNSSDMixer(nn.Module):
         # gather restores the reference's. B and C share one permutation
         # of the state axis, which every product contracts (C_t . B_s, and
         # C_t . S for the state carried between chunks) and so never sees.
-        x2 = torch.cat([x2a.reshape(b, hh, P // 2, l), x2b.reshape(b, hh, P // 2, l)], dim=2)
+        x2 = torch.cat([x2a.reshape(b, n, P // 2, l), x2b.reshape(b, n, P // 2, l)], dim=2)
         B2 = torch.cat([bc2a[:, :qbc // 2], bc2b[:, :qbc // 2]], dim=1).reshape(b, -1, l)
         C2 = torch.cat([bc2a[:, qbc // 2:], bc2b[:, qbc // 2:]], dim=1).reshape(b, -1, l)
         z = F.silu(self.conv2d_z(z))
 
         if self.linear_attn_duality:
-            y1 = linear_attn_dual_seqminor(x1, dt[:, :hh], A[:hh], B1, C1, D[:hh])
-            y2 = linear_attn_dual_seqminor(x2, dt[:, hh:], A[hh:], B2, C2, D[hh:])
+            y1 = linear_attn_dual_seqminor(x1, dt[:, :n], A[:n], B1, C1, D[:n])
+            y2 = linear_attn_dual_seqminor(x2, dt[:, n:], A[n:], B2, C2, D[n:])
         else:
             # K2 reads these channel slices in place; its backward's dx, ddt,
             # dB and dC flow back through the slices and cats by autograd.
-            y1 = ssd_chunked_scan(x1, dt[:, :hh], A[:hh], B1, C1, D[:hh], SCAN_CHUNK)
-            y2 = ssd_chunked_scan(x2, dt[:, hh:], A[hh:], B2, C2, D[hh:], SCAN_CHUNK,
+            y1 = ssd_chunked_scan(x1, dt[:, :n], A[:n], B1, C1, D[:n], SCAN_CHUNK)
+            y2 = ssd_chunked_scan(x2, dt[:, n:], A[n:], B2, C2, D[n:], SCAN_CHUNK,
                                   reverse=True)
-        y = torch.cat([y1.reshape(b, d_inner // 2, l), y2.reshape(b, d_inner // 2, l)], dim=1)
-        y = self.norm(y.index_select(1, self.merge_index))
+        y = torch.stack([y1, y2], dim=1)  # (B, 2, heads, P, L): [y1 | y2]
+        if heads is not None:  # every rank's heads, in rank order
+            y = gather_model(y, dim=2)
+        y = self.norm(y.reshape(b, d_inner, l).index_select(1, self.merge_index))
 
         a1 = gate_cast(y, self.alpha1)
         y = torch.cat([a1 * y, a1 * z.reshape(b, d_inner, l).to(y.dtype)], dim=1)

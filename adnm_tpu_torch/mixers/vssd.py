@@ -20,6 +20,14 @@ fp32 and the mixer's output is fp32. The bimamba halves cannot run so in
 the JAX package (its chunked scan starts its carry in x's dtype and
 ``lax.scan`` refuses the fp32 state, ``adnm_tpu/ops/ssd.py:195-197``), and
 the port raises there too.
+
+On a mesh's 'model' axis each rank computes its part of the heads (JAX:
+``maybe_shard`` of x and dt, adnm_tpu/mixers/vssd.py:64-67), head i still
+on group i % 2 in the duality and each half in its direction in the
+bimamba form: the duality's heads [2s, 2e) (s and e this rank's part of
+the H/2 heads a group holds), the halves' heads [s, e) and [H/2 + s,
+H/2 + e). z, B and C are computed whole on every rank, and the heads are
+gathered before the LayerNorm over d_inner.
 """
 
 from __future__ import annotations
@@ -28,10 +36,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from adnm_tpu_torch.core.layers import Conv2d, Linear, channel_linear, channel_view
+from adnm_tpu_torch.core.layers import (Conv2d, Linear, channel_linear, channel_view,
+                                        conv_rows, rows_of)
 from adnm_tpu_torch.mixers.ssd_mixer import (SCAN_CHUNK, ChannelLayerNorm,
                                              reset_dt_bias_and_a_log_)
 from adnm_tpu_torch.ops.ssd import linear_attn_dual_seqminor, ssd_chunked_scan
+from adnm_tpu_torch.parallel.tensor import gather_model, model_slice
 
 
 def check_compute_dtype(linear_attn_duality: bool, dtype: torch.dtype) -> None:
@@ -83,28 +93,43 @@ class VSSDMixer(nn.Module):
         l = h * w
         d_inner, hh, P = self.d_inner, self.nheads // 2, self.headdim
         g, n = self.NGROUPS, self.D_STATE
+        part = model_slice(hh)  # this rank's part of a group's or a half's heads
+        s, e = (0, hh) if part is None else (part.start, part.stop)
+        heads = [(2 * s, 2 * e)] if self.linear_attn_duality else [(s, e), (hh + s, hh + e)]
+        k = 2 * (e - s)  # this rank's heads
+        # the rows of in_proj this rank reads: z whole, its heads' x, B and
+        # C whole, its heads' dt (at the whole range, all of in_proj in order)
+        xbc_rows = [*((a * P, c * P) for a, c in heads), (d_inner, self.conv_dim)]
+        dto = d_inner + self.conv_dim
+        rows = [(0, d_inner), *((d_inner + a, d_inner + c) for a, c in xbc_rows),
+                *((dto + a, dto + c) for a, c in heads)]
+        z, xBC, dt = channel_linear(self.in_proj, u, rows).split(
+            [d_inner, k * P + 2 * g * n, k], dim=1)
+        xBC = F.silu(conv_rows(self.conv2d, xBC, xbc_rows))
+        dt = F.softplus(dt + channel_view(rows_of(self.dt_bias, heads), 4))
+        dt = dt.reshape(b, k, l)
+        A = rows_of(-torch.exp(self.A_log), heads)
+        D = rows_of(self.D, heads)
 
-        zxbcdt = channel_linear(self.in_proj, u)
-        z = zxbcdt[:, :d_inner]
-        xBC = F.silu(self.conv2d(zxbcdt[:, d_inner:d_inner + self.conv_dim]))
-        dt = F.softplus(zxbcdt[:, d_inner + self.conv_dim:] + channel_view(self.dt_bias, 4))
-        dt = dt.reshape(b, self.nheads, l)
-        A = -torch.exp(self.A_log)
-
-        x = xBC[:, :d_inner].reshape(b, self.nheads, P, l)
-        Bm = xBC[:, d_inner:d_inner + g * n].reshape(b, g, n, l)
-        Cm = xBC[:, d_inner + g * n:].reshape(b, g, n, l)
+        x = xBC[:, :k * P].reshape(b, k, P, l)
+        Bm = xBC[:, k * P:k * P + g * n].reshape(b, g, n, l)
+        Cm = xBC[:, k * P + g * n:].reshape(b, g, n, l)
         if self.linear_attn_duality:
             # head i uses group i % 2: heads viewed as (H/2, 2)
             ys = [linear_attn_dual_seqminor(x[:, gi::g], dt[:, gi::g], A[gi::g], Bm[:, gi],
-                                            Cm[:, gi], self.D[gi::g]) for gi in range(g)]
-            y = torch.stack(ys, dim=2)  # (B, H/2, 2, P, L)
+                                            Cm[:, gi], D[gi::g]) for gi in range(g)]
+            y = torch.stack(ys, dim=2)  # (B, heads/2, 2, P, L)
+            if part is not None:  # every rank's heads, in rank order
+                y = gather_model(y, dim=1)
         else:
             # channel slices of xBC, read in place by K2 and its backward
-            y1 = ssd_chunked_scan(x[:, :hh], dt[:, :hh], A[:hh], Bm[:, 0], Cm[:, 0],
-                                  self.D[:hh], SCAN_CHUNK)
-            y2 = ssd_chunked_scan(x[:, hh:], dt[:, hh:], A[hh:], Bm[:, 1], Cm[:, 1],
-                                  self.D[hh:], SCAN_CHUNK, reverse=True)
-            y = torch.cat([y1, y2], dim=1)
+            kh = k // 2
+            y1 = ssd_chunked_scan(x[:, :kh], dt[:, :kh], A[:kh], Bm[:, 0], Cm[:, 0], D[:kh],
+                                  SCAN_CHUNK)
+            y2 = ssd_chunked_scan(x[:, kh:], dt[:, kh:], A[kh:], Bm[:, 1], Cm[:, 1], D[kh:],
+                                  SCAN_CHUNK, reverse=True)
+            y = torch.stack([y1, y2], dim=1)  # (B, 2, heads/2, P, L): [y1 | y2]
+            if part is not None:
+                y = gather_model(y, dim=2)
         y = self.norm(y.reshape(b, d_inner, h, w)) * z
         return channel_linear(self.out_proj, y)

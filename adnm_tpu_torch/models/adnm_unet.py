@@ -26,6 +26,12 @@ layers give it (bf16 for the ADN-SSD mixer's configurations; fp32 from the
 first Block on for the VSSD duality, whose mixers return fp32 as in JAX).
 The VSSD bimamba configuration runs in fp32 only
 (``mixers.vssd.check_compute_dtype``).
+
+On a mesh's 'model' axis (inference) the mixers and the FeedForward of
+every Block, AttentionBlock and refiner Block split their heads and hidden
+channels over the ranks; they read the mesh that the caller makes active
+around the forward (``parallel.tensor.use_mesh``), so no module passes it
+on. Everything else, MLA included, runs whole on every rank, as in JAX.
 """
 
 from __future__ import annotations

@@ -1,15 +1,24 @@
-"""The data axis of the JAX package's device mesh, as ranks of processes
-(counterpart of adnm_tpu/parallel/mesh.py and of the mesh flags of
+"""The JAX package's device mesh as ranks of processes (counterpart of
+adnm_tpu/parallel/mesh.py and of the mesh flags of
 adnm_tpu/cli/common.py).
 
-The JAX package shards the batch over a ('data',) mesh; XLA then
-all-reduces the gradients and takes BatchNorm's statistics over the whole
-batch. The port runs one process per position of the 'data' axis: each
-rank holds a replica of the model and its rows of every global batch,
-DistributedDataParallel averages the gradients, and the port's BatchNorm
-reduces its statistics over the ranks (``core/layers.py::BatchNorm``).
-The 'seq' and 'model' axes (the refiner's token sharding, heads and
-channels over cards) are not ported yet.
+The JAX package shards the batch over a mesh's 'data' axis and, for
+inference, heads and hidden channels over its 'model' axis; XLA inserts
+the collectives. The port runs one process per position of the mesh,
+ranks numbered data-major as JAX lays its devices out (rank = d * M + m).
+Over 'data' each rank holds a replica of the model and its rows of every
+global batch: in training DistributedDataParallel averages the gradients
+and the port's BatchNorm reduces its statistics over the ranks
+(``core/layers.py::BatchNorm``); in evaluation each position runs its rows
+and the predictions are gathered in order (``train/loop.py``). Over
+'model' the mixers and the FeedForward split their heads and hidden
+channels (``parallel/tensor.py``); training there is not ported. The
+'seq' axis (the pyramid's rows and the refiner's tokens over cards) is not
+ported either.
+
+``make_mesh`` gives the mesh as a ``DeviceMesh`` with the dimensions
+("data", "model"), each with its process group: NCCL between cards, gloo
+on the CPU and for ranks that share one card.
 """
 
 from __future__ import annotations
@@ -20,18 +29,27 @@ import time
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 import torch.multiprocessing as mp
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from adnm_tpu_torch.device import resolve_device
 from adnm_tpu_torch.parallel.multihost import finish_multihost, init_multihost
 
 
-def parse_mesh(spec: str) -> dict:
+# Where the axes that are not ported yet are queued.
+NOT_PORTED = "ROADMAP §1 item 5"
+MESH_DIMS = ("data", "model")
+
+
+def parse_mesh(spec: str, training: bool = True) -> dict:
     """{axis: size} of an ``AXIS=N,...`` mesh spec, with the JAX package's
     checks and messages (adnm_tpu/cli/common.py::_parse_mesh): entries
-    AXIS=N with N a positive integer, no axis twice, a 'data' axis. An
-    axis other than 'data' larger than 1 exits: the port shards the batch
-    alone."""
+    AXIS=N with N a positive integer, no axis twice, a 'data' axis. Exits
+    on what the port does not run: a 'seq' axis larger than 1, an axis
+    other than 'data', 'seq' and 'model' larger than 1, and with
+    ``training`` a 'model' axis larger than 1 (the 'model' axis serves
+    validate, visualize and predict)."""
     mesh = {}
     for part in spec.split(","):
         name, eq, n = part.partition("=")
@@ -45,12 +63,45 @@ def parse_mesh(spec: str) -> dict:
     if "data" not in mesh:
         raise SystemExit("--mesh: a 'data' axis is required (the batch is sharded over "
                          "'data'); add data=1 for a non-data-parallel mesh")
-    sharded = [f"{a}={n}" for a, n in mesh.items() if a != "data" and n > 1]
-    if sharded:
-        raise SystemExit(f"--mesh: {', '.join(sharded)}: the port shards the batch over "
-                         f"'data' only; the 'seq' and 'model' axes (the refiner's token "
-                         f"sharding, tensor parallelism) are not ported yet (ROADMAP)")
+    if mesh.get("seq", 1) > 1:
+        raise SystemExit(f"--mesh: seq={mesh['seq']}: the 'seq' axis (the pyramid's rows and "
+                         f"the refiner's tokens over ranks) is not ported yet ({NOT_PORTED})")
+    other = [f"{a}={n}" for a, n in mesh.items() if a not in ("data", "seq", "model") and n > 1]
+    if other:
+        raise SystemExit(f"--mesh: {', '.join(other)}: the port's mesh has the axes 'data' "
+                         f"and 'model' (and 'seq' of size 1)")
+    if training and mesh.get("model", 1) > 1:
+        raise SystemExit(f"--mesh: model={mesh['model']}: training on the 'model' axis (tensor "
+                         f"parallelism) is not ported yet ({NOT_PORTED}); the 'model' axis "
+                         f"serves validate, visualize and predict")
     return mesh
+
+
+_MESHES: dict = {}
+
+
+def make_mesh(data: int, model: int = 1, device: torch.device = torch.device("cpu")
+              ) -> DeviceMesh:
+    """The ("data", "model") mesh of ``data`` x ``model`` ranks over the
+    process group, which must hold exactly that many, each with a process
+    group of its own (the backend of the default group). Rank d * model + m
+    sits at position (d, m), as JAX lays the devices of a mesh out. Made
+    once per shape and device type in a process group (every rank calls
+    it at the same point: a group's creation is collective);
+    ``finish_multihost`` forgets it with the group."""
+    world = dist.get_world_size()
+    if data * model != world:
+        raise ValueError(f"a mesh of data={data} x model={model} ranks in a process group of "
+                         f"{world}")
+    key = (torch.device(device).type, data, model)
+    if key not in _MESHES:
+        _MESHES[key] = init_device_mesh(key[0], (data, model), mesh_dim_names=MESH_DIMS)
+    return _MESHES[key]
+
+
+def forget_meshes() -> None:
+    """Drop the meshes made in this process group (before its teardown)."""
+    _MESHES.clear()
 
 
 def _run_rank(local_rank: int, fn: Callable, world: int, init_method: str, device: str,

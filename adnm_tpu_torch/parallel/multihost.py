@@ -23,8 +23,11 @@ Wiring (``cli/train.py``, ``parallel/mesh.py::spawn``):
      teardown, while every process is at the same point.
 
 Training, the loss and the gradient norm are multi-process safe: every
-rank holds the same global values. Prediction collection (validate,
-visualize, predict) runs on one card against a checkpoint.
+rank holds the same global values. Evaluation shards the val and test
+batches over the ranks and gathers the predictions in order
+(``Trainer.eval_epoch``); validate, visualize and predict run on a mesh of
+one host (``parallel/mesh.py``), as in JAX, whose prediction collection is
+not addressable across hosts.
 """
 
 from __future__ import annotations
@@ -120,7 +123,10 @@ def finish_multihost() -> None:
     while every rank is at the same point. No-op outside a process group."""
     if not (dist.is_available() and dist.is_initialized()):
         return
+    from adnm_tpu_torch.parallel.mesh import forget_meshes
+
     host_barrier("adnm:finish")
+    forget_meshes()  # their groups go with the default one
     dist.destroy_process_group()
 
 

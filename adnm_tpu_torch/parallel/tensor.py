@@ -1,0 +1,187 @@
+"""Tensor parallelism over the mesh's 'model' axis, and the 'data' axis's
+rows in evaluation (counterpart of the 'model' and 'data' annotations of
+adnm_tpu/parallel/mesh.py::maybe_shard, :73-101).
+
+The JAX modules annotate heads and hidden channels with the 'model' axis
+and XLA partitions them; the port's modules ask here which of them this
+rank computes and join the parts themselves:
+
+* ``model_slice(n)``: this rank's range of ``n`` heads or channels, or None
+  where they are not split: outside a mesh, on a 'model' axis of size 1,
+  and where ``n`` does not divide by its size, as ``maybe_shard`` drops an
+  axis that does not divide (the module then computes all of them, as
+  every rank does);
+* ``gather_model(x, dim)``: the ranks' parts of ``x``, concatenated along
+  ``dim`` in rank order; ``reduce_model(x)``: their sum.
+
+The active mesh is set around a forward with ``use_mesh`` (the
+``Trainer`` and ``cli.predict.forecast`` do, as JAX's ``_mesh_ctx``); the
+parameters are replicated on every rank (JAX's ``P()``) and a module slices
+its weights at use. Outside ``use_mesh`` every function here is a no-op.
+
+Over 'data' (``data_rows``, ``gather_data``, ``sum_data``) the rows of a
+batch are split in contiguous, nearly equal parts in rank order; a batch
+of fewer rows than positions leaves some with none, and those ranks still
+take part in every collective. ``gather_data`` assembles a batch's rows
+on every rank (a forward's output, which a next step may read), or with
+``first`` on data position 0 alone (a test split's predictions, which
+rank 0 alone evaluates).
+
+Transport: a collective runs on the process group of its mesh dimension,
+over NCCL between cards and gloo on the CPU. Gloo has no all-gather for
+CUDA tensors, which ranks sharing one card use: ``gather_model`` and
+``gather_data`` stage such a tensor through host memory (a copy to the
+host, the gather there, a copy back). This is a transport; the compute
+stays on the card. A collective that fails raises.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Iterator, Optional
+
+import torch
+import torch.distributed as dist
+
+_ACTIVE = None  # the DeviceMesh of the forward under way (``use_mesh``)
+# Bytes this rank sent in collectives, by axis: read by the smoke run.
+TRAFFIC = {"model": 0, "data": 0}
+
+
+@contextlib.contextmanager
+def use_mesh(mesh) -> Iterator[None]:
+    """``mesh`` (a ``DeviceMesh`` of ``parallel.make_mesh``, or None) active
+    inside the block; the one before it is restored after."""
+    global _ACTIVE
+    saved, _ACTIVE = _ACTIVE, mesh
+    try:
+        yield
+    finally:
+        _ACTIVE = saved
+
+
+def axis_size(mesh, axis: str) -> int:
+    """The size of ``axis`` on ``mesh``; 1 without a mesh."""
+    if mesh is None:
+        return 1
+    return mesh.size(mesh.mesh_dim_names.index(axis))
+
+
+def axis_rank(mesh, axis: str) -> int:
+    """This rank's position on ``axis``; 0 without a mesh."""
+    return 0 if mesh is None else mesh.get_local_rank(axis)
+
+
+def model_slice(n: int) -> Optional[slice]:
+    """This rank's part of ``n`` heads or channels on the active mesh's
+    'model' axis, or None where they are not split."""
+    m = axis_size(_ACTIVE, "model")
+    if m == 1 or n % m:
+        return None
+    r, part = axis_rank(_ACTIVE, "model"), n // m
+    return slice(r * part, (r + 1) * part)
+
+
+def _staged(x: torch.Tensor, group) -> bool:
+    """Whether a gather of ``x`` goes through host memory: gloo gathers no
+    CUDA tensor."""
+    return x.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def _all_gather(x: torch.Tensor, group, first: bool = False) -> Optional[list]:
+    """Every rank's ``x`` (one shape on all ranks) in rank order of ``group``;
+    with ``first``, on the group's first rank alone (None on the others)."""
+    src = x.contiguous()
+    staged = _staged(src, group)
+    if staged:
+        src = src.cpu()
+    dst = dist.get_global_rank(group, 0) if first else None
+    parts = None
+    if dst is None or dist.get_rank() == dst:
+        parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
+    if dst is None:
+        dist.all_gather(parts, src, group=group)
+    else:
+        dist.gather(src, parts, dst=dst, group=group)
+    if parts is None:
+        return None
+    return [p.to(x.device) for p in parts] if staged else parts
+
+
+def gather_model(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The 'model' ranks' parts of ``x`` concatenated along ``dim`` in rank
+    order (each rank's part as ``model_slice`` gave it); ``x`` itself on a
+    'model' axis of size 1."""
+    if axis_size(_ACTIVE, "model") == 1:
+        return x
+    TRAFFIC["model"] += x.numel() * x.element_size()
+    return torch.cat(_all_gather(x, _ACTIVE.get_group("model")), dim=dim)
+
+
+def reduce_model(x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` over the 'model' ranks, the same bits on each; ``x``
+    itself on a 'model' axis of size 1."""
+    if axis_size(_ACTIVE, "model") == 1:
+        return x
+    TRAFFIC["model"] += x.numel() * x.element_size()
+    out = x.contiguous()
+    dist.all_reduce(out, group=_ACTIVE.get_group("model"))
+    return out
+
+
+def row_counts(mesh, n: int) -> list:
+    """The rows of an ``n``-row batch at each 'data' position, in order."""
+    d = axis_size(mesh, "data")
+    return [(i + 1) * n // d - i * n // d for i in range(d)]
+
+
+def data_rows(mesh, n: int) -> slice:
+    """This rank's rows of an ``n``-row batch: its 'data' position's part."""
+    d, i = axis_size(mesh, "data"), axis_rank(mesh, "data")
+    return slice(i * n // d, (i + 1) * n // d)
+
+
+def sum_data(mesh, x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` over the 'data' positions (one rank of each: the
+    ranks of this rank's 'model' position), the same bits on each."""
+    if axis_size(mesh, "data") == 1:
+        return x
+    TRAFFIC["data"] += x.numel() * x.element_size()
+    out = x.clone()
+    dist.all_reduce(out, group=mesh.get_group("data"))
+    return out
+
+
+def gather_data(mesh, x: Optional[torch.Tensor], n: int,
+                first: bool = False) -> Optional[torch.Tensor]:
+    """The ``n`` rows of a batch from the 'data' positions' parts, in order:
+    ``x`` holds this rank's ``data_rows`` (None, or no rows, where it has
+    none). Every rank of the 'data' group receives them; with ``first``,
+    the group's first rank alone (data position 0; None on the others).
+    The parts are padded to the largest for the gather; where a position
+    has no rows, the shape of a row comes first from the others."""
+    if axis_size(mesh, "data") == 1:
+        return x
+    group = mesh.get_group("data")
+    counts = row_counts(mesh, n)
+    if min(counts) == 0:  # every rank knows n, so all take this branch together
+        shape = torch.zeros(8, dtype=torch.int64, device=mesh_device(mesh))
+        if x is not None and x.shape[0]:
+            shape[0] = x.dim()
+            shape[1:x.dim()] = torch.tensor(x.shape[1:])
+        dist.all_reduce(shape, op=dist.ReduceOp.MAX, group=group)
+        row = tuple(int(v) for v in shape[1:int(shape[0])])
+        if x is None or not x.shape[0]:
+            x = torch.zeros((0, *row), dtype=torch.float32, device=mesh_device(mesh))
+    part = torch.zeros((max(counts), *x.shape[1:]), dtype=x.dtype, device=x.device)
+    part[:x.shape[0]] = x
+    TRAFFIC["data"] += part.numel() * part.element_size()
+    parts = _all_gather(part, group, first)
+    return None if parts is None else torch.cat([p[:c] for p, c in zip(parts, counts)])
+
+
+def mesh_device(mesh) -> torch.device:
+    """This rank's device on ``mesh``: its CUDA device, or the CPU."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")

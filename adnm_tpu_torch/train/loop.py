@@ -40,8 +40,12 @@ bits. The eval forward (``eval_step``, ``predict``, ``eval_epoch``)
 replays one graph per (batch shape, its dtype, compute dtype) on the card
 likewise. A step's graph is also keyed by the compute dtype, the remat and
 the accumulation, so a Trainer whose settings change captures anew. Graphs
-are the default on a card and off on the CPU and under data parallelism
-(``scan_steps`` > 1 then raises, as JAX's does under multi-host).
+are the default on a card and off on the CPU; under data parallelism
+``scan_steps`` > 1 raises (as JAX's does under multi-host) and each rank
+replays its own graph of the eval forward, which has no collective there;
+on a 'model' axis larger than 1 the eval forward runs eagerly (its
+collectives run over gloo between ranks that share a card, which a CUDA
+graph cannot capture).
 
 As in the JAX package, validation consumes the val batches (the
 reference re-evaluates the last training batch, train.py:159-160).
@@ -58,13 +62,26 @@ that its forward never reads; DDP's reducer would wait for their gradients
 for ever, so they are found once, from the autograd graph of a batch-1
 forward at the first step, and left out of its buckets: every rank gives
 them the same zero gradient. With ``zero1`` the optimizer state is sharded
-over the ranks (``ZeroRedundancyOptimizer``). Evaluation runs the whole
-val and test sets on every rank (the JAX package's multi-host choice:
-every rank then holds the same losses, with the single process's batches
-and tails), and every decision of ``fit`` (best checkpoint, early stop,
-the next epoch's clip threshold) comes from values that are the same on
-every rank: rank 0's val and test losses, broadcast, and the gradient norm
-of the averaged gradients. Rank 0 alone writes checkpoints and metrics.
+over the ranks (``ZeroRedundancyOptimizer``). Every decision of ``fit``
+(best checkpoint, early stop, the next epoch's clip threshold) comes from
+values that are the same on every rank: rank 0's val and test losses,
+broadcast, and the gradient norm of the averaged gradients. Rank 0 alone
+writes checkpoints and metrics.
+
+Evaluation on a mesh (``mesh``, a ``parallel.make_mesh``; under ``ddp`` the
+('data', 'model') = (ranks, 1) mesh; JAX: the Trainer's mesh and its
+``_mesh_ctx``): every rank reads the single process's batches, each
+'data' position runs its rows of a batch (a tail that does not divide
+leaves some positions fewer rows, or none: those ranks still join every
+collective), the ranks of one position run the same rows with the heads
+and hidden channels split over 'model' (``parallel/tensor.py``), and the
+predictions are gathered in order: by ``eval_step`` and ``predict`` on
+every rank, by ``eval_epoch(collect=True)`` on rank 0 alone, which alone
+holds the split's predictions and ground truths. Those predictions, and
+each batch's loss on every rank, the mean over the whole batch (each
+position's loss weighted by its rows), are the single process's up to the
+order of the sums. Training on a 'model' axis larger than 1 is not ported
+(``parallel.mesh.NOT_PORTED``).
 """
 
 from __future__ import annotations
@@ -88,7 +105,10 @@ from adnm_tpu_torch.core.layers import seeded_init_, sync_batch_norm
 from adnm_tpu_torch.core.stochastic import attach_generator, step_seed
 from adnm_tpu_torch.data.loader import device_prefetch, grouped, to_device
 from adnm_tpu_torch.device import deterministic_cudnn
+from adnm_tpu_torch.parallel.mesh import NOT_PORTED, make_mesh
 from adnm_tpu_torch.parallel.multihost import host_barrier
+from adnm_tpu_torch.parallel.tensor import (axis_rank, axis_size, data_rows, gather_data,
+                                            sum_data, use_mesh)
 from adnm_tpu_torch.train import checkpoint as ckpt
 from adnm_tpu_torch.train.presets import CARD_ADAM, TrainPreset
 from adnm_tpu_torch.utils.graphs import GraphSet
@@ -200,7 +220,7 @@ class Trainer:
                  param_transform: Optional[Callable[[nn.Module, torch.Generator], nn.Module]] = None,
                  remat_forward: bool = False, accum_steps: int = 1,
                  compute_dtype: torch.dtype = torch.float32, ddp: bool = False,
-                 zero1: bool = False, scan_steps: int = 1):
+                 zero1: bool = False, scan_steps: int = 1, mesh=None):
         """The model's weights come from the init seeded with ``seed``
         (``seeded_init_``, on the CPU), then ``param_transform(model,
         generator seeded with seed + 1)`` (``apply_reference_init`` for
@@ -234,7 +254,13 @@ class Trainer:
         ``scan_steps``): ``train_epoch`` stacks k batches into a group and
         ``train_steps`` runs its k steps as one CUDA graph replay on the
         card, eagerly on the CPU; the same steps, bit for bit. Not under
-        ``ddp``."""
+        ``ddp``.
+
+        ``mesh`` (a ``parallel.make_mesh`` over the process group) shards
+        evaluation over its 'data' axis and the heads and hidden channels
+        over its 'model' axis; the Trainer then evaluates and predicts but
+        does not train, unless ``ddp`` with a 'model' axis of 1. Under
+        ``ddp`` without one, evaluation runs on the (ranks, 1) mesh."""
         if accum_steps < 1 or scan_steps < 1:
             raise ValueError("scan_steps and accum_steps must be >= 1")
         if scan_steps > 1 and ddp:
@@ -264,7 +290,15 @@ class Trainer:
         if ddp and not dist.is_initialized():
             raise RuntimeError("Trainer(ddp=True) needs a process group: "
                                "adnm_tpu_torch.parallel.init_multihost first")
-        self.rank, self.world = (dist.get_rank(), dist.get_world_size()) if ddp else (0, 1)
+        if mesh is not None and not dist.is_initialized():
+            raise RuntimeError("Trainer(mesh=...) needs a process group: "
+                               "adnm_tpu_torch.parallel.init_multihost first")
+        if ddp and axis_size(mesh, "model") > 1:
+            raise NotImplementedError(f"training on the mesh's 'model' axis (tensor "
+                                      f"parallelism) is not ported yet ({NOT_PORTED})")
+        self.mesh = make_mesh(dist.get_world_size(), 1, device) if ddp and mesh is None else mesh
+        self.rank, self.world = ((dist.get_rank(), dist.get_world_size())
+                                 if ddp or mesh is not None else (0, 1))
         self.generator = torch.Generator(device=device)  # Dropout and DropPath masks
         attach_generator(model, self.generator, (self.rank, self.world) if ddp else None)
         if ddp:
@@ -332,6 +366,9 @@ class Trainer:
         the global batch's). A parameter the loss does not reach gets a
         zero gradient, as in JAX, so AdamW still decays it. Runs the model
         in train mode; ``seeds`` holds each microbatch's (``_forward``)."""
+        if self.mesh is not None and not self.ddp:
+            raise RuntimeError("a Trainer on an evaluation mesh (mesh without ddp) does not "
+                               "train: its ranks would step apart")
         self.model.train()
         imgs, targets = self._split_batch(batch)
         m = self.accum_steps
@@ -478,11 +515,14 @@ class Trainer:
 
     def _graphed(self, graphs: Optional[bool]) -> bool:
         """Whether an eval forward replays a CUDA graph: ``graphs``, by
-        default on a card without ``ddp``; a graph needs a card."""
+        default on a card on a 'model' axis of 1; a graph needs a card, and
+        the 'model' axis's collectives keep the forward eager."""
+        eager_only = axis_size(self.mesh, "model") > 1
         if graphs is None:
-            return self.graphs is not None and not self.ddp
-        if graphs and self.graphs is None:
-            raise ValueError(f"graphs=True needs a CUDA device, not {self.device}")
+            return self.graphs is not None and not eager_only
+        if graphs and (self.graphs is None or eager_only):
+            raise ValueError(f"graphs=True needs a CUDA device, not {self.device}, and a "
+                             f"'model' axis of 1")
         return graphs
 
     @torch.no_grad()
@@ -493,17 +533,46 @@ class Trainer:
         return self.preset.loss_fn(out, targets), out
 
     @torch.no_grad()
-    def eval_step(self, batch: torch.Tensor,
-                  graphs: Optional[bool] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(loss, predictions) in eval mode; with ``graphs`` (the default on
-        a card) one CUDA graph replay per (batch shape, its dtype, compute
-        dtype), the first batch of a shape run eagerly and captured."""
+    def _local_eval(self, batch: torch.Tensor,
+                    graphs: Optional[bool]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(loss, predictions) of ``batch`` in this process, under the mesh's
+        'model' axis where there is one."""
         if not self._graphed(graphs):
-            return self._eval(batch)
+            with use_mesh(self.mesh):
+                return self._eval(batch)
         return self.graphs.run(("eval", tuple(batch.shape), batch.dtype, self.compute_dtype),
                                self._eval, (batch,),
                                binding=self._model_binding,
                                label=f"eval forward of {tuple(batch.shape)} {batch.dtype}")
+
+    @torch.no_grad()
+    def _shard_eval(self, rows: torch.Tensor, n: int, graphs: Optional[bool], gather: bool,
+                    first: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """On the mesh: (this position's share of the batch's loss, the
+        batch's predictions, gathered over 'data' if ``gather`` (with
+        ``first``, on data position 0 alone), else None) for ``rows``, this
+        rank's ``data_rows`` of an ``n``-row batch. The share is its rows'
+        mean loss times rows / n: the shares sum to the whole batch's mean."""
+        if rows.shape[0]:
+            loss, out = self._local_eval(rows, graphs)
+            share = loss * (rows.shape[0] / n)
+        else:
+            share, out = torch.zeros((), device=self.device), None
+        return share, gather_data(self.mesh, out, n, first) if gather else None
+
+    @torch.no_grad()
+    def eval_step(self, batch: torch.Tensor,
+                  graphs: Optional[bool] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(loss, predictions) in eval mode; with ``graphs`` (the default on
+        a card) one CUDA graph replay per (batch shape, its dtype, compute
+        dtype), the first batch of a shape run eagerly and captured. On a
+        mesh every rank passes the whole batch and gets the whole batch's
+        loss and predictions."""
+        if self.mesh is None:
+            return self._local_eval(batch, graphs)
+        n = batch.shape[0]
+        share, out = self._shard_eval(batch[data_rows(self.mesh, n)], n, graphs, True)
+        return sum_data(self.mesh, share), out
 
     # ---- loops ----------------------------------------------------------
 
@@ -538,12 +607,22 @@ class Trainer:
     def eval_epoch(self, loader, collect: bool = False, graphs: Optional[bool] = None):
         """(summed loss, predictions, ground truths); the last two are None
         unless ``collect``, else (N, T_out, S, S) fp32 arrays, the ground
-        truths in [0, 1]. Each batch through ``eval_step(graphs=...)``."""
+        truths in [0, 1]. Each batch through ``eval_step(graphs=...)``; on a
+        mesh each rank's rows of it, the batches' losses summed over 'data'
+        once at the end, and with ``collect`` the predictions gathered on
+        rank 0 alone, which alone returns the arrays (None on the others)."""
+        keep = collect and self.rank == 0  # rank 0 is ('data', 'model') position (0, 0)
+        gather = collect and axis_rank(self.mesh, "model") == 0  # rank 0's 'data' group
         losses, preds, gts = [], [], []
         for batch in device_prefetch(loader, self.device):
-            loss, out = self.eval_step(batch, graphs)
+            if self.mesh is None:
+                loss, out = self.eval_step(batch, graphs)
+            else:
+                n = batch.shape[0]
+                loss, out = self._shard_eval(batch[data_rows(self.mesh, n)], n, graphs, gather,
+                                             first=True)
             losses.append(loss)
-            if collect:
+            if keep:
                 preds.append(out[:, :, 0].cpu().numpy())
                 g = batch[:, self.input_frames:, 0].cpu().numpy()
                 if np.issubdtype(g.dtype, np.integer):
@@ -553,8 +632,10 @@ class Trainer:
                     # floor(x * 90) across a threshold)
                     g = g.astype(np.float32) / 255.0
                 gts.append(g)
+        if self.mesh is not None and losses:  # each batch's loss: the shares' sum
+            losses = list(sum_data(self.mesh, torch.stack(losses)))
         total = float(torch.stack(losses).sum().cpu()) if losses else 0.0
-        if not collect:
+        if not keep:
             return total, None, None
         if not preds:
             return total, np.zeros((0,)), np.zeros((0,))

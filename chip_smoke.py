@@ -81,8 +81,7 @@
    launches counted from 0 and asserted (bimamba: 28 K2 with remat, 20
    without, and 20 K2 backward), a trace of 2 steps of bimamba at batch 1,
    and one VSSD bimamba measurement at batch 1. The fp32 forwards of both
-   models and the duality steps' traces are phase 6i (d)'s, eager beside
-   graphed.
+   models are phase 6i (d)'s, eager beside graphed.
 6b. bf16 compute (the JAX package's ``--bf16``): the duality model's three
    requests through ``cli.predict.main --bf16`` and the bimamba model's
    through ``forecast(compute_dtype=bfloat16)``, launches as in fp32 (20
@@ -92,8 +91,8 @@
    train CLI's 4-step epoch with ``--bf16`` (28 K1, 20 K1 backward a
    step); the batch-1 latency, batch-4 frames/s and a profile at batch 4
    of the duality forward; the bimamba forward's times; duality steps at
-   batch 1 and 4 with remat and at 4 without (peak memory, a profile at
-   batch 4) and bimamba steps at batch 1 and 4 (28 K2, 20 K2 backward).
+   batch 1 and 4 with remat and at 4 without (peak memory) and bimamba
+   steps at batch 1 and 4 (28 K2, 20 K2 backward).
 6c. One batch-1 training step of the duality and of the bimamba model from
    the same seeded weights and batch: two card runs bit-equal in fp32 and
    in bf16 compute; the fp32 loss, global gradient norm and every gradient
@@ -111,8 +110,8 @@
    statistics within 1e-4) and (d) two card steps bit-equal; (f) the
    batch-1 latency, batch-4 frames/s and peak memory of the forward, the
    step time at batch 1 and 4 (median of 10 after 3) and the peak memory
-   of a batch-4 step, the batch-1 forward's kernels and profiles of the
-   batch-4 forward and step; (e) each through the train CLI (4 steps at
+   of a batch-4 step, the batch-1 forward's kernels and a profile of the
+   batch-4 forward; (e) each through the train CLI (4 steps at
    batch 4, an epoch snapshot), ``predict --ckpt`` on the snapshot (two
    forwards of a clip bit-equal), and for SmaAt ``validate --ckpt`` (its
    counts equal the train CLI's final protocol on the same weights, and
@@ -161,8 +160,7 @@
    plain ``Trainer``'s bits (loss, gradient norm, every parameter and
    buffer after AdamW), twice, with the second step's launches (28 K1, 20
    K1 backward), two DDP gradient calls bit-equal, and each one's step
-   time, device busy time and peak memory, and the bytes all-reduced a
-   step; (2) two ranks on the one card over gloo (CUDA tensors), one row
+   time and peak memory, and the bytes all-reduced a step; (2) two ranks on the one card over gloo (CUDA tensors), one row
    each, against one process on the same global batch: the duality and
    bimamba ADNM-UNet (K1, K2 and their backwards launched on each rank,
    counted from 0 per rank), SmaAt-UNet (cross-rank BatchNorm: running
@@ -206,9 +204,9 @@
    ``eval_epoch``; (d) beside each other from one run, eager and graphed:
    the batch-1 latency and batch-4 frames/s of the duality, bimamba,
    TransUnet and SwinUnet forwards, the step median of duality at batch 1
-   and 4 and of TrajGRU and SwinUnet at batch 4, each with its busy share
-   and kernels (``profile_device``), peak memory, and the capture's
-   seconds and pool. Prints the phase's seconds.
+   and 4 and of TrajGRU and SwinUnet at batch 4, the forwards' and the
+   graphed steps' busy share and kernels (``profile_device``), peak
+   memory, and the capture's seconds and pool. Prints the phase's seconds.
    To keep the smoke within its limit with this phase, earlier phases time
    with fewer repeats, and every correctness check stays: phase 6 no longer
    times the fp32 forwards or traces the duality steps (6i (d) does both,
@@ -223,6 +221,29 @@
    no longer times the six baselines in fp32 against bf16 (bf16 buys them no
    speed, ``PERF.md`` §5) and keeps its bf16-against-fp32 forward and
    step checks, its bit-equality and launch checks and its CLIs.
+6j. Multi-rank inference (``mesh_inference_phase``), full width, 256x256,
+   seeded weights, fp32, two gloo ranks sharing the card
+   (``parallel.spawn``), the kernels built once before: (a) ``validate``
+   on data=2 (a test split of 9 clips in batches of 4, 4 and 1: rank 0
+   has no rows of the tail) against one process: the predictions
+   (``MESH_DATA_ATOL``, below the gap a row out of place would show), the
+   ground truths equal, the test loss (1e-4 relative), the printed table
+   (identical where the predictions are bit-equal); (b) ``forecast`` on model=2 (the heads and hidden channels
+   split over the ranks) of the duality and bimamba models at batch 4
+   against one process (``MESH_ATOL``), the two ranks bit-equal, each
+   rank's launches counted and traced (20 K1, and 20 K2 on bimamba, on
+   every rank), the bytes its collectives sent, its wall against one
+   process's eager forward, its peak memory against one process's; (c)
+   ``predict`` on data=2 against one process (``MESH_DATA_ATOL``). Each
+   part's wall and peak memory per rank. With two or more cards, (b) again
+   over NCCL, a card a rank. Prints the phase's seconds. To keep the
+   smoke within its limit with this phase, 6h's DDP step timing takes 4 steps after 1 (was 6
+   after 2) and 6i (d)'s step and forward timings take no warm-up calls
+   beyond the capture's (was 1 and 3), and the traces of eager training
+   steps (the profiler's slowest: tens of thousands of host and device
+   events) are gone from 6h (1), 6i (d) (the graphed group's trace stays),
+   the baselines' batch-4 steps (6d, 6e), and the bf16 duality and MLA
+   batch-4 steps (6b, 6e); every check and every timing stays.
 7. Prints the kernels' JSON line (each K1 entry with its largest kernel /
    library time over the fp32 main-path shapes, ``worst_vs_library``, and
    its MLA launches and times at MLA's rows; K2's
@@ -232,7 +253,9 @@
    ``bf16_bound_ms`` and ``bf16_max_abs_err`` at the refiner; each K1 and
    K2 entry with a ``laps`` entry: its launches on the LAPS paths and its
    times at the LAPS shapes; each K1, K1 backward, K2 and K2 backward entry
-   with a ``graphed`` entry: its launches per graphed forward and step),
+   with a ``graphed`` entry: its launches per graphed forward and step;
+   each K1 and K2 entry with a ``mesh_model2`` entry: its launches per
+   rank and forward on model=2, phase 6j (b)),
    the script's total seconds, the card line, then the result line last.
 
 Any failure raises: the exit code is then non-zero and no result line is
@@ -1842,8 +1865,8 @@ def lptqpn_gram_bound_ms(batch: int, dim: int = 20, blocks=(4, 6, 6, 8), refine:
 def time_baseline(name: str, counts, card: str) -> None:
     """(f): batch-1 forward latency, batch-4 frames/s and the forward's peak
     memory; step time at batch 1 and 4 (median of 10 after 3) and the peak
-    memory of a batch-4 step; profiles of the batch-4 forward and step and
-    the batch-1 forward's kernels. No hand kernel launches."""
+    memory of a batch-4 step; a profile of the batch-4 forward and the
+    batch-1 forward's kernels. No hand kernel launches."""
     from adnm_tpu_torch.cli import predict
 
     device = torch.device("cuda")
@@ -1891,8 +1914,6 @@ def time_baseline(name: str, counts, card: str) -> None:
               f"{peak / 2**20:.1f} MiB, of which {before / 2**20:.1f} MiB allocated before it")
         if launches != NO_LAUNCHES:
             raise AssertionError(f"train {name}: hand kernels launched {launches}")
-        if b == 4:
-            profile_device(run, card, f"train {name} profile batch 4", "step", 2, warm=0)
     del trainer
     torch.cuda.empty_cache()
 
@@ -2094,8 +2115,8 @@ def mla_phase(predict, inputs, counts, card, duality_bf16_grad_err: float) -> di
     share, sets it); the train CLI with ``--attn-type mla``
     (34 K1 and 26 K1 backward launches a step) and ``predict --ckpt
     --attn-type mla`` on its snapshot; latency, frames/s, peak memory and
-    a profile of the forward; step times, peak memory and a profile of a
-    step. Returns the K1 launches of a forward and of a step."""
+    a profile of the forward; step times and peak memory. Returns the K1
+    launches of a forward and of a step."""
     dev = torch.device("cuda")
     per_forward = {**NO_LAUNCHES, "rms_norm": K1_MLA_PER_FORWARD}
     requests, outs = serve_model(predict, "mla", MLA, inputs, counts, ["batch1", "batch4"],
@@ -2115,7 +2136,7 @@ def mla_phase(predict, inputs, counts, card, duality_bf16_grad_err: float) -> di
         serve_snapshot(predict, counts, "mla", snapshot, root, "--attn-type", "mla",
                        per_forward=per_forward)
     time_forward(predict, "mla", MLA, inputs, card, profile_batches=(4,))
-    time_train(card, "mla", MLA, counts, [(1, True, False), (4, True, True)],
+    time_train(card, "mla", MLA, counts, [(1, True, False), (4, True, False)],
                k1_forward=K1_MLA_PER_FORWARD)
     return {"forward": requests["batch1"]["rms_norm"], "step": trained["rms_norm"] // TRAIN_STEPS,
             "backward_step": trained["rms_norm_backward"] // TRAIN_STEPS}
@@ -2607,7 +2628,7 @@ def dp_world_one(rank: int, world: int, device, out: str) -> None:
     Trainer's on a batch of DP_ROWS, from the same seeded weights: the same
     bits (loss, gradient norm, every parameter and buffer after AdamW), the
     second step's launches, two DDP gradient calls of one batch bit-equal;
-    then each one's step time, device busy time and peak memory."""
+    then each one's step time and peak memory."""
     counts, card = kernel_counts(), card_line()
     batch = torch.from_numpy(train_batch(DP_ROWS)).to(device)
     res = {}
@@ -2645,7 +2666,7 @@ def dp_world_one(rank: int, world: int, device, out: str) -> None:
         def run(t=t):
             t.train_step(batch, LR, CLIP)
 
-        times = host_times(run, 6, warm=2)
+        times = host_times(run, 4, warm=1)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         run()
@@ -2656,9 +2677,8 @@ def dp_world_one(rank: int, world: int, device, out: str) -> None:
         print(f"[{card}] train step duality {IMG}^2 batch {DP_ROWS}, {label}"
               f"{' (DDP, NCCL, world size 1)' if label == 'ddp' else ''}: median "
               f"{statistics.median(times):.2f} ms, min {min(times):.2f} ms, mean "
-              f"{statistics.mean(times):.2f} ms (6 steps after 2); peak device memory of a "
+              f"{statistics.mean(times):.2f} ms (4 steps after 1); peak device memory of a "
               f"step {peak:.1f} MiB")
-        profile_device(run, card, f"train step duality batch {DP_ROWS}, {label}", "step", 2)
     print(f"DDP all-reduces {res['allreduce_bytes']:,} bytes of fp32 gradients a step "
           f"({res['unreached']} parameters the loss does not reach stay out of its buckets) "
           f"and the 4-byte loss")
@@ -3165,7 +3185,7 @@ def time_graph_forward(card: str, predict, label: str, kwargs: dict, inputs) -> 
             for mode, run in modes.items():
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
-                times = host_times(run, 5 if b == 1 else 3)
+                times = host_times(run, 5 if b == 1 else 3, warm=0)  # warm: the capture's
                 med = statistics.median(times)
                 what = (f"latency median {med:.2f} ms, min {min(times):.2f} ms" if b == 1
                         else f"median {med:.2f} ms -> {4 * 20 / (med / 1e3):.1f} frames/s")
@@ -3191,15 +3211,16 @@ def time_graph_steps(card: str, label: str, make, b: int, k: int = 2) -> None:
     for mode, run in modes.items():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        times = [t / k for t in host_times(run, 3, warm=1)]
+        times = [t / k for t in host_times(run, 3, warm=0)]  # warm: the capture's
         med = statistics.median(times)
         print(f"[{card}] train {label} {mode} batch {b}: step median {med:.2f} ms, min "
-              f"{min(times):.2f} ms (3 groups of {k} steps after 1) -> "
+              f"{min(times):.2f} ms (3 groups of {k} steps) -> "
               f"{b * 20 / (med / 1e3):.1f} frames/s; peak allocated "
               f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB"
               f"{' besides the graph pool' if mode == 'graphed' else ''}")
-        profile_device(run, card, f"train {label} {mode} profile batch {b}, a group of {k} "
-                       f"steps", "group", 1, warm=0)
+        if mode == "graphed":  # the eager steps' trace is phase 6's and 6d's
+            profile_device(run, card, f"train {label} {mode} profile batch {b}, a group of "
+                           f"{k} steps", "group", 1, warm=0)
     captured = next(iter(trainer.graphs.graphs.values()))
     print(f"[{card}] train {label} batch {b}: capture of {k} steps {captured.capture_s:.3f} s, "
           f"graph pool {captured.pool_bytes / 2**20:.1f} MiB")
@@ -3237,6 +3258,232 @@ def single_dispatch_phase(predict, counts, card: str, inputs) -> dict:
     per_step_scan = {n: v // steps["bimamba"]["k"]
                      for n, v in steps["bimamba"]["launches_per_replay"].items()}
     return {"step": per_step, "bimamba_step": per_step_scan, "forward": per_forward}
+
+
+# -- multi-rank inference: validate, visualize and predict on a mesh ------------
+
+# 64 synthetic clips: a test split of int(64 * 0.15) = 9 clips, batches of
+# 4, 4 and a one-row tail, which leaves rank 0 of data=2 no rows.
+MESH_ARGS = ["--synthetic", "--synthetic-len", "64", "--batch-size", "4", "--img-size", str(IMG)]
+MESH_TEST_CLIPS = 9
+MESH_TIMEOUT_S = 600
+MESH_CASES = {"duality": {}, "bimamba": BIMAMBA}
+# A rank's launches per forward on model=2: every Block norm (K1, on the
+# replicated channels) and, on bimamba, both paths' scans over the rank's
+# half of the heads (K2) run on every rank.
+MESH_FORWARD_LAUNCHES = {"duality": {**NO_LAUNCHES, "rms_norm": K1_PER_FORWARD},
+                         "bimamba": {**NO_LAUNCHES, "rms_norm": K1_PER_FORWARD,
+                                     "ssd_chunked_scan": K2_PER_FORWARD}}
+# model=2 against one process at batch 4, on one card: the heads' and
+# hidden channels' partial products summed by the all-reduce instead of
+# inside one GEMM, a change of summation order, which the seeded duality
+# model amplifies about a hundredfold (its card-against-CPU bound,
+# FORWARD_ATOL); nothing amplifies on bimamba.
+MESH_ATOL = FORWARD_ATOL
+# data=2 against one process: the same kernels on rows 2 at a time, against
+# 4 (cuDNN and cuBLAS may choose other algorithms by batch, so the sums may
+# run in other orders). The largest gaps read on an H100 were 8.3e-6
+# (validate) and 2.4e-4 (predict); a row out of place moves the predictions
+# by about 0.8 (one process's clips against their neighbours', printed).
+MESH_DATA_ATOL = {"validate": 1e-4, "predict": 1e-3}
+
+
+def mesh_batch(seed: int = 11) -> np.ndarray:
+    return np.random.RandomState(seed).rand(4, 5, 1, IMG, IMG).astype(np.float32)
+
+
+def mesh_ranks(rank: int, world: int, device, out: str, model_axis_only: bool) -> None:
+    """A rank of phase 6j: (a) ``validate`` on data=2 and (c) ``predict`` on
+    data=2, each through the CLI's per-rank ``run``; (b) ``forecast`` on
+    model=2 of the duality and bimamba models at batch 4, with its launches
+    counted and traced, its wall and the bytes its collectives sent. With
+    ``model_axis_only``, (b) alone. Each part's wall and peak memory; every
+    rank writes its results (rank 0 alone its evaluation)."""
+    from adnm_tpu_torch.cli import predict as predict_cli
+    from adnm_tpu_torch.cli import validate as validate_cli
+    from adnm_tpu_torch.parallel import make_mesh
+    from adnm_tpu_torch.parallel.tensor import TRAFFIC
+
+    counts = kernel_counts()
+    rec = {}
+
+    def measured(label, run):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result = run()
+        torch.cuda.synchronize()
+        rec[f"{label}_wall_s"] = time.perf_counter() - t0
+        rec[f"{label}_peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+        return result
+
+    if not model_axis_only:
+        args = validate_cli.make_parser().parse_args(
+            [*MESH_ARGS, "--root", os.path.join(out, "none")])
+        res = measured("validate", lambda: validate_cli.run(args, mesh=make_mesh(2, 1, device),
+                                                            device=device))
+        rec["validate"] = {k: res[k] for k in ("metrics", "test_loss", "preds", "gts")}
+        args = predict_cli.make_parser().parse_args(
+            ["--input", os.path.join(out, "x.npy"), "--output", os.path.join(out, "mesh.npy"),
+             "--img-size", str(IMG), "--root", os.path.join(out, "none")])
+        measured("predict", lambda: predict_cli.run(args, mesh=make_mesh(2, 1, device),
+                                                    device=device))
+    x = mesh_batch()
+    mesh = make_mesh(1, 2, device)
+    for label, kwargs in MESH_CASES.items():
+        model = predict_cli.load_model(None, device, **kwargs)
+        counts.reset()
+        TRAFFIC.update(model=0, data=0)
+        got = measured(label, lambda: predict_cli.forecast(model, x, 4, device, mesh=mesh))
+        rec[label] = {"preds": got, "launches": counts.read(), "traffic": dict(TRAFFIC)}
+        names = hand_kernel_names(lambda: predict_cli.forecast(model, x, 4, device, mesh=mesh))
+        rec[label].update(names=names, traced=trace_launches(names),
+                          wall_ms=host_times(lambda: predict_cli.forecast(model, x, 4, device,
+                                                                          mesh=mesh), 3, warm=0))
+        del model
+        torch.cuda.empty_cache()
+    if rank:  # rank 0's evaluation is the one compared
+        rec.pop("validate", None)
+    torch.save(rec, os.path.join(out, f"mesh_rank{rank}.pt"))
+
+
+def row_shift_gap(preds: np.ndarray) -> float:
+    """How far the predictions move when each clip takes its neighbour's
+    place: what a misassembled gather of rows would show."""
+    return float(np.abs(preds - np.roll(preds, 1, axis=0)).max())
+
+
+def check_mesh_model_axis(card: str, ranks: list, refs: dict, one: dict, backend: str) -> dict:
+    """(b): each rank's predictions on model=2 against one process's
+    (``refs``; ``one``: its eager wall and peak), the same on both ranks,
+    and each rank's launches, counted and traced."""
+    res = {}
+    for label in MESH_CASES:
+        a, b = ranks[0][label], ranks[1][label]
+        err = float(np.abs(a["preds"] - refs[label]).max())
+        want = MESH_FORWARD_LAUNCHES[label]
+        launches = [(r[label]["launches"], r[label]["traced"]) for r in ranks]
+        print(f"[{card}] forecast {label} {IMG}^2 batch 4 on model=2 ({backend}): against one "
+              f"process max_abs_err {err:.3e} (tol {MESH_ATOL[label]:g}); launches per rank "
+              f"(counted, traced) {launches}, want {want}; bytes sent per rank and forward "
+              f"{[r[label]['traffic'] for r in ranks]}; wall per forward, rank 0 "
+              f"{statistics.median(a['wall_ms']):.1f} ms, rank 1 "
+              f"{statistics.median(ranks[1][label]['wall_ms']):.1f} ms (median of 3) against "
+              f"{one[label]['wall_ms']:.1f} ms eager in one process; first call "
+              f"{ranks[0][label + '_wall_s']:.2f} s; peak memory per rank "
+              f"{[round(r[label + '_peak_mib'], 1) for r in ranks]} MiB against "
+              f"{one[label]['peak_mib']:.1f} MiB in one process")
+        if not (err <= MESH_ATOL[label] and np.isfinite(a["preds"]).all()
+                and np.array_equal(a["preds"], b["preds"])):
+            raise AssertionError(f"mesh {label}: model=2 disagrees with one process")
+        if any(c != want or t != want for c, t in launches):
+            raise AssertionError(f"mesh {label}: a rank did not run the hand kernels, "
+                                 f"{launches}")
+        res[label] = {"max_abs_err": err, "launches_per_rank": [c for c, _ in launches],
+                      "bytes_per_rank": ranks[0][label]["traffic"]["model"],
+                      "wall_ms": statistics.median(a["wall_ms"]),
+                      "peak_mib": [r[label + "_peak_mib"] for r in ranks], "one": one[label]}
+    return res
+
+
+def mesh_inference_phase(card: str) -> dict:
+    """Multi-rank inference (phase 6j), full width, 256^2, seeded weights,
+    fp32, two gloo ranks sharing the card (``parallel.spawn``): (a)
+    ``validate`` on data=2 against one process (predictions, test loss, the
+    printed table; the test split's tail leaves rank 0 no rows), (b)
+    ``forecast`` on model=2 of the duality and bimamba models at batch 4
+    against one process, with each rank's K1 and K2 launches counted and
+    traced, (c) ``predict`` on data=2 against one process; with two or more
+    cards, (b) again over NCCL, a card a rank."""
+    from adnm_tpu_torch.cli import predict as predict_cli
+    from adnm_tpu_torch.cli import validate as validate_cli
+    from adnm_tpu_torch.data.shanghai import ShanghaiDataset
+    from adnm_tpu_torch.metrics import metrics_table
+    from adnm_tpu_torch.parallel import spawn
+
+    t_phase = time.perf_counter()
+    device = torch.device("cuda")
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="adnm-mesh-") as out:
+        none = os.path.join(out, "none")  # no checkpoint: the seeded init
+        t0 = time.perf_counter()
+        single = validate_cli.main([*MESH_ARGS, "--root", none])
+        single_wall = time.perf_counter() - t0
+        test = ShanghaiDataset(None, IMG, "test", synthetic_len=64)
+        x = np.stack([test[i][:5] for i in range(len(test))])[:, :, None]  # 9 clips' inputs
+        np.save(os.path.join(out, "x.npy"), x)
+        predict_cli.main(["--input", os.path.join(out, "x.npy"), "--output",
+                          os.path.join(out, "one.npy"), "--img-size", str(IMG), "--root", none])
+        refs, one = {}, {}  # one process's eager predictions, and its wall and peak
+        for label, kwargs in MESH_CASES.items():
+            model = predict_cli.load_model(None, device, **kwargs)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            refs[label] = predict_cli.forecast(model, mesh_batch(), 4, device, graphs=False)
+            torch.cuda.synchronize()
+            one[label] = {"peak_mib": torch.cuda.max_memory_allocated() / 2**20, "wall_ms": (
+                statistics.median(host_times(lambda: predict_cli.forecast(
+                    model, mesh_batch(), 4, device, graphs=False), 3, warm=0)))}
+            del model
+        del single["trainer"]
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        spawn(mesh_ranks, 2, args=(out, False), device="cuda", backend="gloo",
+              shared_device=True, timeout_s=MESH_TIMEOUT_S)
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(out, f"mesh_rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+        got = ranks[0]["validate"]
+        err = float(np.abs(got["preds"] - single["preds"]).max())
+        same = np.array_equal(got["preds"], single["preds"])
+        tables = (metrics_table(got["metrics"], pod=True),
+                  metrics_table(single["metrics"], pod=True))
+        shift = row_shift_gap(single["preds"])
+        print(f"[{card}] validate --mesh data=2 (two gloo ranks on one card) against one "
+              f"process: {got['preds'].shape[0]} clips, predictions max_abs_err {err:.3e} "
+              f"(tol {MESH_DATA_ATOL['validate']:g}; a row out of place: {shift:.3e})"
+              f"{', bit-equal' if same else ''}; test loss "
+              f"{got['test_loss']:.8f} vs {single['test_loss']:.8f}; tables "
+              f"{'identical' if tables[0] == tables[1] else 'DIFFER'}; wall per rank "
+              f"{[round(r['validate_wall_s'], 2) for r in ranks]} s against {single_wall:.2f} s "
+              f"(one process, graphed); peak memory per rank "
+              f"{[round(r['validate_peak_mib'], 1) for r in ranks]} MiB")
+        print(tables[0])
+        if (got["preds"].shape != (MESH_TEST_CLIPS, 20, IMG, IMG)
+                or not err <= MESH_DATA_ATOL["validate"] < shift
+                or not np.array_equal(got["gts"], single["gts"])):
+            raise AssertionError("validate on data=2 disagrees with one process")
+        if abs(got["test_loss"] - single["test_loss"]) > 1e-4 * abs(single["test_loss"]):
+            raise AssertionError("validate on data=2: the test loss disagrees")
+        check_metrics("validate --mesh data=2", got["metrics"])
+        if same and tables[0] != tables[1]:
+            raise AssertionError("validate on data=2: bit-equal predictions, other table")
+        mesh_pred, one_pred = (np.load(os.path.join(out, f"{n}.npy")) for n in ("mesh", "one"))
+        perr = float(np.abs(mesh_pred - one_pred).max())
+        pshift = row_shift_gap(one_pred)
+        print(f"[{card}] predict --mesh data=2 against one process on the {len(x)} test clips: "
+              f"max_abs_err {perr:.3e} (tol {MESH_DATA_ATOL['predict']:g}; a row out of place: "
+              f"{pshift:.3e}); wall per rank "
+              f"{[round(r['predict_wall_s'], 2) for r in ranks]} s, peak memory per rank "
+              f"{[round(r['predict_peak_mib'], 1) for r in ranks]} MiB")
+        if mesh_pred.shape != one_pred.shape or not perr <= MESH_DATA_ATOL["predict"] < pshift:
+            raise AssertionError("predict on data=2 disagrees with one process")
+        res["gloo"] = check_mesh_model_axis(card, ranks, refs, one, "gloo, one card")
+        res["validate"] = {"max_abs_err": err, "bit_equal": same,
+                           "wall_s": [r["validate_wall_s"] for r in ranks],
+                           "single_wall_s": single_wall}
+        print(f"multi-rank inference: two gloo ranks on one card in {spawn_s:.1f} s")
+        n_cards = torch.cuda.device_count()
+        if n_cards >= 2:
+            spawn(mesh_ranks, 2, args=(out, True), device="cuda", timeout_s=MESH_TIMEOUT_S)
+            ranks = [torch.load(os.path.join(out, f"mesh_rank{r}.pt"), weights_only=False)
+                     for r in range(2)]
+            res["nccl"] = check_mesh_model_axis(card, ranks, refs, one, "NCCL, a card a rank")
+        else:
+            print(f"multi-rank inference: {n_cards} card visible: (b) over NCCL across cards "
+                  f"not run")
+    print(f"[{card}] multi-rank inference phase: {time.perf_counter() - t_phase:.1f} s")
+    return res
 
 
 def main() -> None:
@@ -3315,7 +3562,7 @@ def main() -> None:
         train_through_cli(counts, root, "--bf16")
     time_forward(predict, "duality bf16", {}, inputs, card, bf16, profile_batches=(4,))
     time_forward(predict, "bimamba bf16", BIMAMBA, inputs, card, bf16, profile_batches=())
-    time_train(card, "duality", {}, counts, [(1, True, False), (4, True, True), (4, False, False)],
+    time_train(card, "duality", {}, counts, [(1, True, False), (4, True, False), (4, False, False)],
                bf16)
     time_train(card, "bimamba", BIMAMBA, counts, [(1, True, False), (4, True, False)], bf16)
     print(f"bf16 phase: {time.perf_counter() - t_bf16:.1f} s")
@@ -3342,6 +3589,13 @@ def main() -> None:
     # -- single dispatch: K steps and the eval forward as CUDA graphs ---------
     graphed = single_dispatch_phase(predict, counts, card, inputs)
     per_rank = par["launches_per_rank"]
+
+    # -- multi-rank inference: data=2 and model=2 over gloo on one card -------
+    mesh = mesh_inference_phase(card)["gloo"]
+    mesh_k1 = {"launches_per_rank_forward": {label: [c["rms_norm"] for c in m[
+        "launches_per_rank"]] for label, m in mesh.items()}}
+    mesh_k2 = {"launches_per_rank_forward": [c["ssd_chunked_scan"]
+                                             for c in mesh["bimamba"]["launches_per_rank"]]}
 
     # Launches: serving kernels from the bimamba requests, K1's backward
     # from the train CLI's run, K2's from the bimamba training steps; K3
@@ -3374,6 +3628,7 @@ def main() -> None:
         "parallel": {"launches_per_rank_step": per_rank["duality"]["rms_norm"]},
         "graphed": {"launches_per_forward": graphed["forward"]["duality"]["rms_norm"],
                     "launches_per_step": graphed["step"]["rms_norm"]},
+        "mesh_model2": mesh_k1,
     }, {
         "name": "rms_norm_backward", "route": "cuda", "source": "adnm_tpu_torch/csrc/rms_norm.cu",
         "replaces": "adnm_tpu/ops/pallas/fused_norm.py:57",
@@ -3398,6 +3653,7 @@ def main() -> None:
         "parallel": {"launches_per_rank_step": per_rank["bimamba"]["ssd_chunked_scan"]},
         "graphed": {"launches_per_forward": graphed["forward"]["bimamba"]["ssd_chunked_scan"],
                     "launches_per_step": graphed["bimamba_step"]["ssd_chunked_scan"]},
+        "mesh_model2": mesh_k2,
     }, {
         "name": "ssd_chunked_scan_backward", "route": "cuda",
         "source": "adnm_tpu_torch/csrc/ssd_scan.cu",

@@ -1127,3 +1127,67 @@ def test_graphed_forwards_give_the_eager_forwards_bits(card):
         assert got[0] == loss
         np.testing.assert_array_equal(got[1], preds)
     assert len(t.graphs.graphs) == 2
+
+
+# Tensor parallelism on the card: a rank's heads on the mesh's 'model' axis.
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+def test_k2_on_a_ranks_head_subset_is_its_plain_version_in_place(card, reverse):
+    """What a rank of model=2 hands K2 at the refiner (8 heads a path,
+    4 a rank, 65,536 tokens): its heads' channels of one wider tensor and
+    its rows of dt, A and D, each sample contiguous, read in place; against
+    the plain version on the same slices and the whole scan's heads."""
+    gen = torch.Generator(device=card).manual_seed(3)
+    x, dt, A, B, C, D = scan_inputs(2, 8, 4, 65536, gen, False)
+    xs, dts, Bs, Cs = channel_slices(x, dt, B, C)
+    whole = ssd.ssd_chunked_scan(xs, dts, A, Bs, Cs, D, chunk_size=256, reverse=reverse)
+    flip = (lambda t: t.flip(-1)) if reverse else (lambda t: t)
+    for heads in (slice(0, 4), slice(4, 8)):
+        sx, sdt = xs[:, heads], dts[:, heads]
+        assert sx[0].is_contiguous() and sdt[0].is_contiguous()
+        assert sx.stride(0) == xs.stride(0)  # views of the wider tensor, not copies
+        before = ssd.ssd_chunked_scan.launches
+        got = ssd.ssd_chunked_scan(sx, sdt, A[heads], Bs, Cs, D[heads], chunk_size=256,
+                                   reverse=reverse)
+        torch.cuda.synchronize()
+        assert ssd.ssd_chunked_scan.launches == before + 1
+        want = flip(ssd.ssd_chunked_scan_reference(flip(sx), flip(sdt), A[heads], flip(Bs),
+                                                   flip(Cs), D[heads], 256))
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(got, whole[:, heads], rtol=0, atol=0)  # heads independent
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("linear_attn_duality", [True, False])
+def test_two_gloo_ranks_on_the_model_axis_match_one_process(card, tmp_path, linear_attn_duality):
+    """``forecast`` on ('data', 'model') = (1, 2), two gloo ranks sharing
+    the card, against one process: the same predictions on both ranks,
+    within 1e-5 of one process (the partial products summed by the
+    all-reduce), K1 (and K2, on each rank's half of the heads) launched on
+    each rank."""
+    import functools
+
+    from adnm_tpu_torch.cli.predict import forecast
+    from adnm_tpu_torch.convert import to_jax_params
+    from adnm_tpu_torch.core.layers import seeded_init_
+    from adnm_tpu_torch.models.adnm_unet import ADNMUNet
+    from adnm_tpu_torch.parallel import spawn
+    from test_torch_port_parallel_workers import MeshJob, model_forecast, run_mesh_jobs
+
+    make = functools.partial(ADNMUNet, **DP_CFG, linear_attn_duality=linear_attn_duality)
+    model = seeded_init_(make(), 0)
+    params = to_jax_params(model)
+    x = np.random.default_rng(9).uniform(0, 1, (2, 5, 1, 32, 32)).astype(np.float32)
+    want = forecast(model.to(card), x, 2, card, graphs=False)
+    job = MeshJob("tp", 1, 2, model_forecast, (make, params, x, 2))
+    spawn(run_mesh_jobs, 2, args=([job], str(tmp_path)), device="cuda", backend="gloo",
+          shared_device=True, timeout_s=600)
+    ranks = [torch.load(tmp_path / f"tp_rank{r}.pt", weights_only=False) for r in range(2)]
+    np.testing.assert_array_equal(ranks[0]["result"], ranks[1]["result"])
+    np.testing.assert_allclose(ranks[0]["result"], want, rtol=1e-5, atol=1e-5)
+    for r in ranks:
+        assert r["traffic"]["model"] > 0
+        assert r["launches"]["rms_norm"] > 0
+        assert (r["launches"]["ssd_chunked_scan"] > 0) == (not linear_attn_duality)

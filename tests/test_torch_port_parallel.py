@@ -33,7 +33,10 @@ JAX), started under a timeout after which they are killed and reaped.
   registry and the ADNM-UNet's options: exactly those a train-mode step
   leaves without a gradient;
 * the train CLI on ``--mesh data=2 --device cpu``, whose checkpoint the
-  single-process validate CLI loads.
+  single-process validate CLI loads, and validate and predict on two CPU
+  ranks against one process;
+* the mesh flags of validate, visualize and predict (the launch they
+  start), and the axes that stay refused.
 
 The JAX trainers are built once per module.
 """
@@ -60,6 +63,7 @@ from adnm_tpu_torch.cli import validate as validate_cli
 from adnm_tpu_torch.cli import visualize as visualize_cli
 from adnm_tpu_torch.core.stochastic import DropPath, Dropout, attach_generator, stochastic_layers
 from adnm_tpu_torch.data.loader import BatchLoader
+from adnm_tpu_torch.metrics import metrics_table
 from adnm_tpu_torch.models import registry
 from adnm_tpu_torch.models.adnm_unet import ADNMUNet
 from adnm_tpu_torch.models.lptqpn import LPTQPN
@@ -186,8 +190,13 @@ def test_shard_is_whole_batch_round_robin_and_excludes_row_shard():
     ("data=1,model=2", "not ported yet"),
 ])
 def test_mesh_spec_is_refused_with_the_jax_message(spec, message):
-    with pytest.raises(SystemExit, match=message):
+    """A 'model' axis is refused for training (the default) and taken by the
+    inference tools (``training=False``), as JAX keeps it for inference."""
+    with pytest.raises(SystemExit, match=message) as refused:
         parse_mesh(spec)
+    if spec == "data=1,model=2":
+        assert "training on the 'model' axis" in str(refused.value)
+        assert parse_mesh(spec, training=False) == {"data": 1, "model": 2}
 
 
 def test_mesh_spec_with_unit_axes_is_the_data_axis():
@@ -212,13 +221,30 @@ def test_train_cli_refuses_what_jax_refuses(extra, message, tmp_path):
 
 
 @pytest.mark.parametrize("tool", ["validate", "visualize", "predict"])
-def test_single_card_tools_refuse_the_parallel_flags(tool, tmp_path):
-    main = {"validate": validate_cli.main, "visualize": visualize_cli.main,
-            "predict": predict_cli.main}[tool]
-    args = ["--device", "cpu", "--mesh", "data=2"] + (
+def test_single_card_tools_refuse_the_parallel_flags(tool, tmp_path, monkeypatch):
+    """The inference tools refuse the parallel flags they do not run: a
+    'seq' axis, and a multi-process launch (a launcher's environment here),
+    as collection stays on one host. They take the mesh flags of one host:
+    ``--mesh data=1,model=2`` starts two ranks on a ('data', 'model') =
+    (1, 2) mesh and ``--data-parallel`` with --device cpu one rank (the
+    launch is captured here, no rank starts)."""
+    cli = {"validate": validate_cli, "visualize": visualize_cli, "predict": predict_cli}[tool]
+    launches = []
+    monkeypatch.setattr(cli, "run_on_mesh", lambda run, args, launch: launches.append(
+        (run, launch)) or {"written": []})
+    args = ["--device", "cpu"] + (
         ["--input", str(tmp_path / "x.npy")] if tool == "predict" else ["--synthetic"])
-    with pytest.raises(SystemExit, match=f"{tool} runs on one card"):
-        main(args)
+    cli.main([*args, "--mesh", "data=1,model=2"])
+    cli.main([*args, "--data-parallel"])
+    assert [(run, launch.world, launch.model) for run, launch in launches] == [
+        (cli.run, 2, 2), (cli.run, 1, 1)]
+    with pytest.raises(SystemExit, match="'seq' axis .* is not ported yet"):
+        cli.main([*args, "--mesh", "data=1,seq=2"])
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(SystemExit, match="not addressable across hosts"):
+        cli.main([*args, "--mesh", "data=2"])
+    assert len(launches) == 2
 
 
 def test_barrier_and_teardown_do_nothing_outside_a_process_group():
@@ -499,7 +525,20 @@ def test_a_rank_keeps_its_rows_of_the_global_batch_mask(layer):
 # ---- the CLIs --------------------------------------------------------------------------
 
 
+def flat_metrics(results: dict) -> dict:
+    """The evaluator's figures by name, NaN as a string (so equal NaNs compare
+    equal)."""
+    out = {f"{t}/{k}": v for t, m in results["threshold_metrics"].items() for k, v in m.items()}
+    out.update({k: results[k] for k in ("FAR", "RMSE", "SSIM", "LPIPS")})
+    return {k: "nan" if np.isnan(v) else float(v) for k, v in out.items()}
+
+
 def test_train_cli_on_a_cpu_data_mesh_writes_a_checkpoint_that_validate_loads(tmp_path):
+    """The data-parallel train CLI's checkpoint, validated in one process and
+    on two CPU ranks (``--mesh data=2``: the same table, predictions and
+    test loss; the test split's one clip leaves rank 0 no rows), and served
+    by predict in one process and on two ranks (the same array; three clips
+    in one batch of 4 rows split 1 and 2)."""
     args = ["--model", "SmaATUnet", "--synthetic", "--synthetic-len", "12", "--img-size", "32",
             "--batch-size", "4", "--device", "cpu", "--root", str(tmp_path)]
     out = train_cli.main([*args, "--mesh", "data=2", "--zero1", "--epochs", "1"])
@@ -512,3 +551,24 @@ def test_train_cli_on_a_cpu_data_mesh_writes_a_checkpoint_that_validate_loads(tm
     assert isinstance(got["trainer"].optimizer, torch.optim.SGD)
     assert got["test_loss"] == pytest.approx(out["test_loss"], rel=1e-6)
     assert got["metrics"]["RMSE"] == pytest.approx(out["metrics"]["RMSE"], rel=1e-6)
+
+    meshed = validate_cli.main([*args, "--ckpt", path, "--mesh", "data=2"])
+    assert "trainer" not in meshed and meshed["preds"].shape == got["preds"].shape
+    np.testing.assert_allclose(meshed["preds"], got["preds"], rtol=1e-4, atol=1e-5)
+    np.testing.assert_array_equal(meshed["gts"], got["gts"])
+    assert meshed["test_loss"] == pytest.approx(got["test_loss"], rel=1e-6)
+    assert metrics_table(meshed["metrics"], pod=True) == metrics_table(got["metrics"], pod=True)
+    if np.array_equal(meshed["preds"], got["preds"]):  # the same predictions: the same figures
+        assert flat_metrics(meshed["metrics"]) == flat_metrics(got["metrics"])
+
+    frames = np.concatenate([got["preds"], got["gts"]], axis=1)  # 40 frames of the test clip
+    np.save(tmp_path / "x.npy", np.stack([frames[0, i:i + 5, None] for i in (0, 5, 10)]))
+    served = {}
+    for label, extra in (("one", []), ("mesh", ["--mesh", "data=2"])):
+        served[label] = predict_cli.main([
+            "--input", str(tmp_path / "x.npy"), "--model", "SmaATUnet", "--img-size", "32",
+            "--device", "cpu", "--ckpt", path, "--output", str(tmp_path / f"{label}.npy"),
+            *extra])
+        np.testing.assert_array_equal(np.load(tmp_path / f"{label}.npy"), served[label])
+    assert served["mesh"].shape == served["one"].shape == (3, 20, 1, 32, 32)
+    np.testing.assert_allclose(served["mesh"], served["one"], rtol=1e-4, atol=1e-5)

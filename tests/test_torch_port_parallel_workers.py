@@ -1,11 +1,14 @@
-"""Rank functions for the port's data-parallel tests
-(``test_torch_port_parallel.py`` on the CPU, ``test_torch_port_cuda.py`` on
-the card), started by ``adnm_tpu_torch.parallel.spawn``. This module
-imports no JAX: each rank imports it afresh. It holds no test itself.
+"""Rank functions for the port's parallel tests
+(``test_torch_port_parallel.py`` and ``test_torch_port_mesh_eval.py`` on the
+CPU, ``test_torch_port_cuda.py`` on the card), started by
+``adnm_tpu_torch.parallel.spawn``. This module imports no JAX: each rank
+imports it afresh. It holds no test itself.
 
 ``run_steps`` builds the Trainer that a ``Job`` describes, steps on its
 rank's rows of the job's global batch and writes what the test compares to
-``{out}/rank{rank}.pt``.
+``{out}/rank{rank}.pt``. ``run_mesh_jobs`` runs forwards and evaluations on
+meshes of the process group (``MeshJob``) and writes each one's result to
+``{out}/{label}_rank{rank}.pt``.
 """
 
 from __future__ import annotations
@@ -17,8 +20,13 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from adnm_tpu_torch.cli.predict import forecast
+from adnm_tpu_torch.convert import from_jax_params
+from adnm_tpu_torch.data.loader import BatchLoader
 from adnm_tpu_torch.device import full_fp32
 from adnm_tpu_torch.ops import rms_norm, ssd
+from adnm_tpu_torch.parallel import make_mesh
+from adnm_tpu_torch.parallel.tensor import TRAFFIC, use_mesh
 from adnm_tpu_torch.train.loop import Trainer
 from adnm_tpu_torch.train.presets import get_preset
 from adnm_tpu_torch.utils.profiling import optimizer_state_bytes
@@ -124,3 +132,91 @@ def single_process(job: Job, device) -> dict:
 def load_ranks(out: str, world: int) -> list:
     return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
             for r in range(world)]
+
+
+# ---- forwards and evaluations on a mesh ------------------------------------
+
+
+@dataclasses.dataclass
+class MeshJob:
+    """``fn(mesh, device, *args)`` on the ('data', 'model') = (``data``,
+    ``model``) mesh of the process group (None for ``data`` = 0: the
+    function builds what it needs), its result saved as ``label``."""
+
+    label: str
+    data: int
+    model: int
+    fn: Callable
+    args: tuple = ()
+
+
+def run_mesh_jobs(rank: int, world: int, device: torch.device, jobs: list, out: str) -> None:
+    torch.set_num_threads(1)
+    for job in jobs:
+        mesh = make_mesh(job.data, job.model, device) if job.data else None
+        for w in COUNTED.values():
+            w.launches = 0
+        TRAFFIC.update(model=0, data=0)
+        result = job.fn(mesh, device, *job.args)
+        torch.save({"result": result, "traffic": dict(TRAFFIC),
+                    "launches": {k: w.launches for k, w in COUNTED.items()}},
+                   os.path.join(out, f"{job.label}_rank{rank}.pt"))
+
+
+def module_forward(mesh, device, make: Callable, params: dict, x: np.ndarray) -> np.ndarray:
+    """A module with the JAX ``params`` on ``x`` under ``mesh``."""
+    module = from_jax_params(make(), params).eval().to(device)
+    with torch.no_grad(), use_mesh(mesh):
+        return module(torch.from_numpy(x).to(device)).cpu().numpy()
+
+
+def model_forecast(mesh, device, make: Callable, params: dict, x: np.ndarray,
+                   batch: int) -> np.ndarray:
+    """A model with the JAX ``params`` served by ``forecast`` on ``mesh``."""
+    model = from_jax_params(make(), params).to(device)
+    return forecast(model, x, batch, device, mesh=mesh, graphs=False)
+
+
+def rows_seen(model: torch.nn.Module) -> list:
+    """A counter of the rows every forward of ``model`` takes (a hook)."""
+    seen = [0]
+    model.register_forward_pre_hook(lambda m, args: seen.__setitem__(0, seen[0] + len(args[0])))
+    return seen
+
+
+def mesh_eval(mesh, device, make: Callable, state: Optional[dict], clips: list, batch: int,
+              ddp: bool = False) -> dict:
+    """``eval_epoch(collect=True)`` of the clips at ``batch`` on ``mesh``
+    (with ``ddp``: a data-parallel Trainer, on its own mesh), from the
+    Trainer's seeded weights or ``state``; each batch's ``eval_step`` loss,
+    the rows this rank's model took in the epoch, and ``predict`` of the
+    first batch."""
+    trainer = Trainer(make(), get_preset("ADNMUnet", 5, 2, 6, "Shanghai"), 5, device, seed=0,
+                      ddp=ddp, mesh=None if ddp else mesh)
+    if state is not None:
+        trainer.model.load_state_dict(state)
+    seen = rows_seen(trainer.model)
+    loader = BatchLoader(clips, batch, drop_last=False)
+    loss, preds, gts = trainer.eval_epoch(loader, collect=True)
+    rows = seen[0]
+    steps = [float(trainer.eval_step(torch.from_numpy(b).to(device))[0]) for b in loader]
+    _, predicted = trainer.predict(next(iter(loader)))
+    return {"loss": loss, "preds": preds, "gts": gts, "rows": rows, "steps": steps,
+            "predict": predicted.cpu().numpy()}
+
+
+def refusals(mesh, device, make: Callable) -> dict:
+    """The messages of what a Trainer on ``mesh`` (a 'model' axis of 2)
+    refuses: data-parallel training on it, and a step without ``ddp``."""
+    got = {}
+    try:
+        Trainer(make(), get_preset("ADNMUnet", 5, 2, 6, "Shanghai"), 5, device, ddp=True,
+                mesh=mesh)
+    except NotImplementedError as e:
+        got["ddp"] = str(e)
+    t = Trainer(make(), get_preset("ADNMUnet", 5, 2, 6, "Shanghai"), 5, device, mesh=mesh)
+    try:
+        t.train_step(torch.zeros(2, 7, 1, 32, 32, device=device), 1e-3, 0.025)
+    except RuntimeError as e:
+        got["step"] = str(e)
+    return got
