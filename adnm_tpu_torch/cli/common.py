@@ -89,12 +89,13 @@ def add_mesh_args(p: argparse.ArgumentParser) -> None:
                         "data-parallel (DDP), or split validate/visualize/predict's batches "
                         "over the ranks; --batch-size is the global batch")
     p.add_argument("--mesh", default=None, metavar="AXIS=N,...",
-                   help="explicit mesh, e.g. 'data=4' or 'data=2,model=2': one rank per "
-                        "position (cards with cuda, NCCL; CPU processes over gloo with "
-                        "--device cpu); implies --data-parallel. Batches are split over "
-                        "'data'; for validate/visualize/predict the heads and MLP hidden "
-                        "channels over 'model' (inference tensor parallelism). Training on "
-                        "'model', and any 'seq' axis, are not ported yet: only size 1")
+                   help="explicit mesh, e.g. 'data=4', 'data=2,model=2' or "
+                        "'data=1,seq=2': one rank per position (cards with cuda, NCCL; CPU "
+                        "processes over gloo with --device cpu); implies --data-parallel. "
+                        "Batches are split over 'data'; for validate/visualize/predict the "
+                        "ADNMUnet's frame rows in bands over 'seq' and the heads and MLP "
+                        "hidden channels over 'model' (inference only). Training on 'seq' or "
+                        "'model' is not ported yet: only size 1")
 
 
 TASKS = {
@@ -160,20 +161,22 @@ class Launch:
     """How a parallel command runs: ``world`` ranks in all, each stepping on
     ``rows`` rows of every global batch (training); ``multihost`` when this
     process is one of them (``--coordinator`` or torchrun), else the
-    command starts ``world`` ranks itself on this host; ``model`` ranks on
-    the mesh's 'model' axis (inference), the rest on 'data'."""
+    command starts ``world`` ranks itself on this host; ``seq`` and
+    ``model`` ranks on the mesh's 'seq' and 'model' axes (inference), the
+    rest on 'data'."""
 
     world: int
     rows: int
     multihost: bool
     model: int = 1
+    seq: int = 1
 
 
 def parallel_launch(args) -> Optional[Launch]:
     """The ``Launch`` of the parallel flags, None without them (one
     process, no process group). Refuses, with the JAX package's messages
-    where it has them (adnm_tpu/cli/common.py:131-172): a 'seq' axis, or
-    a 'model' axis to train on (not ported); a multi-host run without a data mesh; a global
+    where it has them (adnm_tpu/cli/common.py:131-172): a 'seq' or a
+    'model' axis to train on (not ported); a multi-host run without a data mesh; a global
     batch that the 'data' axis does not divide. ``--batch-size`` is the
     global batch under a single launch and each process's rows under a
     multi-host one, as in JAX."""
@@ -225,11 +228,11 @@ def multihost_flags(args) -> bool:
 
 def inference_launch(args, tool: str) -> Optional[Launch]:
     """The ``Launch`` of ``tool``'s (validate, visualize, predict) parallel
-    flags, None without them: ``--mesh data=D[,model=M]`` starts D x M
-    ranks on this host, ``--data-parallel`` one per visible card (one with
-    --device cpu). A multi-process launch exits with the JAX package's
-    reason (adnm_tpu/train/loop.py:519-525); a 'seq' axis exits. The
-    batches need not divide 'data': a tail leaves some ranks fewer rows."""
+    flags, None without them: ``--mesh data=D[,seq=S][,model=M]`` starts
+    D x S x M ranks on this host, ``--data-parallel`` one per visible card
+    (one with --device cpu). A multi-process launch exits with the JAX
+    package's reason (adnm_tpu/train/loop.py:519-525). The batches need not
+    divide 'data': a tail leaves some ranks fewer rows."""
     if multihost_flags(args):
         raise SystemExit(f"{tool}: prediction collection fetches full output arrays, which are "
                          f"not addressable across hosts - run {tool} as a single host against "
@@ -239,15 +242,16 @@ def inference_launch(args, tool: str) -> Optional[Launch]:
     if mesh is None and not args.data_parallel:
         return None
     if mesh is not None:
-        data, model = mesh["data"], mesh.get("model", 1)
+        data, seq, model = mesh["data"], mesh.get("seq", 1), mesh.get("model", 1)
     else:
         data = torch.cuda.device_count() if resolve_device(args.device).type == "cuda" else 1
-        model = 1
-    world = data * model
+        seq = model = 1
+    world = data * seq * model
     if torch.device(args.device).type == "cuda" and world > torch.cuda.device_count():
-        raise SystemExit(f"--mesh data={data},model={model}: {world} ranks, one a card, and "
-                         f"only {torch.cuda.device_count()} CUDA device(s) are visible")
-    return Launch(world, args.batch_size, False, model)
+        raise SystemExit(f"--mesh data={data},seq={seq},model={model}: {world} ranks, one a "
+                         f"card, and only {torch.cuda.device_count()} CUDA device(s) are "
+                         f"visible")
+    return Launch(world, args.batch_size, False, model, seq)
 
 
 def run_on_mesh(run: Callable, args, launch: Launch):
@@ -259,17 +263,19 @@ def run_on_mesh(run: Callable, args, launch: Launch):
         build_kernels(("rms_norm",))  # here, once, not once a rank
     with tempfile.TemporaryDirectory(prefix="adnm-mesh-") as tmp:
         out = os.path.join(tmp, "rank0.pt")
-        spawn(mesh_rank_main, launch.world, args=(run, args, launch.model, out),
+        spawn(mesh_rank_main, launch.world, args=(run, args, (launch.seq, launch.model), out),
               device=args.device)
         return torch.load(out, weights_only=False)  # written by rank 0 of this run
 
 
 def mesh_rank_main(rank: int, world: int, device: torch.device, run: Callable, args,
-                   model: int, out: str) -> None:
+                   axes: tuple, out: str) -> None:
     """One rank of ``run_on_mesh`` (or of a caller's own ``spawn``, such as
-    ranks over gloo sharing one card): ``run`` on the (world / model, model)
-    mesh; rank 0 writes its result, without its ``trainer``, to ``out``."""
-    mesh = make_mesh(world // model, model, device)
+    ranks over gloo sharing one card): ``run`` on the (world / (S M), S, M)
+    mesh of ``axes`` = (S, M), the sizes of 'seq' and 'model'; rank 0 writes
+    its result, without its ``trainer``, to ``out``."""
+    seq, model = axes
+    mesh = make_mesh(world // (seq * model), seq, model, device)
     result = run(args, mesh=mesh, device=device)
     if rank == 0:
         torch.save({k: v for k, v in result.items() if k != "trainer"}

@@ -22,13 +22,15 @@ at. ``--device`` defaults to cuda and raises when CUDA is absent.
 On the card each forward is one CUDA graph replay (``forecast``), as JAX
 jits it: the first batch of a shape runs eagerly and is captured.
 
-``--mesh data=D[,model=M]`` (or ``--data-parallel``: one rank per visible
-card) serves on D x M ranks of this host, one card each over NCCL, or CPU
-ranks over gloo with ``--device cpu``: each 'data' position runs its rows
-of every batch, the heads and hidden channels are split over 'model', the
-predictions are gathered in order (the ``--horizon`` chain runs on the
-gathered frames, across the ranks) and rank 0 writes ``--output`` and
-``--png``. On a 'model' axis larger than 1 the forwards run eagerly.
+``--mesh data=D[,seq=S][,model=M]`` (or ``--data-parallel``: one rank per
+visible card) serves on D x S x M ranks of this host, one card each over
+NCCL, or CPU ranks over gloo with ``--device cpu``: each 'data' position
+runs its rows of every batch, the ADNM-UNet's frame rows are split in
+bands over 'seq' (the other models run whole on every 'seq' rank), the
+heads and hidden channels over 'model', the predictions are gathered in
+order (the ``--horizon`` chain runs on the gathered frames, across the
+ranks) and rank 0 writes ``--output`` and ``--png``. On a 'seq' or 'model'
+axis larger than 1 the forwards run eagerly.
 """
 
 from __future__ import annotations
@@ -117,17 +119,20 @@ def forecast(model: torch.nn.Module, x: np.ndarray, batch_size: int, device: tor
     same bits either way. ``graphs``: the caller's ``GraphSet`` for this
     model, whose graphs serve its later calls too; True, a set for this
     call alone; False, eager; None (the default), True on a card and False
-    elsewhere and on a 'model' axis larger than 1. On ``mesh``
+    elsewhere and on a 'seq' or 'model' axis larger than 1. On ``mesh``
     (``parallel.make_mesh``; every rank passes the same ``x``) each 'data'
-    position runs its rows of every batch, under the 'model' axis, and
-    every rank gets every row's predictions."""
+    position runs its rows of every batch, under the 'seq' and 'model'
+    axes (the ADNM-UNet's bands of rows and split heads; its prediction is
+    gathered over 'seq' inside), and every rank gets every row's
+    predictions."""
     model.eval()
     device = torch.device(device)
-    tensor_parallel = axis_size(mesh, "model") > 1
+    split = axis_size(mesh, "model") > 1 or axis_size(mesh, "seq") > 1
     if graphs is None:
-        graphs = device.type == "cuda" and not tensor_parallel
-    if graphs is not False and (device.type != "cuda" or tensor_parallel):
-        raise ValueError(f"graphs needs a CUDA device, not {device}, and a 'model' axis of 1")
+        graphs = device.type == "cuda" and not split
+    if graphs is not False and (device.type != "cuda" or split):
+        raise ValueError(f"graphs needs a CUDA device, not {device}, and 'seq' and 'model' "
+                         f"axes of 1")
     graph_set = None if graphs is False else GraphSet(device) if graphs is True else graphs
 
     def run(xb: torch.Tensor) -> torch.Tensor:

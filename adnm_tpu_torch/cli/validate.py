@@ -17,11 +17,13 @@ On a mesh of this host (the JAX package's flags), the same table:
 
     python -m adnm_tpu_torch.cli.validate --synthetic --ckpt PATH --mesh data=2 --device cpu          # 2 CPU ranks, gloo
     python -m adnm_tpu_torch.cli.validate --synthetic --ckpt PATH --mesh data=2,model=2               # 4 cards, NCCL
+    python -m adnm_tpu_torch.cli.validate --synthetic --ckpt PATH --mesh data=1,seq=2 --device cpu    # 2 CPU ranks, a band each
     python -m adnm_tpu_torch.cli.validate --synthetic --ckpt PATH --data-parallel                     # every visible card
 
 Each 'data' position evaluates its rows of every test batch, the ranks of
-a position split the heads and hidden channels over 'model', and rank 0
-gathers the predictions in order and prints the table. ``--coordinator``
+a position split the ADNM-UNet's frame rows in bands over 'seq' and the
+heads and hidden channels over 'model', and rank 0 gathers the
+predictions in order and prints the table. ``--coordinator``
 exits: collection stays on one host, as in JAX.
 """
 

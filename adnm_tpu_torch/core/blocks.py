@@ -1,7 +1,14 @@
 """Composite blocks of the ADNM-UNet on NCHW tensors
 (counterpart of adnm_tpu/core/blocks.py). Each computes in its input's
 dtype, its gates cast to it where the JAX module casts them
-(``gate_cast``); ``ChannelAttBridge`` returns fp32 maps, as in JAX."""
+(``gate_cast``); ``ChannelAttBridge`` returns fp32 maps, as in JAX.
+
+On a band of a frame split over the mesh's 'seq' axis the blocks need
+nothing of their own: their convolutions and norms take their halos and
+frame statistics (``core/layers.py``), the 2x2 max pool is local on an
+even band, and ``ChannelAttBridge`` pools a split skip over the frame
+(``frame_mean``). ``EncoderToDecoder`` runs on whole skips, as JAX pins
+it replicated."""
 
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ from adnm_tpu_torch.core.layers import (
     scalar_param,
 )
 from adnm_tpu_torch.core.wavelet import WTConvLayer
+from adnm_tpu_torch.parallel.tensor import seq_size, sum_seq
 
 
 def norm_kind(instance_norm: bool, groups: int = 4) -> str:
@@ -171,8 +179,12 @@ class ChannelAttBridge(nn.Module):
         self.get_all_att_kernel.uniform_(-bound, bound, generator=gen)
         self.get_all_att_bias.uniform_(-bound, bound, generator=gen)
 
-    def forward(self, skips: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
-        att = torch.cat([s.mean(dim=(2, 3)) for s in skips], dim=1)  # (B, sum C)
+    def forward(self, skips: Sequence[torch.Tensor],
+                split: Sequence[bool] = ()) -> Tuple[torch.Tensor, ...]:
+        """``split[i]``: skip i is this rank's band of its frame over 'seq'
+        (its average pool is the bands' sums over the frame's H * W)."""
+        att = torch.cat([frame_mean(s) if i < len(split) and split[i] else s.mean(dim=(2, 3))
+                         for i, s in enumerate(skips)], dim=1)  # (B, sum C)
         w = self.get_all_att_kernel
         # JAX multiplies the pooled skips by the fp32 taps w[i] uncast, which
         # promotes them to fp32 there; the maps stay fp32 from here on.
@@ -182,6 +194,13 @@ class ChannelAttBridge(nn.Module):
             self.sigmoid1(getattr(self, f"att{i + 1}")(att))[:, :, None, None]
             for i in range(self.n)
         )
+
+
+def frame_mean(s: torch.Tensor) -> torch.Tensor:
+    """The (B, C) mean over H and W of the frame whose band over 'seq' is
+    ``s``: the bands' fp32 sums, summed over the ranks, in ``s``'s dtype."""
+    total = sum_seq(s.float().sum(dim=(2, 3)))
+    return (total / (s.shape[2] * seq_size() * s.shape[3])).to(s.dtype)
 
 
 def _pool_pair(v: torch.Tensor, wh: int, ww: int) -> torch.Tensor:

@@ -15,6 +15,17 @@ and every learnable gate is cast to it before its multiply or add
 return the input's dtype. The port follows JAX's dtype at each module
 boundary by these explicit casts, never by torch's promotion rules, which
 keep a bf16 tensor bf16 against a 0-d fp32 tensor where JAX promotes.
+
+On a band of a frame split over the mesh's 'seq' axis
+(``parallel.tensor.banded``): a convolution taller than one row takes the
+rows beyond its band from the neighbouring ranks (``halo``: (k - 1) // 2
+above and k // 2 below, as torch's "same" padding splits an even kernel)
+and pads only the columns; the transposed convolution takes the rows its
+stride and padding reach below (and above) the band; InstanceNorm and
+GroupNorm take the mean and then the variance about it over the whole
+frame (``sum_seq`` of the bands' sums: two passes, as ``_stats``). The
+per-token layers need nothing. Outside a band every layer computes what it
+computes in one process.
 """
 
 from __future__ import annotations
@@ -30,7 +41,8 @@ from torch import nn
 
 from adnm_tpu_torch.device import deterministic_cudnn
 from adnm_tpu_torch.parallel.multihost import all_reduce_sum
-from adnm_tpu_torch.parallel.tensor import model_slice, reduce_model
+from adnm_tpu_torch.parallel.tensor import (banded, halo, model_slice, reduce_model, seq_size,
+                                            sum_seq)
 from adnm_tpu_torch.ops.rms_norm import gated_rms_norm, rms_norm
 
 IntPair = Union[int, Tuple[int, int]]
@@ -65,13 +77,47 @@ def _cast(p: Optional[torch.Tensor], x: torch.Tensor) -> Optional[torch.Tensor]:
     return None if p is None else p.to(x.dtype)
 
 
+def _same_split(k: int, padding) -> Tuple[int, int]:
+    """(before, after) zero rows or columns of a stride-1 convolution of
+    ``k`` taps with ``padding`` ("same" or an int), which must keep the
+    size: "same" puts (k - 1) // 2 before, as torch does."""
+    if padding == "same":
+        return (k - 1) // 2, k // 2
+    if 2 * padding != k - 1:
+        raise ValueError(f"a band needs a size-keeping convolution: {k} taps, padding {padding}")
+    return padding, padding
+
+
+def conv2d(conv: nn.Conv2d, x: torch.Tensor, weight: torch.Tensor,
+           bias: Optional[torch.Tensor], groups: int) -> torch.Tensor:
+    """``F.conv2d`` of ``x`` with ``weight``, ``bias`` and ``groups`` at
+    ``conv``'s stride, padding and dilation. On a band of a split frame
+    (``banded``) a kernel taller than one row reads the neighbouring
+    ranks' rows (``halo``) where it would read zero padding past the band,
+    and pads only the columns; elsewhere, and for one-row kernels, it is
+    the one-process call."""
+    kh, kw = weight.shape[2:]
+    if kh == 1 or not banded():
+        return F.conv2d(x, weight, bias, conv.stride, conv.padding, conv.dilation, groups)
+    if conv.stride != (1, 1) or conv.dilation != (1, 1):
+        raise ValueError(f"a band takes stride-1, undilated convolutions, got stride "
+                         f"{conv.stride}, dilation {conv.dilation}")
+    pad = conv.padding
+    top, bottom = _same_split(kh, pad if pad == "same" else pad[0])
+    left, right = _same_split(kw, pad if pad == "same" else pad[1])
+    x = halo(x, top, bottom)
+    if left != right:
+        return F.conv2d(F.pad(x, (left, right)), weight, bias, 1, 0, 1, groups)
+    return F.conv2d(x, weight, bias, 1, (0, left), 1, groups)
+
+
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` in its input's dtype: the fp32 weight and bias are cast
     at use (JAX: ``Conv2d``'s ``astype``); their gradients reach the fp32
-    parameters as fp32."""
+    parameters as fp32. On a band of a split frame, ``conv2d``'s halo."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._conv_forward(x, self.weight.to(x.dtype), _cast(self.bias, x))
+        return conv2d(self, x, self.weight.to(x.dtype), _cast(self.bias, x), self.groups)
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
@@ -80,13 +126,26 @@ class ConvTranspose2d(nn.ConvTranspose2d):
     deterministic algorithms: its default choice for a transposed conv may
     be nondeterministic, and two forwards of one input then differ (6e-8
     at the ADNM-UNet's ``decoder.up_sample2`` on an H100, up to 3e-4 at the
-    model's output)."""
+    model's output). On a band of a split frame the input rows the band's
+    output rows read beyond the band come from the neighbouring ranks
+    (``halo``): with stride s, padding p and k taps, (k - 1 - p) // s above
+    and (s - 1 + p) // s below (the model's s 2, p 1, k 3: one below, whose
+    zero rows at the frame's bottom give the output_padding row)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w, b = self.weight.to(x.dtype), _cast(self.bias, x)
         with deterministic_cudnn():
-            return F.conv_transpose2d(x, self.weight.to(x.dtype), _cast(self.bias, x),
-                                      self.stride, self.padding, self.output_padding,
-                                      self.groups, self.dilation)
+            if not banded():
+                return F.conv_transpose2d(x, w, b, self.stride, self.padding,
+                                          self.output_padding, self.groups, self.dilation)
+            (s, sw), (p, pw), k = self.stride, self.padding, self.kernel_size[0]
+            if self.dilation != (1, 1):
+                raise ValueError("a band takes undilated transposed convolutions")
+            top, bottom, n = max(0, (k - 1 - p) // s), (s - 1 + p) // s, x.shape[2]
+            # output row o of the halo'd input is band row o - (top s + p)
+            y = F.conv_transpose2d(halo(x, top, bottom), w, b, (s, sw), (0, pw),
+                                   (0, self.output_padding[1]), self.groups)
+            return y[:, :, top * s + p:top * s + p + s * n]
 
 
 class Linear(nn.Linear):
@@ -128,13 +187,27 @@ def conv_rows(conv: nn.Conv2d, x: torch.Tensor, rows) -> torch.Tensor:
     weight = rows_of(conv.weight, rows)
     if weight is conv.weight:
         return conv(x)
-    return F.conv2d(x, weight.to(x.dtype), _cast(rows_of(conv.bias, rows), x), conv.stride,
-                    conv.padding, conv.dilation, 1 if conv.groups == 1 else x.shape[1])
+    return conv2d(conv, x, weight.to(x.dtype), _cast(rows_of(conv.bias, rows), x),
+                  1 if conv.groups == 1 else x.shape[1])
 
 
 def _stats(x: torch.Tensor, dims) -> Tuple[torch.Tensor, torch.Tensor]:
     """fp32 (biased variance, mean) over ``dims`` (jnp.var is biased)."""
     return torch.var_mean(x.float(), dim=dims, keepdim=True, correction=0)
+
+
+def _frame_stats(x: torch.Tensor, dims) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_stats`` over ``dims``, which hold the rows of a frame; on a band
+    of a split frame (``banded``), over the whole frame: the mean from the
+    bands' sums, then the variance from their sums of squared deviations
+    about it (two passes: E[x^2] - E[x]^2 cancels at 256^2)."""
+    if not banded():
+        return _stats(x, dims)
+    xf = x.float()
+    count = math.prod(x.shape[d] for d in dims) * seq_size()
+    mu = sum_seq(xf.sum(dim=dims, keepdim=True)) / count
+    var = sum_seq((xf - mu).square().sum(dim=dims, keepdim=True)) / count
+    return var, mu
 
 
 class BiasFreeLayerNorm(nn.Module):
@@ -209,7 +282,7 @@ class InstanceNorm(nn.Module):
         self.eps = eps
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        var, mu = _stats(x, (2, 3))
+        var, mu = _frame_stats(x, (2, 3))
         return ((x.float() - mu) * torch.rsqrt(var + self.eps)).to(x.dtype)
 
 
@@ -226,7 +299,7 @@ class GroupNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape
         xg = x.float().reshape(b, self.groups, c // self.groups, h, w)
-        var, mu = _stats(xg, (2, 3, 4))
+        var, mu = _frame_stats(xg, (2, 3, 4))
         xn = ((xg - mu) * torch.rsqrt(var + self.eps)).reshape(b, c, h, w)
         return (xn * channel_view(self.weight, 4) + channel_view(self.bias, 4)).to(x.dtype)
 
@@ -422,7 +495,8 @@ class FeedForward(nn.Module):
     """1x1 expand (2*hidden) -> dw 3x3 -> gelu(x1)*sigmoid(x2) -> 1x1. On a
     mesh's 'model' axis each rank takes its part of the hidden channels
     (JAX: the 'model' annotation of the expanded channels, Megatron-style,
-    adnm_tpu/core/layers.py:713-760)."""
+    adnm_tpu/core/layers.py:713-760); on a band over 'seq' the dw 3x3
+    takes its one-row halo (``conv2d``)."""
 
     def __init__(self, dim: int, expansion: int = 2):
         super().__init__()

@@ -90,6 +90,23 @@
 // 64..1,024) a call is one launch of 16-128 blocks: its latency (staging,
 // two serial walks of T tokens, the store) bounds it.
 //
+// Carried form. A sequence cut into segments, one a rank (the mesh's 'seq'
+// axis), is scanned segment by segment with the state carried between them,
+// in two phases around the caller's exchange of segment states:
+//
+//   * adnm_ssd_scan_segment_states: ssd_scan_states writing every
+//     sub-chunk's and tile's records whatever the layout, then
+//     ssd_carry_segment, ssd_carry's walk from zero that also leaves in
+//     place of each tile's decay the decay D_k from the segment's start to
+//     tile k, and writes the segment's end state and decay;
+//   * adnm_ssd_scan_carried_outputs: ssd_scan_outputs, each sub-chunk
+//     walking from (S0 D_k + S_k) G_w + P_w, S0 the state entering the
+//     segment, S_k the state entering tile k from zero.
+//
+// Four launches where the plain scan takes one to three; a segment's y is
+// the whole scan's up to rounding. Without a carried state the entry
+// adnm_ssd_chunked_scan is unchanged.
+//
 // Left for later: a single-pass form of the many-tile case that fuses
 // phases 1 and 3 with a decoupled look-back across tiles, so that x, dt and
 // B are read once, no carry launch is needed, and a tile's loads overlap
@@ -259,6 +276,11 @@ struct Args {
     int H, L, nsub, ntile;
     int tl;   // tokens per tile: kSubs * T, or nsub * T when there is one tile
     int vec;  // copies of 4 values (16 bytes in fp32, 8 in bf16)
+    // The carried form (a segment of a longer sequence), 0 and null otherwise:
+    // the states write every sub-chunk's and tile's records, whatever the
+    // layout, and the outputs start from the state entering the segment.
+    int seg;
+    const float* init;  // (batch, H, P, N): the state entering the segment
 };
 
 // The positions [lo, hi) of tile k, held at shared index l - base.
@@ -480,15 +502,27 @@ __device__ __forceinline__ void scan_tile(const Args<IO>& a) {
 #pragma unroll
     for (int m = 0; m < kS; ++m) S[m] = 0.f;
     const int so = p * kN + nq;  // offset of the thread's first state in a (P, N) record
-    if (MODE == OUTPUTS && a.nsub > 1 && sub < a.nsub) {
+    if (MODE == OUTPUTS && (a.nsub > 1 || a.seg) && sub < a.nsub) {
         // the state entering the sub-chunk, loaded under the copies
         const int64_t o = (int64_t(b) * a.H + h) * a.nsub + sub;
         const float G = a.sub_decay[o];
         const float* Pw = a.sub_state + o * (kP * kN) + so;
-        const float* Sin = a.tile_state + ((int64_t(b) * a.H + h) * a.ntile + k) * (kP * kN) + so;
+        const int64_t ot = (int64_t(b) * a.H + h) * a.ntile + k;
+        const float* Sin = a.tile_state + ot * (kP * kN) + so;
+        if (a.seg) {
+            // Sin: the state entering the tile from the segment's start, from
+            // zero; the entering state's part decays by tile_decay (the
+            // decay from the segment's start to the tile, after the carry)
+            const float Dk = a.tile_decay[ot];
+            const float* I = a.init + (int64_t(b) * a.H + h) * (kP * kN) + so;
 #pragma unroll
-        for (int m = 0; m < kS; ++m)
-            S[m] = a.ntile > 1 ? fmaf(Sin[m * kNQ], G, Pw[m * kNQ]) : Pw[m * kNQ];
+            for (int m = 0; m < kS; ++m)
+                S[m] = fmaf(fmaf(I[m * kNQ], Dk, Sin[m * kNQ]), G, Pw[m * kNQ]);
+        } else {
+#pragma unroll
+            for (int m = 0; m < kS; ++m)
+                S[m] = a.ntile > 1 ? fmaf(Sin[m * kNQ], G, Pw[m * kNQ]) : Pw[m * kNQ];
+        }
     }
     const float A2 = to_f(a.A[h]) * kLog2e, d = to_f(a.D[h]);
     copy_wait();
@@ -497,7 +531,7 @@ __device__ __forceinline__ void scan_tile(const Args<IO>& a) {
     float* xrow = xs + (hh * kP + p) * rs;
     const float* dtrow = dts + hh * rs;
     if constexpr (MODE != OUTPUTS) {
-        if (a.nsub > 1) {
+        if (a.nsub > 1 || a.seg) {
             walk<T, REV, false>(xrow, dtrow, Bs, nullptr, rs, a.tl, w, nq, A2, d, S, ld);
             // P: the state entering sub-chunk w from the tile's start, G its
             // log2 decay; the last sub-chunk's threads go on to the tile's end.
@@ -524,7 +558,7 @@ __device__ __forceinline__ void scan_tile(const Args<IO>& a) {
                     for (int m = 0; m < kS; ++m) a.sub_state[o * (kP * kN) + so + m * kNQ] = P[m];
                     if (p == 0 && nq == 0) a.sub_decay[o] = exp2f(G);
                 }
-                if (active && w == subs - 1 && a.ntile > 1) {
+                if (active && w == subs - 1 && (a.ntile > 1 || a.seg)) {
                     cross(w);
                     const int64_t o = (int64_t(b) * a.H + h) * a.ntile + k;
 #pragma unroll
@@ -638,8 +672,13 @@ __device__ __forceinline__ void walk_tiles(const float* ss, const float* sd, int
     }
 }
 
-template <int THREADS, int WINDOW>
-__device__ __forceinline__ void carry(float* states, const float* decay, int nc) {
+// SEG (the carried form): the decay in place of each tile's is the decay
+// from the segment's start to the tile, and fin_state (P * N) and
+// fin_decay (1) per (batch, head) take the segment's end state and its
+// decay, both from zero.
+template <int THREADS, int WINDOW, bool SEG = false>
+__device__ __forceinline__ void carry(float* states, float* decay, int nc,
+                                      float* fin_state = nullptr, float* fin_decay = nullptr) {
     constexpr int np = kN * kP, kSeg = THREADS / np;
     extern __shared__ float4 smem4[];
     float* ss = reinterpret_cast<float*>(smem4);
@@ -647,9 +686,10 @@ __device__ __forceinline__ void carry(float* states, const float* decay, int nc)
     float* segE = sd + WINDOW;  // [kSeg][np]
     float* segD = segE + kSeg * np;
     float* st = states + int64_t(blockIdx.x) * nc * np;  // blockIdx.x: a (batch, head)
-    const float* dec = decay + int64_t(blockIdx.x) * nc;
+    float* dec = decay + int64_t(blockIdx.x) * nc;
     const int tid = threadIdx.x, v = tid % np, seg = tid / np;
-    float carry = 0.f;  // the state entering the window
+    float carry = 0.f;   // the state entering the window
+    float carryD = 1.f;  // SEG: the decay from the segment's start to the window
     for (int w0 = 0; w0 < nc; w0 += WINDOW) {
         const int n = min(WINDOW, nc - w0);
         for (int e = tid; e < n * np / 4; e += THREADS)
@@ -668,21 +708,44 @@ __device__ __forceinline__ void carry(float* states, const float* decay, int nc)
         __syncthreads();
         float S = carry;
         for (int q = 0; q < seg; ++q) S = fmaf(S, segD[q], segE[q * np + v]);
-        walk_tiles<WINDOW>(ss, sd, v, c0, c1, [&](int c, float e, float g) {
-            ss[c * np + v] = S;
-            S = fmaf(S, g, e);
-        });
+        if constexpr (SEG) {
+            // the staged decays stay in shared memory: each tile's decay in
+            // device memory becomes the decay from the segment's start to it
+            float Dp = carryD;
+            for (int q = 0; q < seg; ++q) Dp *= segD[q];
+            walk_tiles<WINDOW>(ss, sd, v, c0, c1, [&](int c, float e, float g) {
+                ss[c * np + v] = S;
+                if (v == 0) dec[w0 + c] = Dp;
+                S = fmaf(S, g, e);
+                Dp *= g;
+            });
+            for (int q = 0; q < kSeg; ++q) carryD *= segD[q];
+        } else {
+            walk_tiles<WINDOW>(ss, sd, v, c0, c1, [&](int c, float e, float g) {
+                ss[c * np + v] = S;
+                S = fmaf(S, g, e);
+            });
+        }
         for (int q = 0; q < kSeg; ++q) carry = fmaf(carry, segD[q], segE[q * np + v]);
         __syncthreads();
         for (int e = tid; e < n * np / 4; e += THREADS)
             reinterpret_cast<float4*>(st + int64_t(w0) * np)[e] = smem4[e];
         __syncthreads();  // stored, and the segments read, before the next window
     }
+    if constexpr (SEG) {
+        if (seg == 0) fin_state[int64_t(blockIdx.x) * np + v] = carry;
+        if (tid == 0) fin_decay[blockIdx.x] = carryD;
+    }
 }
 
-__global__ void __launch_bounds__(kCarryThreads) ssd_carry(float* states, const float* decay,
-                                                           int nc) {
+__global__ void __launch_bounds__(kCarryThreads) ssd_carry(float* states, float* decay, int nc) {
     carry<kCarryThreads, kWindow>(states, decay, nc);
+}
+
+__global__ void __launch_bounds__(kCarryThreads) ssd_carry_segment(float* states, float* decay,
+                                                                   int nc, float* fin_state,
+                                                                   float* fin_decay) {
+    carry<kCarryThreads, kWindow, true>(states, decay, nc, fin_state, fin_decay);
 }
 
 // ---- K2's backward ---------------------------------------------------------
@@ -1244,8 +1307,8 @@ constexpr int kBwdCarryThreads = 2 * kCarryThreads;
 constexpr int kBwdWindow = 2 * kWindow;
 constexpr size_t kBwdCarrySmem = carry_smem(kBwdCarryThreads, kBwdWindow);
 
-__global__ void __launch_bounds__(kBwdCarryThreads) ssd_bwd_carry(float* states,
-                                                                  const float* decay, int nc) {
+__global__ void __launch_bounds__(kBwdCarryThreads) ssd_bwd_carry(float* states, float* decay,
+                                                                  int nc) {
     carry<kBwdCarryThreads, kBwdWindow>(states, decay, nc);
 }
 
@@ -1382,6 +1445,29 @@ cudaError_t launch(const Args<IO>& a, int batch, int threads, cudaStream_t strea
     return err != cudaSuccess ? err : cudaGetLastError();
 }
 
+// The carried form, a segment of a longer sequence, in two phases around
+// the exchange of the segments' states (the caller's). With fin_state:
+// ssd_scan_states, which writes every sub-chunk's and tile's records in
+// any layout, then ssd_carry_segment, which leaves the state entering each
+// tile from zero and the decay from the segment's start to it in place and
+// writes the segment's end state and decay. Without: ssd_scan_outputs,
+// each sub-chunk from the state entering the segment (a.init) decayed to
+// it plus its own from zero.
+template <typename IO, int T, bool REV>
+cudaError_t launch_segment(const Args<IO>& a, int batch, int threads, float* fin_state,
+                           float* fin_decay, cudaStream_t stream) {
+    if (fin_state == nullptr)
+        return launch_tiles(ssd_scan_outputs<IO, T, REV>, a, batch, threads,
+                            smem_bytes<OUTPUTS>(a.tl), 1, stream);
+    cudaError_t err = launch_tiles(ssd_scan_states<IO, T, REV>, a, batch, threads,
+                                   smem_bytes<STATES>(a.tl), 1, stream);
+    if (err != cudaSuccess) return err;
+    err = allow_smem(ssd_carry_segment, kCarrySmem);
+    if (err != cudaSuccess) return err;
+    ssd_carry_segment<<<static_cast<unsigned>(int64_t(batch) * a.H), kCarryThreads, kCarrySmem,
+                        stream>>>(a.tile_state, a.tile_decay, a.ntile, fin_state, fin_decay);
+    return cudaGetLastError();
+}
 
 struct BLayout {
     int nsub, nsb, ntile, tl, threads, ngrp;
@@ -1485,6 +1571,39 @@ cudaError_t scan_call(const void* x, const void* dt, const void* A, const void* 
     return err != cudaSuccess ? err : cudaGetLastError();
 }
 
+// The carried form's phases (launch_segment): the states with fin_state
+// and fin_decay (y null), or the outputs from init. The scratch always
+// holds every sub-chunk's and tile's records (adnm_ssd_segment_scratch_floats).
+template <typename IO>
+cudaError_t segment_call(const void* x, const void* dt, const void* A, const void* B,
+                         const void* C, const void* D, void* y, float* st, float* dec,
+                         float* fin_state, float* fin_decay, const float* init, int64_t sx,
+                         int64_t sdt, int64_t sb, int64_t sc, int batch, int H, int L,
+                         int reverse, cudaStream_t strm) {
+    const int T = sub_chunk(L);
+    const Layout s = layout(L, T);
+    const int64_t n = int64_t(batch) * H;
+    const size_t e = sizeof(IO);
+    const bool vec = L % 4 == 0 && sx % 4 == 0 && sdt % 4 == 0 && sb % 4 == 0 && sc % 4 == 0 &&
+                     aligned4(x, e) && aligned4(dt, e) && aligned4(B, e) && aligned4(C, e) &&
+                     aligned4(y, e);
+    const Args<IO> a{static_cast<const IO*>(x), static_cast<const IO*>(dt),
+                     static_cast<const IO*>(A), static_cast<const IO*>(B),
+                     static_cast<const IO*>(C), static_cast<const IO*>(D),
+                     static_cast<IO*>(y), st, dec, st + n * s.nsub * kN * kP, dec + n * s.nsub,
+                     sx, sdt, sb, sc, H, L, s.nsub, s.ntile, s.tl, vec, 1, init};
+    cudaError_t err;
+    if (T == 32)
+        err = reverse ? launch_segment<IO, 32, true>(a, batch, s.threads, fin_state, fin_decay, strm)
+                      : launch_segment<IO, 32, false>(a, batch, s.threads, fin_state, fin_decay,
+                                                      strm);
+    else
+        err = reverse ? launch_segment<IO, 64, true>(a, batch, s.threads, fin_state, fin_decay, strm)
+                      : launch_segment<IO, 64, false>(a, batch, s.threads, fin_state, fin_decay,
+                                                      strm);
+    return err != cudaSuccess ? err : cudaGetLastError();
+}
+
 template <typename IO>
 cudaError_t bwd_call(const void* x, const void* dt, const void* A, const void* B, const void* C,
                      const void* D, const void* dy, void* dx, void* ddt, void* dA, void* dB,
@@ -1556,6 +1675,61 @@ int adnm_ssd_chunked_scan(const void* x, const void* dt, const void* A, const vo
     return static_cast<int>(err);
 }
 
+
+// Floats of scratch the carried form needs, in any layout: states (batch,
+// H, nsub + ntile, P, N) and decays (batch, H, nsub + ntile).
+int adnm_ssd_segment_scratch_floats(int batch, int H, int L, int64_t* states, int64_t* decay) {
+    if (batch <= 0 || H <= 0 || L <= 0) return cudaErrorInvalidValue;
+    const Layout s = layout(L, sub_chunk(L));
+    const int64_t n = int64_t(batch) * H * (s.nsub + s.ntile);
+    *states = n * kN * kP;
+    *decay = n;
+    return cudaSuccess;
+}
+
+// The carried form's first phase, on the inputs of adnm_ssd_chunked_scan and
+// the scratch of adnm_ssd_segment_scratch_floats: the segment's states from
+// zero, its end state (batch, H, P, N) into fin_state and its decay
+// exp(sum dt A) (batch, H) into fin_decay, both fp32. The scratch then holds
+// what the second phase reads.
+int adnm_ssd_scan_segment_states(const void* x, const void* dt, const void* A, const void* B,
+                                 const void* C, const void* D, void* states, void* decay,
+                                 void* fin_state, void* fin_decay, int64_t sx, int64_t sdt,
+                                 int64_t sb, int64_t sc, int batch, int H, int P, int N, int L,
+                                 int Q, int reverse, int dtype, void* stream) {
+    if (bad_shape(batch, H, P, N, L, Q) || (dtype != 0 && dtype != 1))
+        return cudaErrorInvalidValue;
+    float *st = static_cast<float*>(states), *dec = static_cast<float*>(decay);
+    float *fs = static_cast<float*>(fin_state), *fd = static_cast<float*>(fin_decay);
+    const cudaStream_t strm = static_cast<cudaStream_t>(stream);
+    const cudaError_t err =
+        dtype == 0 ? segment_call<float>(x, dt, A, B, C, D, nullptr, st, dec, fs, fd, nullptr, sx,
+                                         sdt, sb, sc, batch, H, L, reverse, strm)
+                   : segment_call<bf16>(x, dt, A, B, C, D, nullptr, st, dec, fs, fd, nullptr, sx,
+                                        sdt, sb, sc, batch, H, L, reverse, strm);
+    return static_cast<int>(err);
+}
+
+// The carried form's second phase, after adnm_ssd_scan_segment_states on the
+// same inputs and scratch: y of the segment with init (batch, H, P, N),
+// fp32, contiguous, the state entering its first token in scan order.
+int adnm_ssd_scan_carried_outputs(const void* x, const void* dt, const void* A, const void* B,
+                                  const void* C, const void* D, void* y, void* states,
+                                  void* decay, const void* init, int64_t sx, int64_t sdt,
+                                  int64_t sb, int64_t sc, int batch, int H, int P, int N, int L,
+                                  int Q, int reverse, int dtype, void* stream) {
+    if (bad_shape(batch, H, P, N, L, Q) || (dtype != 0 && dtype != 1) || init == nullptr)
+        return cudaErrorInvalidValue;
+    float *st = static_cast<float*>(states), *dec = static_cast<float*>(decay);
+    const float* in = static_cast<const float*>(init);
+    const cudaStream_t strm = static_cast<cudaStream_t>(stream);
+    const cudaError_t err =
+        dtype == 0 ? segment_call<float>(x, dt, A, B, C, D, y, st, dec, nullptr, nullptr, in, sx,
+                                         sdt, sb, sc, batch, H, L, reverse, strm)
+                   : segment_call<bf16>(x, dt, A, B, C, D, y, st, dec, nullptr, nullptr, in, sx,
+                                        sdt, sb, sc, batch, H, L, reverse, strm);
+    return static_cast<int>(err);
+}
 
 // Floats of scratch K2's backward needs: the tiles' carried states and
 // adjoints with their decays (none where the tiles fit one cluster), the

@@ -33,6 +33,16 @@ z, B and C, which every head reads or which follow the merge, are computed
 whole on every rank. The heads are gathered before the merge, the
 LayerNorm, the gate and out_proj, which every rank then computes whole: no
 collective until the channel merge, as in JAX.
+
+On a band of the frame over the mesh's 'seq' axis (the refiner's Blocks,
+``parallel.tensor.banded``) L is this rank's segment of the tokens: every
+depthwise conv with a vertical extent (``conv2d``, ``conv2d_z`` and the
+(3, 1) halves) takes a one-row halo from the neighbouring ranks
+(``core/layers.py::conv2d``), the (1, 3) halves, the projections and the
+LayerNorm are per token, the duality sums K^T V over the ranks and the
+bimamba scans carry their state from rank to rank (``ops/ssd.py``): path 1
+from the first band down, path 2 from the last band up. With 'model' the
+heads split within the band as above.
 """
 
 from __future__ import annotations

@@ -28,6 +28,11 @@ bimamba form: the duality's heads [2s, 2e) (s and e this rank's part of
 the H/2 heads a group holds), the halves' heads [s, e) and [H/2 + s,
 H/2 + e). z, B and C are computed whole on every rank, and the heads are
 gathered before the LayerNorm over d_inner.
+
+On a band of the frame over the mesh's 'seq' axis its 3x3 ``conv2d``
+takes a one-row halo from the neighbouring ranks, the duality sums K^T V
+over the ranks and the bimamba halves carry their state from rank to rank
+(``ops/ssd.py``), as the ADN-SSD mixer's.
 """
 
 from __future__ import annotations

@@ -32,6 +32,25 @@ every Block, AttentionBlock and refiner Block split their heads and hidden
 channels over the ranks; they read the mesh that the caller makes active
 around the forward (``parallel.tensor.use_mesh``), so no module passes it
 on. Everything else, MLA included, runs whole on every rank, as in JAX.
+
+On its 'seq' axis (inference) each rank holds a contiguous band of the
+rows of every frame, where JAX's ``maybe_shard`` annotations split H
+(adnm_tpu/models/adnm_unet.py:278-294,381-449): ``encoder1`` to
+``encoder3`` with ``down_sample1`` to ``down_sample3`` and the skips they
+make (256^2, 128^2 and 64^2 on the Shanghai shape), and ``decoder4`` to
+``decoder6_s`` with ``up_sample4`` and ``up_sample5``, the refiner's four
+Blocks and its ``OutProj`` (its L = H W tokens a segment per rank). The
+bands are gathered once after ``down_sample3``, and every rank runs the
+middle whole (the attention blocks, ``encoder4`` to ``decoder3``, MLA,
+the ``EncoderToDecoder`` features, as JAX pins them replicated) up to
+``up_sample3``, whose output each rank cuts to its band again. The
+prediction is gathered over 'seq' before the forward returns. The split
+stages run inside ``parallel.tensor.split_rows``, where the layers take
+their halos and frame statistics (``core/layers.py``), the duality sums
+K^T V over the ranks and K2 carries its state from rank to rank
+(``ops/ssd.py``). A frame is split only where every split stage's band
+fits it (``band_rule``); otherwise every 'seq' rank runs the whole
+forward, the same result.
 """
 
 from __future__ import annotations
@@ -71,6 +90,7 @@ from adnm_tpu_torch.mixers import vssd
 from adnm_tpu_torch.mixers.attention import MLA, StandardAttention, generate_mla_config
 from adnm_tpu_torch.mixers.ssd_mixer import ADNSSDMixer
 from adnm_tpu_torch.mixers.vssd import VSSDMixer
+from adnm_tpu_torch.parallel.tensor import band_rows, gather_seq, seq_band, split_rows
 
 
 def make_mixer(mixer_type: str, dim: int, headdim: int, linear_attn_duality: bool) -> nn.Module:
@@ -228,15 +248,24 @@ class Encoder(nn.Module):
         self.encoder6 = Block(ed[4], ed[5], headdim, depth[2], norm_epsilon, **mix)
         self.attn2 = AttentionBlock(ed[5], headdim=headdim, attn_type=attn_type)
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, band: Optional[slice] = None):
+        """``band``: this rank's rows of the frames over 'seq' (``seq_band``),
+        which the first three stages and their skips hold; None, the
+        frames whole."""
         skips = []
-        x, res = self.encoder1(x)
-        skips.append(x)
-        x = self.encoder2(self.down_sample1(x))
-        skips.append(x)
-        x = self.encoder3(self.down_sample2(x))
-        skips.append(x)
-        x = self.attn(self.down_sample3(x))
+        with split_rows(band):
+            if band is not None:
+                x = x[:, :, band]
+            x, res = self.encoder1(x)
+            skips.append(x)
+            x = self.encoder2(self.down_sample1(x))
+            skips.append(x)
+            x = self.encoder3(self.down_sample2(x))
+            skips.append(x)
+            x = self.down_sample3(x)
+        if band is not None:
+            x = gather_seq(x)
+        x = self.attn(x)
         skips.append(x)
         x = self.encoder4(x)
         skips.append(x)
@@ -283,18 +312,25 @@ class Decoder(nn.Module):
                                 instance_norm=instance_norm)
         self.decoder6_s = ConvLayer(ed[0], refine_dim[0], 1, 1, 0)
 
-    def forward(self, x: torch.Tensor, skips) -> torch.Tensor:
-        fusion = self.fusion(skips)
-        feats = [getattr(self, f"e2d_{i}")(skips[6 - i], fusion[6 - i])
+    def forward(self, x: torch.Tensor, skips, band: Optional[slice] = None) -> torch.Tensor:
+        """``band``: the encoder's; skips 0-2 are then bands, and so is the
+        output."""
+        split = [band is not None] * 3 + [False] * 4  # which skips are bands
+        fusion = self.fusion(skips, split)
+        feats = [getattr(self, f"e2d_{i}")(gather_seq(skips[6 - i]) if split[6 - i]
+                                           else skips[6 - i], fusion[6 - i])
                  for i in range(self.n_features)]
         x = self.up_sample1(self.decoder1(x, features=feats[0]))
         x = self.up_sample2(self.decoder2(x, residual=skips[5], features=feats[1]))
         x = self.decoder3(x, residual=skips[4], features=feats[2])
         x = self.up_sample3(self.attn(x))
-        x = self.up_sample4(self.decoder4(x, residual=skips[2]))
-        x = self.up_sample5(self.decoder5(x, residual=skips[1]))
-        x = self.decoder6(x, residual=skips[0])
-        return self.decoder6_s(x)
+        with split_rows(band):
+            if band is not None:
+                x = x[:, :, band_rows(x.shape[2])]
+            x = self.up_sample4(self.decoder4(x, residual=skips[2]))
+            x = self.up_sample5(self.decoder5(x, residual=skips[1]))
+            x = self.decoder6(x, residual=skips[0])
+            return self.decoder6_s(x)
 
 
 class Refiner(nn.Module):
@@ -319,17 +355,21 @@ class Refiner(nn.Module):
                 norm_epsilon, linear_attn_duality, mixer_type))
         self.out_proj = OutProj(out_channels, rd[-1], out_expand, instance_norm)
 
-    def forward(self, x: torch.Tensor, res: torch.Tensor) -> torch.Tensor:
-        for i in range(4):
-            block = getattr(self, f"refiner{i + 1}")
-            if self.remat and torch.is_grad_enabled():
-                # preserve_rng_state=False: a Block draws nothing at random, and
-                # stashing the default generators' states would read the card's
-                # on the host, which a CUDA graph capture refuses
-                x = checkpoint(block, x, use_reentrant=False, preserve_rng_state=False)
-            else:
-                x = block(x)
-        return self.out_proj(x, res)
+    def forward(self, x: torch.Tensor, res: torch.Tensor,
+                band: Optional[slice] = None) -> torch.Tensor:
+        """``band``: ``x`` and ``res`` are this rank's rows of the frame over
+        'seq', and so is the output."""
+        with split_rows(band):
+            for i in range(4):
+                block = getattr(self, f"refiner{i + 1}")
+                if self.remat and torch.is_grad_enabled():
+                    # preserve_rng_state=False: a Block draws nothing at random, and
+                    # stashing the default generators' states would read the card's
+                    # on the host, which a CUDA graph capture refuses
+                    x = checkpoint(block, x, use_reentrant=False, preserve_rng_state=False)
+                else:
+                    x = block(x)
+            return self.out_proj(x, res)
 
 
 class ADNMUNet(nn.Module):
@@ -357,6 +397,9 @@ class ADNMUNet(nn.Module):
         self.refiner = Refiner(refine_dim, refine_depth, refine_headdim, out_channels,
                                out_expand, norm_epsilon, instance_norm, **mix,
                                remat=refiner_remat)
+        head = self.refiner.out_proj.wtconv.conv
+        self.band_rule = band_rule(kernel, wt_levels, simple_patch,
+                                   (head.wt_levels, head.base_conv.kernel_size[0]))
 
     def check_compute_dtype(self, dtype: torch.dtype) -> None:
         """Raise where this configuration cannot compute in ``dtype``: the
@@ -366,9 +409,37 @@ class ADNMUNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         self.check_compute_dtype(x.dtype)
-        x, skips, res = self.encoder(x[:, :, 0])  # frames as NCHW channels
-        x = self.decoder(x, skips)
-        return self.refiner(x, res)[:, :, None]
+        # this rank's band of the frames over the active mesh's 'seq' axis
+        band = None if self.band_rule is None else seq_band(x.shape[-2], *self.band_rule)
+        x, skips, res = self.encoder(x[:, :, 0], band)  # frames as NCHW channels
+        x = self.decoder(x, skips, band)
+        x = self.refiner(x, res, band)
+        if band is not None:
+            x = gather_seq(x)
+        return x[:, :, None]
+
+
+def band_rule(kernel: Sequence[int], wt_levels: Sequence[int], simple_patch: bool,
+              head: tuple) -> Optional[tuple]:
+    """(multiple, min_rows) of ``seq_band``: what a band of the frame's rows
+    must be for every split stage to run on it. Each stage at 1 / 2^shift
+    of the frame takes ``levels`` Haar levels (the band's rows halve at
+    each, so they must divide by 2^(shift + levels)) and a kernel of ``k``
+    taps at the last of them (whose halo, k // 2 rows, must fit a band
+    there); the three 2x2 pools need a multiple of 8. ``head`` is the
+    OutProj WTConv's (Haar levels, taps), read from the built module. None
+    (never split) where the one-conv patch embed's even kernel changes the
+    frame's size."""
+    if simple_patch and kernel[0] % 2 == 0:
+        return None
+    # (shift, Haar levels, taps): decoder6 (and encoder1's WTConvs, or its
+    # one conv), encoder2 / decoder5, encoder3 / decoder4, the OutProj's
+    # WTConv
+    stages = [(0, wt_levels[0], kernel[0]), (1, wt_levels[1], kernel[1]),
+              (2, wt_levels[2], kernel[2]), (0, *head)]
+    multiple = max(8, *(2 ** (sh + lv) for sh, lv, _ in stages))
+    min_rows = max(2 ** (sh + lv) * max(1, k // 2) for sh, lv, k in stages)
+    return multiple, min_rows
 
 
 def create_adnm_unet(input_frames: int, output_frames: int, frame_interval: int,

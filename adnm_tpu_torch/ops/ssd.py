@@ -15,6 +15,12 @@ softplus'd; A, D (H,); B, C (B, N, L) shared by the heads.
   ``ssd_chunked_scan_backward_reference`` for CPU tensors and K2's backward
   kernel (the same source; the Pallas function's ``custom_vjp``
   backward) for CUDA tensors, or raises.
+* ``ScanSegment``: K2's carried form, the scan of one segment of a longer
+  sequence in two phases around an exchange of segment states: the
+  segment's final state and decay from zero, then its outputs from the
+  state entering it. ``ssd_chunked_scan(initial_state=...)`` is both
+  phases at once; on a band of a frame split over 'seq' the scan carries
+  its state from rank to rank through them (``_scan_over_seq``).
 * ``ssd_naive_scan``: the O(L^2) causal oracle for the tests.
 * ``ssd_state_update``: one token of the causal scan as a recurrence, in
   the JAX function's layout; plain PyTorch (no model calls it).
@@ -36,6 +42,7 @@ import functools
 import torch
 
 from adnm_tpu_torch.ops._build import load_library
+from adnm_tpu_torch.parallel.tensor import all_gather_seq, banded, seq_position, sum_seq
 
 SOURCES = ("ssd_scan.cu",)
 MAX_CHUNK = 256  # the Pallas kernel's contract: chunks of at most 256 tokens
@@ -57,13 +64,18 @@ def linear_attn_dual_seqminor(
 ) -> torch.Tensor:
     """``y = C^T (B (x * dA)^T) + x * D``. Returns (B, H, P, L), in the
     dtype that JAX's einsums give: bf16 where all inputs are bf16, fp32
-    where dt, A and D are fp32 and x, B and C bf16 (the VSSD mixer's)."""
+    where dt, A and D are fp32 and x, B and C bf16 (the VSSD mixer's). On a
+    band of a frame split over 'seq' (``parallel.tensor.banded``) the
+    tokens are this rank's part of L, and the (N, H P) product over L is
+    summed over the ranks (JAX: XLA's psum over 'seq')."""
     b, h, p, l = x.shape
     # A is negative and every reference mixer keeps ssd_positive_dA=True,
     # so dA = -(dt * A) >= 0.
     dA = -(dt * A[None, :, None])
     v = (x * dA[:, :, None, :]).reshape(b, h * p, l)
     kv = torch.bmm(B.to(v.dtype), v.transpose(1, 2))  # (B, N, H*P)
+    if banded():  # L is this rank's band of the tokens: K^T V sums over all of them
+        kv = sum_seq(kv)
     y = torch.bmm(kv.transpose(1, 2), C.to(kv.dtype)).reshape(b, h, p, l)
     return y + x * D[None, :, None, None]
 
@@ -109,12 +121,19 @@ def _chunk(l: int, chunk_size: int) -> int:
     return q
 
 
-def ssd_chunked_scan_reference(x, dt, A, B, C, D, chunk_size: int = 256) -> torch.Tensor:
+def ssd_chunked_scan_reference(x, dt, A, B, C, D, chunk_size: int = 256,
+                               initial_state=None, return_final_state: bool = False):
     """Plain PyTorch version of K2, the three phases of the JAX
     ``ssd_chunked_scan`` (``adnm_tpu/ops/ssd.py:146-208``): every chunk's
     end state, the sequential carry of the state over chunks, then every
     chunk's output (intra-chunk masked product + carried state + D skip).
-    Computes in fp32 from bf16 inputs, and returns y in x's dtype."""
+    Computes in fp32 from bf16 inputs, and returns y in x's dtype.
+
+    ``initial_state`` (B, H, N, P), the JAX function's argument, is the
+    state entering the first chunk (zero without it). With
+    ``return_final_state``, returns (y, the fp32 state after the last
+    token (B, H, N, P), the fp32 decay across the scan exp(sum dt A)
+    (B, H)): what a later segment of the sequence needs."""
     io = x.dtype
     x, dt, A, B, C, D = _widened(x, dt, A, B, C, D)
     b, h, p, l = x.shape
@@ -130,7 +149,8 @@ def ssd_chunked_scan_reference(x, dt, A, B, C, D, chunk_size: int = 256) -> torc
     states = torch.einsum("bncs,bhpcs->bhcnp", Bc, w)  # (B, H, C, N, P)
     decay = torch.exp(cum[..., -1])  # (B, H, C): the decay across a chunk
     s_in = torch.empty_like(states)  # the state entering each chunk
-    s = torch.zeros_like(states[:, :, 0])
+    s = (torch.zeros_like(states[:, :, 0]) if initial_state is None
+         else initial_state.to(states.dtype))
     for c in range(nc):
         s_in[:, :, c] = s
         s = s * decay[:, :, c, None, None] + states[:, :, c]
@@ -147,7 +167,10 @@ def ssd_chunked_scan_reference(x, dt, A, B, C, D, chunk_size: int = 256) -> torc
         qk = torch.einsum("bnct,bncs->bcts", Cc[:, :, sl], Bc[:, :, sl])
         y[:, :, :, sl] += torch.einsum("bhcts,bhpcs->bhpct", torch.exp(seg) * qk[:, None],
                                        xd[:, :, :, sl])
-    return (y.reshape(b, h, p, l) + x * D[None, :, None, None]).to(io)
+    y = (y.reshape(b, h, p, l) + x * D[None, :, None, None]).to(io)
+    if return_final_state:
+        return y, s, torch.exp(cum[..., -1].sum(-1))
+    return y
 
 
 def ssd_chunked_scan_backward_reference(x, dt, A, B, C, D, dy, chunk_size: int = 256,
@@ -269,6 +292,26 @@ def _library() -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_int64),  # floats (out)
     ]
     lib.adnm_ssd_backward_scratch_floats.restype = ctypes.c_int
+    lib.adnm_ssd_segment_scratch_floats.argtypes = lib.adnm_ssd_scratch_floats.argtypes
+    lib.adnm_ssd_segment_scratch_floats.restype = ctypes.c_int
+    lib.adnm_ssd_scan_segment_states.argtypes = [
+        *(ctypes.c_void_p,) * 10,  # x, dt, A, B, C, D, states, decay, final state, final decay
+        *(ctypes.c_int64,) * 4,  # batch strides of x, dt, B, C (elements)
+        *(ctypes.c_int,) * 6,  # batch, heads, P, N, L, Q
+        ctypes.c_int,  # reverse
+        ctypes.c_int,  # dtype
+        ctypes.c_void_p,  # stream
+    ]
+    lib.adnm_ssd_scan_segment_states.restype = ctypes.c_int
+    lib.adnm_ssd_scan_carried_outputs.argtypes = [
+        *(ctypes.c_void_p,) * 10,  # x, dt, A, B, C, D, y, states, decay, initial state
+        *(ctypes.c_int64,) * 4,  # batch strides of x, dt, B, C (elements)
+        *(ctypes.c_int,) * 6,  # batch, heads, P, N, L, Q
+        ctypes.c_int,  # reverse
+        ctypes.c_int,  # dtype
+        ctypes.c_void_p,  # stream
+    ]
+    lib.adnm_ssd_scan_carried_outputs.restype = ctypes.c_int
     lib.adnm_ssd_sub_chunk.argtypes = [ctypes.c_int]
     lib.adnm_ssd_sub_chunk.restype = ctypes.c_int
     lib.adnm_ssd_cuda_error_string.argtypes = [ctypes.c_int]
@@ -368,6 +411,117 @@ def _scan(x, dt, A, B, C, D, q: int, reverse: bool) -> torch.Tensor:
     return y
 
 
+def _flipped(x, dt, B, C, reverse: bool):
+    """The inputs along L in scan order: reversed for a reverse scan."""
+    return (x, dt, B, C) if not reverse else tuple(t.flip(-1) for t in (x, dt, B, C))
+
+
+class ScanSegment:
+    """A scan over one segment of a longer sequence, in two phases around
+    the exchange of segment states (K2's carried form): made, it has run
+    the segment's states from zero and holds ``state``, the fp32 state
+    after its last token in scan order (B, H, N, P), and ``decay``, the
+    fp32 decay across it, exp(sum dt A) (B, H); ``outputs(initial_state)``
+    then gives y with ``initial_state`` (B, H, N, P) entering the
+    segment's first token. On the card the first phase is K2's state
+    launch and its carry (``adnm_ssd_scan_segment_states``), the second its
+    output launch, whose carry-in adds the entering state's decayed part to
+    each sub-chunk's state (``adnm_ssd_scan_carried_outputs``); on the CPU
+    both are the plain version. Forward only: a gradient raises."""
+
+    def __init__(self, x, dt, A, B, C, D, chunk_size: int = 256, reverse: bool = False):
+        self.q = _check(x, dt, A, B, C, D, chunk_size)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, A, B, C, D)):
+            raise NotImplementedError("the gradient of a scan with a carried state is not "
+                                      "ported yet (ROADMAP §1 item 5)")
+        self.inputs, self.reverse = (x, dt, A, B, C, D), reverse
+        if x.device.type == "cpu":
+            xs, dts, Bs, Cs = _flipped(x, dt, B, C, reverse)
+            _, self.state, self.decay = ssd_chunked_scan_reference(
+                xs, dts, A, Bs, Cs, D, self.q, return_final_state=True)
+            return
+        if x.device.type != "cuda":
+            raise ValueError(f"ssd_chunked_scan runs on CPU or CUDA tensors, got {x.device}")
+        b, h, p, l = x.shape
+        n = B.shape[1]
+        self.strides = _kernel_args("ssd_chunked_scan", {"x": x, "dt": dt, "A": A, "B": B,
+                                                          "C": C, "D": D}, self.q)
+        lib = _library()
+        n_states, n_decay = ctypes.c_int64(), ctypes.c_int64()
+        rc = lib.adnm_ssd_segment_scratch_floats(b, h, l, ctypes.byref(n_states),
+                                                 ctypes.byref(n_decay))
+        if rc == 0:
+            dev = x.device
+            self.scratch = (torch.empty(n_states.value, dtype=torch.float32, device=dev),
+                            torch.empty(n_decay.value, dtype=torch.float32, device=dev))
+            state = torch.empty((b, h, p, n), dtype=torch.float32, device=dev)
+            self.decay = torch.empty((b, h), dtype=torch.float32, device=dev)
+            with torch.cuda.device(dev):
+                stream = torch.cuda.current_stream(dev).cuda_stream
+                rc = lib.adnm_ssd_scan_segment_states(
+                    *(t.data_ptr() for t in (x, dt, A, B, C, D, *self.scratch, state,
+                                             self.decay)),
+                    *self.strides, b, h, p, n, l, self.q, int(reverse), _DTYPE_CODES[x.dtype],
+                    stream)
+            self.state = state.transpose(-1, -2)  # the kernel's (P, N) records
+        _raise_on(lib, rc, "ssd_chunked_scan")
+
+    def outputs(self, initial_state: torch.Tensor) -> torch.Tensor:
+        """y of the segment (x's shape and dtype) with ``initial_state``
+        (B, H, N, P) entering it."""
+        x, dt, A, B, C, D = self.inputs
+        b, h, p, l = x.shape
+        n = B.shape[1]
+        if initial_state.shape != (b, h, n, p):
+            raise ValueError(f"initial_state {tuple(initial_state.shape)} does not fit "
+                             f"(B, H, N, P) = {(b, h, n, p)}")
+        if x.device.type == "cpu":
+            xs, dts, Bs, Cs = _flipped(x, dt, B, C, self.reverse)
+            y = ssd_chunked_scan_reference(xs, dts, A, Bs, Cs, D, self.q,
+                                           initial_state=initial_state)
+            return y.flip(-1) if self.reverse else y
+        init = initial_state.to(x.device, torch.float32).transpose(-1, -2).contiguous()
+        y = torch.empty((b, h, p, l), dtype=x.dtype, device=x.device)
+        lib = _library()
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            rc = lib.adnm_ssd_scan_carried_outputs(
+                *(t.data_ptr() for t in (x, dt, A, B, C, D, y, *self.scratch, init)),
+                *self.strides, b, h, p, n, l, self.q, int(self.reverse),
+                _DTYPE_CODES[x.dtype], stream)
+        _raise_on(lib, rc, "ssd_chunked_scan")
+        ssd_chunked_scan.launches += 1
+        return y
+
+
+def compose_states(parts: list, reverse: bool, position: int) -> torch.Tensor:
+    """The state entering segment ``position`` of a sequence cut into
+    ``parts`` (each segment's (state, decay) from zero, in sequence
+    order), in the scan's direction: from segment 0 up, or with
+    ``reverse`` from the last segment down. S = S * decay + state, fp32."""
+    order = range(position) if not reverse else range(len(parts) - 1, position, -1)
+    state = torch.zeros_like(parts[position][0], dtype=torch.float32)
+    for i in order:
+        e, g = parts[i]
+        state = state * g[..., None, None] + e
+    return state
+
+
+def _scan_over_seq(x, dt, A, B, C, D, q: int, reverse: bool) -> torch.Tensor:
+    """The scan of a sequence split in bands over 'seq', each rank holding
+    its segment of L in row order: the segment's states from zero, the
+    ranks' (state, decay) all-gathered (a few KiB), the state entering this
+    rank's segment composed from the ranks before it in the scan's
+    direction, then the segment's outputs from it. No rank holds the whole
+    sequence."""
+    seg = ScanSegment(x, dt, A, B, C, D, q, reverse)
+    b, h = seg.decay.shape
+    packed = torch.cat([seg.state.reshape(b, h, -1), seg.decay[..., None]], dim=-1)
+    n, p = seg.state.shape[-2:]
+    parts = [(t[..., :-1].reshape(b, h, n, p), t[..., -1]) for t in all_gather_seq(packed)]
+    return seg.outputs(compose_states(parts, reverse, seq_position()))
+
+
 class _Scan(torch.autograd.Function):
     """The scan with its gradient: K2 and K2's backward kernel on the card,
     their plain versions on the CPU. Saves the inputs; the backward
@@ -389,8 +543,15 @@ def ssd_chunked_scan(x, dt, A, B, C, D, chunk_size: int = 256,
                      reverse: bool = False) -> torch.Tensor:
     """Causal chunked SSD scan over L; with ``reverse`` the scan runs from
     the last token to the first, ``flip(scan(flip(x, dt, B, C)))`` along L
-    (the bimamba mixers' second path). Differentiable in all six inputs."""
+    (the bimamba mixers' second path). Differentiable in all six inputs.
+
+    On a band of a frame split over 'seq' (``parallel.tensor.banded``) L is
+    this rank's segment of the tokens, and the state is carried from rank
+    to rank (``_scan_over_seq``). A scan from a given entering state (the
+    JAX function's ``initial_state``) is ``ScanSegment(...).outputs``."""
     q = _check(x, dt, A, B, C, D, chunk_size)
+    if banded():
+        return _scan_over_seq(x, dt, A, B, C, D, q, reverse)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, A, B, C, D)):
         return _Scan.apply(x, dt, A, B, C, D, q, reverse)
     return _scan(x, dt, A, B, C, D, q, reverse)

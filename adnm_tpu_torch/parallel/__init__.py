@@ -1,7 +1,7 @@
-"""Data-parallel and multi-process training and evaluation, and tensor
-parallelism for inference (counterpart of adnm_tpu/parallel/): the 'data'
-and 'model' axes of the JAX package's mesh as ranks of processes joined by
-torch.distributed."""
+"""Data-parallel and multi-process training and evaluation, and tensor and
+sequence parallelism for inference (counterpart of adnm_tpu/parallel/): the
+'data', 'seq' and 'model' axes of the JAX package's mesh as ranks of
+processes joined by torch.distributed."""
 
 from adnm_tpu_torch.device import rank_device
 from adnm_tpu_torch.parallel.mesh import make_mesh, parse_mesh, spawn

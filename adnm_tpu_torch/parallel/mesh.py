@@ -2,23 +2,26 @@
 adnm_tpu/parallel/mesh.py and of the mesh flags of
 adnm_tpu/cli/common.py).
 
-The JAX package shards the batch over a mesh's 'data' axis and, for
-inference, heads and hidden channels over its 'model' axis; XLA inserts
-the collectives. The port runs one process per position of the mesh,
-ranks numbered data-major as JAX lays its devices out (rank = d * M + m).
+The JAX package shards the batch over a mesh's 'data' axis, the rows of
+the frames over its 'seq' axis and, for inference, heads and hidden
+channels over its 'model' axis; XLA inserts the collectives. The port runs
+one process per position of the mesh, ranks numbered in the axes' order
+('data', 'seq', 'model'), the last fastest, as JAX lays its devices out
+(rank = (d * S + s) * M + m).
 Over 'data' each rank holds a replica of the model and its rows of every
 global batch: in training DistributedDataParallel averages the gradients
 and the port's BatchNorm reduces its statistics over the ranks
 (``core/layers.py::BatchNorm``); in evaluation each position runs its rows
 and the predictions are gathered in order (``train/loop.py``). Over
 'model' the mixers and the FeedForward split their heads and hidden
-channels (``parallel/tensor.py``); training there is not ported. The
-'seq' axis (the pyramid's rows and the refiner's tokens over cards) is not
-ported either.
+channels (``parallel/tensor.py``). Over 'seq' (inference) the ADNM-UNet's
+pyramid rows and refiner tokens are split in bands, each rank holding its
+contiguous rows of every frame of its 'data' rows (``models/adnm_unet.py``).
+Training on 'seq' or 'model' is not ported.
 
 ``make_mesh`` gives the mesh as a ``DeviceMesh`` with the dimensions
-("data", "model"), each with its process group: NCCL between cards, gloo
-on the CPU and for ranks that share one card.
+("data", "seq", "model"), each with its process group: NCCL between cards,
+gloo on the CPU and for ranks that share one card.
 """
 
 from __future__ import annotations
@@ -39,17 +42,16 @@ from adnm_tpu_torch.parallel.multihost import finish_multihost, init_multihost
 
 # Where the axes that are not ported yet are queued.
 NOT_PORTED = "ROADMAP §1 item 5"
-MESH_DIMS = ("data", "model")
+MESH_DIMS = ("data", "seq", "model")
 
 
 def parse_mesh(spec: str, training: bool = True) -> dict:
     """{axis: size} of an ``AXIS=N,...`` mesh spec, with the JAX package's
     checks and messages (adnm_tpu/cli/common.py::_parse_mesh): entries
     AXIS=N with N a positive integer, no axis twice, a 'data' axis. Exits
-    on what the port does not run: a 'seq' axis larger than 1, an axis
-    other than 'data', 'seq' and 'model' larger than 1, and with
-    ``training`` a 'model' axis larger than 1 (the 'model' axis serves
-    validate, visualize and predict)."""
+    on what the port does not run: an axis other than 'data', 'seq' and
+    'model' larger than 1, and with ``training`` a 'seq' or 'model' axis
+    larger than 1 (those axes serve validate, visualize and predict)."""
     mesh = {}
     for part in spec.split(","):
         name, eq, n = part.partition("=")
@@ -63,13 +65,15 @@ def parse_mesh(spec: str, training: bool = True) -> dict:
     if "data" not in mesh:
         raise SystemExit("--mesh: a 'data' axis is required (the batch is sharded over "
                          "'data'); add data=1 for a non-data-parallel mesh")
-    if mesh.get("seq", 1) > 1:
-        raise SystemExit(f"--mesh: seq={mesh['seq']}: the 'seq' axis (the pyramid's rows and "
-                         f"the refiner's tokens over ranks) is not ported yet ({NOT_PORTED})")
-    other = [f"{a}={n}" for a, n in mesh.items() if a not in ("data", "seq", "model") and n > 1]
+    other = [f"{a}={n}" for a, n in mesh.items() if a not in MESH_DIMS and n > 1]
     if other:
-        raise SystemExit(f"--mesh: {', '.join(other)}: the port's mesh has the axes 'data' "
-                         f"and 'model' (and 'seq' of size 1)")
+        raise SystemExit(f"--mesh: {', '.join(other)}: the port's mesh has the axes 'data', "
+                         f"'seq' and 'model'")
+    if training and mesh.get("seq", 1) > 1:
+        raise SystemExit(f"--mesh: seq={mesh['seq']}: training on the 'seq' axis (the "
+                         f"pyramid's rows and the refiner's tokens over ranks) is not ported "
+                         f"yet ({NOT_PORTED}); the 'seq' axis serves validate, visualize and "
+                         f"predict")
     if training and mesh.get("model", 1) > 1:
         raise SystemExit(f"--mesh: model={mesh['model']}: training on the 'model' axis (tensor "
                          f"parallelism) is not ported yet ({NOT_PORTED}); the 'model' axis "
@@ -80,22 +84,25 @@ def parse_mesh(spec: str, training: bool = True) -> dict:
 _MESHES: dict = {}
 
 
-def make_mesh(data: int, model: int = 1, device: torch.device = torch.device("cpu")
-              ) -> DeviceMesh:
-    """The ("data", "model") mesh of ``data`` x ``model`` ranks over the
-    process group, which must hold exactly that many, each with a process
-    group of its own (the backend of the default group). Rank d * model + m
-    sits at position (d, m), as JAX lays the devices of a mesh out. Made
-    once per shape and device type in a process group (every rank calls
-    it at the same point: a group's creation is collective);
-    ``finish_multihost`` forgets it with the group."""
+def make_mesh(data: int, seq: int = 1, model: int = 1,
+              device: torch.device = torch.device("cpu")) -> DeviceMesh:
+    """The ("data", "seq", "model") mesh of ``data`` x ``seq`` x ``model``
+    ranks over the process group, which must hold exactly that many, each
+    dimension with a process group of its own (the backend of the default
+    group). Rank (d * seq + s) * model + m sits at position (d, s, m): the
+    axes in the order of JAX's mesh, the last fastest, as JAX lays the
+    devices of a mesh out (the port's spec order is fixed; the JAX CLI
+    keeps the spec's, adnm_tpu/cli/common.py:99-122). Made once per shape
+    and device type in a process group (every rank calls it at the same
+    point: a group's creation is collective); ``finish_multihost`` forgets
+    it with the group."""
     world = dist.get_world_size()
-    if data * model != world:
-        raise ValueError(f"a mesh of data={data} x model={model} ranks in a process group of "
-                         f"{world}")
-    key = (torch.device(device).type, data, model)
+    if data * seq * model != world:
+        raise ValueError(f"a mesh of data={data} x seq={seq} x model={model} ranks in a process "
+                         f"group of {world}")
+    key = (torch.device(device).type, data, seq, model)
     if key not in _MESHES:
-        _MESHES[key] = init_device_mesh(key[0], (data, model), mesh_dim_names=MESH_DIMS)
+        _MESHES[key] = init_device_mesh(key[0], (data, seq, model), mesh_dim_names=MESH_DIMS)
     return _MESHES[key]
 
 

@@ -1,5 +1,6 @@
-"""Tensor parallelism over the mesh's 'model' axis, and the 'data' axis's
-rows in evaluation (counterpart of the 'model' and 'data' annotations of
+"""Tensor parallelism over the mesh's 'model' axis, the 'data' axis's rows
+in evaluation, and the 'seq' axis's bands of rows (counterpart of the
+'model', 'data' and 'seq' annotations of
 adnm_tpu/parallel/mesh.py::maybe_shard, :73-101).
 
 The JAX modules annotate heads and hidden channels with the 'model' axis
@@ -27,12 +28,33 @@ on every rank (a forward's output, which a next step may read), or with
 ``first`` on data position 0 alone (a test split's predictions, which
 rank 0 alone evaluates).
 
+Over 'seq' each rank of a 'data' position holds a contiguous band of the
+rows of a frame, rows [s H / S, (s + 1) H / S) at 'seq' position s of S,
+as P('data', 'seq') places them in JAX. The model decides which of its
+levels are split (``seq_band``) and runs those stages inside
+``split_rows``; there a module's input is this rank's band of its frame
+(``banded``), and a module that reads across rows asks here for what lies
+beyond its band:
+
+* ``halo(x, top, bottom)``: the neighbours' edge rows stacked onto the
+  band, zeros at the frame's own top and bottom edges (a convolution's
+  zero padding);
+* ``sum_seq(x)``: a sum over the 'seq' ranks (a norm's statistics, the
+  duality's K^T V);
+* ``gather_seq(x, dim)``: the bands in row order (the frame whole again);
+* ``all_gather_seq(x)``: every 'seq' rank's ``x`` in order (the segment
+  states that K2's carried scan exchanges, ``ops/ssd.py``).
+
+These run forward only: none of them has a backward yet.
+
 Transport: a collective runs on the process group of its mesh dimension,
 over NCCL between cards and gloo on the CPU. Gloo has no all-gather for
 CUDA tensors, which ranks sharing one card use: ``gather_model`` and
 ``gather_data`` stage such a tensor through host memory (a copy to the
 host, the gather there, a copy back). This is a transport; the compute
-stays on the card. A collective that fails raises.
+stays on the card. A halo is point to point: over NCCL as one batch of
+sends and receives, over gloo as sends and receives of host tensors
+(staged the same way for CUDA tensors). A collective that fails raises.
 """
 
 from __future__ import annotations
@@ -44,8 +66,9 @@ import torch
 import torch.distributed as dist
 
 _ACTIVE = None  # the DeviceMesh of the forward under way (``use_mesh``)
+_SPLIT = False  # inside ``split_rows``: the modules see bands of their frames
 # Bytes this rank sent in collectives, by axis: read by the smoke run.
-TRAFFIC = {"model": 0, "data": 0}
+TRAFFIC = {"model": 0, "data": 0, "seq": 0}
 
 
 @contextlib.contextmanager
@@ -185,3 +208,142 @@ def mesh_device(mesh) -> torch.device:
     if mesh.device_type == "cuda":
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device("cpu")
+
+
+# ---- the 'seq' axis: bands of rows --------------------------------------------
+
+
+def band_rows(h: int) -> slice:
+    """This rank's band of an ``h``-row level on the active mesh's 'seq'
+    axis: rows [s h / S, (s + 1) h / S) (all of them without one)."""
+    n, s = axis_size(_ACTIVE, "seq"), axis_rank(_ACTIVE, "seq")
+    return slice(s * h // n, (s + 1) * h // n)
+
+
+def seq_band(h: int, multiple: int = 1, min_rows: int = 1) -> Optional[slice]:
+    """This rank's rows of an ``h``-row level, or None where the level is
+    not split: outside a mesh, on a 'seq' axis of size 1, where ``h`` does
+    not divide by its size (as ``maybe_shard`` drops the axis), and where a
+    band's rows are not a multiple of ``multiple`` or fewer than
+    ``min_rows`` (what the ops that read the band need: an even band for a
+    Haar DWT or a 2x2 pool, rows that each wavelet level halves, room for
+    a kernel's halo)."""
+    n = axis_size(_ACTIVE, "seq")
+    if n == 1 or h % n or (h // n) % multiple or h // n < min_rows:
+        return None
+    return band_rows(h)
+
+
+@contextlib.contextmanager
+def split_rows(band: Optional[slice]) -> Iterator[None]:
+    """Inside the block the modules' inputs are bands of their frames over
+    'seq' where ``band`` is not None (a stage the model splits), whole
+    frames where it is None; the state before is restored after."""
+    global _SPLIT
+    saved, _SPLIT = _SPLIT, band is not None and axis_size(_ACTIVE, "seq") > 1
+    try:
+        yield
+    finally:
+        _SPLIT = saved
+
+
+def banded() -> bool:
+    """Whether the modules now see this rank's band of each frame
+    (``split_rows`` on a 'seq' axis larger than 1)."""
+    return _SPLIT
+
+
+def seq_size() -> int:
+    """The size of the active mesh's 'seq' axis (1 without one)."""
+    return axis_size(_ACTIVE, "seq")
+
+
+def _global(group, i: int) -> int:
+    return dist.get_global_rank(group, i)
+
+
+def _p2p(sends: list, recvs: list, group) -> None:
+    """Send each (tensor, group rank) of ``sends`` and receive into each of
+    ``recvs``, all at once: one batch over NCCL, separate requests over
+    gloo."""
+    if dist.get_backend(group) == "nccl":
+        ops = [dist.P2POp(dist.isend, t, _global(group, r), group) for t, r in sends]
+        ops += [dist.P2POp(dist.irecv, t, _global(group, r), group) for t, r in recvs]
+        reqs = dist.batch_isend_irecv(ops) if ops else []
+    else:
+        reqs = [dist.isend(t, _global(group, r), group=group) for t, r in sends]
+        reqs += [dist.irecv(t, _global(group, r), group=group) for t, r in recvs]
+    for req in reqs:
+        req.wait()
+
+
+def halo(x: torch.Tensor, top: int, bottom: int, dim: int = 2) -> torch.Tensor:
+    """This rank's band ``x`` with the last ``top`` rows (along ``dim``) of
+    the rank above stacked on top and the first ``bottom`` rows of the rank
+    below underneath; zeros where the band is at the frame's top or bottom
+    edge, as a convolution's zero padding gives there. Every 'seq' rank
+    calls it with the same ``top`` and ``bottom``, neither larger than a
+    band."""
+    n, s = seq_size(), axis_rank(_ACTIVE, "seq")
+    rows = x.shape[dim]
+    if top > rows or bottom > rows:
+        raise ValueError(f"a halo of {top} + {bottom} rows around a band of {rows}")
+    group = _ACTIVE.get_group("seq")
+    staged = _staged(x, group)
+    dev = torch.device("cpu") if staged else x.device
+
+    def edge(start: int, length: int) -> torch.Tensor:
+        return x.narrow(dim, start, length).contiguous().to(dev)
+
+    def empty(length: int) -> torch.Tensor:
+        shape = list(x.shape)
+        shape[dim] = length
+        return torch.zeros(shape, dtype=x.dtype, device=dev)
+
+    above, below = empty(top), empty(bottom)
+    sends, recvs = [], []
+    if s > 0:  # the rank above: it takes my first rows, I take its last
+        if bottom:
+            sends.append((edge(0, bottom), s - 1))
+        if top:
+            recvs.append((above, s - 1))
+    if s < n - 1:  # the rank below: it takes my last rows, I take its first
+        if top:
+            sends.append((edge(rows - top, top), s + 1))
+        if bottom:
+            recvs.append((below, s + 1))
+    TRAFFIC["seq"] += sum(t.numel() * t.element_size() for t, _ in sends)
+    _p2p(sends, recvs, group)
+    return torch.cat([above.to(x.device), x, below.to(x.device)], dim=dim)
+
+
+def sum_seq(x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` over the 'seq' ranks, the same bits on each; ``x``
+    itself on a 'seq' axis of size 1."""
+    if seq_size() == 1:
+        return x
+    TRAFFIC["seq"] += x.numel() * x.element_size()
+    out = x.contiguous().clone()
+    dist.all_reduce(out, group=_ACTIVE.get_group("seq"))
+    return out
+
+
+def all_gather_seq(x: torch.Tensor) -> list:
+    """Every 'seq' rank's ``x`` (one shape on all), in 'seq' order."""
+    if seq_size() == 1:
+        return [x]
+    TRAFFIC["seq"] += x.numel() * x.element_size()
+    return _all_gather(x, _ACTIVE.get_group("seq"))
+
+
+def gather_seq(x: torch.Tensor, dim: int = 2) -> torch.Tensor:
+    """The 'seq' ranks' bands of a frame concatenated along ``dim`` in row
+    order (every band of one size); ``x`` itself on a 'seq' axis of size 1."""
+    if seq_size() == 1:
+        return x
+    return torch.cat(all_gather_seq(x), dim=dim)
+
+
+def seq_position() -> int:
+    """This rank's position on the active mesh's 'seq' axis (0 without one)."""
+    return axis_rank(_ACTIVE, "seq")

@@ -43,9 +43,9 @@ the accumulation, so a Trainer whose settings change captures anew. Graphs
 are the default on a card and off on the CPU; under data parallelism
 ``scan_steps`` > 1 raises (as JAX's does under multi-host) and each rank
 replays its own graph of the eval forward, which has no collective there;
-on a 'model' axis larger than 1 the eval forward runs eagerly (its
-collectives run over gloo between ranks that share a card, which a CUDA
-graph cannot capture).
+on a 'seq' or 'model' axis larger than 1 the eval forward runs eagerly
+(its collectives run over gloo between ranks that share a card, which a
+CUDA graph cannot capture).
 
 As in the JAX package, validation consumes the val batches (the
 reference re-evaluates the last training batch, train.py:159-160).
@@ -80,8 +80,12 @@ every rank, by ``eval_epoch(collect=True)`` on rank 0 alone, which alone
 holds the split's predictions and ground truths. Those predictions, and
 each batch's loss on every rank, the mean over the whole batch (each
 position's loss weighted by its rows), are the single process's up to the
-order of the sums. Training on a 'model' axis larger than 1 is not ported
-(``parallel.mesh.NOT_PORTED``).
+order of the sums. On a 'seq' axis the ranks of a position run the same
+rows, each its band of every frame (``models/adnm_unet.py``), and the
+ADNM-UNet gathers its prediction over 'seq' before it returns, so the
+loss and the gathers over 'data' see whole frames on every rank. Training
+on a 'seq' or 'model' axis larger than 1 is not ported
+(``parallel.mesh.NOT_PORTED``): a Trainer there refuses to step.
 """
 
 from __future__ import annotations
@@ -296,7 +300,11 @@ class Trainer:
         if ddp and axis_size(mesh, "model") > 1:
             raise NotImplementedError(f"training on the mesh's 'model' axis (tensor "
                                       f"parallelism) is not ported yet ({NOT_PORTED})")
-        self.mesh = make_mesh(dist.get_world_size(), 1, device) if ddp and mesh is None else mesh
+        if ddp and axis_size(mesh, "seq") > 1:
+            raise NotImplementedError(f"training on the mesh's 'seq' axis (bands of rows "
+                                      f"over the ranks) is not ported yet ({NOT_PORTED})")
+        self.mesh = (make_mesh(dist.get_world_size(), device=device) if ddp and mesh is None
+                     else mesh)
         self.rank, self.world = ((dist.get_rank(), dist.get_world_size())
                                  if ddp or mesh is not None else (0, 1))
         self.generator = torch.Generator(device=device)  # Dropout and DropPath masks
@@ -366,6 +374,10 @@ class Trainer:
         the global batch's). A parameter the loss does not reach gets a
         zero gradient, as in JAX, so AdamW still decays it. Runs the model
         in train mode; ``seeds`` holds each microbatch's (``_forward``)."""
+        if axis_size(self.mesh, "seq") > 1:
+            raise NotImplementedError(f"a Trainer on a 'seq' axis larger than 1 does not "
+                                      f"train: the backward of the bands' halos, sums and "
+                                      f"carried scans is not ported yet ({NOT_PORTED})")
         if self.mesh is not None and not self.ddp:
             raise RuntimeError("a Trainer on an evaluation mesh (mesh without ddp) does not "
                                "train: its ranks would step apart")
@@ -515,14 +527,14 @@ class Trainer:
 
     def _graphed(self, graphs: Optional[bool]) -> bool:
         """Whether an eval forward replays a CUDA graph: ``graphs``, by
-        default on a card on a 'model' axis of 1; a graph needs a card, and
-        the 'model' axis's collectives keep the forward eager."""
-        eager_only = axis_size(self.mesh, "model") > 1
+        default on a card on 'seq' and 'model' axes of 1; a graph needs a
+        card, and those axes' collectives keep the forward eager."""
+        eager_only = axis_size(self.mesh, "model") > 1 or axis_size(self.mesh, "seq") > 1
         if graphs is None:
             return self.graphs is not None and not eager_only
         if graphs and (self.graphs is None or eager_only):
-            raise ValueError(f"graphs=True needs a CUDA device, not {self.device}, and a "
-                             f"'model' axis of 1")
+            raise ValueError(f"graphs=True needs a CUDA device, not {self.device}, and 'seq' "
+                             f"and 'model' axes of 1")
         return graphs
 
     @torch.no_grad()
@@ -611,8 +623,9 @@ class Trainer:
         mesh each rank's rows of it, the batches' losses summed over 'data'
         once at the end, and with ``collect`` the predictions gathered on
         rank 0 alone, which alone returns the arrays (None on the others)."""
-        keep = collect and self.rank == 0  # rank 0 is ('data', 'model') position (0, 0)
-        gather = collect and axis_rank(self.mesh, "model") == 0  # rank 0's 'data' group
+        keep = collect and self.rank == 0  # rank 0 is mesh position (0, 0, 0)
+        # rank 0's 'data' group: 'seq' and 'model' position 0
+        gather = collect and axis_rank(self.mesh, "model") == axis_rank(self.mesh, "seq") == 0
         losses, preds, gts = [], [], []
         for batch in device_prefetch(loader, self.device):
             if self.mesh is None:

@@ -244,6 +244,25 @@
    events) are gone from 6h (1), 6i (d) (the graphed group's trace stays),
    the baselines' batch-4 steps (6d, 6e), and the bf16 duality and MLA
    batch-4 steps (6b, 6e); every check and every timing stays.
+6k. The mesh's 'seq' axis (``mesh_seq_phase``), full width, 256x256,
+   seeded weights, fp32, two gloo ranks sharing the card, each holding its
+   band of 128 rows: (1) K2's carried form (``check_k2_carried``): from a
+   random incoming state against its plain version (outputs, end state
+   and decay) at (4, 8, 32,768), a rank's shape at batch 4, at the model's
+   decays and at |dA| ~ 3e-4, fp32 and bf16, forward and reversed; the
+   sequence in 2 and 4 segments chained from rank-order states equals the
+   whole scan, forward and reversed, fp32 and bf16, at the model's decays
+   and at |dA| ~ 3e-4 over many chunks; without a state one launch,
+   bit-equal across calls and to the carried form from a zero state at
+   the refiner's many tiles; timed with and without a state at
+   (1, 8, 32,768) beside its bound, against the plain version; (2) ``forecast`` of the duality and
+   bimamba models at batch 4 on seq=2 against phase 6j's one process
+   (``SEQ_ATOL``), the ranks bit-equal, each rank's launches counted and
+   traced (20 K1, and 20 K2 carried on bimamba), the bytes it sent over
+   'seq', its wall and peak memory against one process's; (3)
+   ``validate`` on data=1,seq=2 against phase 6j's one process
+   (``SEQ_VALIDATE_ATOL``): the same table, the test loss within 1e-4
+   relative, the ground truths equal.
 7. Prints the kernels' JSON line (each K1 entry with its largest kernel /
    library time over the fp32 main-path shapes, ``worst_vs_library``, and
    its MLA launches and times at MLA's rows; K2's
@@ -255,7 +274,9 @@
    times at the LAPS shapes; each K1, K1 backward, K2 and K2 backward entry
    with a ``graphed`` entry: its launches per graphed forward and step;
    each K1 and K2 entry with a ``mesh_model2`` entry: its launches per
-   rank and forward on model=2, phase 6j (b)),
+   rank and forward on model=2, phase 6j (b), and a ``mesh_seq2`` entry:
+   its launches per rank and forward on seq=2, phase 6k, K2's with its
+   carried form's ``carried`` times and error),
    the script's total seconds, the card line, then the result line last.
 
 Any failure raises: the exit code is then non-zero and no result line is
@@ -3320,20 +3341,20 @@ def mesh_ranks(rank: int, world: int, device, out: str, model_axis_only: bool) -
     if not model_axis_only:
         args = validate_cli.make_parser().parse_args(
             [*MESH_ARGS, "--root", os.path.join(out, "none")])
-        res = measured("validate", lambda: validate_cli.run(args, mesh=make_mesh(2, 1, device),
-                                                            device=device))
+        res = measured("validate", lambda: validate_cli.run(
+            args, mesh=make_mesh(2, device=device), device=device))
         rec["validate"] = {k: res[k] for k in ("metrics", "test_loss", "preds", "gts")}
         args = predict_cli.make_parser().parse_args(
             ["--input", os.path.join(out, "x.npy"), "--output", os.path.join(out, "mesh.npy"),
              "--img-size", str(IMG), "--root", os.path.join(out, "none")])
-        measured("predict", lambda: predict_cli.run(args, mesh=make_mesh(2, 1, device),
+        measured("predict", lambda: predict_cli.run(args, mesh=make_mesh(2, device=device),
                                                     device=device))
     x = mesh_batch()
-    mesh = make_mesh(1, 2, device)
+    mesh = make_mesh(1, model=2, device=device)
     for label, kwargs in MESH_CASES.items():
         model = predict_cli.load_model(None, device, **kwargs)
         counts.reset()
-        TRAFFIC.update(model=0, data=0)
+        TRAFFIC.update(model=0, data=0, seq=0)
         got = measured(label, lambda: predict_cli.forecast(model, x, 4, device, mesh=mesh))
         rec[label] = {"preds": got, "launches": counts.read(), "traffic": dict(TRAFFIC)}
         names = hand_kernel_names(lambda: predict_cli.forecast(model, x, 4, device, mesh=mesh))
@@ -3472,6 +3493,9 @@ def mesh_inference_phase(card: str) -> dict:
         res["validate"] = {"max_abs_err": err, "bit_equal": same,
                            "wall_s": [r["validate_wall_s"] for r in ranks],
                            "single_wall_s": single_wall}
+        # one process's forwards and validate, which phase 6k compares with too
+        res["one_process"] = {"refs": refs, "one": one, "validate": single,
+                              "validate_wall_s": single_wall}
         print(f"multi-rank inference: two gloo ranks on one card in {spawn_s:.1f} s")
         n_cards = torch.cuda.device_count()
         if n_cards >= 2:
@@ -3483,6 +3507,296 @@ def mesh_inference_phase(card: str) -> dict:
             print(f"multi-rank inference: {n_cards} card visible: (b) over NCCL across cards "
                   f"not run")
     print(f"[{card}] multi-rank inference phase: {time.perf_counter() - t_phase:.1f} s")
+    return res
+
+
+# -- the mesh's 'seq' axis: validate and forecast with a band of rows a rank ------
+
+# seq=2 against one process at batch 4 on one card: the InstanceNorm and
+# GroupNorm statistics, the duality's K^T V and K2's state summed over two
+# bands instead of inside one kernel, a change of summation order that the
+# seeded duality model amplifies (FORWARD_ATOL is its card-against-CPU
+# bound). Set before the phase's first chip run from
+# ``scripts/torch_seq_distance.py`` on the CPU at 64^2, batch 2: 2.1e-5
+# (duality) and 6.0e-7 (bimamba); the bounds are about 240 and 170 times
+# those.
+SEQ_ATOL = FORWARD_ATOL
+# validate on data=1,seq=2 against one process (the duality model's
+# predictions over the synthetic test split): 7.5e-6 on an H100, and the
+# 'data' axis's bound (MESH_DATA_ATOL) holds it; a halo not exchanged or a
+# K2 state not carried moves a forward by far more (PERF.md §6)
+SEQ_VALIDATE_ATOL = 1e-4
+# K2's carried form at the refiner's half on seq=2: (batch, heads, L),
+# timed at batch 1 and held against its plain version at the main path's
+# batch 4
+K2_SEGMENT = (1, 8, 32768)
+K2_RANK_SEGMENT = (4, 8, 32768)
+
+
+def seq_ranks(rank: int, world: int, device, out: str) -> None:
+    """A rank of phase 6k on ('data', 'seq') = (1, 2), holding its band of
+    rows: (1) ``forecast`` of the duality and bimamba models at batch 4,
+    its launches counted and traced, the bytes it sent over 'seq', its
+    wall and peak memory; (2) ``validate`` through the CLI's per-rank
+    ``run``. Every rank writes its results (rank 0 alone its evaluation)."""
+    from adnm_tpu_torch.cli import predict as predict_cli
+    from adnm_tpu_torch.cli import validate as validate_cli
+    from adnm_tpu_torch.parallel import make_mesh
+    from adnm_tpu_torch.parallel.tensor import TRAFFIC
+
+    counts = kernel_counts()
+    mesh = make_mesh(1, 2, device=device)
+    rec = {}
+
+    def measured(label, run):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result = run()
+        torch.cuda.synchronize()
+        rec[f"{label}_wall_s"] = time.perf_counter() - t0
+        rec[f"{label}_peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+        return result
+
+    x = mesh_batch()
+    for label, kwargs in MESH_CASES.items():
+        model = predict_cli.load_model(None, device, **kwargs)
+        counts.reset()
+        TRAFFIC.update(model=0, data=0, seq=0)
+        got = measured(label, lambda: predict_cli.forecast(model, x, 4, device, mesh=mesh))
+        rec[label] = {"preds": got, "launches": counts.read(), "traffic": dict(TRAFFIC)}
+        names = hand_kernel_names(lambda: predict_cli.forecast(model, x, 4, device, mesh=mesh))
+        rec[label].update(names=names, traced=trace_launches(names),
+                          wall_ms=host_times(lambda: predict_cli.forecast(model, x, 4, device,
+                                                                          mesh=mesh), 3, warm=0))
+        del model
+        torch.cuda.empty_cache()
+    args = validate_cli.make_parser().parse_args(
+        [*MESH_ARGS, "--root", os.path.join(out, "none")])
+    res = measured("validate", lambda: validate_cli.run(args, mesh=mesh, device=device))
+    if rank == 0:
+        rec["validate"] = {k: res[k] for k in ("metrics", "test_loss", "preds", "gts")}
+    torch.save(rec, os.path.join(out, f"seq_rank{rank}.pt"))
+
+
+def k2_carried_against_plain(ssd, args, s0, reverse: bool, label: str) -> float:
+    """A ``ScanSegment`` on the card (K2's states, carry and outputs
+    launches) against the plain version on the same inputs: its outputs
+    from the incoming state ``s0`` (within K2_TOL, bf16 within one more
+    bf16 step), its end state and decay from zero, and that state plus
+    ``s0`` decayed across the segment against the plain end state from
+    ``s0`` (fp32 states, within K2_TOL). The outputs' max_abs_err."""
+    rtol, atol = K2_TOL
+    flip = (lambda t: t.flip(-1)) if reverse else (lambda t: t)
+    x, dt, A, B, C, D = args
+    step = BF16_STEP if x.dtype == torch.bfloat16 else 0.0
+    seg = ssd.ScanSegment(*args, K2_CHUNK, reverse=reverse)
+    got = seg.outputs(s0).float()
+    scan_order = (flip(x), flip(dt), A, flip(B), flip(C), D)
+    want, state, decay = ssd.ssd_chunked_scan_reference(*scan_order, K2_CHUNK, initial_state=s0,
+                                                        return_final_state=True)
+    _, zero_state, zero_decay = ssd.ssd_chunked_scan_reference(*scan_order, K2_CHUNK,
+                                                               return_final_state=True)
+    want = flip(want).float()
+    err = (got - want).abs()
+
+    def close(a, b, rt, at):
+        return bool(((a - b).abs() <= at + rt * b.abs()).all())
+
+    carried = seg.state + s0 * seg.decay[..., None, None]
+    if not close(got, want, rtol + step, atol):
+        raise AssertionError(f"{label}: the outputs from an incoming state disagree with the "
+                             f"plain version, max_abs_err {err.max().item():.3e}")
+    if not (close(seg.state, zero_state, rtol, atol) and close(seg.decay, zero_decay, rtol, 1e-30)
+            and close(carried, state, rtol, atol)):
+        raise AssertionError(f"{label}: the end state or decay disagrees with the plain "
+                             f"version, state {(seg.state - zero_state).abs().max().item():.3e}, "
+                             f"decay {(seg.decay - zero_decay).abs().max().item():.3e}")
+    print(f"{label}: from an incoming state against the plain version max_abs_err "
+          f"{err.max().item():.3e} (tol {atol:g} + {rtol:g}{' + 2^-7' if step else ''})*|want|; "
+          f"end state {(carried - state).abs().max().item():.3e}, decay "
+          f"{(seg.decay - zero_decay).abs().max().item():.3e} (tol {atol:g} + {rtol:g}*|want|)")
+    return err.max().item()
+
+
+def check_k2_carried(ssd, card: str) -> dict:
+    """K2's carried form on the card: against its plain version from a
+    random incoming state (``k2_carried_against_plain``) at the shape the
+    main path gives a rank at batch 4 on seq=2, (4, 8, 32,768), at the
+    model's decays and at |dA| ~ 3e-4, fp32 and bf16, forward and
+    reversed; against the whole scan: the sequence cut into 2 and 4
+    segments, each from the state its predecessors hand it in the scan's
+    direction, forward and reversed, at the model's decays and at
+    |dA| ~ 3e-4 over many chunks (where the carried state moves the later
+    segments far beyond the bound), fp32 and bf16 (bf16 within one more
+    bf16 step); without a state two calls bit-equal and, at the refiner's
+    many tiles, the carried form from a zero state bit-equal to them; the
+    carried form timed with and without an incoming state at
+    ``K2_SEGMENT`` beside its bound, its output held against the plain
+    version. The bits of the call without a state against the parent
+    commit's kernel: ``scripts/torch_parent_bits.py``."""
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    rtol, atol = K2_TOL
+    worst = 0.0
+    b, h, l = K2_RANK_SEGMENT
+    for carry in (False, True):
+        args32 = scan_inputs(b, h, l, gen, carry)
+        s0 = torch.randn(b, h, K2_N, K2_P, generator=gen, device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            for reverse in (False, True):
+                err = k2_carried_against_plain(
+                    ssd, [t.to(dtype) for t in args32], s0, reverse,
+                    f"K2 carried {K2_RANK_SEGMENT} {'small|dA| ' if carry else ''}{dtype}"
+                    f"{' reverse' if reverse else ''}")
+                worst = max(worst, err) if dtype == torch.float32 else worst
+    for b, h, l, carry in ((1, 8, 65536, True), (1, 8, 65536, False), (2, 8, 4096, True)):
+        args32 = scan_inputs(b, h, l, gen, carry)
+        for dtype in (torch.float32, torch.bfloat16):
+            args = [t.to(dtype) for t in args32]
+            step = BF16_STEP if dtype == torch.bfloat16 else 0.0
+            for reverse in (False, True):
+                whole = ssd.ssd_chunked_scan(*args, K2_CHUNK, reverse=reverse).float()
+                for parts in (2, 4):
+                    cut = l // parts
+                    segs = [ssd.ScanSegment(*(t[..., i * cut:(i + 1) * cut].contiguous()
+                                              if t.dim() > 1 else t for t in args),
+                                            K2_CHUNK, reverse=reverse) for i in range(parts)]
+                    states = [(g.state, g.decay) for g in segs]
+                    got = torch.cat([g.outputs(ssd.compose_states(states, reverse, i))
+                                     for i, g in enumerate(segs)], dim=-1).float()
+                    err = (got - whole).abs()
+                    alone = torch.cat([g.outputs(torch.zeros_like(g.state)) for g in segs],
+                                      dim=-1).float()
+                    moved = float((alone - whole).abs().max())
+                    label = (f"K2 carried b={b} heads={h} L={l} in {parts} segments "
+                             f"{'small|dA| ' if carry else ''}{dtype}"
+                             f"{' reverse' if reverse else ''}")
+                    if not bool((err <= atol + (rtol + step) * whole.abs()).all()):
+                        raise AssertionError(f"{label}: the chained segments disagree with "
+                                             f"the whole scan, max_abs_err "
+                                             f"{err.max().item():.3e}")
+                    if carry and not moved > 100 * atol:
+                        raise AssertionError(f"{label}: the carried state moves nothing "
+                                             f"({moved:.3e})")
+                    worst = max(worst, err.max().item()) if dtype == torch.float32 else worst
+                    if parts == 2:
+                        print(f"{label}: against the whole scan max_abs_err "
+                              f"{err.max().item():.3e} (tol {atol:g} + {rtol:g}"
+                              f"{' + 2^-7' if step else ''})*|whole|; without the carried "
+                              f"state {moved:.3e}")
+    # without a state: the unchanged entry, one launch; a zero state's bits
+    for dtype in (torch.float32, torch.bfloat16):
+        args = [t.to(dtype) for t in scan_inputs(1, 8, 65536, gen)]
+        for reverse in (False, True):
+            before = ssd.ssd_chunked_scan.launches
+            plain = ssd.ssd_chunked_scan(*args, K2_CHUNK, reverse=reverse)
+            again = ssd.ssd_chunked_scan(*args, K2_CHUNK, reverse=reverse)
+            zero = ssd.ScanSegment(*args, K2_CHUNK, reverse=reverse).outputs(
+                torch.zeros(1, 8, K2_N, K2_P, device="cuda"))
+            torch.cuda.synchronize()
+            if ssd.ssd_chunked_scan.launches != before + 3 or not (
+                    torch.equal(plain, again) and torch.equal(plain, zero)):
+                raise AssertionError(f"K2 {dtype} reverse={reverse}: the call without a state "
+                                     f"is not one launch bit-equal to itself and to the "
+                                     f"carried form from a zero state")
+    print("K2 without a state at (1, 8, 65536): one launch, bit-equal across calls and to the "
+          "carried form from a zero state, fp32 and bf16, forward and reversed")
+    b, h, l = K2_SEGMENT
+    x, dt, A, B, C, D = scan_inputs(b, h, l, gen)
+    s0 = torch.randn(b, h, K2_N, K2_P, generator=gen, device="cuda")
+    worst = max(worst, k2_carried_against_plain(ssd, (x, dt, A, B, C, D), s0, False,
+                                                f"K2 carried {K2_SEGMENT} timed, fp32"))
+    with_ms, plain_ms, _ = in_turns(
+        lambda: ssd.ScanSegment(x, dt, A, B, C, D, K2_CHUNK).outputs(s0),
+        lambda: ssd.ssd_chunked_scan(x, dt, A, B, C, D, K2_CHUNK), iters=20, plain_iters=20)
+    bnd, by = bound_ms(k2_bytes(b, h, K2_P, K2_N, l), k2_flops(b, h, K2_P, K2_N, l))
+    print(f"[{card}] K2 at {K2_SEGMENT} (the refiner's half on seq=2), fp32: with an incoming "
+          f"state (states, carry, outputs) {with_ms * 1e3:.2f} us, without one "
+          f"{plain_ms * 1e3:.2f} us, bound {bnd * 1e3:.2f} us ({by}; with / bound "
+          f"{with_ms / bnd:.1f}, without / bound {plain_ms / bnd:.1f})")
+    return {"max_abs_err": worst, "ms": with_ms, "plain_ms": plain_ms, "bound_ms": bnd,
+            "bound_by": by, "shape": list(K2_SEGMENT)}
+
+
+def mesh_seq_phase(card: str, one_process: dict) -> dict:
+    """The mesh's 'seq' axis (phase 6k), full width, 256^2, seeded weights,
+    fp32, two gloo ranks sharing the card (``parallel.spawn``), each
+    holding its band of rows: (1) ``forecast`` of the duality and bimamba
+    models at batch 4 on seq=2 against one process's (``one_process``:
+    phase 6j's forwards, walls and peaks), the two ranks bit-equal, each
+    rank's K1 and K2 launches counted and traced, its bytes sent over
+    'seq', its wall and peak memory against one process's; (2)
+    ``validate`` on data=1,seq=2 against phase 6j's one process: the same
+    table, the loss within 1e-4 relative; (3) K2's carried form
+    (``check_k2_carried``)."""
+    from adnm_tpu_torch.metrics import metrics_table
+    from adnm_tpu_torch.ops import ssd
+    from adnm_tpu_torch.parallel import spawn
+
+    t_phase = time.perf_counter()
+    refs, one, single = one_process["refs"], one_process["one"], one_process["validate"]
+    res = {"k2_carried": check_k2_carried(ssd, card)}
+    with tempfile.TemporaryDirectory(prefix="adnm-seq-") as out:
+        t0 = time.perf_counter()
+        spawn(seq_ranks, 2, args=(out,), device="cuda", backend="gloo", shared_device=True,
+              timeout_s=MESH_TIMEOUT_S)
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(out, f"seq_rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+    for label in MESH_CASES:
+        a, b = ranks[0][label], ranks[1][label]
+        err = float(np.abs(a["preds"] - refs[label]).max())
+        want = MESH_FORWARD_LAUNCHES[label]
+        launches = [(r[label]["launches"], r[label]["traced"]) for r in ranks]
+        print(f"[{card}] forecast {label} {IMG}^2 batch 4 on seq=2 (gloo, one card; a band of "
+              f"{IMG // 2} rows a rank): against one process max_abs_err {err:.3e} (tol "
+              f"{SEQ_ATOL[label]:g}); launches per rank (counted, traced) {launches}, want "
+              f"{want}; bytes sent per rank and forward over 'seq' "
+              f"{[r[label]['traffic']['seq'] for r in ranks]}; wall per forward, rank 0 "
+              f"{statistics.median(a['wall_ms']):.1f} ms, rank 1 "
+              f"{statistics.median(b['wall_ms']):.1f} ms (median of 3) against "
+              f"{one[label]['wall_ms']:.1f} ms eager in one process; first call "
+              f"{ranks[0][label + '_wall_s']:.2f} s; peak memory per rank "
+              f"{[round(r[label + '_peak_mib'], 1) for r in ranks]} MiB against "
+              f"{one[label]['peak_mib']:.1f} MiB in one process")
+        if not (err <= SEQ_ATOL[label] and np.isfinite(a["preds"]).all()
+                and np.array_equal(a["preds"], b["preds"])):
+            raise AssertionError(f"seq {label}: seq=2 disagrees with one process")
+        if any(c != want or t != want for c, t in launches):
+            raise AssertionError(f"seq {label}: a rank did not run the hand kernels, "
+                                 f"{launches}")
+        if any(r[label]["traffic"]["model"] or r[label]["traffic"]["data"]
+               or not r[label]["traffic"]["seq"] for r in ranks):
+            raise AssertionError(f"seq {label}: bytes went over another axis than 'seq'")
+        res[label] = {"max_abs_err": err, "launches_per_rank": [c for c, _ in launches],
+                      "bytes_per_rank": [r[label]["traffic"]["seq"] for r in ranks],
+                      "wall_ms": statistics.median(a["wall_ms"]),
+                      "peak_mib": [r[label + "_peak_mib"] for r in ranks], "one": one[label]}
+    got = ranks[0]["validate"]
+    verr = float(np.abs(got["preds"] - single["preds"]).max())
+    tables = (metrics_table(got["metrics"], pod=True), metrics_table(single["metrics"], pod=True))
+    shift = row_shift_gap(single["preds"])
+    print(f"[{card}] validate --mesh data=1,seq=2 (two gloo ranks on one card) against one "
+          f"process: {got['preds'].shape[0]} clips, predictions max_abs_err {verr:.3e} (tol "
+          f"{SEQ_VALIDATE_ATOL:g}; a row out of place: {shift:.3e}); test loss "
+          f"{got['test_loss']:.8f} vs {single['test_loss']:.8f}; tables "
+          f"{'identical' if tables[0] == tables[1] else 'DIFFER'}; wall per rank "
+          f"{[round(r['validate_wall_s'], 2) for r in ranks]} s against "
+          f"{one_process['validate_wall_s']:.2f} s (one process, graphed); peak memory per "
+          f"rank {[round(r['validate_peak_mib'], 1) for r in ranks]} MiB")
+    if (got["preds"].shape != (MESH_TEST_CLIPS, 20, IMG, IMG)
+            or not verr <= SEQ_VALIDATE_ATOL < shift
+            or not np.array_equal(got["gts"], single["gts"])):
+        raise AssertionError("validate on data=1,seq=2 disagrees with one process")
+    if abs(got["test_loss"] - single["test_loss"]) > 1e-4 * abs(single["test_loss"]):
+        raise AssertionError("validate on data=1,seq=2: the test loss disagrees")
+    if tables[0] != tables[1]:
+        raise AssertionError("validate on data=1,seq=2: the table differs from one process's")
+    check_metrics("validate --mesh data=1,seq=2", got["metrics"])
+    res["validate"] = {"max_abs_err": verr, "wall_s": [r["validate_wall_s"] for r in ranks],
+                       "peak_mib": [r["validate_peak_mib"] for r in ranks]}
+    print(f"[{card}] 'seq' axis phase: two gloo ranks on one card in {spawn_s:.1f} s; "
+          f"{time.perf_counter() - t_phase:.1f} s")
     return res
 
 
@@ -3591,11 +3905,20 @@ def main() -> None:
     per_rank = par["launches_per_rank"]
 
     # -- multi-rank inference: data=2 and model=2 over gloo on one card -------
-    mesh = mesh_inference_phase(card)["gloo"]
+    mesh_phase = mesh_inference_phase(card)
+    mesh = mesh_phase["gloo"]
     mesh_k1 = {"launches_per_rank_forward": {label: [c["rms_norm"] for c in m[
         "launches_per_rank"]] for label, m in mesh.items()}}
     mesh_k2 = {"launches_per_rank_forward": [c["ssd_chunked_scan"]
                                              for c in mesh["bimamba"]["launches_per_rank"]]}
+
+    # -- the 'seq' axis: a band of rows a rank, K2 carried from rank to rank ----
+    seq = mesh_seq_phase(card, mesh_phase["one_process"])
+    seq_k1 = {"launches_per_rank_forward": {label: [c["rms_norm"] for c in seq[label][
+        "launches_per_rank"]] for label in MESH_CASES}}
+    seq_k2 = {"launches_per_rank_forward": [c["ssd_chunked_scan"]
+                                            for c in seq["bimamba"]["launches_per_rank"]],
+              "carried": seq["k2_carried"]}
 
     # Launches: serving kernels from the bimamba requests, K1's backward
     # from the train CLI's run, K2's from the bimamba training steps; K3
@@ -3629,6 +3952,7 @@ def main() -> None:
         "graphed": {"launches_per_forward": graphed["forward"]["duality"]["rms_norm"],
                     "launches_per_step": graphed["step"]["rms_norm"]},
         "mesh_model2": mesh_k1,
+        "mesh_seq2": seq_k1,
     }, {
         "name": "rms_norm_backward", "route": "cuda", "source": "adnm_tpu_torch/csrc/rms_norm.cu",
         "replaces": "adnm_tpu/ops/pallas/fused_norm.py:57",
@@ -3654,6 +3978,7 @@ def main() -> None:
         "graphed": {"launches_per_forward": graphed["forward"]["bimamba"]["ssd_chunked_scan"],
                     "launches_per_step": graphed["bimamba_step"]["ssd_chunked_scan"]},
         "mesh_model2": mesh_k2,
+        "mesh_seq2": seq_k2,
     }, {
         "name": "ssd_chunked_scan_backward", "route": "cuda",
         "source": "adnm_tpu_torch/csrc/ssd_scan.cu",

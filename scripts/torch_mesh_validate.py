@@ -1,11 +1,11 @@
 """``validate`` of the PyTorch port on meshes of this host's cards against
 one process, to measure what a mesh buys and to check it agrees.
 
-    python3 scripts/torch_mesh_validate.py [--synthetic-len N] [--img-size S] [--phase-6j] MESH ...
+    python3 scripts/torch_mesh_validate.py [--synthetic-len N] [--img-size S] [--forwards] [--phase-6j] MESH ...
 
-Each MESH is a ``--mesh`` spec (``data=2``, ``data=2,model=2``, ...); its
-ranks take a card each over NCCL, so it needs ``data x model`` visible
-cards. The full-width duality ADNM-UNet (``create_adnm_unet(5, 20, 6)``,
+Each MESH is a ``--mesh`` spec (``data=2``, ``data=2,model=2``,
+``data=1,seq=2``, ``data=1,seq=2,model=2``, ...); its ranks take a card
+each over NCCL, so it needs ``data x seq x model`` visible cards. The full-width duality ADNM-UNet (``create_adnm_unet(5, 20, 6)``,
 the seeded init and the reference init: no checkpoint) runs the synthetic
 test split (``--synthetic-len 64``: 9 clips, batches 4, 4 and 1) through
 ``cli.validate.main`` once in this process, then once on each mesh. For
@@ -15,12 +15,18 @@ kernels are built once before), and for each mesh the largest difference
 of its predictions from the single process's, whether the two printed
 tables are identical, and the test losses. Each mesh is held to
 ``chip_smoke.py``'s phase 6j (a) checks: the predictions within
-``MESH_DATA_ATOL['validate']`` on a 'data' axis alone and within
-``MESH_ATOL['duality']`` with a 'model' axis (its partial sums), the
+``MESH_DATA_ATOL['validate']`` on a 'data' axis alone, within
+``MESH_ATOL['duality']`` with a 'model' axis (its partial sums) and
+within ``SEQ_VALIDATE_ATOL`` with a 'seq' axis (phase 6k's bound), the
 ground truths equal, the test loss within 1e-4 relative, and the table
 identical where the predictions are bit-equal. Prints one line a run,
 each with the card's name and power limit, then a JSON line of the
-figures, and exits 1 if a mesh failed a check. With ``--phase-6j`` it
+figures, and exits 1 if a mesh failed a check. With ``--forwards``, for
+each mesh with a 'seq' or 'model' axis, ``forecast`` of the duality and
+bimamba models at batch 4 on it over NCCL, a card a rank, against this
+process's eager forward: each rank's largest difference (held to that
+model's ``MESH_ATOL`` with a 'model' axis and its ``SEQ_ATOL`` with a
+'seq' axis), wall (median of 3) and peak memory. With ``--phase-6j`` it
 then runs ``chip_smoke.py``'s phase 6j (``mesh_inference_phase``) alone,
 which on two or more cards also runs the model=2 forwards over NCCL, a
 card a rank. Needs CUDA.
@@ -34,6 +40,7 @@ import os
 import sys
 import tempfile
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -44,13 +51,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def mesh_failures(mesh: str, got: dict, one: dict) -> list:
     """What ``got``, validate on ``mesh``, fails of phase 6j (a)'s checks
     against ``one``, one process's validate."""
-    import chip_smoke
     from adnm_tpu_torch.metrics import metrics_table
-    from adnm_tpu_torch.parallel import parse_mesh
 
-    tol = (chip_smoke.MESH_ATOL["duality"]
-           if parse_mesh(mesh, training=False).get("model", 1) > 1
-           else chip_smoke.MESH_DATA_ATOL["validate"])
+    tol = mesh_tolerance(mesh)
     failed = []
     if got["preds"].shape != one["preds"].shape:
         return [f"predictions of shape {got['preds'].shape}, not {one['preds'].shape}"]
@@ -67,12 +70,99 @@ def mesh_failures(mesh: str, got: dict, one: dict) -> list:
     return failed
 
 
+def mesh_tolerance(mesh: str, label: Optional[str] = None) -> float:
+    """The bound of phase 6j (a), 6j (b) or 6k on ``mesh``: for validate's
+    predictions without ``label``, else for the ``label`` model's
+    forward."""
+    import chip_smoke
+    from adnm_tpu_torch.parallel import parse_mesh
+
+    axes = parse_mesh(mesh, training=False)
+    tol = chip_smoke.MESH_DATA_ATOL["validate"]
+    if axes.get("model", 1) > 1:
+        tol = max(tol, chip_smoke.MESH_ATOL[label or "duality"])
+    if axes.get("seq", 1) > 1:
+        tol = max(tol, chip_smoke.SEQ_VALIDATE_ATOL if label is None
+                  else chip_smoke.SEQ_ATOL[label])
+    return tol
+
+
+def forward_rank(rank: int, world: int, device, mesh: str, out: str) -> None:
+    """A rank of ``--forwards``: ``forecast`` of the duality and bimamba
+    models at batch 4 on ``mesh``, its predictions, wall and peak memory."""
+    import chip_smoke
+    from adnm_tpu_torch.cli import predict as predict_cli
+    from adnm_tpu_torch.parallel import make_mesh, parse_mesh
+
+    axes = parse_mesh(mesh, training=False)
+    dmesh = make_mesh(axes["data"], axes.get("seq", 1), axes.get("model", 1), device)
+    x = chip_smoke.mesh_batch()
+    rec = {}
+    for label, kwargs in chip_smoke.MESH_CASES.items():
+        model = predict_cli.load_model(None, device, **kwargs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        preds = predict_cli.forecast(model, x, 4, device, mesh=dmesh)
+        walls = chip_smoke.host_times(lambda: predict_cli.forecast(model, x, 4, device,
+                                                                   mesh=dmesh), 3, warm=0)
+        rec[label] = {"preds": preds, "wall_ms": float(np.median(walls)),
+                      "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
+        del model
+        torch.cuda.empty_cache()
+    torch.save(rec, os.path.join(out, f"rank{rank}.pt"))
+
+
+def forwards(card: str, meshes: list) -> dict:
+    """``--forwards``: each mesh's ranks over NCCL against this process's
+    eager forward; the failures by mesh."""
+    import chip_smoke
+    from adnm_tpu_torch.cli import predict as predict_cli
+    from adnm_tpu_torch.parallel import parse_mesh, spawn
+
+    device = torch.device("cuda")
+    one = {}
+    for label, kwargs in chip_smoke.MESH_CASES.items():
+        model = predict_cli.load_model(None, device, **kwargs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        preds = predict_cli.forecast(model, chip_smoke.mesh_batch(), 4, device, graphs=False)
+        walls = chip_smoke.host_times(lambda: predict_cli.forecast(
+            model, chip_smoke.mesh_batch(), 4, device, graphs=False), 3, warm=0)
+        one[label] = {"preds": preds, "wall_ms": float(np.median(walls)),
+                      "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
+        del model
+        torch.cuda.empty_cache()
+    failures = {}
+    for mesh in meshes:
+        axes = parse_mesh(mesh, training=False)
+        if axes.get("seq", 1) == axes.get("model", 1) == 1:
+            continue
+        world = axes["data"] * axes.get("seq", 1) * axes.get("model", 1)
+        with tempfile.TemporaryDirectory() as out:
+            spawn(forward_rank, world, args=(mesh, out), device="cuda", timeout_s=900)
+            ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+                     for r in range(world)]
+        for label in chip_smoke.MESH_CASES:
+            errs = [float(np.abs(r[label]["preds"] - one[label]["preds"]).max()) for r in ranks]
+            print(f"[{card}] forecast {label} batch 4 on {mesh} (NCCL, a card a rank): "
+                  f"max_abs_err per rank {[f'{e:.3e}' for e in errs]} (tol "
+                  f"{mesh_tolerance(mesh, label):g}); wall per rank "
+                  f"{[round(r[label]['wall_ms'], 1) for r in ranks]} ms against "
+                  f"{one[label]['wall_ms']:.1f} ms eager in one process; peak per rank "
+                  f"{[round(r[label]['peak_mib'], 1) for r in ranks]} MiB against "
+                  f"{one[label]['peak_mib']:.1f} MiB")
+            if not max(errs) <= mesh_tolerance(mesh, label):
+                failures.setdefault(mesh, []).append(f"{label} forward {max(errs):.3e}")
+    return failures
+
+
 def main() -> None:
     p = argparse.ArgumentParser()
     p.add_argument("meshes", nargs="+")
     p.add_argument("--synthetic-len", type=int, default=64)
     p.add_argument("--img-size", type=int, default=256)
     p.add_argument("--phase-6j", action="store_true")
+    p.add_argument("--forwards", action="store_true")
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_mesh_validate: CUDA is not available")
@@ -111,6 +201,9 @@ def main() -> None:
                   f"{err:.3e}; tables {'identical' if same else 'DIFFER'}; test loss "
                   f"{got['test_loss']:.8f}; {'; '.join(failed) if failed else 'checks passed'}")
     print(json.dumps({"card": card, "validate": figures}))
+    if args.forwards:
+        for mesh, failed in forwards(card, args.meshes).items():
+            failures.setdefault(mesh, []).extend(failed)
     if failures:
         raise SystemExit(f"torch_mesh_validate: meshes disagree with one process: {failures}")
     if args.phase_6j:

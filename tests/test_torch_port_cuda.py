@@ -1191,3 +1191,144 @@ def test_two_gloo_ranks_on_the_model_axis_match_one_process(card, tmp_path, line
         assert r["traffic"]["model"] > 0
         assert r["launches"]["rms_norm"] > 0
         assert (r["launches"]["ssd_chunked_scan"] > 0) == (not linear_attn_duality)
+
+
+# The mesh's 'seq' axis on the card: K2's carried form, and a band a rank.
+
+# (batch, heads, L, chunk): the layouts the carried form walks. One
+# sub-chunk (L = 24), one tile (L = 96: the states launch writes its tile's
+# record, which the plain path's fused launch keeps in a cluster), a few
+# tiles (L = 1,024), a ragged last tile with heads past a block's 8 (L =
+# 2,600, 5 heads), the refiner's half at seq = 2 (L = 32,768) and more
+# tiles than the carry stages at once (L = 65,792).
+K2_SEGMENT_CASES = [(2, 3, 24, 8), (1, 8, 96, 96), (2, 8, 1024, 256), (2, 5, 2600, 40),
+                    (1, 8, 32768, 256), (1, 3, 65792, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_k2_with_an_incoming_state_matches_its_plain_version(card, dtype, reverse):
+    """A ``ScanSegment``'s outputs from an incoming state (K2's states,
+    carry and outputs launches) and its end state and decay against the
+    plain version with the same state, at the model's decays and at
+    |dA| ~ 3e-4, on inputs rounded to ``dtype`` (the plain version widens
+    them as the kernel does)."""
+    from chip_smoke import BF16_STEP, K2_TOL
+
+    rtol, atol = K2_TOL
+    step = BF16_STEP if dtype == torch.bfloat16 else 0.0
+    gen = torch.Generator(device=card).manual_seed(11)
+    flip = (lambda t: t.flip(-1)) if reverse else (lambda t: t)
+    for carry in (False, True):
+        for b, h, l, q in K2_SEGMENT_CASES:
+            x, dt, A, B, C, D = (t.to(dtype) for t in scan_inputs(b, h, 4, l, gen, carry))
+            s0 = torch.randn(b, h, 16, 4, generator=gen, device="cuda")
+            before = ssd.ssd_chunked_scan.launches
+            seg = ssd.ScanSegment(x, dt, A, B, C, D, q, reverse=reverse)
+            got = seg.outputs(s0)
+            torch.cuda.synchronize()
+            assert ssd.ssd_chunked_scan.launches == before + 1 and got.dtype == dtype
+            want, state, decay = ssd.ssd_chunked_scan_reference(
+                flip(x), flip(dt), A, flip(B), flip(C), D, q, initial_state=s0,
+                return_final_state=True)
+            want = flip(want).float()
+            err = (got.float() - want).abs()
+            assert bool((err <= atol + (rtol + step) * want.abs()).all()), (b, h, l, carry)
+            _, zero_state, zero_decay = ssd.ssd_chunked_scan_reference(
+                flip(x), flip(dt), A, flip(B), flip(C), D, q, return_final_state=True)
+            torch.testing.assert_close(seg.state, zero_state, rtol=1e-4, atol=1e-4)
+            torch.testing.assert_close(seg.decay, zero_decay, rtol=1e-4, atol=1e-30)
+            # the state carried through to the end: the zero-state segment's
+            # state plus s0 decayed across it
+            torch.testing.assert_close(state, zero_state + s0 * zero_decay[..., None, None],
+                                       rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_k2_segments_chained_equal_the_whole_scan(card, dtype, reverse):
+    """A sequence cut into 2 and 4 segments, each scanned by K2's carried
+    form from the state its predecessors (in the scan's direction) hand
+    it, equals the whole scan: at |dA| ~ 3e-4 over many chunks, where a
+    broken carry cannot hide (the incoming state moves the later segments
+    by far more than the tolerance), and at the refiner's L = 65,536."""
+    from chip_smoke import BF16_STEP, K2_TOL
+
+    rtol, atol = K2_TOL
+    step = BF16_STEP if dtype == torch.bfloat16 else 0.0
+    gen = torch.Generator(device=card).manual_seed(12)
+    for b, h, l, q, carry in ((2, 8, 4096, 32, True), (1, 8, 65536, 256, True),
+                              (1, 8, 65536, 256, False)):
+        args = [t.to(dtype) for t in scan_inputs(b, h, 4, l, gen, carry)]
+        whole = ssd.ssd_chunked_scan(*args, q, reverse=reverse).float()
+        for parts in (2, 4):
+            cut = l // parts
+            pieces = [[t[..., i * cut:(i + 1) * cut].contiguous() if t.dim() > 1 else t
+                       for t in args] for i in range(parts)]
+            segs = [ssd.ScanSegment(*p, q, reverse=reverse) for p in pieces]
+            states = [(s.state, s.decay) for s in segs]
+            ys = [s.outputs(ssd.compose_states(states, reverse, i)) for i, s in enumerate(segs)]
+            got = torch.cat(ys, dim=-1).float()
+            err = (got - whole).abs()
+            assert bool((err <= atol + (rtol + step) * whole.abs()).all()), (l, parts, carry)
+            if carry:
+                later = slice(cut, None) if not reverse else slice(0, l - cut)
+                alone = torch.cat([s.outputs(torch.zeros_like(s.state)) for s in segs],
+                                  dim=-1).float()
+                assert (alone[..., later] - whole[..., later]).abs().mean() > 0.05
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+def test_k2_without_a_state_keeps_its_launch_and_a_zero_state_its_bits(card, reverse):
+    """Without an incoming state a scan takes K2's unchanged entry, one
+    launch counted, two calls bit-equal; at the refiner's many tiles the
+    carried form from a zero state gives those bits too (its carry-in adds
+    0 * decay to the same entering states), fp32 and bf16."""
+    gen = torch.Generator(device=card).manual_seed(13)
+    for dtype in (torch.float32, torch.bfloat16):
+        args = [t.to(dtype) for t in scan_inputs(1, 8, 4, 65536, gen)]
+        before = ssd.ssd_chunked_scan.launches
+        plain = ssd.ssd_chunked_scan(*args, 256, reverse=reverse)
+        again = ssd.ssd_chunked_scan(*args, 256, reverse=reverse)
+        torch.cuda.synchronize()
+        assert ssd.ssd_chunked_scan.launches == before + 2
+        torch.testing.assert_close(plain, again, rtol=0, atol=0)
+        zero = torch.zeros(1, 8, 16, 4, device=card)
+        carried = ssd.ScanSegment(*args, 256, reverse=reverse).outputs(zero)
+        torch.testing.assert_close(carried, plain, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("linear_attn_duality", [True, False])
+def test_two_gloo_ranks_on_the_seq_axis_match_one_process(card, tmp_path, linear_attn_duality):
+    """``forecast`` on ('data', 'seq') = (1, 2), two gloo ranks sharing the
+    card, each holding its band of rows: the same predictions on both
+    ranks, within 1e-5 of one process, K1 (and K2, carried from rank to
+    rank on bimamba) launched on each rank, bytes sent over 'seq' alone."""
+    import functools
+
+    from adnm_tpu_torch.cli.predict import forecast
+    from adnm_tpu_torch.convert import to_jax_params
+    from adnm_tpu_torch.core.layers import seeded_init_
+    from adnm_tpu_torch.models.adnm_unet import ADNMUNet
+    from adnm_tpu_torch.parallel import spawn
+    from test_torch_port_parallel_workers import MeshJob, model_forecast, run_mesh_jobs
+
+    make = functools.partial(ADNMUNet, **DP_CFG, linear_attn_duality=linear_attn_duality)
+    model = seeded_init_(make(), 0)
+    params = to_jax_params(model)
+    x = np.random.default_rng(9).uniform(0, 1, (2, 5, 1, 32, 32)).astype(np.float32)
+    want = forecast(model.to(card), x, 2, card, graphs=False)
+    job = MeshJob("seq", 1, 1, model_forecast, (make, params, x, 2), seq=2)
+    spawn(run_mesh_jobs, 2, args=([job], str(tmp_path)), device="cuda", backend="gloo",
+          shared_device=True, timeout_s=600)
+    ranks = [torch.load(tmp_path / f"seq_rank{r}.pt", weights_only=False) for r in range(2)]
+    np.testing.assert_array_equal(ranks[0]["result"], ranks[1]["result"])
+    np.testing.assert_allclose(ranks[0]["result"], want, rtol=1e-5, atol=1e-5)
+    for r in ranks:
+        assert r["traffic"]["seq"] > 0 and r["traffic"]["model"] == r["traffic"]["data"] == 0
+        assert r["launches"]["rms_norm"] > 0
+        assert (r["launches"]["ssd_chunked_scan"] > 0) == (not linear_attn_duality)

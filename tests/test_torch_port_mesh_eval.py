@@ -17,8 +17,9 @@ which imports no JAX).
   one: the loss within 1e-6 relative of the single process, each batch's
   loss, the predictions in the single process's order, the ground truths
   equal, each rank's model fed only its rows;
-* (v) the refusals that stay: a 'seq' axis, training on 'model' (the CLI
-  and the Trainer), ``--coordinator`` on validate and visualize.
+* (v) the refusals that stay: training on 'seq' and 'model' (the CLI and
+  the Trainer), ``--coordinator`` on validate and visualize; validate and
+  visualize launching a 'seq' axis.
 
 Every comparison with JAX at rtol 1e-4, atol 1e-5 (JAX's own bound for a
 meshed forward against the plain one, ``tests/test_parallel.py:171``).
@@ -288,11 +289,24 @@ def test_a_trainer_on_the_model_axis_refuses_to_train(runs):
     ("train", "data=2,seq=2"), ("train", "data=1,model=2"), ("validate", "data=1,seq=2"),
     ("visualize", "data=2,model=1,seq=2"),
 ])
-def test_the_axes_not_ported_exit_naming_the_roadmap_item(tool, spec, tmp_path):
-    main = {"train": train_cli.main, "validate": validate_cli.main,
-            "visualize": visualize_cli.main}[tool]
-    with pytest.raises(SystemExit, match="not ported yet .ROADMAP §1 item 5."):
-        main(["--synthetic", "--device", "cpu", "--root", str(tmp_path), "--mesh", spec])
+def test_the_axes_not_ported_exit_naming_the_roadmap_item(tool, spec, tmp_path, monkeypatch):
+    """Training on 'seq' or 'model' exits naming the roadmap item; validate
+    and visualize take a 'seq' axis and launch a rank per position (the
+    launch is captured here, no rank starts)."""
+    cli = {"train": train_cli, "validate": validate_cli, "visualize": visualize_cli}[tool]
+    argv = ["--synthetic", "--device", "cpu", "--root", str(tmp_path), "--mesh", spec]
+    if tool == "train":
+        with pytest.raises(SystemExit, match="not ported yet .ROADMAP §1 item 5."):
+            cli.main(argv)
+    else:
+        launches = []
+        monkeypatch.setattr(cli, "run_on_mesh", lambda run, args, launch: launches.append(
+            launch) or {"written": []})
+        cli.main(argv)
+        sizes = dict(part.split("=") for part in spec.split(","))
+        data, seq = int(sizes["data"]), int(sizes["seq"])
+        assert [(launch.world, launch.seq, launch.model) for launch in launches] == [
+            (data * seq, seq, 1)]
     assert not is_multiprocess()
 
 

@@ -190,13 +190,18 @@ def test_shard_is_whole_batch_round_robin_and_excludes_row_shard():
     ("data=1,model=2", "not ported yet"),
 ])
 def test_mesh_spec_is_refused_with_the_jax_message(spec, message):
-    """A 'model' axis is refused for training (the default) and taken by the
-    inference tools (``training=False``), as JAX keeps it for inference."""
+    """A 'model' or 'seq' axis is refused for training (the default) and
+    taken by the inference tools (``training=False``), as JAX keeps its
+    'model' axis for inference (the port's 'seq' axis serves inference
+    alone so far)."""
     with pytest.raises(SystemExit, match=message) as refused:
         parse_mesh(spec)
     if spec == "data=1,model=2":
         assert "training on the 'model' axis" in str(refused.value)
         assert parse_mesh(spec, training=False) == {"data": 1, "model": 2}
+    if spec == "data=2,seq=2":
+        assert "training on the 'seq' axis" in str(refused.value)
+        assert parse_mesh(spec, training=False) == {"data": 2, "seq": 2}
 
 
 def test_mesh_spec_with_unit_axes_is_the_data_axis():
@@ -223,11 +228,12 @@ def test_train_cli_refuses_what_jax_refuses(extra, message, tmp_path):
 @pytest.mark.parametrize("tool", ["validate", "visualize", "predict"])
 def test_single_card_tools_refuse_the_parallel_flags(tool, tmp_path, monkeypatch):
     """The inference tools refuse the parallel flags they do not run: a
-    'seq' axis, and a multi-process launch (a launcher's environment here),
-    as collection stays on one host. They take the mesh flags of one host:
-    ``--mesh data=1,model=2`` starts two ranks on a ('data', 'model') =
-    (1, 2) mesh and ``--data-parallel`` with --device cpu one rank (the
-    launch is captured here, no rank starts)."""
+    multi-process launch (a launcher's environment here), as collection
+    stays on one host. They take the mesh flags of one host: ``--mesh
+    data=1,model=2`` starts two ranks on a ('data', 'seq', 'model') =
+    (1, 1, 2) mesh, ``--mesh data=1,seq=2`` two on (1, 2, 1) and
+    ``--data-parallel`` with --device cpu one rank (the launch is captured
+    here, no rank starts)."""
     cli = {"validate": validate_cli, "visualize": visualize_cli, "predict": predict_cli}[tool]
     launches = []
     monkeypatch.setattr(cli, "run_on_mesh", lambda run, args, launch: launches.append(
@@ -236,15 +242,14 @@ def test_single_card_tools_refuse_the_parallel_flags(tool, tmp_path, monkeypatch
         ["--input", str(tmp_path / "x.npy")] if tool == "predict" else ["--synthetic"])
     cli.main([*args, "--mesh", "data=1,model=2"])
     cli.main([*args, "--data-parallel"])
-    assert [(run, launch.world, launch.model) for run, launch in launches] == [
-        (cli.run, 2, 2), (cli.run, 1, 1)]
-    with pytest.raises(SystemExit, match="'seq' axis .* is not ported yet"):
-        cli.main([*args, "--mesh", "data=1,seq=2"])
+    cli.main([*args, "--mesh", "data=1,seq=2"])
+    assert [(run, launch.world, launch.seq, launch.model) for run, launch in launches] == [
+        (cli.run, 2, 1, 2), (cli.run, 1, 1, 1), (cli.run, 2, 2, 1)]
     monkeypatch.setenv("RANK", "0")
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(SystemExit, match="not addressable across hosts"):
         cli.main([*args, "--mesh", "data=2"])
-    assert len(launches) == 2
+    assert len(launches) == 3
 
 
 def test_barrier_and_teardown_do_nothing_outside_a_process_group():

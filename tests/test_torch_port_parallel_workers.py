@@ -139,24 +139,26 @@ def load_ranks(out: str, world: int) -> list:
 
 @dataclasses.dataclass
 class MeshJob:
-    """``fn(mesh, device, *args)`` on the ('data', 'model') = (``data``,
-    ``model``) mesh of the process group (None for ``data`` = 0: the
-    function builds what it needs), its result saved as ``label``."""
+    """``fn(mesh, device, *args)`` on the ('data', 'seq', 'model') =
+    (``data``, ``seq``, ``model``) mesh of the process group (None for
+    ``data`` = 0: the function builds what it needs), its result saved as
+    ``label``."""
 
     label: str
     data: int
     model: int
     fn: Callable
     args: tuple = ()
+    seq: int = 1
 
 
 def run_mesh_jobs(rank: int, world: int, device: torch.device, jobs: list, out: str) -> None:
     torch.set_num_threads(1)
     for job in jobs:
-        mesh = make_mesh(job.data, job.model, device) if job.data else None
+        mesh = make_mesh(job.data, job.seq, job.model, device) if job.data else None
         for w in COUNTED.values():
             w.launches = 0
-        TRAFFIC.update(model=0, data=0)
+        TRAFFIC.update(model=0, data=0, seq=0)
         result = job.fn(mesh, device, *job.args)
         torch.save({"result": result, "traffic": dict(TRAFFIC),
                     "launches": {k: w.launches for k, w in COUNTED.items()}},
@@ -218,5 +220,50 @@ def refusals(mesh, device, make: Callable) -> dict:
     try:
         t.train_step(torch.zeros(2, 7, 1, 32, 32, device=device), 1e-3, 0.025)
     except RuntimeError as e:
+        got["step"] = str(e)
+    return got
+
+
+def band_forward(mesh, device, make: Callable, params: dict, x: np.ndarray) -> np.ndarray:
+    """A module with the JAX ``params`` on this rank's band of the rows of
+    ``x`` (NCHW) over 'seq', as a split stage of the model runs it, the
+    bands gathered in row order."""
+    from adnm_tpu_torch.parallel.tensor import band_rows, gather_seq, split_rows
+
+    module = from_jax_params(make(), params).eval().to(device)
+    with torch.no_grad(), use_mesh(mesh):
+        band = band_rows(x.shape[2])
+        with split_rows(band):
+            y = module(torch.from_numpy(x[:, :, band]).to(device))
+        return gather_seq(y).cpu().numpy()
+
+
+def band_duality(mesh, device, args: tuple) -> np.ndarray:
+    """``linear_attn_dual_seqminor`` of numpy (B, H, P, L) inputs on this
+    rank's band of the L tokens over 'seq', the bands gathered in order."""
+    from adnm_tpu_torch.parallel.tensor import band_rows, gather_seq, split_rows
+
+    x, dt, A, B, C, D = (torch.from_numpy(a).to(device) for a in args)
+    with torch.no_grad(), use_mesh(mesh):
+        band = band_rows(x.shape[-1])
+        with split_rows(band):
+            y = ssd.linear_attn_dual_seqminor(x[..., band], dt[..., band], A, B[..., band],
+                                              C[..., band], D)
+        return gather_seq(y, dim=-1).cpu().numpy()
+
+
+def seq_refusals(mesh, device, make: Callable) -> dict:
+    """The messages of what a Trainer on ``mesh`` (a 'seq' axis of 2)
+    refuses: data-parallel training on it, and a step without ``ddp``."""
+    got = {}
+    preset = get_preset("ADNMUnet", 5, 2, 6, "Shanghai")
+    try:
+        Trainer(make(), preset, 5, device, ddp=True, mesh=mesh)
+    except NotImplementedError as e:
+        got["ddp"] = str(e)
+    t = Trainer(make(), preset, 5, device, mesh=mesh)
+    try:
+        t.train_step(torch.zeros(2, 7, 1, 32, 32, device=device), 1e-3, 0.025)
+    except NotImplementedError as e:
         got["step"] = str(e)
     return got
