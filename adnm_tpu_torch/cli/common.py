@@ -92,10 +92,10 @@ def add_mesh_args(p: argparse.ArgumentParser) -> None:
                    help="explicit mesh, e.g. 'data=4', 'data=2,model=2' or "
                         "'data=1,seq=2': one rank per position (cards with cuda, NCCL; CPU "
                         "processes over gloo with --device cpu); implies --data-parallel. "
-                        "Batches are split over 'data'; for validate/visualize/predict the "
-                        "ADNMUnet's frame rows in bands over 'seq' and the heads and MLP "
-                        "hidden channels over 'model' (inference only). Training on 'seq' or "
-                        "'model' is not ported yet: only size 1")
+                        "Batches are split over 'data'; the ADNMUnet's frame rows in bands "
+                        "over 'seq' and the heads and MLP hidden channels over 'model'. "
+                        "Training takes at most two axes larger than 1 (data x seq or data x "
+                        "model), as in JAX")
 
 
 TASKS = {
@@ -158,12 +158,12 @@ def load_pretrained_npz(model: torch.nn.Module, path: str) -> None:
 
 @dataclasses.dataclass(frozen=True)
 class Launch:
-    """How a parallel command runs: ``world`` ranks in all, each stepping on
-    ``rows`` rows of every global batch (training); ``multihost`` when this
-    process is one of them (``--coordinator`` or torchrun), else the
-    command starts ``world`` ranks itself on this host; ``seq`` and
-    ``model`` ranks on the mesh's 'seq' and 'model' axes (inference), the
-    rest on 'data'."""
+    """How a parallel command runs: ``world`` ranks in all, those of each
+    'data' position stepping on its ``rows`` rows of every global batch
+    (training); ``multihost`` when this process is one of them
+    (``--coordinator`` or torchrun), else the command starts ``world``
+    ranks itself on this host; ``seq`` and ``model`` ranks on the mesh's
+    'seq' and 'model' axes, the rest on 'data'."""
 
     world: int
     rows: int
@@ -174,13 +174,15 @@ class Launch:
 
 def parallel_launch(args) -> Optional[Launch]:
     """The ``Launch`` of the parallel flags, None without them (one
-    process, no process group). Refuses, with the JAX package's messages
-    where it has them (adnm_tpu/cli/common.py:131-172): a 'seq' or a
-    'model' axis to train on (not ported); a multi-host run without a data mesh; a global
-    batch that the 'data' axis does not divide. ``--batch-size`` is the
-    global batch under a single launch and each process's rows under a
-    multi-host one, as in JAX."""
+    process, no process group): D x S x M ranks of a ``--mesh`` with
+    'seq' and 'model' axes. Refuses, with the JAX package's messages
+    where it has them (adnm_tpu/cli/common.py:131-172): three axes larger
+    than 1; a multi-host run without a data mesh; a global batch that the
+    'data' axis does not divide. ``--batch-size`` is the global batch
+    under a single launch and each process's rows under a multi-host one,
+    as in JAX."""
     mesh = parse_mesh(args.mesh) if args.mesh else None
+    seq, model = (mesh.get("seq", 1), mesh.get("model", 1)) if mesh else (1, 1)
     multihost = multihost_flags(args)
     if multihost:
         given = (args.coordinator, args.num_processes, args.process_id)
@@ -199,23 +201,25 @@ def parallel_launch(args) -> Optional[Launch]:
                              f"{args.batch_size * processes} global rows per step, which does "
                              f"not divide the mesh 'data' axis ({n_data}); pick a divisible "
                              f"per-host batch size")
-        if n_data != processes:
-            raise SystemExit(f"--mesh data={n_data} with {processes} processes: the port runs "
-                             f"one rank, on one device, per process")
-        return Launch(processes, args.batch_size, True)
+        if n_data * seq * model != processes:
+            raise SystemExit(f"--mesh data={n_data},seq={seq},model={model} with {processes} "
+                             f"processes: the port runs one rank, on one device, per process")
+        return Launch(processes, args.batch_size * processes // n_data, True, model, seq)
     if mesh is None and not args.data_parallel:
         return None
     if mesh is not None:
-        world = mesh["data"]
+        data = mesh["data"]
     else:
-        world = torch.cuda.device_count() if resolve_device(args.device).type == "cuda" else 1
+        data = torch.cuda.device_count() if resolve_device(args.device).type == "cuda" else 1
+    world = data * seq * model
     if torch.device(args.device).type == "cuda" and world > torch.cuda.device_count():
-        raise SystemExit(f"--mesh data={world}: only {torch.cuda.device_count()} CUDA "
-                         f"device(s) are visible")
-    if args.batch_size % world:
+        raise SystemExit(f"--mesh data={data},seq={seq},model={model}: {world} ranks, one a "
+                         f"card, and only {torch.cuda.device_count()} CUDA device(s) are "
+                         f"visible")
+    if args.batch_size % data:
         raise SystemExit(f"--batch-size {args.batch_size} global rows per step does not divide "
-                         f"the mesh 'data' axis ({world}); pick a divisible batch size")
-    return Launch(world, args.batch_size // world, False)
+                         f"the mesh 'data' axis ({data}); pick a divisible batch size")
+    return Launch(world, args.batch_size // data, False, model, seq)
 
 
 def multihost_flags(args) -> bool:
@@ -288,8 +292,9 @@ def build(args, ddp: bool = False, rows: Optional[int] = None, device=None, mesh
     with its preset; the reference init for ADNMUnet alone; TransUnet's
     encoder from ``--pretrained-npz`` where given. With ``ddp`` (inside a
     process group) the Trainer is data-parallel (``--zero1``), and the
-    train loader yields this rank's ``rows`` rows of every global batch;
-    with ``mesh`` it evaluates on that mesh. The val and test loaders are
+    train loader yields this rank's 'data' position's ``rows`` rows of
+    every global batch; with ``mesh`` it trains (under ``ddp``) and
+    evaluates on that mesh. The val and test loaders are
     the whole sets at ``--batch-size``, as the single process's, on every
     rank (the Trainer takes each rank's rows of them)."""
     kwargs = model_kwargs(args)
@@ -320,7 +325,7 @@ def build(args, ddp: bool = False, rows: Optional[int] = None, device=None, mesh
     tdt = args.transfer_dtype
     return trainer, (
         BatchLoader(tr, rows, shuffle=True, seed=args.seed, transfer_dtype=tdt,
-                    row_shard=(trainer.rank, trainer.world) if ddp else None),
+                    row_shard=(trainer.data_rank, trainer.data_world) if ddp else None),
         BatchLoader(va, args.batch_size, drop_last=False, transfer_dtype=tdt),
         BatchLoader(te, args.batch_size, drop_last=False, transfer_dtype=tdt),
     ), shape

@@ -28,15 +28,21 @@ Data-parallel training (the JAX package's mesh flags; one rank per card):
 
     python -m adnm_tpu_torch.cli.train --synthetic --data-parallel            # every visible card
     python -m adnm_tpu_torch.cli.train --synthetic --mesh data=2 --device cpu # 2 CPU ranks, gloo
+    python -m adnm_tpu_torch.cli.train --synthetic --mesh data=2,seq=2        # 4 cards: bands
+    python -m adnm_tpu_torch.cli.train --synthetic --mesh data=1,model=2 --zero1 --device cpu
     python -m adnm_tpu_torch.cli.train --synthetic --data-parallel \
         --coordinator HOST:PORT --num-processes P --process-id I  # in each of P processes
     torchrun --nproc-per-node 8 -m adnm_tpu_torch.cli.train --synthetic --data-parallel
 
 ``--batch-size`` is the global batch under a single launch (split over the
 ranks) and each process's rows under ``--coordinator`` or torchrun, as in
-JAX; ``--zero1`` shards the optimizer state. The ranks train the single
+JAX; ``--zero1`` shards the optimizer state over the 'data' ranks. A
+'seq' axis splits the ADNM-UNet's frame rows in bands over its ranks, a
+'model' axis the heads and hidden channels (the other models compute whole
+on each 'seq' rank, and split only their FeedForwards over 'model'); at
+most two axes are larger than 1, as in JAX. The ranks train the single
 process's model on the global batch; rank 0 writes the checkpoints (one
-file for any world size). Validation and the test split run sharded: each
+file for any mesh, which one process resumes, and the other way round). Validation and the test split run sharded: each
 rank evaluates its rows of every batch; under a single launch rank 0
 gathers the predictions and runs the final protocol; a multi-host run
 prints the test loss and defers the metrics to ``validate`` on one host.
@@ -57,7 +63,9 @@ from adnm_tpu_torch.data.laps import laps_evaluate
 from adnm_tpu_torch.device import resolve_device
 from adnm_tpu_torch.metrics import SimplifiedEvaluator, print_metrics
 from adnm_tpu_torch.ops import build_kernels
-from adnm_tpu_torch.parallel import finish_multihost, host_barrier, init_multihost, spawn
+from adnm_tpu_torch.parallel import (finish_multihost, host_barrier, init_multihost, make_mesh,
+                                     spawn)
+from adnm_tpu_torch.parallel.mesh import NOT_PORTED
 from adnm_tpu_torch.train.checkpoint import best_ckpt_dir
 from adnm_tpu_torch.utils.profiling import profile_trace
 
@@ -100,7 +108,8 @@ def main(argv=None) -> dict:
     if args.scan_steps > 1:
         raise SystemExit("--scan-steps > 1 under data-parallel training is not supported: the "
                          "global batch and the first collective are per batch; use "
-                         "--scan-steps 1")
+                         "--scan-steps 1 (the graphed step across ranks is not ported yet, "
+                         f"{NOT_PORTED})")
     kernels = torch.device(args.device).type == "cuda" and args.model == "ADNMUnet"
     if launch.multihost:  # this process is one rank
         local = local_rank(args)
@@ -140,10 +149,14 @@ def _rank_main(rank: int, world: int, device: torch.device, args, launch: Launch
 
 def run(args, launch: Optional[Launch] = None, device=None) -> dict:
     """The training and the final protocol in this process: one process,
-    or one rank of ``launch``."""
+    or one rank of ``launch`` (on its ('data', 'seq', 'model') mesh)."""
     ddp = launch is not None
+    mesh = None
+    if ddp and (launch.seq > 1 or launch.model > 1):
+        mesh = make_mesh(launch.world // (launch.seq * launch.model), launch.seq, launch.model,
+                         device)
     trainer, (train_loader, val_loader, test_loader), (_, to, _, thresholds) = build(
-        args, ddp=ddp, rows=launch.rows if ddp else None, device=device)
+        args, ddp=ddp, rows=launch.rows if ddp else None, device=device, mesh=mesh)
     lead = trainer.rank == 0
     ckpt_path = best_ckpt_dir(args.root, args.dataset, args.model)
     if args.resume and os.path.exists(ckpt_path):

@@ -25,7 +25,9 @@ stride and padding reach below (and above) the band; InstanceNorm and
 GroupNorm take the mean and then the variance about it over the whole
 frame (``sum_seq`` of the bands' sums: two passes, as ``_stats``). The
 per-token layers need nothing. Outside a band every layer computes what it
-computes in one process.
+computes in one process. Each of these collectives has its exact adjoint
+as its backward (the reverse halo-add, the sum of the incoming gradients),
+so the layers train on a band as they do whole.
 """
 
 from __future__ import annotations
@@ -365,8 +367,10 @@ class BatchNorm(nn.Module):
 
 def sync_batch_norm(model: nn.Module, group=None) -> int:
     """Give every BatchNorm of ``model`` the process ``group`` (the default
-    group when None) over which its train-mode statistics are taken;
-    returns how many there are."""
+    group when None) over which its train-mode statistics are taken: the
+    mesh's 'data' group (the ``Trainer``), since the 'seq' and 'model' ranks
+    of a position hold the same rows and would change the count; returns
+    how many there are."""
     norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
     for m in norms:
         m.process_group = dist.group.WORLD if group is None else group

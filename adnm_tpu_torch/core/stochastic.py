@@ -20,7 +20,10 @@ makes each layer draw the mask of the GLOBAL batch (a leading dimension
 world times the rank's, whose rows lie in rank order) and keep its own
 rows of it, so the ranks' masks together are the single process's mask on
 the global batch, and no two ranks drop the same pattern for different
-samples.
+samples. On a mesh ``rows`` is the rank's 'data' position and the size of
+'data' (the ``Trainer``'s ``data_rank``, ``data_world``): the 'seq' and
+'model' ranks of one position hold the same rows and draw the same masks,
+so their replicas of the model stay equal.
 """
 
 from __future__ import annotations

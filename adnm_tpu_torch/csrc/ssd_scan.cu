@@ -193,6 +193,31 @@
 // tile's walks in a persistent grid, and a single pass over the inputs with
 // a look-back across tiles in place of the summary.
 //
+// Carried backward. The gradient of a segment of a longer sequence (a
+// rank's band on the mesh's 'seq' axis) from the state S0 entering it and
+// the adjoint lambda entering its end (the gradient of its final state,
+// which later segments hand back), in two phases around the caller's
+// exchange of the segments' adjoints:
+//
+//   * adnm_ssd_segment_adjoint: ssd_bwd_summary over every tile whatever
+//     the layout, then ssd_bwd_carry_segment, the carry of both directions
+//     that also leaves in place of each tile's decay the decay from the
+//     segment's start to the tile (states) or from its end back to the
+//     tile's end (adjoints), and writes per (batch, head) the segment's
+//     end state and the adjoint handed out of its first token, both from
+//     zero, with its decay;
+//   * adnm_ssd_segment_backward: ssd_bwd_grads, the state and adjoint
+//     entering each tile being its records from zero plus S0 and lambda
+//     decayed to it (fmaf(S0, D_k, S_k)), then the sums; the tile holding
+//     the first token writes a_0 G_0, the gradient of S0.
+//
+// The decay's gradient needs no separate term: the carried state and
+// adjoint enter every sub-chunk's end product and walk, so <lambda, S0>
+// reaches dt and A through w_t. From S0 = lambda = 0 the gradients are
+// adnm_ssd_chunked_scan_backward's bits (the one-cluster layout composes
+// the tiles' records in the carry's order). Four launches where the plain
+// backward takes two to four, the inputs read twice.
+//
 // Built by adnm_tpu_torch/ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
 // and called through ctypes: adnm_ssd_chunked_scan and
@@ -795,6 +820,12 @@ struct BArgs {
     int64_t sx, sdt, sb, sc;
     int batch, H, L, ntile, nsb, tl, ngrp;
     int vec;  // copies and stores of 4 values
+    // The carried form (a segment of a longer sequence), null otherwise:
+    // the state entering the segment and the adjoint entering its end,
+    // (batch, H, P, N) fp32, and the adjoint leaving its start (out).
+    const float* s0;
+    const float* lam;
+    float* ds0;
 };
 
 enum BMode { BSUMMARY, BGRADS, BFUSED };
@@ -1057,8 +1088,25 @@ __device__ __forceinline__ void bwd_tile(const BArgs<IO>& a) {
             for (int p = 0; p < kP; ++p) Si[m][p] = Ri[m][p] = 0.f;
         if (MODE == BGRADS && hh < hn) {
             const int64_t bh = int64_t(b) * a.H + h, nbh = int64_t(a.batch) * a.H;
-            fold(Si, a.carry + (bh * a.ntile + k) * kRec, 0.f, q);
-            fold(Ri, a.carry + ((nbh + bh) * a.ntile + (a.ntile - 1 - k)) * kRec, 0.f, q);
+            const int64_t ks = bh * a.ntile + k, kr = (nbh + bh) * a.ntile + (a.ntile - 1 - k);
+            fold(Si, a.carry + ks * kRec, 0.f, q);
+            fold(Ri, a.carry + kr * kRec, 0.f, q);
+            if (a.s0 != nullptr) {
+                // The carried form: the segment's entering state decayed to
+                // the tile (the carry left the decay from the segment's start
+                // to it in place) and its entering adjoint decayed back from
+                // the segment's end, on the records from zero.
+                const float dl = a.carry_dec[ks], dr = a.carry_dec[kr];
+                const float* s0 = a.s0 + bh * kRec + q;
+                const float* lam = a.lam + bh * kRec + q;
+#pragma unroll
+                for (int m = 0; m < kBM; ++m)
+#pragma unroll
+                    for (int p = 0; p < kP; ++p) {
+                        Si[m][p] = fmaf(s0[p * kN + kBQ * m], dl, Si[m][p]);
+                        Ri[m][p] = fmaf(lam[p * kN + kBQ * m], dr, Ri[m][p]);
+                    }
+            }
         }
         if (cluster) {
             // Push the tile's end state into every later block of the
@@ -1218,6 +1266,15 @@ __device__ __forceinline__ void bwd_tile(const BArgs<IO>& a) {
                 Us[(hh * kP + q) * rs + spos<REV>(tl, s)] = u[0];
                 Us[(hh * kP + q) * rs + spos<REV>(tl, s + 1)] = u[1];
             }
+            if (MODE == BGRADS && a.ds0 != nullptr && k == 0 && w == 0 && hh < hn) {
+                // a_0 G_0, the adjoint handed to the token before the
+                // segment's first: the gradient of its entering state
+                float* r = a.ds0 + (int64_t(b) * a.H + h) * kRec + q;
+#pragma unroll
+                for (int m = 0; m < kBM; ++m)
+#pragma unroll
+                    for (int p = 0; p < kP; ++p) r[p * kN + kBQ * m] = V[m][p];
+            }
         }
         __syncthreads();
 
@@ -1310,6 +1367,19 @@ constexpr size_t kBwdCarrySmem = carry_smem(kBwdCarryThreads, kBwdWindow);
 __global__ void __launch_bounds__(kBwdCarryThreads) ssd_bwd_carry(float* states, float* decay,
                                                                   int nc) {
     carry<kBwdCarryThreads, kBwdWindow>(states, decay, nc);
+}
+
+// The carried form's carry: ssd_bwd_carry's walk from zero, which also
+// leaves in place of each tile's decay the decay from the segment's start
+// to the tile (states) or from the segment's end back to the tile's end
+// (adjoints, in reversed tile order), and writes per (batch, head) and
+// direction the segment's record from zero and its decay: the end state,
+// and the adjoint handed out of the segment's first token.
+__global__ void __launch_bounds__(kBwdCarryThreads) ssd_bwd_carry_segment(float* states,
+                                                                          float* decay, int nc,
+                                                                          float* fin_state,
+                                                                          float* fin_decay) {
+    carry<kBwdCarryThreads, kBwdWindow, true>(states, decay, nc, fin_state, fin_decay);
 }
 
 // The fixed-order sums, one launch: block j < H sums head j's m per-block
@@ -1476,7 +1546,7 @@ struct BLayout {
 
 int64_t round4(int64_t n) { return (n + 3) / 4 * 4; }  // regions stay 16-byte aligned
 
-BLayout bwd_layout(int batch, int H, int L) {
+BLayout bwd_layout(int batch, int H, int L, bool segment = false) {
     BLayout s;
     s.nsub = (L + kBT - 1) / kBT;
     s.nsb = std::min(kBSubs, s.nsub);
@@ -1485,12 +1555,26 @@ BLayout bwd_layout(int batch, int H, int L) {
     s.threads = 2 * s.nsb * kWarp;
     s.ngrp = (H + kHeads - 1) / kHeads;
     const int64_t nbh = int64_t(batch) * H;
-    const bool carried = s.ntile > kMaxCluster;
+    const bool carried = segment || s.ntile > kMaxCluster;
     s.carry = carried ? 2 * nbh * s.ntile * kRec : 0;
     s.carry_dec = carried ? round4(2 * nbh * s.ntile) : 0;
     s.part = round4(nbh * s.ntile);
     s.groups = s.ngrp > 1 ? round4(int64_t(batch) * s.ngrp * kN * L) : 0;
     return s;
+}
+
+// The fixed-order sums of dA, dD and, over the head groups, dB and dC.
+template <typename IO>
+cudaError_t launch_bwd_sums(const BArgs<IO>& a, const BLayout& s, IO* dA, IO* dD,
+                            cudaStream_t stream) {
+    const int64_t nl = int64_t(kN) * a.L, total = a.batch * nl;
+    const int gblocks =
+        s.ngrp > 1 ? static_cast<int>(std::min<int64_t>((total + kThreads - 1) / kThreads, 1056))
+                   : 0;
+    const BSums<IO> sums{a.part_dA, a.part_dD, dA, dD, a.gB, a.gC, a.dB, a.dC,
+                         int64_t(a.batch) * s.ntile, nl, a.H, a.batch, s.ngrp};
+    ssd_bwd_sums<IO><<<a.H + gblocks, kThreads, 0, stream>>>(sums);
+    return cudaGetLastError();
 }
 
 // At most kMaxCluster tiles (every 8^2..32^2 Block): ssd_bwd_fused, one
@@ -1515,14 +1599,31 @@ cudaError_t launch_bwd(const BArgs<IO>& a, const BLayout& s, IO* dA, IO* dD,
                            bwd_smem_bytes<BGRADS>(s.tl), 1, stream);
         if (err != cudaSuccess) return err;
     }
-    const int64_t nl = int64_t(kN) * a.L, total = a.batch * nl;
-    const int gblocks =
-        s.ngrp > 1 ? static_cast<int>(std::min<int64_t>((total + kThreads - 1) / kThreads, 1056))
-                   : 0;
-    const BSums<IO> sums{a.part_dA, a.part_dD, dA, dD, a.gB, a.gC, a.dB, a.dC,
-                         int64_t(a.batch) * s.ntile, nl, a.H, a.batch, s.ngrp};
-    ssd_bwd_sums<IO><<<a.H + gblocks, kThreads, 0, stream>>>(sums);
-    return cudaGetLastError();
+    return launch_bwd_sums(a, s, dA, dD, stream);
+}
+
+// The carried form's phases, on any layout: with fin_state, the summary of
+// every tile and the segment carry (the adjoint leaving the segment's
+// start from dy alone, for the caller's exchange); without, from a.s0 and
+// a.lam, the gradient walks and the sums.
+template <typename IO, bool REV>
+cudaError_t launch_bwd_segment(const BArgs<IO>& a, const BLayout& s, float* fin_state,
+                               float* fin_decay, IO* dA, IO* dD, cudaStream_t stream) {
+    cudaError_t err;
+    if (fin_state != nullptr) {
+        err = launch_tiles(ssd_bwd_summary<IO, REV>, a, a.batch, s.threads,
+                           bwd_smem_bytes<BSUMMARY>(s.tl), 1, stream);
+        if (err != cudaSuccess) return err;
+        if ((err = allow_smem(ssd_bwd_carry_segment, kBwdCarrySmem)) != cudaSuccess) return err;
+        ssd_bwd_carry_segment<<<static_cast<unsigned>(2 * int64_t(a.batch) * a.H),
+                                kBwdCarryThreads, kBwdCarrySmem, stream>>>(
+            a.carry, a.carry_dec, s.ntile, fin_state, fin_decay);
+        return cudaGetLastError();
+    }
+    err = launch_tiles(ssd_bwd_grads<IO, REV>, a, a.batch, s.threads,
+                       bwd_smem_bytes<BGRADS>(s.tl), 1, stream);
+    if (err != cudaSuccess) return err;
+    return launch_bwd_sums(a, s, dA, dD, stream);
 }
 
 // p aligned for copies of 4 values of `size` bytes each.
@@ -1608,8 +1709,11 @@ template <typename IO>
 cudaError_t bwd_call(const void* x, const void* dt, const void* A, const void* B, const void* C,
                      const void* D, const void* dy, void* dx, void* ddt, void* dA, void* dB,
                      void* dC, void* dD, float* f, int64_t sx, int64_t sdt, int64_t sb,
-                     int64_t sc, int batch, int H, int L, int reverse, cudaStream_t strm) {
-    const BLayout s = bwd_layout(batch, H, L);
+                     int64_t sc, int batch, int H, int L, int reverse, cudaStream_t strm,
+                     bool segment = false, float* fin_state = nullptr,
+                     float* fin_decay = nullptr, const float* s0 = nullptr,
+                     const float* lam = nullptr, float* ds0 = nullptr) {
+    const BLayout s = bwd_layout(batch, H, L, segment);
     float* carry = f;
     float* carry_dec = carry + s.carry;
     float* part_dA = carry_dec + s.carry_dec;
@@ -1629,8 +1733,11 @@ cudaError_t bwd_call(const void* x, const void* dt, const void* A, const void* B
                       static_cast<const IO*>(dy), static_cast<IO*>(dx), static_cast<IO*>(ddt),
                       static_cast<IO*>(dB), static_cast<IO*>(dC), group_dB, group_dC, carry,
                       carry_dec, part_dA, part_dD, sx, sdt, sb, sc, batch, H, L, s.ntile, s.nsb,
-                      s.tl, s.ngrp, vec};
+                      s.tl, s.ngrp, vec, s0, lam, ds0};
     IO *oA = static_cast<IO*>(dA), *oD = static_cast<IO*>(dD);
+    if (segment)
+        return reverse ? launch_bwd_segment<IO, true>(a, s, fin_state, fin_decay, oA, oD, strm)
+                       : launch_bwd_segment<IO, false>(a, s, fin_state, fin_decay, oA, oD, strm);
     return reverse ? launch_bwd<IO, true>(a, s, oA, oD, strm)
                    : launch_bwd<IO, false>(a, s, oA, oD, strm);
 }
@@ -1764,6 +1871,74 @@ int adnm_ssd_chunked_scan_backward(const void* x, const void* dt, const void* A,
                                      sb, sc, batch, H, L, reverse, strm)
                    : bwd_call<bf16>(x, dt, A, B, C, D, dy, dx, ddt, dA, dB, dC, dD, f, sx, sdt,
                                     sb, sc, batch, H, L, reverse, strm);
+    return static_cast<int>(err);
+}
+
+// Floats of scratch K2's carried backward needs, in any layout: the
+// backward's (adnm_ssd_backward_scratch_floats) with the tiles' records
+// and their decays always present.
+int adnm_ssd_segment_backward_scratch_floats(int batch, int H, int L, int64_t* floats) {
+    if (batch <= 0 || H <= 0 || L <= 0) return cudaErrorInvalidValue;
+    const BLayout s = bwd_layout(batch, H, L, true);
+    *floats = s.carry + s.carry_dec + 2 * s.part + 2 * s.groups;
+    return cudaSuccess;
+}
+
+// The carried backward's first phase, on the inputs of
+// adnm_ssd_chunked_scan_backward and the scratch of
+// adnm_ssd_segment_backward_scratch_floats: every tile's records from
+// zero and their carry. fin_state (2, batch, H, P, N) and fin_decay (2,
+// batch, H), fp32, take per direction the segment's record from zero and
+// its decay: [0] the end state, [1] the adjoint leaving the segment's first
+// token in scan order when none enters its end (from dy alone). The
+// scratch then holds what the second phase reads.
+int adnm_ssd_segment_adjoint(const void* x, const void* dt, const void* A, const void* B,
+                             const void* C, const void* D, const void* dy, void* scratch,
+                             void* fin_state, void* fin_decay, int64_t sx, int64_t sdt,
+                             int64_t sb, int64_t sc, int batch, int H, int P, int N, int L, int Q,
+                             int reverse, int dtype, void* stream) {
+    if (bad_shape(batch, H, P, N, L, Q) || (dtype != 0 && dtype != 1) || fin_state == nullptr ||
+        fin_decay == nullptr)
+        return cudaErrorInvalidValue;
+    float* f = static_cast<float*>(scratch);
+    float *fs = static_cast<float*>(fin_state), *fd = static_cast<float*>(fin_decay);
+    const cudaStream_t strm = static_cast<cudaStream_t>(stream);
+    const cudaError_t err =
+        dtype == 0 ? bwd_call<float>(x, dt, A, B, C, D, dy, nullptr, nullptr, nullptr, nullptr,
+                                     nullptr, nullptr, f, sx, sdt, sb, sc, batch, H, L, reverse,
+                                     strm, true, fs, fd)
+                   : bwd_call<bf16>(x, dt, A, B, C, D, dy, nullptr, nullptr, nullptr, nullptr,
+                                    nullptr, nullptr, f, sx, sdt, sb, sc, batch, H, L, reverse,
+                                    strm, true, fs, fd);
+    return static_cast<int>(err);
+}
+
+// The carried backward's second phase, after adnm_ssd_segment_adjoint on
+// the same inputs and scratch: the outputs of adnm_ssd_chunked_scan_backward
+// with s0, the state entering the segment, and lam, the adjoint entering its
+// end (the gradient of its final state), both (batch, H, P, N) fp32
+// contiguous; ds0 (batch, H, P, N) fp32 takes the gradient of s0. From s0 =
+// lam = 0 the gradients are the backward's.
+int adnm_ssd_segment_backward(const void* x, const void* dt, const void* A, const void* B,
+                              const void* C, const void* D, const void* dy, void* dx, void* ddt,
+                              void* dA, void* dB, void* dC, void* dD, void* ds0, void* scratch,
+                              const void* s0, const void* lam, int64_t sx, int64_t sdt,
+                              int64_t sb, int64_t sc, int batch, int H, int P, int N, int L,
+                              int Q, int reverse, int dtype, void* stream) {
+    if (bad_shape(batch, H, P, N, L, Q) || (dtype != 0 && dtype != 1) || s0 == nullptr ||
+        lam == nullptr || ds0 == nullptr)
+        return cudaErrorInvalidValue;
+    float* f = static_cast<float*>(scratch);
+    const float *i0 = static_cast<const float*>(s0), *il = static_cast<const float*>(lam);
+    float* o0 = static_cast<float*>(ds0);
+    const cudaStream_t strm = static_cast<cudaStream_t>(stream);
+    const cudaError_t err =
+        dtype == 0 ? bwd_call<float>(x, dt, A, B, C, D, dy, dx, ddt, dA, dB, dC, dD, f, sx, sdt,
+                                     sb, sc, batch, H, L, reverse, strm, true, nullptr, nullptr,
+                                     i0, il, o0)
+                   : bwd_call<bf16>(x, dt, A, B, C, D, dy, dx, ddt, dA, dB, dC, dD, f, sx, sdt,
+                                    sb, sc, batch, H, L, reverse, strm, true, nullptr, nullptr,
+                                    i0, il, o0);
     return static_cast<int>(err);
 }
 

@@ -27,13 +27,13 @@ first Block on for the VSSD duality, whose mixers return fp32 as in JAX).
 The VSSD bimamba configuration runs in fp32 only
 (``mixers.vssd.check_compute_dtype``).
 
-On a mesh's 'model' axis (inference) the mixers and the FeedForward of
+On a mesh's 'model' axis the mixers and the FeedForward of
 every Block, AttentionBlock and refiner Block split their heads and hidden
 channels over the ranks; they read the mesh that the caller makes active
 around the forward (``parallel.tensor.use_mesh``), so no module passes it
 on. Everything else, MLA included, runs whole on every rank, as in JAX.
 
-On its 'seq' axis (inference) each rank holds a contiguous band of the
+On its 'seq' axis each rank holds a contiguous band of the
 rows of every frame, where JAX's ``maybe_shard`` annotations split H
 (adnm_tpu/models/adnm_unet.py:278-294,381-449): ``encoder1`` to
 ``encoder3`` with ``down_sample1`` to ``down_sample3`` and the skips they
@@ -50,7 +50,11 @@ their halos and frame statistics (``core/layers.py``), the duality sums
 K^T V over the ranks and K2 carries its state from rank to rank
 (``ops/ssd.py``). A frame is split only where every split stage's band
 fits it (``band_rule``); otherwise every 'seq' rank runs the whole
-forward, the same result.
+forward, the same result. Both axes train (``Trainer(ddp=True,
+mesh=...)``): every gather, sum and halo, and K2's carried scan, has its
+exact adjoint as its backward, and the refiner's remat recomputes each
+Block on its band with the forward's collectives, so the launch and
+traffic counters count the recomputed ones too.
 """
 
 from __future__ import annotations
@@ -90,7 +94,8 @@ from adnm_tpu_torch.mixers import vssd
 from adnm_tpu_torch.mixers.attention import MLA, StandardAttention, generate_mla_config
 from adnm_tpu_torch.mixers.ssd_mixer import ADNSSDMixer
 from adnm_tpu_torch.mixers.vssd import VSSDMixer
-from adnm_tpu_torch.parallel.tensor import band_rows, gather_seq, seq_band, split_rows
+from adnm_tpu_torch.parallel.tensor import (band_rows, gather_seq, in_mesh_state, seq_band,
+                                            split_rows)
 
 
 def make_mixer(mixer_type: str, dim: int, headdim: int, linear_attn_duality: bool) -> nn.Module:
@@ -365,8 +370,11 @@ class Refiner(nn.Module):
                 if self.remat and torch.is_grad_enabled():
                     # preserve_rng_state=False: a Block draws nothing at random, and
                     # stashing the default generators' states would read the card's
-                    # on the host, which a CUDA graph capture refuses
-                    x = checkpoint(block, x, use_reentrant=False, preserve_rng_state=False)
+                    # on the host, which a CUDA graph capture refuses. The recompute
+                    # in the backward runs on the band again, with the forward's
+                    # collectives in the same order on every rank.
+                    x = checkpoint(in_mesh_state(block), x, use_reentrant=False,
+                                   preserve_rng_state=False)
                 else:
                     x = block(x)
             return self.out_proj(x, res)

@@ -20,7 +20,8 @@ softplus'd; A, D (H,); B, C (B, N, L) shared by the heads.
   segment's final state and decay from zero, then its outputs from the
   state entering it. ``ssd_chunked_scan(initial_state=...)`` is both
   phases at once; on a band of a frame split over 'seq' the scan carries
-  its state from rank to rank through them (``_scan_over_seq``).
+  its state from rank to rank through them, and its gradient through K2's
+  carried backward (``SegmentBackward``), both in ``_CarriedScan``.
 * ``ssd_naive_scan``: the O(L^2) causal oracle for the tests.
 * ``ssd_state_update``: one token of the causal scan as a recurrence, in
   the JAX function's layout; plain PyTorch (no model calls it).
@@ -42,7 +43,8 @@ import functools
 import torch
 
 from adnm_tpu_torch.ops._build import load_library
-from adnm_tpu_torch.parallel.tensor import all_gather_seq, banded, seq_position, sum_seq
+from adnm_tpu_torch.parallel.tensor import (banded, exchange, seq_group, seq_position,
+                                            sum_seq)
 
 SOURCES = ("ssd_scan.cu",)
 MAX_CHUNK = 256  # the Pallas kernel's contract: chunks of at most 256 tokens
@@ -174,10 +176,22 @@ def ssd_chunked_scan_reference(x, dt, A, B, C, D, chunk_size: int = 256,
 
 
 def ssd_chunked_scan_backward_reference(x, dt, A, B, C, D, dy, chunk_size: int = 256,
-                                        reverse: bool = False):
+                                        reverse: bool = False, initial_state=None,
+                                        final_state_grad=None):
     """Plain PyTorch version of K2's backward: (dx, ddt, dA, dB, dC, dD) of
     ``ssd_chunked_scan`` for the output gradient ``dy``, without autograd
     (which would keep every chunk group's (B, H, chunks, Q, Q) tensors).
+
+    The carried form (K2's carried backward): with ``initial_state`` S0
+    (B, H, N, P), the state entering the first token in scan order, and
+    ``final_state_grad`` (B, H, N, P), the adjoint of the state after the
+    last (what later segments of the sequence hand back), it is the
+    gradient of the full recurrence from S0, and returns a seventh value,
+    dS0 (B, H, N, P) in fp32: the gradient of the entering state. Either
+    argument turns the carried form on; the one left out is zero. The
+    decay's gradient then reads <lambda, S0> through dt and A with no
+    separate term, since the carried state and adjoint enter every chunk's
+    sums.
 
     With ``G_t`` the adjoint of the state S_t (N x P), G_t = C_t dy_t^T +
     a_{t+1} G_{t+1}, a_t = exp(dt_t A), and u_t = G_t^T B_t:
@@ -194,11 +208,14 @@ def ssd_chunked_scan_backward_reference(x, dt, A, B, C, D, dy, chunk_size: int =
     gradient in x's dtype."""
     io = x.dtype
     x, dt, A, B, C, D, dy = _widened(x, dt, A, B, C, D, dy)
+    carried = initial_state is not None or final_state_grad is not None
     if reverse:
         x, dt, B, C, dy = (t.flip(-1) for t in (x, dt, B, C, dy))
-        grads = ssd_chunked_scan_backward_reference(x, dt, A, B, C, D, dy, chunk_size)
-        dx, ddt, dA, dB, dC, dD = (g.to(io) for g in grads)
-        return dx.flip(-1), ddt.flip(-1), dA, dB.flip(-1), dC.flip(-1), dD
+        grads = ssd_chunked_scan_backward_reference(x, dt, A, B, C, D, dy, chunk_size,
+                                                    initial_state=initial_state,
+                                                    final_state_grad=final_state_grad)
+        dx, ddt, dA, dB, dC, dD = (g.to(io) for g in grads[:6])
+        return (dx.flip(-1), ddt.flip(-1), dA, dB.flip(-1), dC.flip(-1), dD, *grads[6:])
     b, h, p, l = x.shape
     n = B.shape[1]
     q = _chunk(l, chunk_size)
@@ -215,8 +232,8 @@ def ssd_chunked_scan_backward_reference(x, dt, A, B, C, D, dy, chunk_size: int =
     E = torch.einsum("bncs,bhpcs->bhcnp", Bc, xd * torch.exp(end - cum)[:, :, None])
     F = torch.einsum("bncr,bhpcr->bhcnp", Cc, dyc * torch.exp(cum)[:, :, None])
     s_in, r_in = torch.empty_like(E), torch.empty_like(F)
-    s = torch.zeros_like(E[:, :, 0])
-    r = torch.zeros_like(F[:, :, 0])
+    s = torch.zeros_like(E[:, :, 0]) if initial_state is None else initial_state.to(E.dtype)
+    r = torch.zeros_like(F[:, :, 0]) if final_state_grad is None else final_state_grad.to(F.dtype)
     for c in range(nc):
         s_in[:, :, c] = s
         s = s * decay[:, :, c, None, None] + E[:, :, c]
@@ -258,7 +275,32 @@ def ssd_chunked_scan_backward_reference(x, dt, A, B, C, D, dy, chunk_size: int =
     ddt = (x * u).sum(2) + ddA * A[None, :, None]
     dA = (ddA * dt).sum((0, 2))
     dD = (x * dy).sum((0, 2, 3))
-    return tuple(g.to(io) for g in (dx, ddt, dA, dB.reshape(b, n, l), dC.reshape(b, n, l), dD))
+    grads = tuple(g.to(io) for g in (dx, ddt, dA, dB.reshape(b, n, l), dC.reshape(b, n, l), dD))
+    return (*grads, r) if carried else grads  # r: the adjoint handed out of chunk 0, a_0 G_0
+
+
+def ssd_segment_adjoint_reference(x, dt, A, B, C, D, dy, chunk_size: int = 256,
+                                  reverse: bool = False):
+    """Plain version of the carried backward's first phase: the adjoint
+    leaving the segment's first token in scan order (the gradient of the
+    state entering it) when none enters its end, from ``dy`` alone, (B, H,
+    N, P) fp32. As ``ssd_chunked_scan_backward_reference``'s carry of the
+    adjoint over chunks, from the last chunk to the first."""
+    dt, A, C, dy = _widened(dt, A, C, dy)
+    if reverse:
+        dt, C, dy = (t.flip(-1) for t in (dt, C, dy))
+    b, h, p, l = dy.shape
+    n = C.shape[1]
+    q = _chunk(l, chunk_size)
+    nc = l // q
+    cum = (dt * A[None, :, None]).reshape(b, h, nc, q).cumsum(-1)  # (B, H, C, Q)
+    F = torch.einsum("bncr,bhpcr->bhcnp", C.reshape(b, n, nc, q),
+                     dy.reshape(b, h, p, nc, q) * torch.exp(cum)[:, :, None])
+    decay = torch.exp(cum[..., -1])
+    r = torch.zeros_like(F[:, :, 0])
+    for k in range(nc - 1, -1, -1):
+        r = r * decay[:, :, k, None, None] + F[:, :, k]
+    return r
 
 
 @functools.lru_cache(maxsize=None)
@@ -312,6 +354,28 @@ def _library() -> ctypes.CDLL:
         ctypes.c_void_p,  # stream
     ]
     lib.adnm_ssd_scan_carried_outputs.restype = ctypes.c_int
+    lib.adnm_ssd_segment_backward_scratch_floats.argtypes = \
+        lib.adnm_ssd_backward_scratch_floats.argtypes
+    lib.adnm_ssd_segment_backward_scratch_floats.restype = ctypes.c_int
+    lib.adnm_ssd_segment_adjoint.argtypes = [
+        *(ctypes.c_void_p,) * 10,  # x, dt, A, B, C, D, dy, scratch, final records, final decays
+        *(ctypes.c_int64,) * 4,  # batch strides of x, dt, B, C (elements)
+        *(ctypes.c_int,) * 6,  # batch, heads, P, N, L, Q
+        ctypes.c_int,  # reverse
+        ctypes.c_int,  # dtype
+        ctypes.c_void_p,  # stream
+    ]
+    lib.adnm_ssd_segment_adjoint.restype = ctypes.c_int
+    lib.adnm_ssd_segment_backward.argtypes = [
+        # x, dt, A, B, C, D, dy, dx, ddt, dA, dB, dC, dD, dS0, scratch, S0, lambda
+        *(ctypes.c_void_p,) * 17,
+        *(ctypes.c_int64,) * 4,  # batch strides of x, dt, B, C (elements)
+        *(ctypes.c_int,) * 6,  # batch, heads, P, N, L, Q
+        ctypes.c_int,  # reverse
+        ctypes.c_int,  # dtype
+        ctypes.c_void_p,  # stream
+    ]
+    lib.adnm_ssd_segment_backward.restype = ctypes.c_int
     lib.adnm_ssd_sub_chunk.argtypes = [ctypes.c_int]
     lib.adnm_ssd_sub_chunk.restype = ctypes.c_int
     lib.adnm_ssd_cuda_error_string.argtypes = [ctypes.c_int]
@@ -427,13 +491,15 @@ class ScanSegment:
     launch and its carry (``adnm_ssd_scan_segment_states``), the second its
     output launch, whose carry-in adds the entering state's decayed part to
     each sub-chunk's state (``adnm_ssd_scan_carried_outputs``); on the CPU
-    both are the plain version. Forward only: a gradient raises."""
+    both are the plain version. Not differentiable itself (an input that
+    asks for a gradient raises): ``ssd_chunked_scan`` on a band carries the
+    gradient across the ranks (``_CarriedScan``, ``SegmentBackward``)."""
 
     def __init__(self, x, dt, A, B, C, D, chunk_size: int = 256, reverse: bool = False):
         self.q = _check(x, dt, A, B, C, D, chunk_size)
         if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, A, B, C, D)):
-            raise NotImplementedError("the gradient of a scan with a carried state is not "
-                                      "ported yet (ROADMAP §1 item 5)")
+            raise RuntimeError("ScanSegment gives no gradient: a differentiable scan on a "
+                               "band over 'seq' is ssd_chunked_scan inside split_rows")
         self.inputs, self.reverse = (x, dt, A, B, C, D), reverse
         if x.device.type == "cpu":
             xs, dts, Bs, Cs = _flipped(x, dt, B, C, reverse)
@@ -507,19 +573,134 @@ def compose_states(parts: list, reverse: bool, position: int) -> torch.Tensor:
     return state
 
 
-def _scan_over_seq(x, dt, A, B, C, D, q: int, reverse: bool) -> torch.Tensor:
+class SegmentBackward:
+    """K2's carried backward: the gradient of a scan over one segment of a
+    longer sequence, in two phases around the exchange of the segments'
+    adjoints. Made, it has run the first phase and holds ``adjoint``, the
+    fp32 adjoint leaving the segment's first token in scan order from
+    ``dy`` alone (B, H, N, P): what the segments before it in the scan need.
+    ``grads(initial_state, final_state_grad)`` then gives (dx, ddt, dA, dB,
+    dC, dD, dS0) of the segment with the state S0 entering it and the
+    adjoint lambda entering its end. On the card the first phase is K2's
+    backward summary of every tile and a carry that leaves each tile's
+    decay from the segment's ends in place (``adnm_ssd_segment_adjoint``),
+    the second its gradient walks from S0 and lambda decayed to each tile,
+    then the sums (``adnm_ssd_segment_backward``); on the CPU both are the
+    plain versions. From S0 = lambda = 0 the gradients are K2's backward's
+    bits."""
+
+    launches = 0  # the second phase's launches since the last reset
+
+    def __init__(self, x, dt, A, B, C, D, dy, chunk_size: int = 256, reverse: bool = False):
+        self.q = _check(x, dt, A, B, C, D, chunk_size, dy)
+        if dy.shape != x.shape:
+            raise ValueError(f"dy {tuple(dy.shape)} does not fit x {tuple(x.shape)}")
+        dy = dy.contiguous()
+        self.inputs, self.reverse = (x, dt, A, B, C, D, dy), reverse
+        if x.device.type == "cpu":
+            self.adjoint = ssd_segment_adjoint_reference(x, dt, A, B, C, D, dy, self.q, reverse)
+            return
+        if x.device.type != "cuda":
+            raise ValueError(f"ssd_chunked_scan_backward runs on CPU or CUDA tensors, "
+                             f"got {x.device}")
+        b, h, p, l = x.shape
+        n = B.shape[1]
+        self.strides = _kernel_args("ssd_chunked_scan_backward",
+                                    {"x": x, "dt": dt, "A": A, "B": B, "C": C, "D": D, "dy": dy},
+                                    self.q)
+        lib = _library()
+        n_scratch = ctypes.c_int64()
+        rc = lib.adnm_ssd_segment_backward_scratch_floats(b, h, l, ctypes.byref(n_scratch))
+        if rc == 0:
+            dev = x.device
+            self.scratch = torch.empty(n_scratch.value, dtype=torch.float32, device=dev)
+            records = torch.empty((2, b, h, p, n), dtype=torch.float32, device=dev)
+            decays = torch.empty((2, b, h), dtype=torch.float32, device=dev)
+            with torch.cuda.device(dev):
+                stream = torch.cuda.current_stream(dev).cuda_stream
+                rc = lib.adnm_ssd_segment_adjoint(
+                    *(t.data_ptr() for t in (x, dt, A, B, C, D, dy, self.scratch, records,
+                                             decays)),
+                    *self.strides, b, h, p, n, l, self.q, int(reverse), _DTYPE_CODES[x.dtype],
+                    stream)
+            self.adjoint = records[1].transpose(-1, -2)  # the kernel's (P, N) records
+        _raise_on(lib, rc, "ssd_chunked_scan_backward")
+
+    def grads(self, initial_state: torch.Tensor, final_state_grad: torch.Tensor):
+        """(dx, ddt, dA, dB, dC, dD) in x's dtype and dS0 (B, H, N, P) fp32,
+        with ``initial_state`` entering the segment and ``final_state_grad``
+        entering its end, each (B, H, N, P)."""
+        x, dt, A, B, C, D, dy = self.inputs
+        b, h, p, l = x.shape
+        n = B.shape[1]
+        for name, t in (("initial_state", initial_state), ("final_state_grad", final_state_grad)):
+            if t.shape != (b, h, n, p):
+                raise ValueError(f"{name} {tuple(t.shape)} does not fit (B, H, N, P) = "
+                                 f"{(b, h, n, p)}")
+        if x.device.type == "cpu":
+            return ssd_chunked_scan_backward_reference(
+                x, dt, A, B, C, D, dy, self.q, self.reverse, initial_state=initial_state,
+                final_state_grad=final_state_grad)
+        dev, io = x.device, x.dtype
+        s0, lam = (t.to(dev, torch.float32).transpose(-1, -2).contiguous()
+                   for t in (initial_state, final_state_grad))
+        dx = torch.empty((b, h, p, l), dtype=io, device=dev)
+        ddt = torch.empty((b, h, l), dtype=io, device=dev)
+        dB = torch.empty((b, n, l), dtype=io, device=dev)
+        dC = torch.empty((b, n, l), dtype=io, device=dev)
+        dA = torch.empty(h, dtype=io, device=dev)
+        dD = torch.empty(h, dtype=io, device=dev)
+        ds0 = torch.empty((b, h, p, n), dtype=torch.float32, device=dev)
+        lib = _library()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.adnm_ssd_segment_backward(
+                *(t.data_ptr() for t in (x, dt, A, B, C, D, dy, dx, ddt, dA, dB, dC, dD, ds0,
+                                         self.scratch, s0, lam)),
+                *self.strides, b, h, p, n, l, self.q, int(self.reverse), _DTYPE_CODES[io],
+                stream)
+        _raise_on(lib, rc, "ssd_chunked_scan_backward")
+        SegmentBackward.launches += 1
+        return dx, ddt, dA, dB, dC, dD, ds0.transpose(-1, -2)
+
+
+def _exchange(state: torch.Tensor, decay: torch.Tensor, group, axis: str) -> list:
+    """Every 'seq' rank's (state (B, H, N, P), decay (B, H)) in 'seq' order:
+    one all-gather of the two packed (a few KiB)."""
+    b, h, n, p = state.shape
+    packed = torch.cat([state.reshape(b, h, -1), decay[..., None].to(state.dtype)], dim=-1)
+    return [(t[..., :-1].reshape(b, h, n, p), t[..., -1])
+            for t in exchange(packed, group, axis)]
+
+
+class _CarriedScan(torch.autograd.Function):
     """The scan of a sequence split in bands over 'seq', each rank holding
-    its segment of L in row order: the segment's states from zero, the
-    ranks' (state, decay) all-gathered (a few KiB), the state entering this
-    rank's segment composed from the ranks before it in the scan's
-    direction, then the segment's outputs from it. No rank holds the whole
-    sequence."""
-    seg = ScanSegment(x, dt, A, B, C, D, q, reverse)
-    b, h = seg.decay.shape
-    packed = torch.cat([seg.state.reshape(b, h, -1), seg.decay[..., None]], dim=-1)
-    n, p = seg.state.shape[-2:]
-    parts = [(t[..., :-1].reshape(b, h, n, p), t[..., -1]) for t in all_gather_seq(packed)]
-    return seg.outputs(compose_states(parts, reverse, seq_position()))
+    its segment of L in row order. Forward: the segment's states from zero
+    (``ScanSegment``), the ranks' (state, decay) all-gathered, the state
+    entering this rank's segment composed from the ranks before it in the
+    scan's direction, then the segment's outputs from it. Backward, its
+    mirror (``SegmentBackward``): the adjoint leaving the segment's start
+    from dy alone, the ranks' (adjoint, decay) all-gathered, the adjoint
+    entering this segment's end composed from the ranks after it in the
+    scan's direction, then the gradients from the entering state and
+    adjoint. No rank holds the whole sequence, and none waits on its
+    neighbour's backward in turn."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, D, q, reverse, group, position):
+        seg = ScanSegment(x, dt, A, B, C, D, q, reverse)
+        s0 = compose_states(_exchange(seg.state, seg.decay, group, "seq"), reverse, position)
+        ctx.save_for_backward(x, dt, A, B, C, D, s0, seg.decay)
+        ctx.q, ctx.reverse, ctx.group, ctx.position = q, reverse, group, position
+        return seg.outputs(s0)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, dt, A, B, C, D, s0, decay = ctx.saved_tensors
+        bwd = SegmentBackward(x, dt, A, B, C, D, dy, ctx.q, ctx.reverse)
+        parts = _exchange(bwd.adjoint, decay, ctx.group, "seq_backward")
+        lam = compose_states(parts, not ctx.reverse, ctx.position)
+        return (*bwd.grads(s0, lam)[:6], None, None, None, None)
 
 
 class _Scan(torch.autograd.Function):
@@ -547,11 +728,11 @@ def ssd_chunked_scan(x, dt, A, B, C, D, chunk_size: int = 256,
 
     On a band of a frame split over 'seq' (``parallel.tensor.banded``) L is
     this rank's segment of the tokens, and the state is carried from rank
-    to rank (``_scan_over_seq``). A scan from a given entering state (the
+    to rank (``_CarriedScan``). A scan from a given entering state (the
     JAX function's ``initial_state``) is ``ScanSegment(...).outputs``."""
     q = _check(x, dt, A, B, C, D, chunk_size)
     if banded():
-        return _scan_over_seq(x, dt, A, B, C, D, q, reverse)
+        return _CarriedScan.apply(x, dt, A, B, C, D, q, reverse, seq_group(), seq_position())
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, A, B, C, D)):
         return _Scan.apply(x, dt, A, B, C, D, q, reverse)
     return _scan(x, dt, A, B, C, D, q, reverse)

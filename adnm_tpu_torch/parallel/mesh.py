@@ -14,10 +14,20 @@ and the port's BatchNorm reduces its statistics over the ranks
 (``core/layers.py::BatchNorm``); in evaluation each position runs its rows
 and the predictions are gathered in order (``train/loop.py``). Over
 'model' the mixers and the FeedForward split their heads and hidden
-channels (``parallel/tensor.py``). Over 'seq' (inference) the ADNM-UNet's
-pyramid rows and refiner tokens are split in bands, each rank holding its
+channels (``parallel/tensor.py``). Over 'seq' the ADNM-UNet's pyramid
+rows and refiner tokens are split in bands, each rank holding its
 contiguous rows of every frame of its 'data' rows (``models/adnm_unet.py``).
-Training on 'seq' or 'model' is not ported.
+All three serve validate, visualize and predict; training takes a
+('data', 'seq') or a ('data', 'model') mesh, with or without ZeRO-1, and
+refuses three axes larger than 1 with the JAX package's reason
+(``TRAINING_AXES``; adnm_tpu/parallel/mesh.py:103-144): the port's
+collectives would run there, but the JAX package trains on no such mesh.
+Every collective's backward is its exact adjoint and the ``Trainer``
+averages the gradients over all ranks (``parallel/tensor.py``,
+``train/loop.py``). On the CPU the ranks are gloo processes
+(``spawn(..., device="cpu")``, or ``cli.train --mesh ... --device cpu``);
+on the card a card a rank over NCCL, or gloo ranks sharing one card
+(``spawn(..., backend="gloo", shared_device=True)``).
 
 ``make_mesh`` gives the mesh as a ``DeviceMesh`` with the dimensions
 ("data", "seq", "model"), each with its process group: NCCL between cards,
@@ -40,8 +50,11 @@ from adnm_tpu_torch.device import resolve_device
 from adnm_tpu_torch.parallel.multihost import finish_multihost, init_multihost
 
 
-# Where the axes that are not ported yet are queued.
-NOT_PORTED = "ROADMAP §1 item 5"
+# Where what is not ported yet is queued: the graphed step across ranks.
+NOT_PORTED = "ROADMAP §1 item 5.3"
+# The JAX package trains on at most two axes larger than 1
+# (adnm_tpu/parallel/mesh.py::assert_training_mesh).
+TRAINING_AXES = 2
 MESH_DIMS = ("data", "seq", "model")
 
 
@@ -50,8 +63,8 @@ def parse_mesh(spec: str, training: bool = True) -> dict:
     checks and messages (adnm_tpu/cli/common.py::_parse_mesh): entries
     AXIS=N with N a positive integer, no axis twice, a 'data' axis. Exits
     on what the port does not run: an axis other than 'data', 'seq' and
-    'model' larger than 1, and with ``training`` a 'seq' or 'model' axis
-    larger than 1 (those axes serve validate, visualize and predict)."""
+    'model' larger than 1, and with ``training`` three axes larger than 1
+    (JAX's reason, ``training_mesh_error``)."""
     mesh = {}
     for part in spec.split(","):
         name, eq, n = part.partition("=")
@@ -69,16 +82,31 @@ def parse_mesh(spec: str, training: bool = True) -> dict:
     if other:
         raise SystemExit(f"--mesh: {', '.join(other)}: the port's mesh has the axes 'data', "
                          f"'seq' and 'model'")
-    if training and mesh.get("seq", 1) > 1:
-        raise SystemExit(f"--mesh: seq={mesh['seq']}: training on the 'seq' axis (the "
-                         f"pyramid's rows and the refiner's tokens over ranks) is not ported "
-                         f"yet ({NOT_PORTED}); the 'seq' axis serves validate, visualize and "
-                         f"predict")
-    if training and mesh.get("model", 1) > 1:
-        raise SystemExit(f"--mesh: model={mesh['model']}: training on the 'model' axis (tensor "
-                         f"parallelism) is not ported yet ({NOT_PORTED}); the 'model' axis "
-                         f"serves validate, visualize and predict")
+    hot = [a for a in MESH_DIMS if mesh.get(a, 1) > 1]
+    if training and len(hot) > TRAINING_AXES:
+        raise SystemExit(f"--mesh: {training_mesh_error(hot)}")
     return mesh
+
+
+def training_mesh_error(hot: list) -> str:
+    """The JAX package's refusal of training on the axes ``hot``, more than
+    two larger than 1 (adnm_tpu/parallel/mesh.py:134-144)."""
+    return (f"Training on a mesh with >=3 non-trivial axes {hot} is disabled: XLA v0.9.0 "
+            f"miscomputes weight gradients on such meshes (exact-factor double-counting at "
+            f"reshard boundaries; see tests/test_parallel.py::TestXlaThreeAxisGradDefect and "
+            f"adnm_tpu/parallel/mesh.py). Use a 2-axis mesh — e.g. data x seq for training, "
+            f"and keep the 'model' (tensor-parallel) axis for inference sharding — or fold "
+            f"axes together.")
+
+
+def check_training_mesh(mesh: Optional[DeviceMesh]) -> None:
+    """Raise a ValueError (the JAX package's, ``training_mesh_error``)
+    where ``mesh`` has three axes larger than 1; None passes."""
+    if mesh is None:
+        return
+    hot = [a for i, a in enumerate(mesh.mesh_dim_names) if mesh.size(i) > 1]
+    if len(hot) > TRAINING_AXES:
+        raise ValueError(training_mesh_error(hot))
 
 
 _MESHES: dict = {}

@@ -45,7 +45,27 @@ beyond its band:
 * ``all_gather_seq(x)``: every 'seq' rank's ``x`` in order (the segment
   states that K2's carried scan exchanges, ``ops/ssd.py``).
 
-These run forward only: none of them has a backward yet.
+Each of these, and ``gather_model`` and ``reduce_model``, is
+differentiable, with the exact adjoint of what it computes across the
+ranks as its backward, so that a rank's backward of its own loss gives
+its share of the gradient of the sum of every rank's loss (the
+per-rank-share convention): ``halo``'s is the reverse halo-add (the
+gradients of the rows a neighbour received go back to it and are added
+onto its edge rows; the zero rows at the frame's edges take none);
+``sum_seq``'s and ``reduce_model``'s, the sum over the ranks of the
+incoming gradient; a gather's (``gather_seq``, ``all_gather_seq``,
+``gather_model``), a reduce-scatter (the sum over the ranks, then this
+rank's part). A slice of a replicated tensor (a band cut at
+``split_rows``, a weight sliced at ``model_slice``) takes autograd's
+zero-padded scatter. The ranks of one 'data' position compute one loss,
+so their gradients sum to S M times the position's gradient: the
+``Trainer`` averages every gradient over all D S M ranks once, which gives
+the global batch's mean gradient for split and replicated parameters
+alike. The group and the positions are read when the forward runs and
+kept for the backward, which runs outside ``use_mesh``; a recompute in the
+backward (remat) re-enters the forward's mesh state through
+``in_mesh_state``. ``TRAFFIC`` counts the backward's bytes under
+"seq_backward" and "model_backward", apart from the forward's.
 
 Transport: a collective runs on the process group of its mesh dimension,
 over NCCL between cards and gloo on the CPU. Gloo has no all-gather for
@@ -60,7 +80,7 @@ sends and receives, over gloo as sends and receives of host tensors
 from __future__ import annotations
 
 import contextlib
-from typing import Iterator, Optional
+from typing import Callable, Iterator, Optional
 
 import torch
 import torch.distributed as dist
@@ -68,7 +88,7 @@ import torch.distributed as dist
 _ACTIVE = None  # the DeviceMesh of the forward under way (``use_mesh``)
 _SPLIT = False  # inside ``split_rows``: the modules see bands of their frames
 # Bytes this rank sent in collectives, by axis: read by the smoke run.
-TRAFFIC = {"model": 0, "data": 0, "seq": 0}
+TRAFFIC = {"model": 0, "data": 0, "seq": 0, "model_backward": 0, "seq_backward": 0}
 
 
 @contextlib.contextmanager
@@ -131,14 +151,62 @@ def _all_gather(x: torch.Tensor, group, first: bool = False) -> Optional[list]:
     return [p.to(x.device) for p in parts] if staged else parts
 
 
+class _Gather(torch.autograd.Function):
+    """Every rank's ``x`` of ``group`` (one shape on all) in rank order;
+    the backward is a reduce-scatter: this rank's part of the sum over the
+    ranks of the parts' gradients (every rank's output holds this rank's
+    ``x``)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group, axis: str):
+        ctx.group, ctx.axis = group, axis
+        ctx.rank = dist.get_group_rank(group, dist.get_rank())
+        TRAFFIC[axis] += x.numel() * x.element_size()
+        return tuple(_all_gather(x, group))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        like = next(g for g in grads if g is not None)
+        parts = torch.stack([torch.zeros_like(like) if g is None else g for g in grads])
+        TRAFFIC[f"{ctx.axis}_backward"] += parts.numel() * parts.element_size()
+        if dist.get_backend(ctx.group) == "nccl":
+            out = torch.empty_like(like)
+            dist.reduce_scatter_tensor(out, parts, group=ctx.group)
+            return out, None, None
+        # gloo has no reduce-scatter: the sum on every rank, then this rank's part
+        dist.all_reduce(parts, group=ctx.group)
+        return parts[ctx.rank].clone(), None, None
+
+
+class _AllReduce(torch.autograd.Function):
+    """The sum of ``x`` over ``group``, the same bits on each rank; the
+    backward is the sum over the ranks of the incoming gradients (every
+    rank's output reads every rank's ``x``). Both write into copies, so
+    autograd never sees a tensor it saved change."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group, axis: str):
+        ctx.group, ctx.axis = group, axis
+        TRAFFIC[axis] += x.numel() * x.element_size()
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        TRAFFIC[f"{ctx.axis}_backward"] += grad.numel() * grad.element_size()
+        out = grad.contiguous().clone()
+        dist.all_reduce(out, group=ctx.group)
+        return out, None, None
+
+
 def gather_model(x: torch.Tensor, dim: int) -> torch.Tensor:
     """The 'model' ranks' parts of ``x`` concatenated along ``dim`` in rank
     order (each rank's part as ``model_slice`` gave it); ``x`` itself on a
     'model' axis of size 1."""
     if axis_size(_ACTIVE, "model") == 1:
         return x
-    TRAFFIC["model"] += x.numel() * x.element_size()
-    return torch.cat(_all_gather(x, _ACTIVE.get_group("model")), dim=dim)
+    return torch.cat(_Gather.apply(x, _ACTIVE.get_group("model"), "model"), dim=dim)
 
 
 def reduce_model(x: torch.Tensor) -> torch.Tensor:
@@ -146,10 +214,7 @@ def reduce_model(x: torch.Tensor) -> torch.Tensor:
     itself on a 'model' axis of size 1."""
     if axis_size(_ACTIVE, "model") == 1:
         return x
-    TRAFFIC["model"] += x.numel() * x.element_size()
-    out = x.contiguous()
-    dist.all_reduce(out, group=_ACTIVE.get_group("model"))
-    return out
+    return _AllReduce.apply(x, _ACTIVE.get_group("model"), "model")
 
 
 def row_counts(mesh, n: int) -> list:
@@ -253,6 +318,25 @@ def banded() -> bool:
     return _SPLIT
 
 
+def in_mesh_state(fn: Callable) -> Callable:
+    """``fn`` run, wherever it is called later, under the active mesh and
+    the band state of now (``use_mesh``, ``split_rows``): a remat's
+    recompute in the backward runs outside both, and must compute as the
+    forward did, with the same collectives in the same order on every
+    rank."""
+    state = (_ACTIVE, _SPLIT)
+
+    def run(*args, **kwargs):
+        global _ACTIVE, _SPLIT
+        saved, (_ACTIVE, _SPLIT) = (_ACTIVE, _SPLIT), state
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _ACTIVE, _SPLIT = saved
+
+    return run
+
+
 def seq_size() -> int:
     """The size of the active mesh's 'seq' axis (1 without one)."""
     return axis_size(_ACTIVE, "seq")
@@ -277,6 +361,78 @@ def _p2p(sends: list, recvs: list, group) -> None:
         req.wait()
 
 
+class _Halo(torch.autograd.Function):
+    """``halo``'s exchange; the backward is the reverse halo-add: the
+    gradients of the rows received from a neighbour go back to it and are
+    added onto its edge rows (those of the zero rows at the frame's edges
+    go nowhere)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, top: int, bottom: int, dim: int, group, n: int, s: int):
+        rows = x.shape[dim]
+        ctx.top, ctx.bottom, ctx.dim, ctx.group, ctx.n, ctx.s = top, bottom, dim, group, n, s
+        staged = _staged(x, group)
+        dev = torch.device("cpu") if staged else x.device
+
+        def edge(start: int, length: int) -> torch.Tensor:
+            return x.narrow(dim, start, length).contiguous().to(dev)
+
+        above, below = _rows_like(x, top, dim, dev), _rows_like(x, bottom, dim, dev)
+        sends, recvs = [], []
+        if s > 0:  # the rank above: it takes my first rows, I take its last
+            if bottom:
+                sends.append((edge(0, bottom), s - 1))
+            if top:
+                recvs.append((above, s - 1))
+        if s < n - 1:  # the rank below: it takes my last rows, I take its first
+            if top:
+                sends.append((edge(rows - top, top), s + 1))
+            if bottom:
+                recvs.append((below, s + 1))
+        TRAFFIC["seq"] += sum(t.numel() * t.element_size() for t, _ in sends)
+        _p2p(sends, recvs, group)
+        return torch.cat([above.to(x.device), x, below.to(x.device)], dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        top, bottom, dim, group, n, s = ctx.top, ctx.bottom, ctx.dim, ctx.group, ctx.n, ctx.s
+        rows = grad.shape[dim] - top - bottom
+        staged = _staged(grad, group)
+        dev = torch.device("cpu") if staged else grad.device
+
+        def part(start: int, length: int) -> torch.Tensor:
+            return grad.narrow(dim, start, length).contiguous().to(dev)
+
+        from_above, from_below = (_rows_like(grad, bottom, dim, dev),
+                                  _rows_like(grad, top, dim, dev))
+        sends, recvs = [], []
+        if s > 0:  # my top halo was the rank above's last rows; it read my first
+            if top:
+                sends.append((part(0, top), s - 1))
+            if bottom:
+                recvs.append((from_above, s - 1))
+        if s < n - 1:  # my bottom halo was the rank below's first rows; it read my last
+            if bottom:
+                sends.append((part(top + rows, bottom), s + 1))
+            if top:
+                recvs.append((from_below, s + 1))
+        TRAFFIC["seq_backward"] += sum(t.numel() * t.element_size() for t, _ in sends)
+        _p2p(sends, recvs, group)
+        dx = grad.narrow(dim, top, rows).clone()
+        if s > 0 and bottom:
+            dx.narrow(dim, 0, bottom).add_(from_above.to(grad.device))
+        if s < n - 1 and top:
+            dx.narrow(dim, rows - top, top).add_(from_below.to(grad.device))
+        return dx, None, None, None, None, None, None
+
+
+def _rows_like(x: torch.Tensor, length: int, dim: int, dev: torch.device) -> torch.Tensor:
+    """Zeros of ``x``'s shape with ``length`` rows along ``dim``, on ``dev``."""
+    shape = list(x.shape)
+    shape[dim] = length
+    return torch.zeros(shape, dtype=x.dtype, device=dev)
+
+
 def halo(x: torch.Tensor, top: int, bottom: int, dim: int = 2) -> torch.Tensor:
     """This rank's band ``x`` with the last ``top`` rows (along ``dim``) of
     the rank above stacked on top and the first ``bottom`` rows of the rank
@@ -284,37 +440,11 @@ def halo(x: torch.Tensor, top: int, bottom: int, dim: int = 2) -> torch.Tensor:
     edge, as a convolution's zero padding gives there. Every 'seq' rank
     calls it with the same ``top`` and ``bottom``, neither larger than a
     band."""
-    n, s = seq_size(), axis_rank(_ACTIVE, "seq")
     rows = x.shape[dim]
     if top > rows or bottom > rows:
         raise ValueError(f"a halo of {top} + {bottom} rows around a band of {rows}")
-    group = _ACTIVE.get_group("seq")
-    staged = _staged(x, group)
-    dev = torch.device("cpu") if staged else x.device
-
-    def edge(start: int, length: int) -> torch.Tensor:
-        return x.narrow(dim, start, length).contiguous().to(dev)
-
-    def empty(length: int) -> torch.Tensor:
-        shape = list(x.shape)
-        shape[dim] = length
-        return torch.zeros(shape, dtype=x.dtype, device=dev)
-
-    above, below = empty(top), empty(bottom)
-    sends, recvs = [], []
-    if s > 0:  # the rank above: it takes my first rows, I take its last
-        if bottom:
-            sends.append((edge(0, bottom), s - 1))
-        if top:
-            recvs.append((above, s - 1))
-    if s < n - 1:  # the rank below: it takes my last rows, I take its first
-        if top:
-            sends.append((edge(rows - top, top), s + 1))
-        if bottom:
-            recvs.append((below, s + 1))
-    TRAFFIC["seq"] += sum(t.numel() * t.element_size() for t, _ in sends)
-    _p2p(sends, recvs, group)
-    return torch.cat([above.to(x.device), x, below.to(x.device)], dim=dim)
+    return _Halo.apply(x, top, bottom, dim, _ACTIVE.get_group("seq"), seq_size(),
+                       axis_rank(_ACTIVE, "seq"))
 
 
 def sum_seq(x: torch.Tensor) -> torch.Tensor:
@@ -322,18 +452,14 @@ def sum_seq(x: torch.Tensor) -> torch.Tensor:
     itself on a 'seq' axis of size 1."""
     if seq_size() == 1:
         return x
-    TRAFFIC["seq"] += x.numel() * x.element_size()
-    out = x.contiguous().clone()
-    dist.all_reduce(out, group=_ACTIVE.get_group("seq"))
-    return out
+    return _AllReduce.apply(x, _ACTIVE.get_group("seq"), "seq")
 
 
 def all_gather_seq(x: torch.Tensor) -> list:
     """Every 'seq' rank's ``x`` (one shape on all), in 'seq' order."""
     if seq_size() == 1:
         return [x]
-    TRAFFIC["seq"] += x.numel() * x.element_size()
-    return _all_gather(x, _ACTIVE.get_group("seq"))
+    return list(_Gather.apply(x, _ACTIVE.get_group("seq"), "seq"))
 
 
 def gather_seq(x: torch.Tensor, dim: int = 2) -> torch.Tensor:
@@ -342,6 +468,20 @@ def gather_seq(x: torch.Tensor, dim: int = 2) -> torch.Tensor:
     if seq_size() == 1:
         return x
     return torch.cat(all_gather_seq(x), dim=dim)
+
+
+def seq_group():
+    """The process group of the active mesh's 'seq' axis."""
+    return _ACTIVE.get_group("seq")
+
+
+def exchange(x: torch.Tensor, group, key: str) -> list:
+    """Every rank's ``x`` of ``group`` in rank order (an all-gather with no
+    gradient, for the small records a collective's own forward or backward
+    trades: K2's carried states and adjoints), its bytes counted under
+    ``TRAFFIC[key]``."""
+    TRAFFIC[key] += x.numel() * x.element_size()
+    return _all_gather(x, group)
 
 
 def seq_position() -> int:

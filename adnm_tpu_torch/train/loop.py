@@ -83,9 +83,26 @@ position's loss weighted by its rows), are the single process's up to the
 order of the sums. On a 'seq' axis the ranks of a position run the same
 rows, each its band of every frame (``models/adnm_unet.py``), and the
 ADNM-UNet gathers its prediction over 'seq' before it returns, so the
-loss and the gathers over 'data' see whole frames on every rank. Training
-on a 'seq' or 'model' axis larger than 1 is not ported
-(``parallel.mesh.NOT_PORTED``): a Trainer there refuses to step.
+loss and the gathers over 'data' see whole frames on every rank.
+
+Training on a mesh (``ddp=True`` with ``mesh``; JAX: the Trainer on a
+('data', 'seq') or ('data', 'model') mesh): the training forward, its
+remat recompute and the backward run under the mesh, every rank a
+'data' position's rows of the global batch (``data_rank``,
+``data_world``), its 'seq' and 'model' ranks the same rows. Each rank
+back-propagates its own loss, the collectives' backwards being their
+exact adjoints (``parallel/tensor.py``): the gradients that the S M ranks
+of one 'data' position hold sum to S M times the position's gradient, and
+DistributedDataParallel's average over all D S M ranks gives the global
+batch's mean gradient for every parameter, split or replicated. The loss
+is averaged over 'data' alone; BatchNorm's statistics, the Dropout and
+DropPath masks' rows and ZeRO-1's shards are the 'data' group's, so the
+'seq' and 'model' ranks of a position stay replicas. On the CPU the ranks
+are gloo processes (``parallel.spawn``); on the card, a card a rank over
+NCCL, or gloo ranks sharing one card. A mesh with three axes larger than
+1 trains nowhere, as in JAX (``parallel.mesh.TRAINING_AXES``), and such
+training runs eagerly: ``scan_steps`` > 1 there raises
+(``parallel.mesh.NOT_PORTED``).
 """
 
 from __future__ import annotations
@@ -109,10 +126,10 @@ from adnm_tpu_torch.core.layers import seeded_init_, sync_batch_norm
 from adnm_tpu_torch.core.stochastic import attach_generator, step_seed
 from adnm_tpu_torch.data.loader import device_prefetch, grouped, to_device
 from adnm_tpu_torch.device import deterministic_cudnn
-from adnm_tpu_torch.parallel.mesh import NOT_PORTED, make_mesh
+from adnm_tpu_torch.parallel.mesh import NOT_PORTED, check_training_mesh, make_mesh
 from adnm_tpu_torch.parallel.multihost import host_barrier
 from adnm_tpu_torch.parallel.tensor import (axis_rank, axis_size, data_rows, gather_data,
-                                            sum_data, use_mesh)
+                                            in_mesh_state, sum_data, use_mesh)
 from adnm_tpu_torch.train import checkpoint as ckpt
 from adnm_tpu_torch.train.presets import CARD_ADAM, TrainPreset
 from adnm_tpu_torch.utils.graphs import GraphSet
@@ -154,11 +171,12 @@ class TrainForward(nn.Module):
     at the second for the recompute, each drawing from offset 0 as after
     ``manual_seed``."""
 
-    def __init__(self, model: nn.Module, generator: torch.Generator, remat: bool):
+    def __init__(self, model: nn.Module, generator: torch.Generator, remat: bool, mesh=None):
         super().__init__()
         self.model = model
         self.generator = generator
         self.remat = remat
+        self.mesh = mesh  # active around the forward and its recompute
 
     def forward(self, x: torch.Tensor, seed) -> torch.Tensor:
         states = iter(seed) if isinstance(seed, tuple) else None
@@ -170,13 +188,16 @@ class TrainForward(nn.Module):
                 self.generator.graphsafe_set_state(next(states))
             return self.model(x)
 
-        if self.remat and torch.is_grad_enabled():
-            # preserve_rng_state=False: the masks come from the Trainer's own
-            # generator, which ``run`` seeds again, and nothing draws from
-            # the default generators; stashing their states would read the
-            # card's on the host, which a CUDA graph capture refuses
-            return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
-        return run(x)
+        with use_mesh(self.mesh):
+            if self.remat and torch.is_grad_enabled():
+                # preserve_rng_state=False: the masks come from the Trainer's
+                # own generator, which ``run`` seeds again, and nothing draws
+                # from the default generators; stashing their states would
+                # read the card's on the host, which a CUDA graph capture
+                # refuses. The recompute runs under the forward's mesh.
+                return checkpoint(in_mesh_state(run), x, use_reentrant=False,
+                                  preserve_rng_state=False)
+            return run(x)
 
 
 def portable_optimizer_state(state: dict) -> dict:
@@ -261,12 +282,20 @@ class Trainer:
         ``ddp``.
 
         ``mesh`` (a ``parallel.make_mesh`` over the process group) shards
-        evaluation over its 'data' axis and the heads and hidden channels
-        over its 'model' axis; the Trainer then evaluates and predicts but
-        does not train, unless ``ddp`` with a 'model' axis of 1. Under
-        ``ddp`` without one, evaluation runs on the (ranks, 1) mesh."""
+        evaluation over its 'data' axis, the frames' rows over its 'seq'
+        axis and the heads and hidden channels over its 'model' axis;
+        without ``ddp`` the Trainer then evaluates and predicts but does not
+        train; with it, it trains on that mesh (a ('data', 'seq') or
+        ('data', 'model') mesh: see the module's docstring). Under ``ddp``
+        without one, it runs on the (ranks, 1, 1) mesh."""
         if accum_steps < 1 or scan_steps < 1:
             raise ValueError("scan_steps and accum_steps must be >= 1")
+        if ddp:
+            check_training_mesh(mesh)
+        if scan_steps > 1 and (axis_size(mesh, "seq") > 1 or axis_size(mesh, "model") > 1):
+            raise NotImplementedError(f"scan_steps > 1 on a 'seq' or 'model' axis larger than 1: "
+                                      f"training there runs eagerly (the graphed step across "
+                                      f"ranks is not ported yet, {NOT_PORTED})")
         if scan_steps > 1 and ddp:
             raise NotImplementedError(
                 "scan_steps > 1 under data-parallel training is not supported: the "
@@ -297,29 +326,31 @@ class Trainer:
         if mesh is not None and not dist.is_initialized():
             raise RuntimeError("Trainer(mesh=...) needs a process group: "
                                "adnm_tpu_torch.parallel.init_multihost first")
-        if ddp and axis_size(mesh, "model") > 1:
-            raise NotImplementedError(f"training on the mesh's 'model' axis (tensor "
-                                      f"parallelism) is not ported yet ({NOT_PORTED})")
-        if ddp and axis_size(mesh, "seq") > 1:
-            raise NotImplementedError(f"training on the mesh's 'seq' axis (bands of rows "
-                                      f"over the ranks) is not ported yet ({NOT_PORTED})")
         self.mesh = (make_mesh(dist.get_world_size(), device=device) if ddp and mesh is None
                      else mesh)
         self.rank, self.world = ((dist.get_rank(), dist.get_world_size())
                                  if ddp or mesh is not None else (0, 1))
+        # this rank's 'data' position and their number: its rows of a global batch
+        self.data_rank, self.data_world = (axis_rank(self.mesh, "data"),
+                                           axis_size(self.mesh, "data"))
         self.generator = torch.Generator(device=device)  # Dropout and DropPath masks
-        attach_generator(model, self.generator, (self.rank, self.world) if ddp else None)
+        attach_generator(model, self.generator,
+                         (self.data_rank, self.data_world) if ddp else None)
         if ddp:
-            sync_batch_norm(model)
-        self.forward_net = TrainForward(model, self.generator, self.remat_forward)
+            sync_batch_norm(model, self.mesh.get_group("data"))
+        self.forward_net = TrainForward(model, self.generator, self.remat_forward,
+                                        self.mesh if ddp else None)
         self._ddp_net = None  # built at the first step (unreached_parameters needs a batch)
         self.unreached = None  # names of the parameters the loss does not reach, under ddp
         self.params = list(model.parameters())
-        self.zero1 = zero1 and ddp and self.world > 1  # ZeRO-1 shards nothing on one rank
+        # ZeRO-1 over the 'data' ranks; it shards nothing on one
+        self.zero1 = zero1 and ddp and self.data_world > 1
         # the epoch's LR and clip threshold, read on the device (``set_schedule``)
         self.lr = torch.zeros((), dtype=torch.float32, device=device)
         self.clip = torch.full((), float("inf"), dtype=torch.float32, device=device)
-        self.optimizer = preset.make_optimizer(self.params, zero1=self.zero1, lr=self.lr)
+        self.optimizer = preset.make_optimizer(
+            self.params, zero1=self.zero1, lr=self.lr,
+            process_group=self.mesh.get_group("data") if self.zero1 else None)
         self.step = 0
         self.graphs = GraphSet(device) if device.type == "cuda" else None
         self._step_states = []  # (forward, recompute) generator states of a group's steps
@@ -358,6 +389,7 @@ class Trainer:
         Its construction broadcasts rank 0's parameters (already equal:
         the same seed or checkpoint on every rank)."""
         if self._ddp_net is None:
+            # under the mesh, whose collectives the forward runs (TrainForward)
             self.unreached = unreached_parameters(self.forward_net, imgs[:1], 0)
             DistributedDataParallel._set_params_and_buffers_to_ignore_for_model(
                 self.forward_net, self.unreached)
@@ -374,10 +406,6 @@ class Trainer:
         the global batch's). A parameter the loss does not reach gets a
         zero gradient, as in JAX, so AdamW still decays it. Runs the model
         in train mode; ``seeds`` holds each microbatch's (``_forward``)."""
-        if axis_size(self.mesh, "seq") > 1:
-            raise NotImplementedError(f"a Trainer on a 'seq' axis larger than 1 does not "
-                                      f"train: the backward of the bands' halos, sums and "
-                                      f"carried scans is not ported yet ({NOT_PORTED})")
         if self.mesh is not None and not self.ddp:
             raise RuntimeError("a Trainer on an evaluation mesh (mesh without ddp) does not "
                                "train: its ranks would step apart")
@@ -404,8 +432,7 @@ class Trainer:
                 p.grad.div_(m)
         loss = loss / m
         if self.ddp:  # the global batch's loss, the same on every rank
-            dist.all_reduce(loss)
-            loss = loss / self.world
+            loss = sum_data(self.mesh, loss) / self.data_world
         return loss
 
     def grads(self, batch: np.ndarray) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:

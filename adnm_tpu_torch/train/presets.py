@@ -104,7 +104,8 @@ class TrainPreset:
     adam_eps: float = 1e-8
 
     def make_optimizer(self, params: Iterable[torch.nn.Parameter], zero1: bool = False,
-                       lr: Optional[torch.Tensor] = None) -> torch.optim.Optimizer:
+                       lr: Optional[torch.Tensor] = None,
+                       process_group=None) -> torch.optim.Optimizer:
         """The optimizer with the update of the JAX preset's optax one; the
         loop sets the LR of the param group every epoch.
 
@@ -130,7 +131,11 @@ class TrainPreset:
         and broadcasting them after the step. The caller asks for it only
         inside a process group of two or more ranks (``Trainer``: on one
         rank the plain optimizer, as JAX shards nothing over a 'data' axis
-        of 1, adnm_tpu/train/loop.py:126-130)."""
+        of 1, adnm_tpu/train/loop.py:126-130). ``process_group`` is the
+        group the state is sharded over (the default group when None): the
+        mesh's 'data' group, as JAX's ``P('data')`` moments, so that on a
+        'seq' or 'model' axis each of their positions holds a whole sharded
+        state over its 'data' ranks."""
         cls, settings = self._optimizer()
         if lr is not None:
             settings["lr"] = lr
@@ -141,7 +146,8 @@ class TrainPreset:
             # imported here: the module scripts functional optimizers with torch.jit
             from torch.distributed.optim import ZeroRedundancyOptimizer
 
-            return ZeroRedundancyOptimizer(params, optimizer_class=cls, **settings)
+            return ZeroRedundancyOptimizer(params, optimizer_class=cls,
+                                           process_group=process_group, **settings)
         return cls(params, **settings)
 
     def _optimizer(self) -> tuple:

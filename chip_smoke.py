@@ -262,7 +262,33 @@
    'seq', its wall and peak memory against one process's; (3)
    ``validate`` on data=1,seq=2 against phase 6j's one process
    (``SEQ_VALIDATE_ATOL``): the same table, the test loss within 1e-4
-   relative, the ground truths equal.
+   relative, the ground truths equal. Its ranks run in phase 6j's spawn.
+6l. Training on the mesh (``mesh_train_phase``), full width, 256x256,
+   fp32, two gloo ranks sharing the card, their work in phase 6j's spawn
+   too (a rank's start paid once for 6j, 6k and 6l): (1) K2's carried
+   backward (``check_k2_carried_backward``): from a random entering state
+   S0 and adjoint lambda against its plain version (dx, ddt, dA, dB, dC,
+   dD, dS0 and the first phase's adjoint) at (4, 8, 32,768) and
+   (1, 8, 32,768), a rank's shapes on seq=2, at the model's decays and at
+   |dA| ~ 3e-4, fp32 and bf16, forward and reversed; chained over 2 and 4
+   segments against the whole scan's backward kernel; from S0 = lambda =
+   0 bit-equal to K2's backward kernel; timed with and without the
+   boundary terms beside its bound, the plain version and the backward
+   kernel on the segment; (2) two training steps (``MESH_TRAIN_STEPS``) of
+   the duality and bimamba models at batch 2 on seq=2 and on model=2
+   (``Trainer(ddp=True, mesh=...)``) against one process on the same
+   batch: each step's loss, gradient norm and every gradient within
+   STEP_TOL of one process's from the same parameters (the first step's
+   from the same init, the second's from the rank's parameters after the
+   first: AdamW moves a parameter whose gradient is near 0 by about lr
+   along its sign, which rounding may flip), the parameters within 2 lr a
+   step of one process's two steps, the ranks bit-equal,
+   and, in a third step, each rank's launches counted (and traced in a
+   fourth on the bimamba model, whose step runs all four hand kernels)
+   (``mesh_step_launches``: on seq=2 the refiner's 8 scans through K2's
+   carried backward), its bytes over the axis, forward and backward, its
+   step wall and peak memory against one process's; (3) ``cli.train
+   --mesh data=1,seq=2``, a 2-step epoch on both ranks.
 7. Prints the kernels' JSON line (each K1 entry with its largest kernel /
    library time over the fp32 main-path shapes, ``worst_vs_library``, and
    its MLA launches and times at MLA's rows; K2's
@@ -276,7 +302,11 @@
    each K1 and K2 entry with a ``mesh_model2`` entry: its launches per
    rank and forward on model=2, phase 6j (b), and a ``mesh_seq2`` entry:
    its launches per rank and forward on seq=2, phase 6k, K2's with its
-   carried form's ``carried`` times and error),
+   carried form's ``carried`` times and error; each K1, K1 backward and K2
+   entry with a ``mesh_train`` entry and the K2 backward entry with
+   ``mesh_seq2_train`` and ``mesh_model2_train``: their launches a rank and
+   step in phase 6l, and its carried backward's ``carried`` times and
+   error),
    the script's total seconds, the card line, then the result line last.
 
 Any failure raises: the exit code is then non-zero and no result line is
@@ -286,6 +316,7 @@ printed.
 from __future__ import annotations
 
 import concurrent.futures
+import dataclasses
 import functools
 import json
 import os
@@ -405,8 +436,8 @@ TRAIN_ARGS = [*DATA_ARGS, "--epochs", "1", "--save-every", "1"]
 TRAIN_STEPS = 4  # int(24 * 0.7) = 16 training clips in batches of 4
 LR, CLIP = 1e-3, 0.025  # the preset's first-epoch clip threshold
 NO_LAUNCHES = dict.fromkeys(["rms_norm", "rms_norm_backward", "ssd_chunked_scan",
-                             "ssd_chunked_scan_backward", "gated_rms_norm",
-                             "gated_rms_norm_backward"], 0)
+                             "ssd_chunked_scan_backward", "ssd_segment_backward",
+                             "gated_rms_norm", "gated_rms_norm_backward"], 0)
 BIMAMBA = {"linear_attn_duality": False}
 MLA = {"attn_type": "mla"}
 VSSD_BIMAMBA = {"linear_attn_duality": False, "mixer_type": "vssd"}
@@ -2560,6 +2591,7 @@ def kernel_counts() -> Counts:
     return Counts(rms_norm=k1_module.rms_norm, rms_norm_backward=k1_module.rms_norm_backward,
                   ssd_chunked_scan=ssd.ssd_chunked_scan,
                   ssd_chunked_scan_backward=ssd.ssd_chunked_scan_backward,
+                  ssd_segment_backward=ssd.SegmentBackward,
                   gated_rms_norm=k1_module.gated_rms_norm,
                   gated_rms_norm_backward=k1_module.gated_rms_norm_backward)
 
@@ -2956,15 +2988,18 @@ def trace_launches(names: dict) -> dict:
     (``hand_kernel_names``): a K1 launch runs one rms_norm row or tile
     kernel, its backward one rms_norm_bwd kernel (and the dw reduction); a
     K2 launch ends in one ssd_scan_fused or ssd_scan_outputs kernel, its
-    backward in one ssd_bwd_sums."""
+    backward in one ssd_bwd_sums, and its carried backward runs one
+    ssd_bwd_carry_segment before its sums."""
     def n(*parts, but=()):
         return sum(v for k, v in names.items()
                    if any(p in k for p in parts) and not any(b in k for b in but))
 
+    carried = n("ssd_bwd_carry_segment")
     return {**NO_LAUNCHES, "rms_norm": n("rms_norm", but=("bwd", "dw_reduce")),
             "rms_norm_backward": n("rms_norm_bwd"),
             "ssd_chunked_scan": n("ssd_scan_fused", "ssd_scan_outputs"),
-            "ssd_chunked_scan_backward": n("ssd_bwd_sums")}
+            "ssd_chunked_scan_backward": n("ssd_bwd_sums") - carried,
+            "ssd_segment_backward": carried}
 
 
 def assert_same_trainer_state(label: str, a, b) -> None:
@@ -3287,7 +3322,7 @@ def single_dispatch_phase(predict, counts, card: str, inputs) -> dict:
 # 4, 4 and a one-row tail, which leaves rank 0 of data=2 no rows.
 MESH_ARGS = ["--synthetic", "--synthetic-len", "64", "--batch-size", "4", "--img-size", str(IMG)]
 MESH_TEST_CLIPS = 9
-MESH_TIMEOUT_S = 600
+MESH_TIMEOUT_S = 900
 MESH_CASES = {"duality": {}, "bimamba": BIMAMBA}
 # A rank's launches per forward on model=2: every Block norm (K1, on the
 # replicated channels) and, on bimamba, both paths' scans over the rank's
@@ -3449,11 +3484,15 @@ def mesh_inference_phase(card: str) -> dict:
         del single["trainer"]
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        spawn(mesh_ranks, 2, args=(out, False), device="cuda", backend="gloo",
+        spawn(mesh_all_ranks, 2, args=(out,), device="cuda", backend="gloo",
               shared_device=True, timeout_s=MESH_TIMEOUT_S)
         spawn_s = time.perf_counter() - t0
         ranks = [torch.load(os.path.join(out, f"mesh_rank{r}.pt"), weights_only=False)
                  for r in range(2)]
+        # phases 6k's and 6l's records, checked by their phases
+        for part in ("seq", "train", "walls"):
+            res[f"{part}_ranks"] = [torch.load(os.path.join(out, f"{part}_rank{r}.pt"),
+                                               weights_only=False) for r in range(2)]
         got = ranks[0]["validate"]
         err = float(np.abs(got["preds"] - single["preds"]).max())
         same = np.array_equal(got["preds"], single["preds"])
@@ -3496,7 +3535,9 @@ def mesh_inference_phase(card: str) -> dict:
         # one process's forwards and validate, which phase 6k compares with too
         res["one_process"] = {"refs": refs, "one": one, "validate": single,
                               "validate_wall_s": single_wall}
-        print(f"multi-rank inference: two gloo ranks on one card in {spawn_s:.1f} s")
+        print(f"multi-rank inference: two gloo ranks on one card in {spawn_s:.1f} s, "
+              f"6j's, 6k's and 6l's rank work in one spawn (rank 0's walls "
+              f"{ {k: round(v, 1) for k, v in res['walls_ranks'][0].items()} } s)")
         n_cards = torch.cuda.device_count()
         if n_cards >= 2:
             spawn(mesh_ranks, 2, args=(out, True), device="cuda", timeout_s=MESH_TIMEOUT_S)
@@ -3718,7 +3759,186 @@ def check_k2_carried(ssd, card: str) -> dict:
             "bound_by": by, "shape": list(K2_SEGMENT)}
 
 
-def mesh_seq_phase(card: str, one_process: dict) -> dict:
+# K2's whole-scan backward at (1, 8, 65,536), fp32, as PERF.md section 6
+# records it (NVIDIA H100 80GB HBM3, 700.00 W): printed beside the carried
+# backward's time at the refiner's half.
+K2_BWD_WHOLE_US = 85.66
+
+
+def k2_carried_backward_against_plain(ssd, args, dy, s0, lam, reverse: bool, label: str,
+                                      chunk: int = K2_CHUNK) -> float:
+    """K2's carried backward on the card (``SegmentBackward``: its first
+    phase, the adjoint leaving the segment from dy alone, then the
+    gradients from the entering state ``s0`` and adjoint ``lam``) against
+    the plain versions on the same inputs: the six gradients within
+    K2's backward bounds (bf16 within one more bf16 step), dS0 and the
+    first phase's adjoint within K2B_TOL (fp32 both). The six gradients'
+    fp32 max_abs_err (for bf16 inputs, that of the fp32 values)."""
+    rtol, atol = K2B_TOL
+    x = args[0]
+    step = BF16_STEP if x.dtype == torch.bfloat16 else 0.0
+    bwd = ssd.SegmentBackward(*args, dy, chunk, reverse=reverse)
+    got = bwd.grads(s0, lam)
+    torch.cuda.synchronize()
+    want = ssd.ssd_chunked_scan_backward_reference(*args, dy, chunk, reverse,
+                                                   initial_state=s0, final_state_grad=lam)
+    adjoint = ssd.ssd_segment_adjoint_reference(*args, dy, chunk, reverse)
+    terms = k2_grad_terms(*args, dy, want)
+    worst, errs = 0.0, []
+    for name, g, w in zip((*K2B_NAMES, "dS0", "adjoint"), (*got, bwd.adjoint),
+                          (*want, adjoint)):
+        g, w = g.float(), w.float()
+        e = (g - w).abs()
+        if name in terms:
+            ok = bool((e <= K2B_SUM_RTOL * terms[name] + step * w.abs() + 1e-6).all())
+        elif name in K2B_NAMES:
+            ok = bool((e <= (rtol + step) * w.abs() + atol * w.abs().max()).all())
+        else:  # fp32 records
+            ok = bool((e <= rtol * w.abs() + atol * w.abs().max()).all())
+        if not ok:
+            raise AssertionError(f"{label}: {name} disagrees with the plain version, "
+                                 f"max_abs_err {e.max().item():.3e}")
+        errs.append(f"{name} {e.max().item():.2e}")
+        if name in K2B_NAMES:
+            worst = max(worst, e.max().item())
+    print(f"{label}: against the plain version max_abs_err " + ", ".join(errs))
+    return worst
+
+
+def chained_backward(ssd, args, dy, parts: int, reverse: bool):
+    """The backward of a sequence cut into ``parts`` segments, each by K2's
+    carried backward from the state its predecessors hand it and the
+    adjoint its successors hand it in the scan's direction: (dx, ddt, dA,
+    dB, dC, dD) of the whole, dA and dD summed over the segments, and the
+    same with no state or adjoint carried."""
+    l = args[0].shape[-1]
+    cut = l // parts
+    pieces = [[t[..., i * cut:(i + 1) * cut].contiguous() if t.dim() > 1 else t
+               for t in (*args, dy)] for i in range(parts)]
+    segs = [ssd.ScanSegment(*p[:6], K2_CHUNK, reverse=reverse) for p in pieces]
+    bwds = [ssd.SegmentBackward(*p, K2_CHUNK, reverse=reverse) for p in pieces]
+    states = [(s.state, s.decay) for s in segs]
+    adjoints = [(b.adjoint, s.decay) for b, s in zip(bwds, segs)]
+    out = []
+    for carried in (True, False):
+        grads = []
+        for i, b in enumerate(bwds):
+            s0 = ssd.compose_states(states, reverse, i)
+            lam = ssd.compose_states(adjoints, not reverse, i)
+            grads.append(b.grads(s0 if carried else torch.zeros_like(s0),
+                                 lam if carried else torch.zeros_like(lam)))
+        out.append([torch.cat([g[j] for g in grads], dim=-1) if j not in (2, 5)
+                    else sum(g[j].float() for g in grads) for j in range(6)])
+    return out
+
+
+def check_k2_carried_backward(ssd, card: str) -> dict:
+    """K2's carried backward on the card: against its plain version from a
+    random entering state S0 and adjoint lambda
+    (``k2_carried_backward_against_plain``) at the shapes the main path
+    gives a rank on seq=2, (4, 8, 32,768) and (1, 8, 32,768), at the
+    model's decays and at |dA| ~ 3e-4, fp32 and bf16, forward and
+    reversed; chained over 2 and 4 segments against the whole scan's
+    backward kernel, at |dA| ~ 3e-4 over many chunks (where the carried
+    state and adjoint move the gradients far beyond the bound) and at the
+    model's decays, fp32; from S0 = lambda = 0 bit-equal to K2's backward
+    kernel, fp32 and bf16, both directions; timed at (1, 8, 32,768) and
+    (4, 8, 32,768) with and without the boundary terms beside its bound and
+    the plain version, and the whole scan's backward at 65,536 tokens."""
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    rtol, atol = K2B_TOL
+    worst = 0.0
+    for b, h, l in (K2_RANK_SEGMENT, K2_SEGMENT):
+        for carry in (False, True):
+            x, dt, A, B, C, D = scan_inputs(b, h, l, gen, carry)
+            dy = torch.randn(b, h, K2_P, l, generator=gen, device="cuda")
+            s0, lam = (torch.randn(b, h, K2_N, K2_P, generator=gen, device="cuda")
+                       for _ in range(2))
+            for dtype in (torch.float32, torch.bfloat16):
+                for reverse in (False, True):
+                    err = k2_carried_backward_against_plain(
+                        ssd, [t.to(dtype) for t in (x, dt, A, B, C, D)], dy.to(dtype), s0, lam,
+                        reverse, f"K2 carried backward {(b, h, l)} "
+                        f"{'small|dA| ' if carry else ''}{dtype}{' reverse' if reverse else ''}")
+                    worst = max(worst, err) if dtype == torch.float32 else worst
+    for b, h, l, carry in ((2, 8, 4096, True), (1, 8, 65536, True), (1, 8, 65536, False)):
+        args = scan_inputs(b, h, l, gen, carry)
+        dy = torch.randn(b, h, K2_P, l, generator=gen, device="cuda")
+        for reverse in (False, True):
+            whole = ssd.ssd_chunked_scan_backward(*args, dy, K2_CHUNK, reverse)
+            terms = k2_grad_terms(*args, dy, whole)
+            for parts in (2, 4):
+                got, alone = chained_backward(ssd, args, dy, parts, reverse)
+                label = (f"K2 carried backward b={b} heads={h} L={l} in {parts} segments "
+                         f"{'small|dA| ' if carry else ''}{' reverse' if reverse else ''}")
+                errs, moved = [], 0.0
+                for name, g, a, w in zip(K2B_NAMES, got, alone, whole):
+                    e = (g.float() - w.float()).abs()
+                    if name in terms:
+                        ok = bool((e <= K2B_SUM_RTOL * terms[name] + 1e-6).all())
+                    else:
+                        ok = bool((e <= rtol * w.abs() + atol * w.abs().max()).all())
+                        moved = max(moved, float((a - w).abs().max() / w.abs().max()))
+                    if not ok:
+                        raise AssertionError(f"{label}: {name} of the chained segments "
+                                             f"disagrees with the whole scan's backward, "
+                                             f"max_abs_err {e.max().item():.3e}")
+                    errs.append(f"{name} {e.max().item():.2e}")
+                    worst = max(worst, e.max().item())
+                if carry and not moved > 100 * atol:
+                    raise AssertionError(f"{label}: the carried state and adjoint move "
+                                         f"nothing ({moved:.3e})")
+                print(f"{label}: against the whole scan's backward kernel max_abs_err "
+                      + ", ".join(errs) + f"; without the carried state and adjoint "
+                      f"{moved:.3e} of max |whole|")
+    for b, h, l in ((1, 8, 65536), K2_SEGMENT, (2, 8, 1024)):
+        for dtype in (torch.float32, torch.bfloat16):
+            args = [t.to(dtype) for t in scan_inputs(b, h, l, gen)]
+            dy = torch.randn(b, h, K2_P, l, generator=gen, device="cuda").to(dtype)
+            zero = torch.zeros(b, h, K2_N, K2_P, device="cuda")
+            for reverse in (False, True):
+                plain = ssd.ssd_chunked_scan_backward(*args, dy, K2_CHUNK, reverse)
+                before = ssd.SegmentBackward.launches
+                carried = ssd.SegmentBackward(*args, dy, K2_CHUNK, reverse=reverse).grads(
+                    zero, zero)
+                torch.cuda.synchronize()
+                if ssd.SegmentBackward.launches != before + 1 or not all(
+                        torch.equal(p, c) for p, c in zip(plain, carried[:6])):
+                    raise AssertionError(f"K2 carried backward {(b, h, l)} {dtype} reverse="
+                                         f"{reverse}: from a zero state and adjoint, not the "
+                                         f"backward kernel's bits")
+    print("K2 carried backward from S0 = lambda = 0 at (1, 8, 65536), (1, 8, 32768) and "
+          "(2, 8, 1024): bit-equal to K2's backward kernel, fp32 and bf16, forward and "
+          "reversed")
+    timing = {}
+    for b, h, l in (K2_SEGMENT, K2_RANK_SEGMENT):
+        args = scan_inputs(b, h, l, gen)
+        dy = torch.randn(b, h, K2_P, l, generator=gen, device="cuda")
+        s0, lam = (torch.randn(b, h, K2_N, K2_P, generator=gen, device="cuda")
+                   for _ in range(2))
+        zero = torch.zeros_like(s0)
+        ms, plain_ms, _ = in_turns(
+            lambda: ssd.SegmentBackward(*args, dy, K2_CHUNK).grads(s0, lam),
+            lambda: ssd.ssd_chunked_scan_backward_reference(
+                *args, dy, K2_CHUNK, initial_state=s0, final_state_grad=lam),
+            iters=20, plain_iters=3)
+        zero_ms = device_ms(lambda: ssd.SegmentBackward(*args, dy, K2_CHUNK).grads(zero, zero),
+                            iters=20)
+        whole_ms = device_ms(lambda: ssd.ssd_chunked_scan_backward(*args, dy, K2_CHUNK),
+                             iters=20)
+        bnd, by = bound_ms(k2_bwd_bytes(b, h, K2_P, K2_N, l), k2_bwd_flops(b, h, K2_P, K2_N, l))
+        print(f"[{card}] K2 carried backward at {(b, h, l)}, fp32: with S0 and lambda "
+              f"{ms * 1e3:.2f} us, from zero {zero_ms * 1e3:.2f} us (both phases), K2's backward "
+              f"kernel on the segment {whole_ms * 1e3:.2f} us, plain version "
+              f"{plain_ms * 1e3:.2f} us, bound {bnd * 1e3:.2f} us ({by}; kernel / bound "
+              f"{ms / bnd:.1f}); the whole scan's backward at (1, 8, 65536) "
+              f"{K2_BWD_WHOLE_US:.2f} us (PERF.md)")
+        timing[(b, h, l)] = {"ms": ms, "zero_ms": zero_ms, "plain_ms": plain_ms,
+                             "backward_ms": whole_ms, "bound_ms": bnd, "bound_by": by}
+    return {"max_abs_err": worst, "timing": timing}
+
+
+def mesh_seq_phase(card: str, one_process: dict, ranks: list) -> dict:
     """The mesh's 'seq' axis (phase 6k), full width, 256^2, seeded weights,
     fp32, two gloo ranks sharing the card (``parallel.spawn``), each
     holding its band of rows: (1) ``forecast`` of the duality and bimamba
@@ -3728,21 +3948,14 @@ def mesh_seq_phase(card: str, one_process: dict) -> dict:
     'seq', its wall and peak memory against one process's; (2)
     ``validate`` on data=1,seq=2 against phase 6j's one process: the same
     table, the loss within 1e-4 relative; (3) K2's carried form
-    (``check_k2_carried``)."""
+    (``check_k2_carried``). ``ranks``: the two ranks' records of (1) and (2)
+    (``seq_ranks``, run in phase 6j's spawn)."""
     from adnm_tpu_torch.metrics import metrics_table
     from adnm_tpu_torch.ops import ssd
-    from adnm_tpu_torch.parallel import spawn
 
     t_phase = time.perf_counter()
     refs, one, single = one_process["refs"], one_process["one"], one_process["validate"]
     res = {"k2_carried": check_k2_carried(ssd, card)}
-    with tempfile.TemporaryDirectory(prefix="adnm-seq-") as out:
-        t0 = time.perf_counter()
-        spawn(seq_ranks, 2, args=(out,), device="cuda", backend="gloo", shared_device=True,
-              timeout_s=MESH_TIMEOUT_S)
-        spawn_s = time.perf_counter() - t0
-        ranks = [torch.load(os.path.join(out, f"seq_rank{r}.pt"), weights_only=False)
-                 for r in range(2)]
     for label in MESH_CASES:
         a, b = ranks[0][label], ranks[1][label]
         err = float(np.abs(a["preds"] - refs[label]).max())
@@ -3795,8 +4008,299 @@ def mesh_seq_phase(card: str, one_process: dict) -> dict:
     check_metrics("validate --mesh data=1,seq=2", got["metrics"])
     res["validate"] = {"max_abs_err": verr, "wall_s": [r["validate_wall_s"] for r in ranks],
                        "peak_mib": [r["validate_peak_mib"] for r in ranks]}
-    print(f"[{card}] 'seq' axis phase: two gloo ranks on one card in {spawn_s:.1f} s; "
-          f"{time.perf_counter() - t_phase:.1f} s")
+    print(f"[{card}] 'seq' axis phase: {time.perf_counter() - t_phase:.1f} s (its ranks ran in "
+          f"phase 6j's spawn)")
+    return res
+
+
+# -- training on the mesh's 'seq' and 'model' axes ------------------------------------
+
+# Phase 6l's meshes, ('data', 'seq', 'model'), each two gloo ranks sharing the
+# card, and the rows of its training batch (every rank the same rows).
+MESH_TRAIN_AXES = {"seq2": (1, 2, 1), "model2": (1, 1, 2)}
+MESH_TRAIN_ROWS = 2
+MESH_TRAIN_STEPS = 2
+# cli.train --mesh data=1,seq=2: 12 synthetic clips, 8 of them training
+# clips in batches of 4, an epoch of 2 steps; no checkpoint (the ADNM-UNet's
+# is gated to epochs past 34) and no final protocol.
+MESH_TRAIN_CLI = ["--synthetic", "--synthetic-len", "12", "--batch-size", "4", "--img-size",
+                  str(IMG), "--epochs", "1", "--no-final-eval", "--mesh", "data=1,seq=2"]
+# the refiner's scans: on 'seq' K2's carried backward takes their gradient
+REFINER_K2B = 8
+
+
+def mesh_step_launches(axes: tuple, scan: bool) -> dict:
+    """Each kernel's launches a rank and training step on the ('data',
+    'seq', 'model') = ``axes`` mesh: a step's (``step_launches``, every
+    Block norm and scan on every rank); on a 'seq' axis the refiner's 8
+    scans take K2's carried backward."""
+    want = step_launches(True, scan)
+    if axes[1] > 1 and scan:
+        want["ssd_chunked_scan_backward"] -= REFINER_K2B
+        want["ssd_segment_backward"] = REFINER_K2B
+    return want
+
+
+def recorded_steps(trainer, batch, counts, steps: int) -> tuple:
+    """``steps`` training steps of ``trainer`` on ``batch``, then one more:
+    (a record of each step's loss, gradient norm and state digest, and of
+    the step after them, unrecorded, its launches counted from 0, the bytes
+    its collectives sent by axis (forward and backward), its wall and peak
+    memory; each recorded step's gradients in fp64 on the host, before the
+    clip; each recorded step's state on the host)."""
+    from adnm_tpu_torch.parallel.tensor import TRAFFIC
+
+    rec = {k: [] for k in ("losses", "gnorms", "digests")}
+    grads, states = [], []
+    backward = trainer._backward
+
+    def recording(b, seeds):
+        loss = backward(b, seeds)
+        grads.append({k: p.grad.detach().to("cpu", torch.float64)
+                      for k, p in trainer.model.named_parameters()})
+        return loss
+
+    trainer._backward = recording
+    for _ in range(steps):
+        loss, gn = trainer.train_step(batch, LR, CLIP)
+        rec["losses"].append(float(loss))
+        rec["gnorms"].append(float(gn))
+        rec["digests"].append(state_digest(trainer))
+        states.append({k: v.detach().to("cpu", copy=True)
+                       for k, v in trainer.model.state_dict().items()})
+    trainer._backward = backward
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts.reset()
+    for k in TRAFFIC:
+        TRAFFIC[k] = 0
+    t0 = time.perf_counter()
+    trainer.train_step(batch, LR, CLIP)
+    torch.cuda.synchronize()
+    rec.update(wall_s=time.perf_counter() - t0,
+               peak_mib=torch.cuda.max_memory_allocated() / 2**20, launches=counts.read(),
+               traffic=dict(TRAFFIC))
+    return rec, grads, states
+
+
+def step_against_one(label: str, rec: dict, grads: list, states: list, one: tuple,
+                     reference) -> dict:
+    """A rank's steps (``recorded_steps``) against one process's on the same
+    batch: each step's loss, gradient norm and every gradient tensor
+    against one process's from the same parameters (STEP_TOL): the first
+    step's from the same init (``one``, one process's ``recorded_steps``),
+    a later step's from the rank's own parameters before it
+    (``reference(state)``: one process's (loss, fp64 gradients) there),
+    since AdamW moves a parameter whose gradient is near 0 by about lr in
+    the direction of its sign, which rounding may flip; the parameters after
+    each step against one process's independent steps within 2 lr a step
+    (``DP_ADAM``). The worst readings, and what failed."""
+    one_rec, one_grads, one_states = one
+    out = {"loss_rel": [], "gnorm_rel": [], "tensor_rel_max": [], "tensor_ratio_max": [],
+           "param_max": [], "failed": []}
+    for step in range(len(grads)):
+        if step == 0:
+            loss1, want = one_rec["losses"][0], one_grads[0]
+        else:
+            loss1, want = reference(states[step - 1])
+        got, total = grads[step], gnorm(want)
+        lr_ = abs(rec["losses"][step] - loss1) / abs(loss1)
+        gr_ = abs(rec["gnorms"][step] - total) / total
+        worst, ratio, bad = 0.0, 0.0, []
+        for k, w in want.items():
+            norm = float(w.norm())
+            e = float((got[k] - w).norm())
+            tol = STEP_TOL["tensor"] * norm + STEP_TOL["tensor_of_global"] * total
+            worst = max(worst, e / norm if norm else 0.0)
+            ratio = max(ratio, e / tol)
+            if e > tol:
+                bad.append(k)
+        pmax = max(float((states[step][k].double() - v.double()).abs().max())
+                   for k, v in one_states[step].items() if v.numel())
+        out["loss_rel"].append(lr_)
+        out["gnorm_rel"].append(gr_)
+        out["tensor_rel_max"].append(worst)
+        out["tensor_ratio_max"].append(ratio)
+        out["param_max"].append(pmax)
+        if lr_ > STEP_TOL["loss"] or gr_ > STEP_TOL["grad_norm"] or bad or \
+                pmax > 2 * LR * DP_ADAM * (step + 1):
+            out["failed"].append(f"{label} step {step + 1}: loss {lr_:.3e}, grad norm "
+                                 f"{gr_:.3e}, tensors {bad[:4]}, parameters {pmax:.3e}")
+    return out
+
+
+def mesh_training_records(rank: int, device, meshes: dict, batch: torch.Tensor, counts,
+                          zero1: bool = False, steps: int = MESH_TRAIN_STEPS) -> dict:
+    """For each model of MESH_CASES and each mesh of ``meshes`` ({label:
+    ('data', 'seq', 'model') sizes}) of the process group: ``steps``
+    training steps of the full-width model at 256^2
+    (``Trainer(ddp=True, mesh=..., zero1=...)``), this rank on its 'data'
+    position's rows of the global ``batch`` (``recorded_steps``), and the
+    bimamba model's next step traced (it runs K1, its backward, K2 and its
+    backward or carried backward); rank 0 first runs one process's steps on
+    the whole ``batch``, and holds its own against one process's
+    (``step_against_one``; one process's model waits on the host while a
+    mesh trainer steps)."""
+    from adnm_tpu_torch.parallel import make_mesh
+    from adnm_tpu_torch.parallel.tensor import data_rows
+
+    rec = {}
+    for label, kwargs in MESH_CASES.items():
+        one = ref = None
+        if rank == 0:  # one process's steps on the same batch, which the ranks are held to
+            ref = make_trainer(device, **kwargs)
+            one = recorded_steps(ref, batch, counts, steps)
+            rec[f"one {label}"] = one[0]
+            del ref.optimizer  # its state is not read again
+            ref.model.cpu()
+            torch.cuda.empty_cache()
+
+        def reference(state):
+            ref.model.to(device)
+            ref.model.load_state_dict(state)
+            loss, g = ref.grads(batch)
+            out = float(loss), {k: v.detach().to("cpu", torch.float64) for k, v in g.items()}
+            ref.model.cpu()
+            torch.cuda.empty_cache()
+            return out
+
+        for name, axes in meshes.items():
+            mesh = make_mesh(*axes, device=device)
+            t = make_trainer(device, trainer_kwargs={"ddp": True, "mesh": mesh, "zero1": zero1},
+                             **kwargs)
+            rows = batch[data_rows(mesh, batch.shape[0])]
+            r, grads, states = recorded_steps(t, rows, counts, steps)
+            if label == "bimamba":  # its step runs all four hand kernels of a step
+                names = hand_kernel_names(lambda: t.train_step(rows, LR, CLIP))
+                r.update(names=names, traced=trace_launches(names))
+            del t
+            torch.cuda.empty_cache()
+            if rank == 0:
+                r["against_one"] = step_against_one(f"{name} {label}", r, grads, states, one,
+                                                    reference)
+            rec[f"{name} {label}"] = r
+            del grads, states
+        del one, ref
+    return rec
+
+
+def train_ranks(rank: int, world: int, device, out: str) -> None:
+    """A rank of phase 6l: (a) ``mesh_training_records`` on each mesh of
+    MESH_TRAIN_AXES, every rank the same rows of a batch of
+    MESH_TRAIN_ROWS (no 'data' axis); (b) ``cli.train`` on data=1,seq=2
+    through the CLI's per-rank ``run`` (``MESH_TRAIN_CLI``). Every rank
+    writes its records."""
+    from adnm_tpu_torch.cli import train as train_cli
+    from adnm_tpu_torch.cli.common import Launch
+
+    batch = torch.from_numpy(train_batch(MESH_TRAIN_ROWS)).to(device)
+    rec = mesh_training_records(rank, device, MESH_TRAIN_AXES, batch, kernel_counts())
+    args = train_cli.make_parser().parse_args([*MESH_TRAIN_CLI, "--root",
+                                               os.path.join(out, f"train-cli{rank}")])
+    t0 = time.perf_counter()
+    res = train_cli.run(args, Launch(2, 4, False, 1, 2), device)
+    rec["cli"] = {"logs": [dataclasses.asdict(log) for log in res["logs"]],
+                  "step": res["trainer"].step, "wall_s": time.perf_counter() - t0}
+    torch.save(rec, os.path.join(out, f"train_rank{rank}.pt"))
+
+
+def mesh_all_ranks(rank: int, world: int, device, out: str) -> None:
+    """A rank of phases 6j, 6k and 6l in one spawn of two gloo ranks
+    sharing the card (a rank's start is paid once): 6j's
+    (``mesh_ranks``), 6k's (``seq_ranks``), then 6l's (``train_ranks``)."""
+    t0 = time.perf_counter()
+    mesh_ranks(rank, world, device, out, False)
+    t1 = time.perf_counter()
+    seq_ranks(rank, world, device, out)
+    t2 = time.perf_counter()
+    train_ranks(rank, world, device, out)
+    torch.save({"6j": t1 - t0, "6k": t2 - t1, "6l": time.perf_counter() - t2},
+               os.path.join(out, f"walls_rank{rank}.pt"))
+
+
+def check_mesh_training(card: str, ranks: list, meshes: dict, transport: str) -> dict:
+    """The checks of ``mesh_training_records`` (every rank's, ``ranks``) on
+    each mesh of ``meshes``: rank 0 against one process (STEP_TOL, the
+    parameters within 2 lr a step), the ranks bit-equal (losses, gradient
+    norms, state digests), each rank's launches a step counted, and traced
+    where a step was (``mesh_step_launches``), bytes over each axis larger than 1, forward
+    and backward; prints each with the step walls and peak memories.
+    Returns the figures by "mesh model"."""
+    res = {}
+    for label in MESH_CASES:
+        one = ranks[0][f"one {label}"]
+        for name, axes in meshes.items():
+            key = f"{name} {label}"
+            cmp = ranks[0][key]["against_one"]
+            want = mesh_step_launches(axes, label == "bimamba")
+            launches = [(r[key]["launches"], r[key].get("traced", r[key]["launches"]))
+                         for r in ranks]
+            dims = [d for d, n in zip(("seq", "model"), axes[1:]) if n > 1]
+            sent = [{d: (r[key]["traffic"][d], r[key]["traffic"][f"{d}_backward"])
+                     for d in dims} for r in ranks]
+            print(f"[{card}] train {label} {IMG}^2 on {name} ({transport}), "
+                  f"{len(cmp['loss_rel'])} steps against one process: loss rel "
+                  f"{[f'{v:.3e}' for v in cmp['loss_rel']]} (tol {STEP_TOL['loss']:g}), grad "
+                  f"norm rel {[f'{v:.3e}' for v in cmp['gnorm_rel']]} (tol "
+                  f"{STEP_TOL['grad_norm']:g}), gradient tensors rel max "
+                  f"{[f'{v:.3e}' for v in cmp['tensor_rel_max']]} (worst against its tol "
+                  f"{[f'{v:.3f}' for v in cmp['tensor_ratio_max']]}), parameters "
+                  f"{[f'{v:.3e}' for v in cmp['param_max']]} (tol 2 lr a step); launches a "
+                  f"rank and step (counted, traced) {launches}, want "
+                  f"{want}; bytes sent a rank and step (forward, backward) {sent}; step wall "
+                  f"{[round(r[key]['wall_s'] * 1e3, 1) for r in ranks]} ms against "
+                  f"{one['wall_s'] * 1e3:.1f} ms in one process; peak memory "
+                  f"{[round(r[key]['peak_mib'], 1) for r in ranks]} MiB against "
+                  f"{one['peak_mib']:.1f} MiB")
+            if cmp["failed"]:
+                raise AssertionError(f"train on {name}: {cmp['failed']}")
+            if any(r[key]["losses"] != ranks[0][key]["losses"]
+                   or r[key]["gnorms"] != ranks[0][key]["gnorms"]
+                   or r[key]["digests"] != ranks[0][key]["digests"] for r in ranks):
+                raise AssertionError(f"train {label} on {name}: the ranks differ")
+            if any(c != want or t != want for c, t in launches):
+                raise AssertionError(f"train {label} on {name}: a rank did not run the hand "
+                                     f"kernels, {launches}")
+            if any(not (f and b) for r in sent for f, b in r.values()):
+                raise AssertionError(f"train {label} on {name}: no bytes over {dims}")
+            res[key] = {"against_one": {k: v for k, v in cmp.items() if k != "failed"},
+                        "launches_per_rank_step": [c for c, _ in launches],
+                        "bytes_per_rank_step": sent,
+                        "wall_ms": [r[key]["wall_s"] * 1e3 for r in ranks],
+                        "one_wall_ms": one["wall_s"] * 1e3,
+                        "peak_mib": [r[key]["peak_mib"] for r in ranks],
+                        "one_peak_mib": one["peak_mib"]}
+    return res
+
+
+def mesh_train_phase(card: str, ranks: list) -> dict:
+    """Training on the mesh (phase 6l), full width, 256^2, fp32, from the
+    records of two gloo ranks sharing the card (``train_ranks``): (1) K2's
+    carried backward (``check_k2_carried_backward``); (2) two training
+    steps of the duality and bimamba models on seq=2 and on model=2 against
+    one process's on the same batch (STEP_TOL, the parameters within 2 lr
+    a step), the ranks bit-equal (losses, gradient norms, state digests),
+    each rank's launches counted (and traced on bimamba) against
+    ``mesh_step_launches``
+    and its bytes over the axis, forward and backward, its step wall and
+    peak memory against one process's; (3) ``cli.train --mesh
+    data=1,seq=2``'s 2-step epoch on both ranks, finite and equal."""
+    from adnm_tpu_torch.ops import ssd
+
+    t_phase = time.perf_counter()
+    res = {"k2_carried_backward": check_k2_carried_backward(ssd, card)}
+    res.update(check_mesh_training(card, ranks, MESH_TRAIN_AXES, "two gloo ranks on one card"))
+    logs = [r["cli"]["logs"] for r in ranks]
+    print(f"[{card}] cli.train --mesh data=1,seq=2 (two gloo ranks on one card): "
+          f"{ranks[0]['cli']['step']} steps, train loss {logs[0][0]['train_loss']:.6f}, val loss "
+          f"{logs[0][0]['val_loss']:.6f}, grad norm {logs[0][0]['grad_norm_avg']:.6f}; "
+          f"{[round(r['cli']['wall_s'], 1) for r in ranks]} s a rank")
+    if ranks[0]["cli"]["step"] != 2 or not np.isfinite(logs[0][0]["train_loss"]) or \
+            any({k: v for k, v in log[0].items() if k != "seconds"}
+                != {k: v for k, v in logs[0][0].items() if k != "seconds"} for log in logs):
+        raise AssertionError("cli.train --mesh data=1,seq=2: not a 2-step epoch equal on the "
+                             "ranks")
+    print(f"[{card}] training on the mesh phase: {time.perf_counter() - t_phase:.1f} s")
     return res
 
 
@@ -3913,12 +4417,22 @@ def main() -> None:
                                              for c in mesh["bimamba"]["launches_per_rank"]]}
 
     # -- the 'seq' axis: a band of rows a rank, K2 carried from rank to rank ----
-    seq = mesh_seq_phase(card, mesh_phase["one_process"])
+    seq = mesh_seq_phase(card, mesh_phase["one_process"], mesh_phase["seq_ranks"])
     seq_k1 = {"launches_per_rank_forward": {label: [c["rms_norm"] for c in seq[label][
         "launches_per_rank"]] for label in MESH_CASES}}
     seq_k2 = {"launches_per_rank_forward": [c["ssd_chunked_scan"]
                                             for c in seq["bimamba"]["launches_per_rank"]],
               "carried": seq["k2_carried"]}
+
+    # -- training on the mesh: seq=2 and model=2, K2's carried backward ------
+    train = mesh_train_phase(card, mesh_phase["train_ranks"])
+
+    def train_launches(kernel: str) -> dict:
+        return {label: {axis: [c[kernel] for c in train[f"{axis} {label}"][
+            "launches_per_rank_step"]] for axis in MESH_TRAIN_AXES} for label in MESH_CASES}
+
+    k2cb = train["k2_carried_backward"]
+    k2cb_timing = {str(k): v for k, v in k2cb["timing"].items()}
 
     # Launches: serving kernels from the bimamba requests, K1's backward
     # from the train CLI's run, K2's from the bimamba training steps; K3
@@ -3953,6 +4467,7 @@ def main() -> None:
                     "launches_per_step": graphed["step"]["rms_norm"]},
         "mesh_model2": mesh_k1,
         "mesh_seq2": seq_k1,
+        "mesh_train": {"launches_per_rank_step": train_launches("rms_norm")},
     }, {
         "name": "rms_norm_backward", "route": "cuda", "source": "adnm_tpu_torch/csrc/rms_norm.cu",
         "replaces": "adnm_tpu/ops/pallas/fused_norm.py:57",
@@ -3964,6 +4479,7 @@ def main() -> None:
                  "rows": mla_rows(k1b["timing"], K1_LAPS)},
         "parallel": {"launches_per_rank_step": per_rank["duality"]["rms_norm_backward"]},
         "graphed": {"launches_per_step": graphed["step"]["rms_norm_backward"]},
+        "mesh_train": {"launches_per_rank_step": train_launches("rms_norm_backward")},
     }, {
         "name": "ssd_chunked_scan", "route": "cuda", "source": "adnm_tpu_torch/csrc/ssd_scan.cu",
         "replaces": "adnm_tpu/ops/pallas/ssd_scan.py:132",
@@ -3979,6 +4495,7 @@ def main() -> None:
                     "launches_per_step": graphed["bimamba_step"]["ssd_chunked_scan"]},
         "mesh_model2": mesh_k2,
         "mesh_seq2": seq_k2,
+        "mesh_train": {"launches_per_rank_step": train_launches("ssd_chunked_scan")},
     }, {
         "name": "ssd_chunked_scan_backward", "route": "cuda",
         "source": "adnm_tpu_torch/csrc/ssd_scan.cu",
@@ -3991,6 +4508,17 @@ def main() -> None:
         "parallel": {"launches_per_rank_step":
                      per_rank["bimamba"]["ssd_chunked_scan_backward"]},
         "graphed": {"launches_per_step": graphed["bimamba_step"]["ssd_chunked_scan_backward"]},
+        "mesh_model2_train": {"launches_per_rank_step": [
+            c["ssd_chunked_scan_backward"]
+            for c in train["model2 bimamba"]["launches_per_rank_step"]]},
+        "mesh_seq2_train": {"launches_per_rank_step": {
+            "backward": [c["ssd_chunked_scan_backward"]
+                         for c in train["seq2 bimamba"]["launches_per_rank_step"]],
+            "carried_backward": [c["ssd_segment_backward"]
+                                 for c in train["seq2 bimamba"]["launches_per_rank_step"]]}},
+        "carried": {"max_abs_err": k2cb["max_abs_err"], "timing": k2cb_timing,
+                    "source": "adnm_tpu_torch/csrc/ssd_scan.cu (adnm_ssd_segment_adjoint, "
+                              "adnm_ssd_segment_backward)"},
     }, {
         "name": "gated_rms_norm", "route": "cuda", "source": "adnm_tpu_torch/csrc/rms_norm.cu",
         "replaces": "adnm_tpu/ops/pallas/fused_norm.py:63",

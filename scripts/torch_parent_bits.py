@@ -1,8 +1,11 @@
 """Hold two source trees of the port to the same bits: the TINY ADNM-UNet's
 outputs on the CPU (duality, bimamba, VSSD duality, VSSD bimamba; fp32,
-and bf16 where the configuration runs in it) and, where a card is
-visible, K2's outputs without a carried state at the main path's shapes,
-forward and reversed, fp32 and bf16.
+and bf16 where the configuration runs in it), its training step on the
+CPU (duality and bimamba: the loss, every gradient and the parameters
+after AdamW) in one process and on two gloo ranks of a 'data' mesh and,
+where a card is visible, K2's outputs without a carried state at the main
+path's shapes and K2's backward there, forward and reversed, fp32 and
+bf16.
 
     python3 scripts/torch_parent_bits.py TREE_A TREE_B
 
@@ -57,7 +60,47 @@ if torch.cuda.is_available():
             for reverse in (False, True):
                 y = ssd.ssd_chunked_scan(*args, 256, reverse=reverse)
                 out[f"K2 {(b, h, l)} {dtype} reverse={reverse}"] = y.float().cpu().numpy()
-np.savez(sys.argv[2], **out)
+    for (b, h, l) in ((1, 8, 65536), (1, 32, 1024)):
+        gen = torch.Generator(device="cuda").manual_seed(3 * l + h + b)
+        x = torch.randn(b, h, 4, l, generator=gen, device="cuda")
+        dt = torch.nn.functional.softplus(torch.randn(b, h, l, generator=gen, device="cuda") - 4)
+        A = -torch.exp(torch.rand(h, generator=gen, device="cuda") * 2.77)
+        B, C = (torch.randn(b, 16, l, generator=gen, device="cuda") for _ in range(2))
+        D = 0.5 + torch.rand(h, generator=gen, device="cuda")
+        dy = torch.randn(b, h, 4, l, generator=gen, device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            args = [t.to(dtype) for t in (x, dt, A, B, C, D, dy)]
+            for reverse in (False, True):
+                grads = ssd.ssd_chunked_scan_backward(*args, 256, reverse)
+                for name, g in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), grads):
+                    out[f"K2 backward {(b, h, l)} {dtype} reverse={reverse} {name}"] = (
+                        g.float().cpu().numpy())
+if __name__ == "__main__":
+    from adnm_tpu_torch.train.loop import Trainer
+    from adnm_tpu_torch.train.presets import get_preset
+    sys.path.insert(0, sys.argv[1] + "/tests")
+    import functools
+    import tempfile
+    from adnm_tpu_torch.parallel import spawn
+    from test_torch_port_parallel_workers import Job, load_ranks, run_steps
+    batch = np.random.default_rng(2).uniform(0, 1, (2, 7, 1, 32, 32)).astype(np.float32)
+    for name in ("duality", "bimamba"):
+        make = functools.partial(ADNMUNet, **cfg, **cases[name])
+        t = Trainer(make(), get_preset("ADNMUnet", 5, 2, 6, "Shanghai"), 5, torch.device("cpu"),
+                    seed=0)
+        loss, grads = t.grads(batch)
+        out[f"step {name} loss"] = np.float64(loss)
+        out.update({f"step {name} grad {k}": g.numpy() for k, g in grads.items()})
+        t.train_step(torch.from_numpy(batch), 1e-3, 0.025)
+        out.update({f"step {name} param {k}": v.numpy() for k, v in t.model.state_dict().items()})
+        job = Job(make, "ADNMUnet", batch, grads=True)
+        with tempfile.TemporaryDirectory() as tmp:
+            spawn(run_steps, 2, args=(job, tmp), device="cpu", timeout_s=600)
+            rank = load_ranks(tmp, 2)[0]
+        out[f"data=2 {name} loss"] = np.float64(rank["grad_loss"])
+        out.update({f"data=2 {name} grad {k}": g.numpy() for k, g in rank["grads"].items()})
+        out.update({f"data=2 {name} param {k}": v.numpy() for k, v in rank["params"].items()})
+    np.savez(sys.argv[2], **out)
 """
 
 

@@ -1332,3 +1332,142 @@ def test_two_gloo_ranks_on_the_seq_axis_match_one_process(card, tmp_path, linear
         assert r["traffic"]["seq"] > 0 and r["traffic"]["model"] == r["traffic"]["data"] == 0
         assert r["launches"]["rms_norm"] > 0
         assert (r["launches"]["ssd_chunked_scan"] > 0) == (not linear_attn_duality)
+
+
+# Training on the mesh's 'seq' and 'model' axes on the card: K2's carried
+# backward, and two gloo ranks stepping a band or half the heads each.
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_k2_carried_backward_matches_its_plain_version(card, dtype, reverse):
+    """``SegmentBackward`` on the card (K2's backward summary and segment
+    carry, then its gradient walks from the entering state S0 and adjoint
+    lambda) against the plain version with the same S0 and lambda, at
+    K2_SEGMENT_CASES' layouts, the model's decays and |dA| ~ 3e-4: the six
+    gradients within K2's backward bounds (bf16 within one more bf16 step),
+    dS0 and the first phase's adjoint within them in fp32."""
+    from chip_smoke import k2_carried_backward_against_plain
+
+    gen = torch.Generator(device=card).manual_seed(21)
+    for carry in (False, True):
+        for b, h, l, q in K2_SEGMENT_CASES:
+            *args, dy = (t.to(dtype) for t in scan_grad_inputs(b, h, 4, l, gen, carry))
+            s0, lam = (torch.randn(b, h, 16, 4, generator=gen, device="cuda") for _ in range(2))
+            k2_carried_backward_against_plain(ssd, args, dy, s0, lam, reverse,
+                                              f"{(b, h, l)} {dtype} carry={carry}", q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+def test_k2_carried_backward_from_zero_is_the_backward_kernels_bits(card, reverse):
+    """From S0 = lambda = 0 the carried backward gives K2's backward
+    kernel's bits, in its one-cluster layout (L = 1,024) and its carried one
+    (the refiner's L = 65,536 and half of it), fp32 and bf16; one launch
+    counted a call."""
+    gen = torch.Generator(device=card).manual_seed(22)
+    for b, h, l in ((2, 8, 1024), (1, 8, 32768), (1, 8, 65536)):
+        for dtype in (torch.float32, torch.bfloat16):
+            *args, dy = (t.to(dtype) for t in scan_grad_inputs(b, h, 4, l, gen))
+            zero = torch.zeros(b, h, 16, 4, device="cuda")
+            plain = ssd.ssd_chunked_scan_backward(*args, dy, 256, reverse)
+            before = ssd.SegmentBackward.launches
+            got = ssd.SegmentBackward(*args, dy, 256, reverse=reverse).grads(zero, zero)
+            torch.cuda.synchronize()
+            assert ssd.SegmentBackward.launches == before + 1
+            for name, p, g in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), plain, got):
+                assert torch.equal(p, g), (name, b, h, l, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+def test_k2_carried_backward_chained_equals_the_whole_scans(card, reverse):
+    """A sequence cut into 2 and 4 segments, each segment's backward from
+    the state and the adjoint the others hand it in the scan's direction,
+    equals the whole scan's backward kernel, at |dA| ~ 3e-4 over many
+    chunks (where the carried state and adjoint move the gradients far
+    beyond the bound) and at the refiner's L = 65,536."""
+    from chip_smoke import K2B_NAMES, K2B_SUM_RTOL, chained_backward
+
+    gen = torch.Generator(device=card).manual_seed(23)
+    for b, h, l, carry in ((2, 8, 4096, True), (1, 8, 65536, True), (1, 8, 65536, False)):
+        *args, dy = scan_grad_inputs(b, h, 4, l, gen, carry)
+        whole = ssd.ssd_chunked_scan_backward(*args, dy, 256, reverse)
+        terms = k2_grad_terms(*args, dy, whole)
+        for parts in (2, 4):
+            got, alone = chained_backward(ssd, args, dy, parts, reverse)
+            for name, g, a, w in zip(K2B_NAMES, got, alone, whole):
+                e = (g.float() - w.float()).abs()
+                if name in terms:
+                    assert bool((e <= K2B_SUM_RTOL * terms[name] + 1e-6).all()), (name, l, parts)
+                else:
+                    assert bool((e <= 1e-4 * w.abs() + 1e-4 * w.abs().max()).all()), (name, l)
+                    if carry:
+                        assert (a - w).abs().max() > 0.01 * w.abs().max(), (name, l, parts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+def test_k2_backward_on_a_ranks_head_subset_is_its_plain_version_in_place(card, reverse):
+    """What a rank of model=2 hands K2's backward at the refiner (4 of a
+    path's 8 heads, 65,536 tokens): its heads' channels of one wider tensor
+    read in place, against the plain version on the same slices and the
+    whole scan's heads (the heads are independent)."""
+    gen = torch.Generator(device=card).manual_seed(24)
+    *args, dy = scan_grad_inputs(2, 8, 4, 65536, gen, sliced=True)
+    x, dt, A, B, C, D = args
+    whole = ssd.ssd_chunked_scan_backward(*args, dy, 256, reverse)
+    for heads in (slice(0, 4), slice(4, 8)):
+        sx, sdt = x[:, heads], dt[:, heads]
+        assert sx.stride(0) == x.stride(0) and sx[0].is_contiguous()
+        part = (sx, sdt, A[heads], B, C, D[heads], dy[:, heads].contiguous())
+        got = ssd.ssd_chunked_scan_backward(*part, 256, reverse)
+        want = ssd.ssd_chunked_scan_backward_reference(*part, 256, reverse)
+        for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), got, want):
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4 * w.abs().max().item(),
+                                       msg=lambda m: f"{name}: {m}")
+        torch.testing.assert_close(got[0], whole[0][:, heads], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axes", [(1, 2, 1), (1, 1, 2)])
+@pytest.mark.parametrize("linear_attn_duality", [True, False])
+def test_two_gloo_ranks_train_on_the_seq_and_model_axes_as_one_process(card, tmp_path, axes,
+                                                                        linear_attn_duality):
+    """Two training steps of the TINY ADNM-UNet on ('data', 'seq',
+    'model') = ``axes``, two gloo ranks sharing the card, against one
+    process: the ranks bit-equal, the loss within 1e-5 and every gradient
+    within 1e-3 of its norm (plus 1e-6 of the whole gradient's), K1's
+    backward launched on each rank and, on bimamba, K2's carried backward
+    on 'seq'."""
+    import functools
+
+    from adnm_tpu_torch.core.layers import seeded_init_
+    from adnm_tpu_torch.models.adnm_unet import ADNMUNet
+    from adnm_tpu_torch.parallel import spawn
+    from test_torch_port_parallel_workers import (MeshTrainJob, one_process_train,
+                                                  run_mesh_cases)
+
+    make = functools.partial(ADNMUNet, **DP_CFG, linear_attn_duality=linear_attn_duality)
+    batch = np.random.default_rng(100).uniform(0, 1, (2, 7, 1, 32, 32)).astype(np.float32)
+    job = MeshTrainJob("train", make, "ADNMUnet", batch, seeded_init_(make(), 0).state_dict())
+    spawn(run_mesh_cases, 2, args=(axes, [job], str(tmp_path)), device="cuda", backend="gloo",
+          shared_device=True, timeout_s=600)
+    ranks = [torch.load(tmp_path / f"train_rank{r}.pt", weights_only=False) for r in range(2)]
+    one = one_process_train(job, card)
+    assert ranks[0]["losses"] == ranks[1]["losses"]
+    for step in range(2):
+        assert ranks[0]["losses"][step] == pytest.approx(one["losses"][step], rel=1e-5)
+        got, want = ranks[0]["grads"][step], one["grads"][step]
+        total = float(torch.sqrt(sum(w.double().square().sum() for w in want.values())))
+        for k, w in want.items():
+            err = float((got[k].double() - w.double()).norm())
+            assert err <= 1e-3 * float(w.double().norm()) + 1e-6 * total, (k, step)
+        for k, v in ranks[0]["params"][step].items():
+            assert torch.equal(v, ranks[1]["params"][step][k]), (k, step)
+    for r in ranks:
+        launches = r["launches"][0]
+        assert launches["rms_norm_backward"] > 0
+        carried = not linear_attn_duality and axes[1] > 1
+        assert (launches["ssd_segment_backward"] > 0) == carried

@@ -280,8 +280,12 @@ def test_eval_epoch_on_the_data_axis_is_the_single_process(label, single_eval, r
 
 
 def test_a_trainer_on_the_model_axis_refuses_to_train(runs):
+    """What a Trainer on 'model' still refuses: the graphed steps there
+    (``scan_steps`` > 1, ROADMAP §1 item 5.3), and a step without ``ddp``
+    (an evaluation mesh). Training there is
+    ``tests/test_torch_port_mesh_train.py``'s."""
     got = ranks_of(runs[2], "refusals", 2)[0]["result"]
-    assert "'model' axis" in got["ddp"] and "ROADMAP §1 item 5" in got["ddp"]
+    assert "'seq' or 'model' axis" in got["ddp"] and "ROADMAP §1 item 5.3" in got["ddp"]
     assert "does not train" in got["step"]
 
 
@@ -290,21 +294,33 @@ def test_a_trainer_on_the_model_axis_refuses_to_train(runs):
     ("visualize", "data=2,model=1,seq=2"),
 ])
 def test_the_axes_not_ported_exit_naming_the_roadmap_item(tool, spec, tmp_path, monkeypatch):
-    """Training on 'seq' or 'model' exits naming the roadmap item; validate
-    and visualize take a 'seq' axis and launch a rank per position (the
-    launch is captured here, no rank starts)."""
+    """Training on 'seq' or 'model' launches a rank per position of the
+    mesh, each 'data' position its rows of the global batch, and with
+    ``--scan-steps`` > 1 (a graphed step across ranks, not ported) exits
+    naming the roadmap item; validate and visualize take a 'seq' axis and
+    launch a rank per position (the launches are captured here, no rank
+    starts)."""
     cli = {"train": train_cli, "validate": validate_cli, "visualize": visualize_cli}[tool]
     argv = ["--synthetic", "--device", "cpu", "--root", str(tmp_path), "--mesh", spec]
+    sizes = {k: int(v) for k, v in (part.split("=") for part in spec.split(","))}
     if tool == "train":
-        with pytest.raises(SystemExit, match="not ported yet .ROADMAP §1 item 5."):
-            cli.main(argv)
+        with pytest.raises(SystemExit, match="not ported yet, ROADMAP §1 item 5.3"):
+            cli.main(argv + ["--scan-steps", "2"])
+        launches = []
+        monkeypatch.setattr(cli, "spawn", lambda fn, world, args, device: launches.append(
+            args[1]))
+        monkeypatch.setattr(cli.torch, "load", lambda path, weights_only: {})
+        cli.main(argv)
+        seq, model = sizes.get("seq", 1), sizes.get("model", 1)
+        assert [(launch.world, launch.rows, launch.seq, launch.model)
+                for launch in launches] == [(sizes["data"] * seq * model,
+                                             4 // sizes["data"], seq, model)]
     else:
         launches = []
         monkeypatch.setattr(cli, "run_on_mesh", lambda run, args, launch: launches.append(
             launch) or {"written": []})
         cli.main(argv)
-        sizes = dict(part.split("=") for part in spec.split(","))
-        data, seq = int(sizes["data"]), int(sizes["seq"])
+        data, seq = sizes["data"], sizes["seq"]
         assert [(launch.world, launch.seq, launch.model) for launch in launches] == [
             (data * seq, seq, 1)]
     assert not is_multiprocess()

@@ -21,7 +21,7 @@ holding its band of the rows of every frame.
   ``ssd_chunked_scan(initial_state=...)``, and segments chained into the
   whole scan, forward and reversed, over many chunks at small |dA|;
 * (iv) ``validate --mesh data=1,seq=2`` against one process, and what a
-  Trainer on 'seq' refuses (training; ROADMAP §1 item 5).
+  Trainer on 'seq' still refuses (graphed steps; ROADMAP §1 item 5.3).
 
 Every comparison with JAX at rtol 1e-4, atol 1e-5 (JAX's own bound for a
 meshed forward against the plain one, ``tests/test_parallel.py:171``).
@@ -60,7 +60,7 @@ from adnm_tpu_torch.parallel import spawn
 from test_torch_port_layers import _draw, one_torch_thread, random_params  # noqa: F401 (a fixture)
 from test_torch_port_mixer import slow_decay
 from test_torch_port_parallel_workers import (MeshJob, band_duality, band_forward,
-                                              model_forecast, run_mesh_jobs, seq_refusals)
+                                              model_forecast, refusals, run_mesh_jobs)
 from test_torch_port_ssd import from_jax, scan_inputs, to_jax
 
 RTOL, ATOL = 1e-4, 1e-5
@@ -229,7 +229,7 @@ def runs(tmp_path_factory):
     jobs2 = [MeshJob(name, 1, 1, band_forward, (MODULES[name][1], params, MODULES[name][2]),
                      seq=2) for name, (params, _) in modules.items()]
     jobs2 += [MeshJob("duality", 1, 1, band_duality, (tuple(DUALITY),), seq=2),
-              MeshJob("refusals", 1, 1, seq_refusals, (make,), seq=2)]
+              MeshJob("refusals", 1, 1, refusals, (make,), seq=2)]
     jobs2 += forecasts(1, 2, 1)
     out2, out4, errors, results = (tmp_path_factory.mktemp("seq2"),
                                    tmp_path_factory.mktemp("seq4"), [], {})
@@ -371,7 +371,11 @@ def test_validate_on_a_seq_mesh_prints_the_single_process_table(runs):
 
 
 def test_a_trainer_on_the_seq_axis_refuses_to_train(runs):
+    """What a Trainer on 'seq' still refuses: the graphed steps there
+    (``scan_steps`` > 1, ROADMAP §1 item 5.3), and a step without ``ddp``
+    (an evaluation mesh). Training there is
+    ``tests/test_torch_port_mesh_train.py``'s."""
     for r in ranks_of(runs[2], "refusals", 2):
         got = r["result"]
-        assert "'seq' axis" in got["ddp"] and "ROADMAP §1 item 5" in got["ddp"]
-        assert "'seq' axis" in got["step"] and "ROADMAP §1 item 5" in got["step"]
+        assert "'seq' or 'model' axis" in got["ddp"] and "ROADMAP §1 item 5.3" in got["ddp"]
+        assert "does not train" in got["step"]

@@ -189,19 +189,29 @@ def test_shard_is_whole_batch_round_robin_and_excludes_row_shard():
     ("seq=2", "a 'data' axis is required"), ("data=2,seq=2", "not ported yet"),
     ("data=1,model=2", "not ported yet"),
 ])
-def test_mesh_spec_is_refused_with_the_jax_message(spec, message):
-    """A 'model' or 'seq' axis is refused for training (the default) and
-    taken by the inference tools (``training=False``), as JAX keeps its
-    'model' axis for inference (the port's 'seq' axis serves inference
-    alone so far)."""
-    with pytest.raises(SystemExit, match=message) as refused:
-        parse_mesh(spec)
-    if spec == "data=1,model=2":
-        assert "training on the 'model' axis" in str(refused.value)
-        assert parse_mesh(spec, training=False) == {"data": 1, "model": 2}
-    if spec == "data=2,seq=2":
-        assert "training on the 'seq' axis" in str(refused.value)
-        assert parse_mesh(spec, training=False) == {"data": 2, "seq": 2}
+def test_mesh_spec_is_refused_with_the_jax_message(spec, message, tmp_path):
+    """A malformed spec is refused. A 'seq' or 'model' axis beside 'data'
+    trains, as in JAX, and serves the inference tools (``training=False``);
+    what stays refused on such a mesh is a third axis larger than 1 for
+    training (JAX's reason; the inference tools take it) and the train
+    CLI's ``--scan-steps`` > 1 (a graphed step across ranks, not ported
+    yet)."""
+    if message != "not ported yet":
+        with pytest.raises(SystemExit, match=message):
+            parse_mesh(spec)
+        return
+    sizes = {k: int(v) for k, v in (part.split("=") for part in spec.split(","))}
+    assert parse_mesh(spec) == parse_mesh(spec, training=False) == sizes
+    third = {**sizes, "data": 2, "seq": 2, "model": 2}
+    three = ",".join(f"{k}={v}" for k, v in third.items())
+    with pytest.raises(SystemExit, match="non-trivial axes .'data', 'seq', 'model'. is "
+                                         "disabled") as refused:
+        parse_mesh(three)
+    assert "Use a 2-axis mesh" in str(refused.value)
+    assert parse_mesh(three, training=False) == third
+    with pytest.raises(SystemExit, match=message):
+        train_cli.main(["--synthetic", "--device", "cpu", "--root", str(tmp_path), "--mesh",
+                        spec, "--scan-steps", "2"])
 
 
 def test_mesh_spec_with_unit_axes_is_the_data_axis():
@@ -210,7 +220,8 @@ def test_mesh_spec_with_unit_axes_is_the_data_axis():
 
 
 @pytest.mark.parametrize("extra, message", [
-    (["--mesh", "data=2,seq=2"], "not ported yet"),
+    (["--mesh", "data=2,seq=2", "--scan-steps", "2"], "not ported yet"),
+    (["--mesh", "data=2,seq=2,model=2"], "non-trivial axes"),
     (["--coordinator", "127.0.0.1:9", "--num-processes", "2", "--process-id", "0"],
      "multi-host run without a mesh"),
     (["--coordinator", "127.0.0.1:9", "--num-processes", "2"], "go together"),

@@ -208,15 +208,16 @@ def mesh_eval(mesh, device, make: Callable, state: Optional[dict], clips: list, 
 
 
 def refusals(mesh, device, make: Callable) -> dict:
-    """The messages of what a Trainer on ``mesh`` (a 'model' axis of 2)
-    refuses: data-parallel training on it, and a step without ``ddp``."""
+    """The messages of what a Trainer on ``mesh`` (a 'seq' or 'model' axis
+    of 2) refuses: data-parallel training there with ``scan_steps`` > 1 (a
+    graphed step across ranks), and a step without ``ddp``."""
     got = {}
+    preset = get_preset("ADNMUnet", 5, 2, 6, "Shanghai")
     try:
-        Trainer(make(), get_preset("ADNMUnet", 5, 2, 6, "Shanghai"), 5, device, ddp=True,
-                mesh=mesh)
+        Trainer(make(), preset, 5, device, ddp=True, mesh=mesh, scan_steps=2)
     except NotImplementedError as e:
         got["ddp"] = str(e)
-    t = Trainer(make(), get_preset("ADNMUnet", 5, 2, 6, "Shanghai"), 5, device, mesh=mesh)
+    t = Trainer(make(), preset, 5, device, mesh=mesh)
     try:
         t.train_step(torch.zeros(2, 7, 1, 32, 32, device=device), 1e-3, 0.025)
     except RuntimeError as e:
@@ -252,18 +253,169 @@ def band_duality(mesh, device, args: tuple) -> np.ndarray:
         return gather_seq(y, dim=-1).cpu().numpy()
 
 
-def seq_refusals(mesh, device, make: Callable) -> dict:
-    """The messages of what a Trainer on ``mesh`` (a 'seq' axis of 2)
-    refuses: data-parallel training on it, and a step without ``ddp``."""
-    got = {}
-    preset = get_preset("ADNMUnet", 5, 2, 6, "Shanghai")
-    try:
-        Trainer(make(), preset, 5, device, ddp=True, mesh=mesh)
-    except NotImplementedError as e:
-        got["ddp"] = str(e)
-    t = Trainer(make(), preset, 5, device, mesh=mesh)
-    try:
-        t.train_step(torch.zeros(2, 7, 1, 32, 32, device=device), 1e-3, 0.025)
-    except NotImplementedError as e:
-        got["step"] = str(e)
-    return got
+# ---- training on a ('data', 'seq') or ('data', 'model') mesh -------------------------
+
+
+@dataclasses.dataclass
+class MeshTrainJob:
+    """``steps`` training steps of the model ``make()`` (a picklable
+    factory) with its Shanghai preset (5 -> ``t_out`` frames) from
+    ``state``, on the global ``batch`` (each 'data' position its rows),
+    at ``lr`` and ``clip``, with ``zero1``; saved as ``label``. With
+    ``ckpt`` the Trainer writes its checkpoint there after the steps."""
+
+    label: str
+    make: Callable
+    preset: str
+    batch: np.ndarray
+    state: Optional[dict] = None
+    steps: int = 2
+    lr: float = 1e-3
+    clip: float = 0.025
+    zero1: bool = False
+    t_out: int = 2
+    ckpt: Optional[str] = None
+
+
+def recorded_steps(t: Trainer, batch: torch.Tensor, job: MeshTrainJob) -> dict:
+    """``job.steps`` steps of ``t`` on ``batch``: each step's loss, gradient
+    norm, averaged gradients (before the clip), parameters after the
+    optimizer, kernel launches and bytes sent by axis (forward and
+    backward)."""
+    res = {"losses": [], "gnorms": [], "grads": [], "params": [], "launches": [],
+           "traffic": []}
+    backward = t._backward
+
+    def recording(b, seeds):
+        loss = backward(b, seeds)
+        res["grads"].append({k: p.grad.detach().cpu().clone()
+                             for k, p in t.model.named_parameters()})
+        return loss
+
+    t._backward = recording
+    for _ in range(job.steps):
+        for w in COUNTED.values():
+            w.launches = 0
+        ssd.SegmentBackward.launches = 0
+        for k in TRAFFIC:
+            TRAFFIC[k] = 0
+        loss, gnorm = t.train_step(batch, job.lr, job.clip)
+        res["losses"].append(float(loss))
+        res["gnorms"].append(float(gnorm))
+        res["params"].append({k: v.detach().cpu().clone()
+                              for k, v in t.model.state_dict().items()})
+        res["launches"].append({**{k: w.launches for k, w in COUNTED.items()},
+                                "ssd_segment_backward": ssd.SegmentBackward.launches})
+        res["traffic"].append(dict(TRAFFIC))
+    if job.ckpt:
+        t.save(job.ckpt)
+    return res
+
+
+def mesh_train(mesh, device, job: MeshTrainJob) -> dict:
+    """``recorded_steps`` of a data-parallel Trainer on ``mesh``."""
+    t = Trainer(job.make(), get_preset(job.preset, 5, job.t_out, 6, "Shanghai"), 5, device,
+                seed=0, ddp=True, zero1=job.zero1, mesh=mesh)
+    if job.state is not None:
+        t.model.load_state_dict(job.state)
+    rows = len(job.batch) // t.data_world
+    part = job.batch[t.data_rank * rows:(t.data_rank + 1) * rows]
+    res = recorded_steps(t, torch.from_numpy(np.ascontiguousarray(part)).to(device), job)
+    res["unreached"] = t.unreached
+    res["optimizer_bytes"] = optimizer_state_bytes(t.optimizer)
+    return res
+
+
+def one_process_train(job: MeshTrainJob, device) -> dict:
+    """``recorded_steps`` of the job in this process on the whole batch."""
+    full_fp32()
+    t = Trainer(job.make(), get_preset(job.preset, 5, job.t_out, 6, "Shanghai"), 5, device,
+                seed=0)
+    if job.state is not None:
+        t.model.load_state_dict(job.state)
+    return recorded_steps(t, torch.from_numpy(np.ascontiguousarray(job.batch)).to(device), job)
+
+
+def leaf_grads(module: torch.nn.Module, inputs: dict) -> dict:
+    """{name: gradient} of ``module``'s parameters and of the named leaf
+    ``inputs`` after a backward, zeros where none reached them."""
+    out = {k: (t.grad if t.grad is not None else torch.zeros_like(t)).detach().cpu().clone()
+           for k, t in inputs.items()}
+    for k, p in module.named_parameters():
+        out[k] = (p.grad if p.grad is not None else torch.zeros_like(p)).detach().cpu().clone()
+    return out
+
+
+def band_chain_grads(mesh, device, make: Callable, state: dict, x: np.ndarray,
+                     r: np.ndarray) -> dict:
+    """The gradients of sum(r * y) on this rank, y = ``make()`` (a chain of
+    the band's layers) on its band of the rows of ``x`` over 'seq' (the
+    whole frame without a mesh), the bands gathered in row order: each
+    rank's share of the one-process gradients (their sum over the ranks
+    is S times them)."""
+    from adnm_tpu_torch.parallel.tensor import band_rows, gather_seq, split_rows
+
+    module = make()
+    module.load_state_dict(state)
+    module.to(device)
+    xt = torch.from_numpy(x).to(device).requires_grad_()
+    with use_mesh(mesh):
+        band = band_rows(x.shape[2])
+        with split_rows(band):
+            y = module(xt[:, :, band])
+        y = gather_seq(y)
+    (y * torch.from_numpy(r).to(device)).sum().backward()
+    return leaf_grads(module, {"x": xt})
+
+
+def band_scan_grads(mesh, device, args: tuple, r: np.ndarray, duality: bool,
+                    reverse: bool = False) -> dict:
+    """The gradients of sum(r * y) in (x, dt, A, B, C, D) on this rank, y the
+    duality (its K^T V summed over 'seq') or K2's scan (carried from rank to
+    rank) on this rank's band of the L tokens, the bands gathered in
+    order."""
+    from adnm_tpu_torch.parallel.tensor import band_rows, gather_seq, split_rows
+
+    names = ("x", "dt", "A", "B", "C", "D")
+    leaves = {k: torch.from_numpy(a).to(device).requires_grad_() for k, a in zip(names, args)}
+    x, dt, A, B, C, D = leaves.values()
+    with use_mesh(mesh):
+        band = band_rows(x.shape[-1])
+        with split_rows(band):
+            parts = (x[..., band], dt[..., band], A, B[..., band], C[..., band], D)
+            y = (ssd.linear_attn_dual_seqminor(*parts) if duality
+                 else ssd.ssd_chunked_scan(*parts, 64, reverse=reverse))
+        y = gather_seq(y, dim=-1)
+    (y * torch.from_numpy(r).to(device)).sum().backward()
+    return {k: t.grad.detach().cpu().clone() for k, t in leaves.items()}
+
+
+def model_axis_grads(mesh, device, make: Callable, state: dict, x: np.ndarray,
+                     r: np.ndarray) -> dict:
+    """The gradients of sum(r * y) on this rank, y = ``make()`` on ``x``
+    under ``mesh`` (its heads or hidden channels split over 'model')."""
+    module = make()
+    module.load_state_dict(state)
+    module.to(device)
+    xt = torch.from_numpy(x).to(device).requires_grad_()
+    with use_mesh(mesh):
+        y = module(xt)
+    (y * torch.from_numpy(r).to(device)).sum().backward()
+    return leaf_grads(module, {"x": xt})
+
+
+def run_mesh_cases(rank: int, world: int, device: torch.device, axes: tuple, cases: list,
+                   out: str) -> None:
+    """Each case of ``cases`` on the ('data', 'seq', 'model') = ``axes`` mesh:
+    a ``MeshTrainJob`` (``mesh_train``) or a (label, fn, args) triple,
+    ``fn(mesh, device, *args)``; its record written to
+    ``{out}/{label}_rank{rank}.pt``."""
+    torch.set_num_threads(1)
+    mesh = make_mesh(*axes, device=device)
+    for case in cases:
+        if isinstance(case, MeshTrainJob):
+            label, res = case.label, mesh_train(mesh, device, case)
+        else:
+            label, fn, args = case
+            res = fn(mesh, device, *args)
+        torch.save(res, os.path.join(out, f"{label}_rank{rank}.pt"))
